@@ -8,12 +8,15 @@ nested dict with the JAX package's key names and layouts
 is a pure copy.  Matmuls run in ``cfg.dtype``; norms, RoPE and softmax
 in float32.
 
-This slice covers the dense forward and the paged serving path with a
+The port covers the dense forward and the paged serving path with a
 bf16 (or f32) page pool: ``prefill_batch_paged`` / ``prefill_slot_paged``
 (prefill attention through ``ops.attention``, which runs the flash
-kernel K9f on the card for buckets >= 256) and ``decode_slots_paged``
-(kernel K1 per layer, kernel K2 once per step).  int8 KV, fused decode,
-tensor and sequence parallelism and LoRA raise NotImplementedError.
+kernel K9f on the card for buckets >= 256), ``decode_slots_paged``
+(kernel K1 per layer, kernel K2 once per step), ``prefill_chunk_paged``
+(plain gather attention) and the unified ragged step
+``ragged_step_paged`` (kernel K4 per layer, kernel K5 once per step).
+int8 KV, fused decode, tensor and sequence parallelism and LoRA raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,9 +31,14 @@ import torch.nn.functional as F
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import dot_product_attention
 from ray_tpu_torch.ops.paged_attention import (
+    NEG_INF,
     combine_with_self,
     paged_append,
     paged_decode_attention_partial,
+)
+from ray_tpu_torch.ops.ragged_paged_attention import (
+    ragged_paged_append,
+    ragged_paged_attention,
 )
 
 Params = Dict[str, Any]
@@ -391,3 +399,139 @@ def decode_slots_paged(params: Params, tokens: torch.Tensor,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _head_matmul(x[:, 0], _head(params, cfg), cfg)
     return logits.float(), cache, new_len
+
+
+def prefill_chunk_paged(params: Params, tokens: torch.Tensor,
+                        start: torch.Tensor, chunk_lens: torch.Tensor,
+                        pages_rows: torch.Tensor, cfg: LlamaConfig,
+                        cache: Dict[str, torch.Tensor]
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One CHUNK of an incremental prefill: tokens [K, C] are the next C
+    prompt tokens of K sequences at absolute positions start[k] ..
+    start[k] + C - 1 (``chunk_lens`` [K] true counts; short tails are
+    right-padded).  Each layer writes the chunk's k/v into the rows'
+    pages (pages_rows [K, maxp]) in place, then attends over every
+    cached position <= its own (plain gather attention, as in the JAX
+    package: no kernel).  Padding tokens write the scratch page.
+    Returns (logits at each row's last true token [K, V] f32, cache)."""
+    _unported(cfg)
+    K, C = tokens.shape
+    page = cache["k"].shape[3]
+    scratch = cache["k"].shape[2] - 1
+    maxp = pages_rows.shape[1]
+    D, KVH = cfg.head_dim, cfg.n_kv_heads
+    group = cfg.n_heads // KVH
+    ctx = maxp * page
+    dev = tokens.device
+    positions = start.long()[:, None] + torch.arange(C, device=dev)[None, :]
+    sin, cos = rope_table(cfg, positions)
+    x = params["tok_embed"][tokens.long()].to(cfg.dtype)
+    kpos = torch.arange(ctx, device=dev)
+    mask = kpos[None, None, :] <= positions[:, :, None]   # causal over cache
+    pr = pages_rows.long()
+    pid = torch.gather(pr, 1, (positions // page).clamp(max=maxp - 1))
+    in_chunk = (torch.arange(C, device=dev)[None, :]
+                < chunk_lens.long()[:, None])
+    pid = torch.where(in_chunk, pid, torch.full_like(pid, scratch))
+    off = positions % page
+    for i in range(cfg.n_layers):
+        layer = _layer(params, i)
+        normed = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
+        q, k, v = _qkv(normed, layer, cfg, sin, cos)   # [K, C, H/KVH, D]
+        kp, vp = cache["k"][i], cache["v"][i]          # [KVH, P, page, D]
+        kp[:, pid, off] = k.permute(2, 0, 1, 3).to(kp.dtype)
+        vp[:, pid, off] = v.permute(2, 0, 1, 3).to(vp.dtype)
+        kk = kp[:, pr].permute(1, 2, 3, 0, 4).reshape(K, ctx, KVH, D)
+        vv = vp[:, pr].permute(1, 2, 3, 0, 4).reshape(K, ctx, KVH, D)
+        kk = kk.repeat_interleave(group, dim=2).float()
+        vv = vv.repeat_interleave(group, dim=2).float()
+        s = torch.einsum("kchd,kshd->khcs", q.float(), kk) * (D ** -0.5)
+        if cfg.logits_soft_cap is not None:
+            s = cfg.logits_soft_cap * torch.tanh(s / cfg.logits_soft_cap)
+        s = torch.where(mask[:, None], s, NEG_INF)
+        probs = torch.softmax(s, dim=-1)
+        out = torch.einsum("khcs,kshd->kchd", probs, vv).to(cfg.dtype)
+        wo = layer["attn"]["wo"]
+        out = out.reshape(K, C, -1) @ wo.to(cfg.dtype).reshape(
+            -1, wo.shape[-1])
+        h = x + out
+        x = h + _mlp_block(rms_norm(h, layer["ln_mlp"], cfg.norm_eps),
+                           layer, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    last = x[torch.arange(K, device=dev), (chunk_lens.long() - 1).clamp(min=0)]
+    logits = _head_matmul(last, _head(params, cfg), cfg)
+    return logits.float(), cache
+
+
+def ragged_step_paged(params: Params, tokens: torch.Tensor,
+                      tok_pos: torch.Tensor, row_slot: torch.Tensor,
+                      row_start: torch.Tensor, row_len: torch.Tensor,
+                      row_off: torch.Tensor, block_tables: torch.Tensor,
+                      cfg: LlamaConfig, cache: Dict[str, torch.Tensor], *,
+                      max_row_tokens: Optional[int] = None,
+                      lora: Optional[Any] = None,
+                      logit_idx: Optional[torch.Tensor] = None):
+    """One unified serving step over a ragged batch mixing prefill
+    chunks (row_len > 1) and decode rows (row_len == 1).
+
+    tokens/tok_pos [T] (the flat buffer and each token's absolute
+    position), rows [R] (slot, start, len, off; len 0 = padding),
+    block_tables [slots, maxp], all int32.  Every packed token attends to
+    its slot's pooled past plus the causal prefix of its own row (kernel
+    K4 per layer); the pools stay read-only in the layer loop and ONE K5
+    launch after it appends every layer's fresh k/v, in place.
+
+    Returns (logits [R, V] f32 at each row's last fresh token, cache);
+    padding rows return garbage logits.  With ``logit_idx`` [Tv] it
+    returns (logits [R, V], logits [Tv, V] at those buffer positions,
+    cache), from one gather + norm + head matmul, so the first R rows
+    equal the call without it.  The fused body, LoRA and int8 pools are
+    later slices and raise."""
+    _unported(cfg)
+    if lora is not None:
+        raise NotImplementedError(
+            "ragged_step_paged(lora=...): LoRA multiplexing is not ported "
+            "to ray_tpu_torch yet (a later slice; see ROADMAP.md)")
+    if "k_scale" in cache:
+        raise NotImplementedError(
+            "ragged_step_paged on int8 pools (kernels K6 and K4's int8 "
+            "branch) is not ported to ray_tpu_torch yet (the int8 KV "
+            "slice; see ROADMAP.md)")
+    T = tokens.shape[0]
+    dt = cfg.dtype
+    sin, cos = rope_table(cfg, tok_pos[None])      # [1, T, hd // 2]
+    x = params["tok_embed"][tokens.long()].to(dt)   # [T, d]
+    k_news, v_news = [], []
+    for i in range(cfg.n_layers):
+        layer = _layer(params, i)
+        normed = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
+        q, k, v = _qkv(normed[None], layer, cfg, sin, cos)
+        q, k1, v1 = q[0], k[0], v[0]                # [T, H or KVH, hd]
+        out = ragged_paged_attention(
+            q, k1, v1, cache["k"], cache["v"], i, row_slot, row_start,
+            row_len, row_off, block_tables, soft_cap=cfg.logits_soft_cap,
+            max_row_tokens=max_row_tokens)          # [T, H, hd] f32
+        # Round the f32 attention output to cfg.dtype BEFORE the o-proj:
+        # the cast point of the prefill and decode paths.
+        wo = layer["attn"]["wo"]
+        out = out.to(dt).reshape(T, -1) @ wo.to(dt).reshape(-1, wo.shape[-1])
+        h = x + out
+        x = h + _mlp_block(rms_norm(h, layer["ln_mlp"], cfg.norm_eps),
+                           layer, cfg)
+        k_news.append(k1)
+        v_news.append(v1)
+    ragged_paged_append(cache["k"], cache["v"],
+                        torch.stack(k_news).to(cache["k"].dtype),
+                        torch.stack(v_news).to(cache["v"].dtype),
+                        row_slot, row_start, row_len, row_off, block_tables,
+                        max_row_tokens=max_row_tokens)
+    last = (row_off.long() + row_len.long().clamp(min=1) - 1).clamp(0, T - 1)
+    head = _head(params, cfg)
+    if logit_idx is None:
+        x = rms_norm(x[last], params["final_norm"], cfg.norm_eps)
+        return _head_matmul(x, head, cfg).float(), cache
+    R = row_slot.shape[0]
+    sel = torch.cat([last, logit_idx.long().clamp(0, T - 1)])
+    x = rms_norm(x[sel], params["final_norm"], cfg.norm_eps)
+    logits = _head_matmul(x, head, cfg).float()
+    return logits[:R], logits[R:], cache

@@ -1,0 +1,406 @@
+"""Ragged paged attention: one batch of mixed prefill chunks and decode
+rows (port of ``ray_tpu/ops/ragged_paged_attention.py``, its bf16/f32
+pool branch).
+
+A ragged step packs R rows into one flat token buffer of T tokens:
+
+    tokens   [T]             decode rows carry one token, prefill rows a
+                             chunk of their prompt
+    rows     (slot, start, len, off) x R
+                             start = tokens of the slot already in the
+                             pool, len = fresh tokens this step (0 =
+                             padding row), off = the row's offset in the
+                             buffer; rows occupy distinct slots
+
+Per layer, every packed token attends to its slot's pooled past plus the
+causal prefix of its own row's fresh tokens (K4,
+``ragged_paged_attention``); the pools stay read-only inside the layer
+loop, and ONE in-place append after it writes every layer's fresh k/v
+into the pages (K5, ``ragged_paged_append``).
+
+Each kernel is a CUDA kernel for Hopper (``csrc/ragged_attention.cu``,
+``csrc/ragged_append.cu``) with its plain PyTorch version beside it.  A
+wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.  ``pack_ragged_batch`` is the
+host-side packer (numpy), a copy of the JAX package's.  int8 pools
+(``k_scales``/``v_scales``, kernel K6) are a later slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops.paged_attention import (
+    _DTYPE_CODE,
+    _SMEM_LIMIT,
+    NEG_INF,
+    _check_cuda,
+    _stream_ptr,
+)
+
+# K4's CUDA instantiations: head dims it takes, and its tile shape (a
+# q tile of 64 query rows = tokens x heads of one kv head, keys staged
+# 64 at a time).
+_K4_HEAD_DIMS = (16, 32, 64, 128)
+_K4_ROWS = 64
+_K4_KEYS = 64
+# K5: tokens of one row per CTA.
+_K5_TOKENS = 16
+
+
+def _round8(n: int) -> int:
+    return max(8, -(-n // 8) * 8)
+
+
+def window_size(T: int, max_row_tokens: Optional[int]) -> int:
+    """The JAX kernel's static q-window width (TPU sublane alignment).
+    The CUDA kernels index each row's own tokens and need no window;
+    this copy keeps ``max_row_tokens`` meaning the same in both
+    packages."""
+    cap = T if max_row_tokens is None else min(max_row_tokens, T)
+    return min(_round8(T), _round8(cap) + 8)
+
+
+def _no_int8(k_scales, v_scales) -> None:
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(
+            "ragged_paged_attention with int8 pools (k_scales/v_scales; "
+            "kernel K4's int8 branch and K6) is not ported to "
+            "ray_tpu_torch yet (the int8 KV slice; see ROADMAP.md)")
+
+
+# --------------------------------------------------------------------------
+# host-side packing
+# --------------------------------------------------------------------------
+
+def pack_ragged_batch(rows, token_budget: int, max_slots: int,
+                      with_adapters: bool = False):
+    """Host-side packer: ``rows`` is a list of dicts with keys ``slot``,
+    ``start``, ``tokens`` (list[int] for prefill chunks, or None for
+    decode rows whose token lives on the device).  Returns numpy arrays
+    sized (token_budget, max_slots):
+
+        host_toks, decode_mask, tok_slot, tok_pos  [T]
+        row_slot, row_start, row_len, row_off      [R]
+
+    Padding rows get len 0 / slot 0; padding tokens get pos 0.  Packing
+    past the budget or the slot count is a scheduler bug and asserts."""
+    if with_adapters:
+        raise NotImplementedError(
+            "pack_ragged_batch(with_adapters=True): LoRA multiplexing is "
+            "not ported to ray_tpu_torch yet (see ROADMAP.md)")
+    T, R = token_budget, max_slots
+    host_toks = np.zeros(T, np.int32)
+    decode_mask = np.zeros(T, bool)
+    tok_slot = np.zeros(T, np.int32)
+    tok_pos = np.zeros(T, np.int32)
+    row_slot = np.zeros(R, np.int32)
+    row_start = np.zeros(R, np.int32)
+    row_len = np.zeros(R, np.int32)
+    row_off = np.zeros(R, np.int32)
+    cursor = 0
+    for i, row in enumerate(rows):
+        toks = row.get("tokens")
+        n = 1 if toks is None else len(toks)
+        assert cursor + n <= T and i < R, "packer overflow"
+        row_slot[i] = row["slot"]
+        row_start[i] = row["start"]
+        row_len[i] = n
+        row_off[i] = cursor
+        tok_slot[cursor:cursor + n] = row["slot"]
+        tok_pos[cursor:cursor + n] = row["start"] + np.arange(n)
+        if toks is None:
+            decode_mask[cursor] = True
+        else:
+            host_toks[cursor:cursor + n] = np.asarray(toks, np.int32)
+        cursor += n
+    return (host_toks, decode_mask, tok_slot, tok_pos,
+            row_slot, row_start, row_len, row_off)
+
+
+# --------------------------------------------------------------------------
+# references (test oracles, one layer)
+# --------------------------------------------------------------------------
+
+def _row_masks(T: int, off, nt, device):
+    ti = torch.arange(T, device=device)
+    trel = ti - off
+    return trel, (trel >= 0) & (trel < nt)
+
+
+def ragged_attention_reference(
+    q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+    k_pages: torch.Tensor, v_pages: torch.Tensor,
+    row_slot: torch.Tensor, row_start: torch.Tensor, row_len: torch.Tensor,
+    row_off: torch.Tensor, block_tables: torch.Tensor, *,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Dense gather reference for ONE layer's pages [KVH, P, page, D]:
+    for each row, attention of its fresh tokens over (pooled past) +
+    (intra-row causal fresh), f32 out [T, H, D].  Buffer tokens no row
+    covers come back zero.  Loops over the R rows (a shape, no host
+    sync)."""
+    T, H, D = q.shape
+    KVH, P, page, _ = k_pages.shape
+    maxp = block_tables.shape[1]
+    group = H // KVH
+    ctx = maxp * page
+    dev = q.device
+    out = torch.zeros((T, H, D), dtype=torch.float32, device=dev)
+    qs = q.float()
+    knf = k_new.float().repeat_interleave(group, dim=1)     # [T, H, D]
+    vnf = v_new.float().repeat_interleave(group, dim=1)
+    s_self = torch.einsum("thd,uhd->thu", qs, knf) * (D ** -0.5)
+    if soft_cap is not None:
+        s_self = soft_cap * torch.tanh(s_self / soft_cap)
+    kpos = torch.arange(ctx, device=dev)
+    bt = block_tables.long().clamp(0, P - 1)
+    for r in range(row_slot.shape[0]):
+        slot, start = row_slot[r].long(), row_start[r]
+        trel, in_row = _row_masks(T, row_off[r], row_len[r], dev)
+        pages = bt[slot]                                   # [maxp]
+        kc = k_pages[:, pages].permute(1, 2, 0, 3).reshape(ctx, KVH, D)
+        vc = v_pages[:, pages].permute(1, 2, 0, 3).reshape(ctx, KVH, D)
+        kx = kc.float().repeat_interleave(group, dim=1)    # [ctx, H, D]
+        vx = vc.float().repeat_interleave(group, dim=1)
+        s_pool = torch.einsum("thd,khd->thk", qs, kx) * (D ** -0.5)
+        if soft_cap is not None:
+            s_pool = soft_cap * torch.tanh(s_pool / soft_cap)
+        m_pool = in_row[:, None, None] & (kpos < start)[None, None, :]
+        m_self = (in_row[:, None, None] & in_row[None, None, :]
+                  & (trel[None, None, :] <= trel[:, None, None]))
+        s = torch.cat([torch.where(m_pool, s_pool, NEG_INF),
+                       torch.where(m_self, s_self, NEG_INF)], dim=-1)
+        p = torch.softmax(s, dim=-1)
+        o = (torch.einsum("thk,khd->thd", p[..., :ctx], vx)
+             + torch.einsum("thu,uhd->thd", p[..., ctx:], vnf))
+        out = torch.where(in_row[:, None, None], o, out)
+    return out
+
+
+def ragged_append_reference(k_pages, v_pages, k_new, v_new, row_slot,
+                            row_start, row_len, row_off, block_tables):
+    """Scatter reference for the append, ONE layer (pages [KVH, P, page,
+    D], new [T, KVH, D]); returns new pages, the inputs untouched.
+    Tokens outside every row write the scratch page P - 1 with its own
+    contents."""
+    k_pages, v_pages = k_pages.clone(), v_pages.clone()
+    T = k_new.shape[0]
+    KVH, P, page, D = k_pages.shape
+    maxp = block_tables.shape[1]
+    bt = block_tables.long().clamp(0, P - 1)
+    for r in range(row_slot.shape[0]):
+        trel, in_row = _row_masks(T, row_off[r], row_len[r], k_new.device)
+        pos = row_start[r] + trel
+        pid = bt[row_slot[r].long()][(pos // page).clamp(0, maxp - 1)]
+        pid = torch.where(in_row, pid, P - 1)
+        offp = torch.where(in_row, pos % page, 0)
+        for pages, new in ((k_pages, k_new), (v_pages, v_new)):
+            cur = pages[:, pid, offp]
+            pages[:, pid, offp] = torch.where(
+                in_row[None, :, None],
+                new.permute(1, 0, 2).to(pages.dtype), cur)
+    return k_pages, v_pages
+
+
+# --------------------------------------------------------------------------
+# K4: ragged paged attention, one layer
+# --------------------------------------------------------------------------
+
+def ragged_paged_attention_plain(
+    q, k_new, v_new, k_pools, v_pools, layer: int, row_slot, row_start,
+    row_len, row_off, block_tables, *, soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version of K4: the dense gather reference on layer
+    ``layer`` of the pools [L, KVH, P, page, D]."""
+    return ragged_attention_reference(
+        q, k_new, v_new, k_pools[layer], v_pools[layer], row_slot,
+        row_start, row_len, row_off, block_tables, soft_cap=soft_cap)
+
+
+def ragged_paged_attention(
+    q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+    k_pools: torch.Tensor, v_pools: torch.Tensor, layer: int,
+    row_slot: torch.Tensor, row_start: torch.Tensor, row_len: torch.Tensor,
+    row_off: torch.Tensor, block_tables: torch.Tensor, *,
+    soft_cap: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    max_row_tokens: Optional[int] = None,
+) -> torch.Tensor:
+    """Causal attention of a ragged token batch against layer ``layer``
+    (a Python int) of the pools: q [T, H, D], k_new/v_new [T, KVH, D],
+    pools [L, KVH, P, page, D] (P includes the scratch page), rows [R]
+    int32, block_tables [slots, maxp] int32 → f32 [T, H, D], exact zeros
+    on tokens no row covers.  Pools are read-only; append the fresh k/v
+    afterwards with ``ragged_paged_append``.  Rows must occupy distinct
+    slots.  ``max_row_tokens`` bounds the JAX kernel's VMEM window; the
+    CUDA kernel needs none and ignores it.
+
+    CUDA tensors launch kernel K4 (csrc/ragged_attention.cu); CPU
+    tensors run the plain version."""
+    _no_int8(k_scales, v_scales)
+    if not q.is_cuda:
+        return ragged_paged_attention_plain(
+            q, k_new, v_new, k_pools, v_pools, layer, row_slot, row_start,
+            row_len, row_off, block_tables, soft_cap=soft_cap)
+    T, H, D = q.shape
+    L, KVH, P, page, Dk = k_pools.shape
+    R = row_slot.shape[0]
+    maxp = block_tables.shape[1]
+    _check_cuda("ragged_paged_attention", q=q, k_new=k_new, v_new=v_new,
+                k_pools=k_pools, v_pools=v_pools, row_slot=row_slot,
+                row_start=row_start, row_len=row_len, row_off=row_off,
+                block_tables=block_tables)
+    dt = q.dtype
+    if dt not in _DTYPE_CODE or any(
+            t.dtype != dt for t in (k_new, v_new, k_pools, v_pools)):
+        raise ValueError("ragged_paged_attention: q, k_new, v_new and pools "
+                         "must share dtype f32 or bf16, got "
+                         f"{[t.dtype for t in (q, k_new, v_new, k_pools)]}")
+    if any(t.dtype != torch.int32 for t in (row_slot, row_start, row_len,
+                                            row_off, block_tables)):
+        raise ValueError("ragged_paged_attention: rows and block_tables must "
+                         "be int32")
+    if (v_pools.shape != k_pools.shape or Dk != D or H % KVH
+            or k_new.shape != (T, KVH, D) or v_new.shape != k_new.shape
+            or any(t.shape != (R,) for t in (row_start, row_len, row_off))):
+        raise ValueError(
+            f"ragged_paged_attention: bad shapes q {tuple(q.shape)}, k_new "
+            f"{tuple(k_new.shape)}, pools {tuple(k_pools.shape)}, rows "
+            f"{[tuple(t.shape) for t in (row_start, row_len, row_off)]}")
+    qpg = H // KVH
+    if D not in _K4_HEAD_DIMS or qpg > _K4_ROWS or not 0 <= layer < L:
+        raise ValueError(f"ragged_paged_attention: unsupported D={D} (want "
+                         f"one of {_K4_HEAD_DIMS}), qpg={qpg} (max "
+                         f"{_K4_ROWS}) or layer={layer}")
+    smem = 4 * (_K4_ROWS * (D + 4) + _K4_KEYS * (2 * D + 4)
+                + _K4_ROWS * (_K4_KEYS + 4))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"ragged_paged_attention: D={D} needs {smem} B of "
+                         "shared memory, over the H100's 227 KB")
+    out = torch.zeros((T, H, D), dtype=torch.float32, device=q.device)
+    if T == 0 or R == 0:
+        return out
+    # One CTA per (row, kv head, q tile of 64 // qpg tokens); tiles past
+    # a row's length exit at once.
+    n_tiles = -(-T // (_K4_ROWS // qpg))
+    lib = _build.library("ragged_attention")
+    fn = lib.rtt_ragged_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+             k_pools.data_ptr(), v_pools.data_ptr(), row_slot.data_ptr(),
+             row_start.data_ptr(), row_len.data_ptr(), row_off.data_ptr(),
+             block_tables.data_ptr(), out.data_ptr(), _DTYPE_CODE[dt], H,
+             KVH, P, page, D, maxp, R, n_tiles, int(layer), D ** -0.5,
+             float(soft_cap) if soft_cap is not None else 0.0,
+             _stream_ptr(q))
+    _build.check(err, "ragged_paged_attention")
+    ragged_paged_attention.launches += 1
+    return out
+
+
+ragged_paged_attention.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K5: ragged append, all layers, in place
+# --------------------------------------------------------------------------
+
+def ragged_paged_append_plain(k_pools, v_pools, k_new, v_new, row_slot,
+                              row_start, row_len, row_off,
+                              block_tables) -> None:
+    """Plain version of K5, in place: each token's (page, offset) from
+    its row, one index assignment per pool.  Tokens no row covers write
+    the scratch page P - 1 (garbage-tolerant), never a live page."""
+    L, KVH, P, page, D = k_pools.shape
+    T = k_new.shape[1]
+    maxp = block_tables.shape[1]
+    dev = k_new.device
+    ti = torch.arange(T, device=dev)
+    off = row_off.long()[:, None]
+    in_row = ((ti[None, :] >= off)
+              & (ti[None, :] < off + row_len.long()[:, None]))
+    covered = in_row.any(dim=0)
+    r = in_row.int().argmax(dim=0)                      # row of each token
+    pos = row_start.long()[r] + ti - row_off.long()[r]
+    bt = block_tables.long().clamp(0, P - 1)
+    pid = bt[row_slot.long()[r], (pos // page).clamp(0, maxp - 1)]
+    pid = torch.where(covered, pid, P - 1)
+    offp = torch.where(covered, pos % page, 0)
+    k_pools[:, :, pid, offp] = k_new.permute(0, 2, 1, 3).to(k_pools.dtype)
+    v_pools[:, :, pid, offp] = v_new.permute(0, 2, 1, 3).to(v_pools.dtype)
+
+
+def ragged_paged_append(k_pools: torch.Tensor, v_pools: torch.Tensor,
+                        k_new: torch.Tensor, v_new: torch.Tensor,
+                        row_slot: torch.Tensor, row_start: torch.Tensor,
+                        row_len: torch.Tensor, row_off: torch.Tensor,
+                        block_tables: torch.Tensor, *,
+                        max_row_tokens: Optional[int] = None) -> None:
+    """Append every row's fresh tokens into its pages, for EVERY layer
+    at once, IN PLACE: pools [L, KVH, P, page, D], k_new/v_new
+    [L, T, KVH, D], rows [R] and block_tables [slots, maxp] int32.
+    Token t of row r lands at position start + t of its slot.  Tokens no
+    row covers write nothing.  The caller owns the pools and sees them
+    mutated; nothing is returned.  ``max_row_tokens`` is accepted for
+    the JAX signature and ignored.
+
+    CUDA tensors launch kernel K5 (csrc/ragged_append.cu); CPU tensors
+    run the plain version."""
+    if not k_pools.is_cuda:
+        ragged_paged_append_plain(k_pools, v_pools, k_new, v_new, row_slot,
+                                  row_start, row_len, row_off, block_tables)
+        return
+    L, KVH, P, page, D = k_pools.shape
+    T = k_new.shape[1]
+    R = row_slot.shape[0]
+    maxp = block_tables.shape[1]
+    _check_cuda("ragged_paged_append", k_pools=k_pools, v_pools=v_pools,
+                k_new=k_new, v_new=v_new, row_slot=row_slot,
+                row_start=row_start, row_len=row_len, row_off=row_off,
+                block_tables=block_tables)
+    dt = k_pools.dtype
+    if dt not in _DTYPE_CODE or any(t.dtype != dt
+                                    for t in (v_pools, k_new, v_new)):
+        raise ValueError("ragged_paged_append: pools and new rows must share "
+                         f"dtype f32 or bf16, got {dt}, {v_pools.dtype}, "
+                         f"{k_new.dtype}, {v_new.dtype}")
+    if any(t.dtype != torch.int32 for t in (row_slot, row_start, row_len,
+                                            row_off, block_tables)):
+        raise ValueError("ragged_paged_append: rows and block_tables must "
+                         "be int32")
+    if (v_pools.shape != k_pools.shape or k_new.shape != (L, T, KVH, D)
+            or v_new.shape != k_new.shape
+            or any(t.shape != (R,) for t in (row_start, row_len, row_off))):
+        raise ValueError(
+            f"ragged_paged_append: bad shapes pools {tuple(k_pools.shape)}, "
+            f"new {tuple(k_new.shape)}, rows {tuple(row_slot.shape)}")
+    row_bytes = D * k_pools.element_size()
+    if row_bytes % 16:
+        raise ValueError(f"ragged_paged_append: a row of {row_bytes} B is "
+                         "not a multiple of 16")
+    if T == 0 or R == 0:
+        return
+    lib = _build.library("ragged_append")
+    fn = lib.rtt_ragged_append
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
+        + [ctypes.c_void_p]
+    err = fn(k_pools.data_ptr(), v_pools.data_ptr(), k_new.data_ptr(),
+             v_new.data_ptr(), row_slot.data_ptr(), row_start.data_ptr(),
+             row_len.data_ptr(), row_off.data_ptr(), block_tables.data_ptr(),
+             L, T, R, KVH, P, page, maxp, row_bytes, -(-T // _K5_TOKENS),
+             _stream_ptr(k_pools))
+    _build.check(err, "ragged_paged_append")
+    ragged_paged_append.launches += 1
+
+
+ragged_paged_append.launches = 0

@@ -1,5 +1,6 @@
 """Continuous-batching LLM engine on the paged KV cache (port of
-``ray_tpu/serve/llm_engine.py``, its non-ragged paged path).
+``ray_tpu/serve/llm_engine.py``, its paged path: bucketed, chunked and
+ragged).
 
 Design, as in the JAX engine:
 
@@ -20,10 +21,22 @@ The engine owns the page pool and mutates it in place (the paged
 kernels write into it).  One loop thread does all device work; client
 threads only submit, cancel and read their streams.
 
-Out of this slice (they raise if configured): chunked prefill, the
-ragged step, the prefix cache, speculative decoding, LoRA, SLO
-accounting and shedding, migration, the request ring, telemetry and
-``LLMServer``.
+Two more scheduling modes, as in the JAX engine:
+
+  * **chunked prefill** (``prefill_chunk > 0``): prompts longer than a
+    chunk prefill one chunk per loop iteration, interleaved with decode
+    chunks, so a long prompt never blocks running streams for its whole
+    prefill;
+  * **the ragged unified step** (``ragged_batching=True``): every
+    request claims its slot and pages at admission, and ONE device step
+    packs a decode row for every running stream first, then prompt
+    chunks until ``token_budget`` tokens are packed (kernels K4 and K5).
+    Its per-step host arrays reach the card in one pinned, non-blocking
+    copy.
+
+Out of the port so far (they raise if configured): the prefix cache,
+speculative decoding, LoRA, SLO accounting and shedding, migration, the
+request ring, telemetry and ``LLMServer``.
 """
 
 from __future__ import annotations
@@ -41,6 +54,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch.ops.ragged_paged_attention import pack_ragged_batch
 
 log = logging.getLogger(__name__)
 
@@ -60,11 +74,17 @@ class EngineConfig:
     # Decode this many steps per host round trip; chunk sizes are the
     # powers of two ≤ this.
     decode_chunk: int = 16
-    # Fields of modes this slice does not port: each must keep its
-    # default (see _UNPORTED).
+    # Chunked prefill: prompts longer than this prefill in chunks of
+    # this many tokens between decode chunks (0 = one bucketed prefill).
     prefill_chunk: int = 0
+    # slo, shed_queue_age_s and every field from prefix_cache on belong
+    # to modes the port does not have yet: each must keep its default
+    # (see _UNPORTED).
     slo: Optional[Any] = None
     shed_queue_age_s: Optional[float] = None
+    # Ragged unified step (K4 + K5): one device step packs decode rows
+    # and prompt chunks into token_budget tokens (0 = max_slots +
+    # max(prefill_chunk, page_size)).
     ragged_batching: bool = False
     token_budget: int = 0
     prefix_cache: bool = False
@@ -88,11 +108,8 @@ class EngineConfig:
 
 
 _UNPORTED = {
-    "prefill_chunk": "chunked prefill",
     "slo": "SLO accounting",
     "shed_queue_age_s": "overload shedding",
-    "ragged_batching": "the ragged unified step",
-    "token_budget": "the ragged unified step",
     "prefix_cache": "the prefix cache",
     "adapter_pool_pages": "LoRA multiplexing",
     "adapter_page_elems": "LoRA multiplexing",
@@ -127,12 +144,20 @@ class PagedEngineAdapter:
         cache) -> (logits[K,V], cache)
     decode_slots(params, tokens[slots], active, block_tables, lengths,
         cache) -> (logits[slots, V], cache, new_lengths)
+    prefill_chunk(params, tokens[K,C], start[K], chunk_lens[K],
+        pages_rows[K,maxp], cache) -> (logits[K,V], cache)  (chunked
+        prefill; None disables it)
+    ragged_step(params, tokens[T], tok_pos[T], row_slot, row_start,
+        row_len, row_off, block_tables, cache) -> (logits[R,V], cache)
+        (the unified step; needed by ragged_batching)
     """
 
     init_cache: Callable[[int, int, torch.device], Any]
     prefill_slot: Callable[..., Tuple[torch.Tensor, Any]]
     decode_slots: Callable[..., Tuple[torch.Tensor, Any, torch.Tensor]]
     prefill_batch: Callable[..., Tuple[torch.Tensor, Any]]
+    prefill_chunk: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
+    ragged_step: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
 
 
 def llama_paged_adapter(cfg) -> PagedEngineAdapter:
@@ -150,6 +175,15 @@ def llama_paged_adapter(cfg) -> PagedEngineAdapter:
         prefill_batch=lambda params, tokens, true_lens, pages_rows, cache:
             llama.prefill_batch_paged(params, tokens, true_lens, pages_rows,
                                       cfg, cache),
+        prefill_chunk=lambda params, tokens, start, chunk_lens, pages_rows,
+        cache:
+            llama.prefill_chunk_paged(params, tokens, start, chunk_lens,
+                                      pages_rows, cfg, cache),
+        ragged_step=lambda params, tokens, tok_pos, row_slot, row_start,
+        row_len, row_off, bt, cache:
+            llama.ragged_step_paged(params, tokens, tok_pos, row_slot,
+                                    row_start, row_len, row_off, bt, cfg,
+                                    cache),
     )
 
 
@@ -254,11 +288,17 @@ class _InFlight:
     the host: ``host`` is filled once ``event`` (None on the CPU) has
     completed."""
 
-    kind: str
+    kind: str  # "prefill", "decode", "pfchunk" (a marker) or "ragged"
     host: torch.Tensor
     event: Optional[Any]
     chunk: int
-    participants: List[Tuple[Any, Any]]
+    participants: List[Tuple[Any, ...]]
+
+    @property
+    def carries_first_tokens(self) -> bool:
+        return self.kind == "prefill" or (
+            self.kind == "ragged"
+            and any(part[0] == "first" for part in self.participants))
 
 
 def _tensor_device(tree: Any) -> Optional[torch.device]:
@@ -272,7 +312,8 @@ def _tensor_device(tree: Any) -> Optional[torch.device]:
 
 
 class LLMEngine:
-    """Continuous-batching scheduler around paged prefill/decode."""
+    """Continuous-batching scheduler around paged prefill/decode, with
+    chunked prefill or the ragged unified step when configured."""
 
     # Dispatched-but-unemitted entries: enough to keep the device busy
     # while the host processes tokens; budget gating bounds run-ahead.
@@ -291,6 +332,19 @@ class LLMEngine:
                              f"{self.device}")
         self._params = params
         page = config.page_size
+        self._ragged = bool(config.ragged_batching)
+        if self._ragged:
+            if adapter.ragged_step is None:
+                raise ValueError("EngineConfig.ragged_batching requires a "
+                                 "PagedEngineAdapter with ragged_step")
+            self._token_budget = config.token_budget or (
+                config.max_slots + max(config.prefill_chunk, page))
+            if self._token_budget < config.max_slots + 1:
+                raise ValueError(
+                    "token_budget must leave room for a prefill chunk "
+                    f"beside {config.max_slots} decode rows")
+        self._chunked = (not self._ragged and config.prefill_chunk > 0
+                         and adapter.prefill_chunk is not None)
         self._maxp = -(-config.max_seq_len // page)
         self._num_pages = config.num_pages or config.max_slots * self._maxp
         self._cache = adapter.init_cache(self._num_pages, page, self.device)
@@ -334,6 +388,12 @@ class LLMEngine:
         self._state_dirty = True
         self._active_dev = self._temps_dev = self._bt_dev = None
         self._any_sampled = False
+        # Incremental prefills (chunked and ragged modes): {"req", "slot",
+        # "pos" = prompt tokens already prefilled}.  Their slot and pages
+        # are claimed; the request joins _slot_req with its last chunk.
+        self._prefilling: List[Dict[str, Any]] = []
+        self._step_tokens = {"decode": 0, "prefill": 0}
+        self._mixed_steps = 0  # ragged steps with decode AND prompt rows
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="llm-engine-torch")
         self._thread.start()
@@ -388,8 +448,14 @@ class LLMEngine:
         return {"device": str(self.device),
                 "active_slots": self.config.max_slots - len(self._free_slots),
                 "waiting": self._waiting.qsize() + len(self._backlog),
+                "prefilling": len(self._prefilling),
                 "steps": self._steps,
                 "tokens_out": self._tokens_out,
+                # Tokens dispatched to the device by phase (prefill
+                # padding rows included), and ragged steps that packed
+                # decode rows beside prompt tokens.
+                "step_tokens": dict(self._step_tokens),
+                "mixed_steps": self._mixed_steps,
                 "kv_pages_free": len(self._free_pages)}
 
     def shutdown(self, timeout_s: float = 30.0) -> None:
@@ -442,8 +508,31 @@ class LLMEngine:
         """A request needs pages for max(prefill bucket, prompt+max_new)
         tokens; when the pool can't cover it, it waits in the backlog.
         Requests of one bucket prefill together, padded to a power of
-        two rows with copies of the last row."""
+        two rows with copies of the last row.  With chunked prefill,
+        prompts longer than a chunk join the incremental track instead
+        of a one-shot bucket."""
         page = self.config.page_size
+        pc = self.config.prefill_chunk
+        while self._chunked and self._free_slots:
+            # Peek for a long prompt; admit it incrementally.
+            if self._backlog and len(self._backlog[0].prompt) > pc:
+                req = self._backlog.pop(0)
+            elif not self._backlog:
+                try:
+                    req = self._waiting.get_nowait()
+                except queue.Empty:
+                    break
+                if len(req.prompt) <= pc:
+                    # Short prompt: the batched admission below.
+                    self._backlog.insert(0, req)
+                    break
+            else:
+                break
+            slot = self._alloc_slot_pages(req)
+            if slot is None:
+                self._backlog.insert(0, req)
+                break
+            self._prefilling.append({"req": req, "slot": slot, "pos": 0})
         while self._free_slots:
             batch: List[Tuple[Request, int]] = []
             group_bucket = None
@@ -497,10 +586,32 @@ class LLMEngine:
                                          temps, scatter_ids)
             self._finish_admit(batch, toks_dev)
 
+    def _admit_ragged(self) -> None:
+        """Ragged admission: EVERY request claims its slot and pages up
+        front and joins the incremental track; the unified step packs
+        its prompt in budget-sized chunks beside live decode rows, so no
+        separate prefill program can block them."""
+        while self._free_slots:
+            if self._backlog:
+                req = self._backlog.pop(0)
+            else:
+                try:
+                    req = self._waiting.get_nowait()
+                except queue.Empty:
+                    return
+            slot = self._alloc_slot_pages(req)
+            if slot is None:
+                self._backlog.insert(0, req)
+                return
+            self._prefilling.append({"req": req, "slot": slot, "pos": 0})
+            self._state_dirty = True  # bt rows changed
+
     def _run_prefill(self, tokens, true_lens, pages_rows, temps,
                      scatter_ids) -> torch.Tensor:
         """One batched prefill; the sampled first tokens scatter into
         the device cur (OOB scatter ids dropped)."""
+        # Padding rows are device work too: they count as prefill tokens.
+        self._step_tokens["prefill"] += int(np.sum(true_lens))
         logits, self._cache = self.adapter.prefill_batch(
             self._params, self._h2d(tokens), self._h2d(true_lens),
             self._h2d(pages_rows), self._cache)
@@ -586,12 +697,167 @@ class LLMEngine:
         for slot in self._slot_req:
             self._lens[slot] += chunk
         self._steps += chunk
+        self._step_tokens["decode"] += chunk * len(self._slot_req)
         participants = list(self._slot_req.items())
         for slot, _req in participants:
             self._inflight_tokens[slot] = \
                 self._inflight_tokens.get(slot, 0) + chunk
         self._enqueue_fetch("decode", torch.stack(steps), chunk,
                             participants)
+
+    def _dispatch_prefill_chunk(self) -> None:
+        """Advance the oldest incremental prefill by one chunk (between
+        decode chunks, so a long prompt never blocks running streams for
+        its whole prefill).  A mid-prompt chunk enters the fetch pipe as
+        a marker, so chunk dispatch is pipeline-gated like decode; the
+        last chunk's sample is the request's first token."""
+        st = self._prefilling[0]
+        req, slot, pos = st["req"], st["slot"], st["pos"]
+        C = self.config.prefill_chunk
+        chunk = req.prompt[pos:pos + C]
+        tokens = np.zeros((1, C), np.int32)
+        tokens[0, :len(chunk)] = chunk
+        is_last = pos + len(chunk) >= len(req.prompt)
+        # Attend only over pages covering the prompt so far (rounded up
+        # to a power of two): a chunk must not pay max_seq_len-wide
+        # attention.
+        covered = -(-(pos + len(chunk)) // self.config.page_size)
+        nb = 1
+        while nb < covered:
+            nb *= 2
+        nb = min(nb, self._maxp)
+        logits, self._cache = self.adapter.prefill_chunk(
+            self._params, self._h2d(tokens),
+            self._h2d(np.asarray([pos], np.int32)),
+            self._h2d(np.asarray([len(chunk)], np.int32)),
+            self._h2d(self._bt[slot][None, :nb]), self._cache)
+        toks = _sample(logits,
+                       self._h2d(np.asarray([req.temperature], np.float32)),
+                       self._gen if req.temperature > 0 else None)
+        st["pos"] = pos + len(chunk)
+        self._step_tokens["prefill"] += len(chunk)
+        if is_last:
+            self._prefilling.pop(0)
+            self._cur_dev[slot] = toks[0]
+            self._lens[slot] = len(req.prompt)
+            self._finish_admit([(req, slot)], toks)
+        else:
+            self._enqueue_fetch("pfchunk", toks, 0, [])
+
+    # -- ragged unified step -----------------------------------------------
+
+    def _dispatch_ragged_step(self) -> bool:
+        """Pack and dispatch ONE unified ragged step: first a decode row
+        (one token) for every running slot with budget left, then prompt
+        chunks from the incremental track until token_budget is full.
+        Decode rows are never displaced by prompt tokens: that priority
+        is the no-stall guarantee.  Returns False when nothing fit (every
+        slot budget-capped by in-flight tokens, no prompt pending)."""
+        T, R = self._token_budget, self.config.max_slots
+        budget = T
+        rows: List[Dict[str, Any]] = []
+        parts: List[Tuple[str, Request, int, int]] = []
+        scatter = np.full((R,), R, np.int32)  # R = sample dropped
+        temps = np.zeros((R,), np.float32)
+        n_decode = n_prefill = 0
+        for slot in sorted(self._slot_req):
+            if budget <= 0 or len(rows) >= R:
+                break
+            req = self._slot_req[slot]
+            rem = min(req.max_new_tokens - len(req.tokens),
+                      self.config.max_seq_len - len(req.prompt)
+                      - len(req.tokens)) \
+                - self._inflight_tokens.get(slot, 0)
+            if rem <= 0:
+                continue  # its budget is covered by in-flight steps
+            i = len(rows)
+            # The token lives on the device (cur): no host round trip.
+            rows.append({"slot": slot, "start": int(self._lens[slot]),
+                         "tokens": None})
+            parts.append(("decode", req, slot, i))
+            scatter[i] = slot
+            temps[i] = req.temperature
+            budget -= 1
+            n_decode += 1
+        finishing = []
+        for st in self._prefilling:
+            if budget <= 0 or len(rows) >= R:
+                break
+            req, slot, pos = st["req"], st["slot"], st["pos"]
+            chunk = req.prompt[pos:pos + budget]
+            if not chunk:
+                continue
+            i = len(rows)
+            rows.append({"slot": slot, "start": pos,
+                         "tokens": [int(t) for t in chunk]})
+            temps[i] = req.temperature
+            if pos + len(chunk) >= len(req.prompt):
+                # The last chunk's sample is the first token; mid-prompt
+                # rows keep the dropped scatter id.
+                parts.append(("first", req, slot, i))
+                scatter[i] = slot
+                finishing.append(st)
+            st["pos"] = pos + len(chunk)
+            budget -= len(chunk)
+            n_prefill += len(chunk)
+        if not rows:
+            return False
+        self._refresh_state_args()
+        toks_dev = self._run_ragged(
+            pack_ragged_batch(rows, T, R), scatter, temps)
+        for kind, req, slot, _i in parts:
+            if kind == "decode":
+                self._lens[slot] += 1  # the mirror advances at dispatch
+            self._inflight_tokens[slot] = \
+                self._inflight_tokens.get(slot, 0) + 1
+        for st in finishing:
+            self._prefilling.remove(st)
+            req, slot = st["req"], st["slot"]
+            self._lens[slot] = len(req.prompt)
+            self._slot_req[slot] = req
+            self._temps[slot] = req.temperature
+        self._steps += 1
+        self._step_tokens["decode"] += n_decode
+        self._step_tokens["prefill"] += n_prefill
+        if n_decode and n_prefill:
+            self._mixed_steps += 1
+        self._enqueue_fetch("ragged", toks_dev, 1, parts)
+        return True
+
+    def _run_ragged(self, packed, scatter: np.ndarray,
+                    temps: np.ndarray) -> torch.Tensor:
+        """One ragged step on the device.  The step's host arrays travel
+        as ONE int32 buffer (pinned, non-blocking on the card), sliced on
+        the device; each slice starts on a 16-byte boundary.  Decode rows
+        read their token from the device cur; the row samples scatter
+        into cur, dropping scatter id R (mid-prompt and padding rows)."""
+        R = self.config.max_slots
+        (host_toks, decode_mask, tok_slot, tok_pos, row_slot, row_start,
+         row_len, row_off) = packed
+        segs = [host_toks, decode_mask.astype(np.int32), tok_slot, tok_pos,
+                row_slot, row_start, row_len, row_off, scatter,
+                temps.view(np.int32)]
+        widths = [-(-len(a) // 4) * 4 for a in segs]
+        buf = np.zeros((sum(widths),), np.int32)
+        cuts, at = [], 0
+        for a, w in zip(segs, widths):
+            buf[at:at + len(a)] = a
+            cuts.append((at, at + len(a)))
+            at += w
+        dev = self._h2d(buf)
+        (h_toks, d_mask, t_slot, t_pos, r_slot, r_start, r_len, r_off,
+         scatter_d, temps_d) = (dev[a:b] for a, b in cuts)
+        toks = torch.where(d_mask != 0, self._cur_dev[t_slot.long()], h_toks)
+        logits, self._cache = self.adapter.ragged_step(
+            self._params, toks, t_pos, r_slot, r_start, r_len, r_off,
+            self._bt_dev, self._cache)
+        sampled = _sample(logits, temps_d.view(torch.float32),
+                          self._gen if (temps > 0).any() else None)
+        cur = torch.empty((R + 1,), dtype=torch.int32, device=self.device)
+        cur[:R] = self._cur_dev
+        cur[scatter_d.long()] = sampled
+        self._cur_dev = cur[:R]
+        return sampled
 
     # -- token delivery ----------------------------------------------------
 
@@ -622,6 +888,23 @@ class LLMEngine:
             self._pending.popleft()
             processed = True
             toks = entry.host.numpy()
+            if entry.kind == "pfchunk":
+                continue  # a marker: it only gated the pipeline depth
+            if entry.kind == "ragged":
+                # One unified step: toks is the [R] row-sample vector;
+                # the parts are decode rows and last prompt chunks
+                # (mid-prompt rows have nothing to emit).
+                now = time.monotonic()
+                for rkind, req, slot, i in entry.participants:
+                    self._drop_inflight(slot, 1)
+                    if req.finished_at is not None:
+                        continue  # cancelled while in flight
+                    if rkind == "first":
+                        req.first_token_at = now
+                        self._emit(req, slot, int(toks[i]))
+                    elif self._slot_req.get(slot) is req:
+                        self._emit(req, slot, int(toks[i]))
+                continue
             if entry.kind == "prefill":
                 for i, (req, slot) in enumerate(entry.participants):
                     self._drop_inflight(slot, 1)
@@ -688,6 +971,11 @@ class LLMEngine:
             if req.request_id in pending:
                 pending.discard(req.request_id)
                 finish(req, slot)
+        for st in list(self._prefilling):
+            if st["req"].request_id in pending:
+                pending.discard(st["req"].request_id)
+                self._prefilling.remove(st)
+                finish(st["req"], st["slot"])
         for req in list(self._backlog):
             if req.request_id in pending:
                 pending.discard(req.request_id)
@@ -722,6 +1010,7 @@ class LLMEngine:
 
     def _fail_all(self, err: BaseException) -> None:
         failing = list(self._slot_req.values()) + list(self._admitting)
+        failing += [st["req"] for st in self._prefilling]
         failing += list(self._backlog)
         while True:
             try:
@@ -735,7 +1024,10 @@ class LLMEngine:
             seen.add(id(req))
             req.finished_at = time.monotonic()
             req.stream.put(err)
-        for slot in list(self._slot_req):
+        leftovers = set(self._slot_req)
+        leftovers.update(st["slot"] for st in self._prefilling)
+        self._prefilling.clear()
+        for slot in sorted(leftovers):
             self._release_slot(slot)
 
     def _loop_body(self) -> None:
@@ -743,24 +1035,39 @@ class LLMEngine:
             torch.cuda.set_device(self.device)
         while not self._stopped.is_set():
             self._process_cancels()
-            if (not self._slot_req and self._waiting.empty()
-                    and not self._backlog and not self._pending):
+            if (not self._slot_req and not self._prefilling
+                    and self._waiting.empty() and not self._backlog
+                    and not self._pending):
                 self._work.wait(timeout=0.05)
                 self._work.clear()
                 continue
             self._process_fetched(block=False)
-            self._admit_paged()
-            # Enqueueing a decode chunk costs tens of ms of host time in
-            # eager PyTorch: deliver the first tokens of a fresh
-            # admission before it, not after.
-            while any(e.kind == "prefill" for e in self._pending):
+            if self._ragged:
+                self._admit_ragged()
+            else:
+                self._admit_paged()
+            # Enqueueing a step costs tens of ms of host time in eager
+            # PyTorch: deliver the first tokens of a fresh admission
+            # before it, not after.
+            while any(e.carries_first_tokens for e in self._pending):
                 self._process_fetched(block=True)
             dispatched = False
-            if (self._slot_req
-                    and len(self._pending) < self._PIPELINE_DEPTH):
-                chunk = self._chunk_size()
-                if chunk > 0:
-                    self._dispatch_decode(chunk)
+            if self._ragged:
+                if ((self._slot_req or self._prefilling)
+                        and len(self._pending) < self._PIPELINE_DEPTH):
+                    dispatched = self._dispatch_ragged_step()
+            else:
+                if (self._prefilling
+                        and len(self._pending) < self._PIPELINE_DEPTH):
+                    # One prompt chunk per iteration rides the device
+                    # queue BETWEEN decode chunks.
+                    self._dispatch_prefill_chunk()
                     dispatched = True
+                if (self._slot_req
+                        and len(self._pending) < self._PIPELINE_DEPTH):
+                    chunk = self._chunk_size()
+                    if chunk > 0:
+                        self._dispatch_decode(chunk)
+                        dispatched = True
             if not dispatched and self._pending:
                 self._process_fetched(block=True)

@@ -105,9 +105,9 @@ def test_sampling_is_seeded_and_greedy_at_zero_temperature():
     assert torch.equal(teng._sample(logits, temps), greedy)
 
 
-@pytest.mark.parametrize("field,value", [("ragged_batching", True),
+@pytest.mark.parametrize("field,value", [("adapter_pool_pages", 4),
                                          ("prefix_cache", True),
-                                         ("prefill_chunk", 32),
+                                         ("shed_queue_age_s", 1.0),
                                          ("spec_decode", True)])
 def test_unported_modes_raise(params, field, value):
     _, tp = params
