@@ -15,12 +15,20 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    function (a yardstick the port never calls), and beside its bound;
    K4 ragged paged attention and K5 ragged append at the same shapes
    (seven decode rows with pasts of 300-1500 tokens beside one
-   256-token prompt chunk at position 512: T = 264);
+   256-token prompt chunk at position 512: T = 264); then the int8-KV
+   kernels at the same shapes and row mixes: K1 and K4 on int8 pools
+   with page scales (library yardstick: dequantise, then SDPA), and the
+   quantising appends K3 and K6, whose stored bytes and scales must
+   equal the plain versions' bit for bit, each timed in its common case
+   (stable page scales) and with every extended page rewritten (grown
+   scales);
 4. path parity: a tiny f32 Llama through the port's LLMEngine on the
    card (kernels) and on the CPU (plain versions) — identical greedy
    streams, with a prompt long enough for a flash-attention bucket;
    then the same for the ragged engine (prefill_chunk 64, prompts of
-   several chunks);
+   several chunks), for int8 KV pools on both engines, and for the
+   ragged engine with the prefix cache (a partial hit and an exact
+   full-prompt hit);
 5. the bucketed path at full width: LLAMA3_8B in bf16 (random weights
    from a seeded generator on the card, made once for phases 5 and 6)
    served by the port's LLMEngine, four concurrent requests; every
@@ -33,11 +41,20 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    to 0 just before, and K4 must run 32 times and K5 once per ragged
    step, with at least one step packing decode rows and prompt tokens
    together.  One mixed ragged step is then timed alone (host, and
-   device from a CUDA-graph replay).
+   device from a CUDA-graph replay);
+7. int8 KV at full width and depth: the same weights with
+   ``kv_int8=True``.  The ragged engine with ``prefix_cache=True`` serves
+   phase 6's traffic, then two prompts that share a 512-token prefix one
+   after the other, so the second hits the cache; counters set to 0 just
+   before, and K4 (its int8 instantiation) must run 32 times and K6 once
+   per ragged step, K5 never, and the hit must be 512 tokens.  Then a
+   short bucketed int8 run, counters again at 0: K1 (int8) 32 times and
+   K3 once per decode step, K2 never.
 
 The last three lines of standard output are the kernel table (K1, K2,
-K9f, K4, K5) as one JSON object, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  Details go to ``--out``.
+K9f, K4, K5, K1 int8, K3, K4 int8, K6) as one JSON object, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.  Details go
+to ``--out``.
 """
 
 from __future__ import annotations
@@ -52,6 +69,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -97,15 +115,34 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase_k1(torch, F, tpa, report):
+def int8_pools(torch, g, shape):
+    """Random int8 pools [L, KVH, P, page, D] with page-major f32 scales
+    [L, P, KVH, 1] in [0.005, 0.025)."""
+    L, KVH, P = shape[:3]
+    k = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                      dtype=torch.int8)
+    ks = torch.rand((L, P, KVH, 1), generator=g, device="cuda") * 0.02 + 0.005
+    vs = torch.rand((L, P, KVH, 1), generator=g, device="cuda") * 0.02 + 0.005
+    return k, v, ks, vs
+
+
+def kernel_phase_k1(torch, F, tpa, report, int8=False):
     L, B, H, KVH, D, page, maxp = 32, 8, 32, 8, 128, 64, 16
     P = B * maxp + 1
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    k = torch.randn((L, KVH, P, page, D), generator=g, device=dev,
-                    dtype=torch.bfloat16)
-    v = torch.randn((L, KVH, P, page, D), generator=g, device=dev,
-                    dtype=torch.bfloat16)
+    scales = {}
+    if int8:
+        k, v, ks, vs = int8_pools(torch, g, (L, KVH, P, page, D))
+        scales = {"k_scales": ks, "v_scales": vs}
+    else:
+        k = torch.randn((L, KVH, P, page, D), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        v = torch.randn((L, KVH, P, page, D), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+    tag = "K1 int8" if int8 else "K1"
     q = torch.randn((B, H, D), generator=g, device=dev, dtype=torch.bfloat16)
     lens_list = [0, 1, 63, 64, 65, 1000, 517, 230]
     lengths = torch.tensor(lens_list, dtype=torch.int32, device=dev)
@@ -119,9 +156,9 @@ def kernel_phase_k1(torch, F, tpa, report):
     worst = {"out": 0.0, "m": 0.0, "l_rel": 0.0}
     for layer in range(L):
         acc, m, l = tpa.paged_decode_attention_partial(q, k, v, layer, bt,
-                                                       lengths)
+                                                       lengths, **scales)
         acc_p, m_p, l_p = tpa.paged_decode_attention_partial_plain(
-            q, k, v, layer, bt, lengths)
+            q, k, v, layer, bt, lengths, **scales)
         live = lengths > 0
         out = (acc / l.clamp(min=1e-30))[live]
         out_p = (acc_p / l_p.clamp(min=1e-30))[live]
@@ -131,55 +168,71 @@ def kernel_phase_k1(torch, F, tpa, report):
                              ((l - l_p).abs() / l_p.clamp(min=1)).max().item())
         if (m[~live] != -1e30).any() or (l[~live] != 0).any() \
                 or (acc[~live] != 0).any():
-            raise AssertionError("K1: an empty slot must give acc=0, "
+            raise AssertionError(f"{tag}: an empty slot must give acc=0, "
                                  "m=-1e30, l=0")
-    # Same f32 arithmetic on exactly converted bf16 inputs: only the
-    # summation order differs.
+    # Same f32 arithmetic on exactly converted bf16 (or int8) inputs:
+    # only the summation order differs.
     tol = {"out": 1e-3, "m": 1e-3, "l_rel": 1e-4}
     if any(worst[key] > tol[key] for key in tol):
-        raise AssertionError(f"K1 disagrees with its plain version: {worst} "
-                             f"(tolerance {tol})")
+        raise AssertionError(f"{tag} disagrees with its plain version: "
+                             f"{worst} (tolerance {tol})")
 
     ms = time_ms(torch, lambda i: tpa.paged_decode_attention_partial(
-        q, k, v, i % L, bt, lengths))
+        q, k, v, i % L, bt, lengths, **scales))
     plain_ms = time_ms(torch, lambda i: tpa.paged_decode_attention_partial_plain(
-        q, k, v, i % L, bt, lengths), n=4, blocks=3)
-    # Library yardstick: SDPA over the gathered dense k/v of each layer.
+        q, k, v, i % L, bt, lengths, **scales), n=4, blocks=3)
+    # Library yardstick: SDPA over the gathered dense k/v of each layer
+    # (int8: the gathered bytes are dequantised inside the timed call).
     T = maxp * page
     kd = k[:, :, bt.long()].permute(0, 2, 1, 3, 4, 5).reshape(L, B, KVH, T, D)
     vd = v[:, :, bt.long()].permute(0, 2, 1, 3, 4, 5).reshape(L, B, KVH, T, D)
+    if int8:
+        # [L, B, maxp, KVH, 1] -> one scale per key [L, B, KVH, T, 1]
+        ksd, vsd = (sc[:, bt.long()].permute(0, 1, 3, 2, 4)
+                    .repeat_interleave(page, dim=3).to(torch.bfloat16)
+                    for sc in (ks, vs))
+        dense = lambda i: (kd[i % L].to(torch.bfloat16) * ksd[i % L],  # noqa: E731
+                           vd[i % L].to(torch.bfloat16) * vsd[i % L])
+    else:
+        dense = lambda i: (kd[i % L], vd[i % L])  # noqa: E731
     mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None])
     mask = mask[:, None, None, :]
     q4 = q[:, :, None, :]
     try:
-        F.scaled_dot_product_attention(q4, kd[0], vd[0], attn_mask=mask,
+        F.scaled_dot_product_attention(q4, *dense(0), attn_mask=mask,
                                        enable_gqa=True)
         lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
-            q4, kd[i % L], vd[i % L], attn_mask=mask, enable_gqa=True)
+            q4, *dense(i), attn_mask=mask, enable_gqa=True)
     except TypeError:
-        kd = kd.repeat_interleave(H // KVH, dim=2)
-        vd = vd.repeat_interleave(H // KVH, dim=2)
+        rep = H // KVH
         lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
-            q4, kd[i % L], vd[i % L], attn_mask=mask)
+            q4, *(t.repeat_interleave(rep, dim=1) for t in dense(i)),
+            attn_mask=mask)
     library_ms = time_ms(torch, lib)
     tokens = sum(lens_list)
-    nbytes = (B * H * D * 2 + tokens * KVH * D * 2 * 2 + bt.numel() * 4
+    live_pages = sum(-(-n // page) for n in lens_list)
+    kv_bytes = tokens * KVH * D * 2 * (1 if int8 else 2) \
+        + (2 * live_pages * KVH * 4 if int8 else 0)
+    nbytes = (B * H * D * 2 + kv_bytes + bt.numel() * 4
               + B * 4 + B * H * D * 4 + 2 * B * H * 4)
     flops = 4 * tokens * H * D
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    report["K1"] = {
-        "name": "paged_decode_attention_partial", "route": "cuda",
+    report["K1i8" if int8 else "K1"] = {
+        "name": "paged_decode_attention_partial"
+                + (" (int8 pools)" if int8 else ""), "route": "cuda",
         "source": "ray_tpu_torch/csrc/paged_decode.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:263",
         "max_abs_err": max(worst["out"], worst["m"]),
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"B={B} H={H} KVH={KVH} D={D} page={page} bf16, lengths "
+        "shape": f"B={B} H={H} KVH={KVH} D={D} page={page} q bf16, pools "
+                 f"{'int8 + f32 page scales' if int8 else 'bf16'}, lengths "
                  f"{lens_list}, layer cycling over L={L}",
-        "errors": worst,
+        "errors": worst, "bound_bytes": nbytes,
     }
-    log(f"K1 paged_decode_attention_partial: err {worst}  kernel {ms:.4f} ms"
-        f"  plain {plain_ms:.4f} ms  SDPA {library_ms:.4f} ms  bound "
+    log(f"{tag} paged_decode_attention_partial: err {worst}  kernel "
+        f"{ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"{'dequantise + ' if int8 else ''}SDPA {library_ms:.4f} ms  bound "
         f"{b_ms:.4f} ms ({b_by})")
 
 
@@ -347,28 +400,36 @@ def ragged_inputs(torch, L=32, H=32, KVH=8, D=128, page=64, maxp=32,
     return k, v, q, kn, vn, rows, bt.to(dev)
 
 
-def kernel_phase_k4(torch, F, trpa, report):
+def kernel_phase_k4(torch, F, trpa, report, int8=False):
     L, H, KVH, D = 32, 32, 8, 128
     k, v, q, kn, vn, rows, bt = ragged_inputs(torch)
+    scales = {}
+    if int8:
+        g = torch.Generator(device="cuda").manual_seed(17)
+        k, v, ks, vs = int8_pools(torch, g, tuple(k.shape))
+        scales = {"k_scales": ks, "v_scales": vs}
+    tag = "K4 int8" if int8 else "K4"
     T = q.shape[0]
     err = 0.0
     covered = sum(n for _, n in RAGGED_ROWS)  # the buffer's tail is empty
     for layer in range(L):
-        got = trpa.ragged_paged_attention(q, kn, vn, k, v, layer, *rows, bt)
+        got = trpa.ragged_paged_attention(q, kn, vn, k, v, layer, *rows, bt,
+                                          **scales)
         want = trpa.ragged_paged_attention_plain(q, kn, vn, k, v, layer,
-                                                 *rows, bt)
+                                                 *rows, bt, **scales)
         err = max(err, (got - want).abs().max().item())
         if got[covered:].any():
-            raise AssertionError("K4: tokens no row covers must be zero")
-    # f32 arithmetic on exactly converted bf16 inputs in both versions:
-    # only the summation order differs.
+            raise AssertionError(f"{tag}: tokens no row covers must be zero")
+    # f32 arithmetic on exactly converted bf16 (or int8) inputs in both
+    # versions: only the summation order differs (int8: the plain version
+    # dequantises first, the kernel scales the score).
     if err > 1e-3:
-        raise AssertionError(f"K4 disagrees with its plain version: {err} "
-                             "(tolerance 1e-3)")
+        raise AssertionError(f"{tag} disagrees with its plain version: "
+                             f"{err} (tolerance 1e-3)")
     ms = time_ms(torch, lambda i: trpa.ragged_paged_attention(
-        q, kn, vn, k, v, i % L, *rows, bt))
+        q, kn, vn, k, v, i % L, *rows, bt, **scales))
     plain_ms = time_ms(torch, lambda i: trpa.ragged_paged_attention_plain(
-        q, kn, vn, k, v, i % L, *rows, bt), n=4, blocks=3)
+        q, kn, vn, k, v, i % L, *rows, bt, **scales), n=4, blocks=3)
     # Library yardstick: one SDPA over each row's pre-gathered, padded
     # dense k/v (pooled past then fresh keys) with a boolean causal mask.
     R = len(RAGGED_ROWS)
@@ -378,6 +439,11 @@ def kernel_phase_k4(torch, F, trpa, report):
     qd = torch.zeros((R, H, lq, D), dtype=q.dtype, device=q.device)
     kd = torch.zeros((L, R, KVH, lk, D), dtype=k.dtype, device=k.device)
     vd = torch.zeros_like(kd)
+    # int8: the pooled keys stay int8 in kd/vd with a scale per key beside
+    # them (1 on the fresh keys, which are rounded to int8 here only to
+    # share the tensor: the yardstick's time, not its values, is used).
+    ksd = torch.ones((L, R, KVH, lk, 1), dtype=q.dtype, device=q.device)
+    vsd = torch.ones_like(ksd)
     mask = torch.zeros((R, 1, lq, lk), dtype=torch.bool, device=q.device)
     mask[:, :, :, 0] = True  # padded query rows see one key: no NaN
     at = 0
@@ -389,6 +455,10 @@ def kernel_phase_k4(torch, F, trpa, report):
             L, maxp * page, KVH, D)[:, :start].permute(0, 2, 1, 3)
         kd[:, r, :, :start] = past_k
         vd[:, r, :, :start] = past_v
+        if int8:
+            for sd, sc in ((ksd, ks), (vsd, vs)):
+                sd[:, r, :, :start] = sc[:, pages].permute(0, 2, 1, 3) \
+                    .repeat_interleave(page, dim=2)[:, :, :start].to(q.dtype)
         kd[:, r, :, start:start + n] = kn[at:at + n].permute(1, 0, 2)
         vd[:, r, :, start:start + n] = vn[at:at + n].permute(1, 0, 2)
         qd[r, :, :n] = q[at:at + n].permute(1, 0, 2)
@@ -396,38 +466,49 @@ def kernel_phase_k4(torch, F, trpa, report):
         mask[r, 0, :n] = (torch.arange(lk, device=q.device)[None, :]
                           <= start + i[:, None])
         at += n
+    if int8:
+        dense = lambda i: (kd[i % L].to(q.dtype) * ksd[i % L],  # noqa: E731
+                           vd[i % L].to(q.dtype) * vsd[i % L])
+    else:
+        dense = lambda i: (kd[i % L], vd[i % L])  # noqa: E731
     try:
-        F.scaled_dot_product_attention(qd, kd[0], vd[0], attn_mask=mask,
+        F.scaled_dot_product_attention(qd, *dense(0), attn_mask=mask,
                                        enable_gqa=True)
         lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
-            qd, kd[i % L], vd[i % L], attn_mask=mask, enable_gqa=True)
+            qd, *dense(i), attn_mask=mask, enable_gqa=True)
     except TypeError:
-        kx = kd.repeat_interleave(H // KVH, dim=2)
-        vx = vd.repeat_interleave(H // KVH, dim=2)
+        rep = H // KVH
         lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
-            qd, kx[i % L], vx[i % L], attn_mask=mask)
+            qd, *(t.repeat_interleave(rep, dim=1) for t in dense(i)),
+            attn_mask=mask)
     library_ms = time_ms(torch, lib)
-    # Bytes: q, fresh k/v and the pooled past each read once, f32 out
-    # written once; operations: q.k and p.v over every attended key.
+    # Bytes: q, fresh k/v and the pooled past (with the scales of its
+    # pages, for int8) each read once, f32 out written once; operations:
+    # q.k and p.v over every attended key.
     past = sum(s for s, _ in RAGGED_ROWS)
+    past_pages = sum(-(-s // page) for s, _ in RAGGED_ROWS)
     attended = sum(n * s + n * (n + 1) // 2 for s, n in RAGGED_ROWS)
-    nbytes = (T * H * D * 2 + 2 * T * KVH * D * 2 + 2 * past * KVH * D * 2
+    past_bytes = 2 * past * KVH * D * (1 if int8 else 2) \
+        + (2 * past_pages * KVH * 4 if int8 else 0)
+    nbytes = (T * H * D * 2 + 2 * T * KVH * D * 2 + past_bytes
               + T * H * D * 4 + bt.numel() * 4 + 4 * R * 4)
     flops = 4 * attended * H * D
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    report["K4"] = {
-        "name": "ragged_paged_attention", "route": "cuda",
+    report["K4i8" if int8 else "K4"] = {
+        "name": "ragged_paged_attention"
+                + (" (int8 pools)" if int8 else ""), "route": "cuda",
         "source": "ray_tpu_torch/csrc/ragged_attention.cu",
         "replaces": "ray_tpu/ops/ragged_paged_attention.py:303",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"T={T} H={H} KVH={KVH} D={D} page={page} bf16, rows "
+        "shape": f"T={T} H={H} KVH={KVH} D={D} page={page} q bf16, pools "
+                 f"{'int8 + f32 page scales' if int8 else 'bf16'}, rows "
                  f"(start, len) {RAGGED_ROWS}, layer cycling over L={L}",
         "bound_bytes": nbytes, "bound_flops": flops,
     }
-    log(f"K4 ragged_paged_attention: err {err:.3e}  kernel {ms:.4f} ms  "
-        f"plain {plain_ms:.4f} ms  SDPA {library_ms:.4f} ms  bound "
-        f"{b_ms:.4f} ms ({b_by})")
+    log(f"{tag} ragged_paged_attention: err {err:.3e}  kernel {ms:.4f} ms  "
+        f"plain {plain_ms:.4f} ms  {'dequantise + ' if int8 else ''}SDPA "
+        f"{library_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
 
 
 def kernel_phase_k5(torch, trpa, report):
@@ -491,6 +572,218 @@ def kernel_phase_k5(torch, trpa, report):
     log(f"K5 ragged_paged_append: err {err}  kernel {ms:.4f} ms  plain "
         f"{plain_ms:.4f} ms  index_put_ {library_ms:.4f} ms  bound "
         f"{b_ms:.5f} ms ({b_by})")
+
+
+def growing(torch, base, count, ratio=1.3):
+    """``count`` copies of ``base`` with magnitudes growing by ``ratio``:
+    fed one after the other, each outgrows the page scales the one before
+    left, so every call of a quantising append requantises its pages."""
+    return [(base.float() * ratio ** i).to(base.dtype) for i in range(count)]
+
+
+def compare_quantised(tag, got, want, live):
+    """Pools and scales of a quantising append against the plain
+    version's: bit for bit on the ``live`` pages; every scale finite."""
+    for a, b in zip(got[:2], want[:2]):
+        if not torch_equal(a[:, :, :live], b[:, :, :live]):
+            raise AssertionError(f"{tag}: stored bytes differ from the plain "
+                                 "version's")
+    for a, b in zip(got[2:], want[2:]):
+        if not torch_equal(a[:, :live], b[:, :live]):
+            raise AssertionError(f"{tag}: page scales differ from the plain "
+                                 "version's")
+        if not a.isfinite().all():
+            raise AssertionError(f"{tag}: a page scale is not finite")
+
+
+def torch_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def kernel_phase_k3(torch, tpa, report):
+    """K3 at the 8B decode shapes.  Checked from one random int8 state
+    with a fresh page, stable and grown scales, an all-zero row and an
+    inactive slot; timed with every scale stable (the common case: D
+    bytes written per slot, layer and kv head) and with every page
+    requantised (inputs growing call by call)."""
+    L, B, KVH, D, page = 32, 8, 8, 128, 64
+    P = 8 * 16 + 1
+    g = torch.Generator(device="cuda").manual_seed(21)
+    k, v, ks, vs = int8_pools(torch, g, (L, KVH, P, page, D))
+    # Slot 0 opens a fresh page, 1 and 2 fit their page's scale, 3 is
+    # inactive (scratch page), 4-6 outgrow the scale, 7 is all zeros.
+    pids = torch.tensor([5, 17, 40, P - 1, 77, 2, 127, 64],
+                        dtype=torch.int32, device="cuda")
+    offs = torch.tensor([0, 1, 63, 9, 32, 17, 5, 62], dtype=torch.int32,
+                        device="cuda")
+    mag = torch.tensor([1.0, 0.01, 0.02, 1.0, 30.0, 60.0, 9.0, 0.0],
+                       device="cuda")[None, :, None, None]
+    k_new = (torch.randn((L, B, KVH, D), generator=g, device="cuda")
+             * mag).to(torch.bfloat16)
+    v_new = (torch.randn((L, B, KVH, D), generator=g, device="cuda")
+             * mag).to(torch.bfloat16)
+    got = [t.clone() for t in (k, v, ks, vs)]
+    want = [t.clone() for t in (k, v, ks, vs)]
+    tpa.paged_append_quantized(*got, k_new, v_new, pids, offs)
+    tpa.paged_append_quantized_plain(*want, k_new, v_new, pids, offs)
+    torch.cuda.synchronize()
+    compare_quantised("K3", got, want, P - 1)
+    pages_changed = int((got[0][:, :, : P - 1] != k[:, :, : P - 1])
+                        .any(dim=-1).any(dim=-1).sum())
+    # Seven live slots, one page each: the fresh page and the three grown
+    # ones change whole, the stable ones (the zero row's too) in one row.
+    if pages_changed != L * KVH * 7:
+        raise AssertionError(f"K3 changed {pages_changed} pages, want "
+                             f"{L * KVH * 7}")
+    if not torch_equal(got[2][:, 17], ks[:, 17]) \
+            or not (got[2][:, 77] > ks[:, 77]).all():
+        raise AssertionError("K3: a stable scale moved or a grown one did "
+                             "not")
+    err = 0.0
+    del got, want
+
+    # Common case: scales that hold any row of this magnitude.
+    ks.fill_(100.0)
+    vs.fill_(100.0)
+    offs_c = offs.clamp(min=1)
+    ms = time_ms(torch, lambda i: tpa.paged_append_quantized(
+        k, v, ks, vs, k_new, v_new, pids, offs_c))
+    plain_ms = time_ms(torch, lambda i: tpa.paged_append_quantized_plain(
+        k, v, ks, vs, k_new, v_new, pids, offs_c), n=4, blocks=3)
+    if not bool((ks == 100.0).all()):
+        raise AssertionError("K3 common case: a scale moved")
+    # Whole-page rewrite: every call outgrows the scales of the last.
+    n, blocks = 5, 3
+    base = torch.randn((L, B, KVH, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    feed = growing(torch, base, 3 + n * blocks)
+    ks.fill_(1e-3)
+    vs.fill_(1e-3)
+    calls = iter(feed)
+
+    def grow(i):
+        x = next(calls)
+        tpa.paged_append_quantized(k, v, ks, vs, x, x, pids, offs_c)
+
+    rewrite_ms = time_ms(torch, grow, n=n, blocks=blocks)
+    rows_b = 2 * L * B * KVH * D
+    common_bytes = rows_b * 2 + rows_b + 2 * 2 * L * B * KVH * 4 + 2 * B * 4
+    rewrite_bytes = common_bytes + 2 * (2 * L * B * KVH * (page - 1) * D)
+    b_ms, b_by = bound(common_bytes, 0, F32_FLOPS)
+    rb_ms, _ = bound(rewrite_bytes, 0, F32_FLOPS)
+    report["K3"] = {
+        "name": "paged_append_quantized", "route": "cuda",
+        "source": "ray_tpu_torch/csrc/paged_append_quantized.cu",
+        "replaces": "ray_tpu/ops/paged_attention.py:456",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "rewrite_ms": rewrite_ms, "rewrite_bound_ms": rb_ms,
+        "bound_bytes": common_bytes, "rewrite_bound_bytes": rewrite_bytes,
+        "shape": f"L={L} B={B} KVH={KVH} D={D} page={page}, rows bf16, "
+                 "pools int8; ms = stable scales (rows only), rewrite_ms = "
+                 "every page requantised",
+    }
+    log(f"K3 paged_append_quantized: bytes and scales equal the plain "
+        f"version's  common case {ms:.4f} ms (bound {b_ms:.5f} ms, {b_by})  "
+        f"every page rewritten {rewrite_ms:.4f} ms (bound {rb_ms:.4f} ms)  "
+        f"plain {plain_ms:.4f} ms  no single library call")
+
+
+def k6_page_counts(rows, page):
+    """(pages the rows' fresh tokens touch, those of them extended past
+    older tokens, cells of fresh pages beyond the landing tokens)."""
+    touched = extended = fresh_tail = 0
+    for s, n in rows:
+        for pg in range(s // page, (s + n - 1) // page + 1 if n else 0):
+            touched += 1
+            if pg * page >= s:
+                fresh_tail += max(0, (pg + 1) * page - (s + n))
+            else:
+                extended += 1
+    return touched, extended, fresh_tail
+
+
+def kernel_phase_k6(torch, trpa, report):
+    """K6 at the 8B ragged mix: seven decode rows extending pages beside
+    a 256-token chunk opening four fresh pages.  Timed with the decode
+    rows' scales stable (the common case) and with their pages
+    requantised on every call."""
+    kb, _vb, _q, kn, _vn, rows, bt = ragged_inputs(torch, seed=8)
+    L, KVH, P, page, D = kb.shape
+    T = kn.shape[0]
+    del kb, _vb
+    g = torch.Generator(device="cuda").manual_seed(23)
+    k, v, ks, vs = int8_pools(torch, g, (L, KVH, P, page, D))
+    # Per token magnitudes: some rows fit their page's scale, some do not.
+    mag = (torch.rand((1, T, 1, 1), generator=g, device="cuda") * 4.0)
+    k_new = (torch.randn((L, T, KVH, D), generator=g, device="cuda")
+             * mag).to(torch.bfloat16)
+    v_new = (torch.randn((L, T, KVH, D), generator=g, device="cuda")
+             * 0.001).to(torch.bfloat16)
+    got = [t.clone() for t in (k, v, ks, vs)]
+    want = [t.clone() for t in (k, v, ks, vs)]
+    trpa.ragged_paged_append_quantized(*got, k_new, v_new, *rows, bt)
+    trpa.ragged_paged_append_quantized_plain(*want, k_new, v_new, *rows, bt)
+    torch.cuda.synchronize()
+    compare_quantised("K6", got, want, P - 1)
+    touched, extended, fresh_tail = k6_page_counts(RAGGED_ROWS, page)
+    moved = int((got[2][:, : P - 1] != ks[:, : P - 1]).any(dim=0)
+                .any(dim=-1).any(dim=-1).sum())
+    kept = int((got[3][:, : P - 1] == vs[:, : P - 1]).all(dim=0)
+               .all(dim=-1).all(dim=-1).sum())
+    if moved > touched or kept < P - 1 - touched:
+        raise AssertionError(f"K6 moved the scales of {moved} pages, kept "
+                             f"{kept}; the rows touch {touched}")
+    if not torch_equal(got[0][:, :, -1], k[:, :, -1]):
+        raise AssertionError("K6 wrote the scratch page")
+    err = 0.0
+    del got, want
+
+    ks.fill_(1.0)
+    vs.fill_(1.0)
+    ms = time_ms(torch, lambda i: trpa.ragged_paged_append_quantized(
+        k, v, ks, vs, k_new, v_new, *rows, bt))
+    plain_ms = time_ms(torch, lambda i:
+                       trpa.ragged_paged_append_quantized_plain(
+                           k, v, ks, vs, k_new, v_new, *rows, bt),
+                       n=4, blocks=3)
+    n, blocks = 5, 3
+    feed = growing(torch, k_new, 3 + n * blocks)
+    ks.fill_(1e-3)
+    vs.fill_(1e-3)
+    calls = iter(feed)
+
+    def grow(i):
+        x = next(calls)
+        trpa.ragged_paged_append_quantized(k, v, ks, vs, x, x, *rows, bt)
+
+    rewrite_ms = time_ms(torch, grow, n=n, blocks=blocks)
+    covered = sum(n_ for _, n_ in RAGGED_ROWS)
+    tok_b = 2 * L * covered * KVH * D
+    common_bytes = tok_b * 2 + tok_b + 2 * 2 * L * touched * KVH * 4 \
+        + 4 * len(RAGGED_ROWS) * 4 + bt.numel() * 4
+    # A fresh page is zeroed beyond its landing tokens; an extended page
+    # whose scale grew is read and written whole.
+    common_bytes += 2 * L * KVH * fresh_tail * D
+    rewrite_bytes = common_bytes + 2 * (2 * L * KVH * extended * page * D)
+    b_ms, b_by = bound(common_bytes, 0, F32_FLOPS)
+    rb_ms, _ = bound(rewrite_bytes, 0, F32_FLOPS)
+    report["K6"] = {
+        "name": "ragged_paged_append_quantized", "route": "cuda",
+        "source": "ray_tpu_torch/csrc/ragged_append_quantized.cu",
+        "replaces": "ray_tpu/ops/ragged_paged_attention.py:562",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "rewrite_ms": rewrite_ms, "rewrite_bound_ms": rb_ms,
+        "bound_bytes": common_bytes, "rewrite_bound_bytes": rewrite_bytes,
+        "shape": f"L={L} T={T} KVH={KVH} D={D} page={page}, rows bf16, "
+                 f"pools int8, rows {RAGGED_ROWS}; ms = stable scales on the "
+                 "decode rows' pages, rewrite_ms = those pages requantised",
+    }
+    log(f"K6 ragged_paged_append_quantized: bytes and scales equal the "
+        f"plain version's  common case {ms:.4f} ms (bound {b_ms:.4f} ms, "
+        f"{b_by})  extended pages rewritten {rewrite_ms:.4f} ms (bound "
+        f"{rb_ms:.4f} ms)  plain {plain_ms:.4f} ms  no single library call")
 
 
 def parity_phase(torch, llama, eng_mod):
@@ -582,6 +875,275 @@ def ragged_parity_phase(torch, llama, eng_mod, trpa):
     return {"prompts": [len(p) for p in prompts],
             "tokens": sum(len(s) for s in streams["cuda"]),
             "launches": launches["cuda"]}
+
+
+INT8 = " (int8 pools)"
+K1, K3 = "paged_decode_attention_partial", "paged_append_quantized"
+K4, K6 = "ragged_paged_attention", "ragged_paged_append_quantized"
+
+
+def reset_counts(kernels) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_int8"):
+            fn.launches_int8 = 0
+
+
+def read_counts(kernels) -> dict:
+    """Launches of every kernel since ``reset_counts``; K1 and K4 also
+    under ``name + INT8`` for their int8 instantiations (a part of the
+    name's own count)."""
+    out = {name: fn.launches for name, fn in kernels.items()}
+    out.update({name + INT8: fn.launches_int8
+                for name, fn in kernels.items()
+                if hasattr(fn, "launches_int8")})
+    return out
+
+
+def int8_parity_phase(torch, llama, eng_mod, kernels):
+    """Tiny f32 Llama with int8 KV pools, and the prefix cache: the
+    engine on the card (kernels) against the engine on the CPU (plain
+    versions), identical greedy streams.  Three runs: bucketed int8 (K1
+    int8, K3), ragged int8 (K4 int8, K6), and the ragged engine with the
+    prefix cache on int8 pools, fed one request after the other (a cold
+    prompt, a partial hit, and the first prompt again: an exact
+    full-prompt hit, which copies the deepest shared page)."""
+    import dataclasses
+
+    import numpy as np
+
+    cfg = dataclasses.replace(llama.LLAMA_TINY, max_seq_len=512,
+                              dtype=torch.float32, kv_int8=True)
+    cpu_params = llama.init_params(torch.Generator().manual_seed(2), cfg,
+                                   device="cpu", dtype=torch.float32)
+    base = dict(max_slots=4, max_seq_len=512, page_size=64, decode_chunk=8,
+                max_new_tokens_default=16)
+    ragged = dict(base, ragged_batching=True, prefill_chunk=64)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (9, 70, 150, 300, 33)]
+    shared = rng.integers(0, cfg.vocab_size, 128).tolist()
+    cached = [shared, shared + rng.integers(0, cfg.vocab_size, 20).tolist(),
+              shared]
+    runs = {"bucketed": (base, prompts, False, (K1 + INT8, K3)),
+            "ragged": (ragged, prompts, False, (K4 + INT8, K6)),
+            "prefix": (dict(ragged, prefix_cache=True), cached, True,
+                       (K4 + INT8, K6))}
+    out = {}
+    for name, (kw, reqs, one_by_one, must) in runs.items():
+        streams, counts, hits = {}, {}, {}
+        for device in ("cuda", "cpu"):
+            reset_counts(kernels)
+            eng = eng_mod.LLMEngine(_to(cpu_params, device),
+                                    eng_mod.llama_paged_adapter(cfg),
+                                    eng_mod.EngineConfig(**kw), device=device)
+            try:
+                if one_by_one:
+                    streams[device] = [eng.submit(p).result(timeout_s=300)
+                                       for p in reqs]
+                    hits[device] = eng.stats()["prefix"]["hit_tokens"]
+                else:
+                    streams[device] = [s.result(timeout_s=300) for s in
+                                       [eng.submit(p) for p in reqs]]
+            finally:
+                eng.shutdown()
+            counts[device] = read_counts(kernels)
+        if any(counts["cuda"][k] == 0 for k in must) \
+                or any(counts["cpu"].values()):
+            raise AssertionError(f"int8 parity ({name}): kernel launches "
+                                 f"{counts}")
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"int8 {name} greedy streams differ: cuda "
+                                 f"{streams['cuda']} vs cpu {streams['cpu']}")
+        if one_by_one and (hits["cuda"] != hits["cpu"]
+                           or hits["cuda"] != 128 + 127):
+            raise AssertionError(f"prefix parity: hit tokens {hits}, want "
+                                 f"{128 + 127} on both")
+        tokens = sum(len(s) for s in streams["cuda"])
+        log(f"int8 parity ({name}): LLAMA_TINY f32 weights, int8 pools, "
+            f"{len(reqs)} prompts of {[len(p) for p in reqs]} tokens: cuda "
+            f"== cpu greedy streams ({tokens} tokens; launches "
+            f"{ {k: counts['cuda'][k] for k in must} }"
+            + (f"; prefix hit tokens {hits['cuda']}" if one_by_one else "")
+            + ")")
+        out[name] = {"prompts": [len(p) for p in reqs], "tokens": tokens,
+                     "launches": {k: counts["cuda"][k] for k in must},
+                     "prefix_hit_tokens": hits.get("cuda")}
+    return out
+
+
+def int8_serving_phase(torch, llama, eng_mod, kernels, card, params):
+    """LLAMA3_8B with int8 KV pools at full width and depth.  The ragged
+    engine with the prefix cache serves the bf16 ragged phase's traffic,
+    then two prompts sharing a 512-token prefix, the second submitted
+    once the first has finished and donated its pages; then a short
+    bucketed run."""
+    import dataclasses
+
+    import numpy as np
+
+    cfg = dataclasses.replace(llama.LLAMA3_8B, kv_int8=True)
+    torch.cuda.reset_peak_memory_stats()
+    ecfg = eng_mod.EngineConfig(max_slots=8, max_seq_len=2048, page_size=64,
+                                decode_chunk=8, ragged_batching=True,
+                                prefill_chunk=256, prefix_cache=True)
+    eng = eng_mod.LLMEngine(params, eng_mod.llama_paged_adapter(cfg), ecfg,
+                            device="cuda")
+    rng = np.random.default_rng(13)
+    lens = (17, 300, 700, 1500)
+    late_len, tail = 1000, (40, 75)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    late_prompt = rng.integers(0, cfg.vocab_size, late_len).tolist()
+    shared = rng.integers(0, cfg.vocab_size, 512).tolist()
+    pair = [shared + rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in tail]
+    new = 32
+    try:
+        cache = eng._cache
+        pool_bytes = {key: t.numel() * t.element_size()
+                      for key, t in cache.items()}
+        if cache["k"].dtype != torch.int8 or "k_scale" not in cache:
+            raise AssertionError("the 8B int8 engine did not build int8 "
+                                 "pools")
+        # Warm-up request (allocator growth): not part of the measured
+        # run; 5 tokens donate no page.
+        eng.submit(prompts[0][:5], max_new_tokens=2).result(timeout_s=600)
+        st0 = eng.stats()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        streams = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        it = iter(streams[0])
+        first0 = [next(it)]
+        late = eng.submit(late_prompt, max_new_tokens=new)
+        outs = [first0 + list(it)]
+        outs += [s.result(timeout_s=600) for s in streams[1:]]
+        outs.append(late.result(timeout_s=600))
+        cold = eng.submit(pair[0], max_new_tokens=new)
+        outs.append(cold.result(timeout_s=600))
+        hit = eng.submit(pair[1], max_new_tokens=new)
+        outs.append(hit.result(timeout_s=600))
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        st1 = eng.stats()
+        reqs = [s._req for s in streams] + [late._req, cold._req, hit._req]
+        if not torch.isfinite(cache["k_scale"]).all() \
+                or not torch.isfinite(cache["v_scale"]).all():
+            raise AssertionError("8B int8: a page scale is not finite")
+    finally:
+        eng.shutdown()
+    steps = st1["steps"] - st0["steps"]
+    step_tokens = {k: st1["step_tokens"][k] - st0["step_tokens"][k]
+                   for k in st1["step_tokens"]}
+    for out in outs:
+        if len(out) != new or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"8B int8 ragged stream malformed: {out}")
+    k4, k6 = launches[K4 + INT8], launches[K6]
+    if steps == 0 or k4 != cfg.n_layers * steps or k6 != steps \
+            or launches[K4] != k4 or launches["ragged_paged_append"] \
+            or launches[K1] or launches["paged_append"] or launches[K3]:
+        raise AssertionError(f"8B int8 ragged: launches {launches} over "
+                             f"{steps} ragged steps, want K4 int8 "
+                             f"{cfg.n_layers} and K6 1 per step and no other "
+                             "paged kernel")
+    hit_tokens = st1["prefix"]["hit_tokens"] - st0["prefix"]["hit_tokens"]
+    if hit._req.prefix_hit != 512 or hit_tokens != 512:
+        raise AssertionError(f"8B int8: prefix hit {hit._req.prefix_hit} "
+                             f"(engine total {hit_tokens}), want 512")
+    want_prefill = sum(lens) + late_len + 2 * 512 + sum(tail) - 512
+    if step_tokens["prefill"] != want_prefill:
+        raise AssertionError(f"8B int8 ragged: {step_tokens['prefill']} "
+                             f"prompt tokens dispatched, want {want_prefill}")
+    # A prompt shorter than one chunk attends only to its own fresh k/v:
+    # its first token does not depend on the int8 pool at all.
+    check_first_token(torch, llama, params, cfg, prompts[0], outs[0][0],
+                      "8B int8 ragged serving")
+    # The hit request read 512 tokens of int8 KV it never computed: its
+    # first token must still rank at the top of a dense bf16 forward.
+    hit_rank = first_token_rank(torch, llama, params, cfg, pair[1],
+                                outs[-1][0])
+    if hit_rank >= 20:
+        raise AssertionError(f"8B int8: the prefix-hit request's first token "
+                             f"ranks {hit_rank} in the dense forward")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ragged = {
+        "config": "LLAMA3_8B bf16 weights, int8 KV pools, 32 layers, random "
+                  "weights (seed 0)",
+        "engine": "max_slots=8 max_seq_len=2048 page_size=64 decode_chunk=8 "
+                  "ragged_batching=True prefill_chunk=256 prefix_cache=True",
+        "prompt_lens": list(lens) + [late_len] + [len(p) for p in pair],
+        "max_new_tokens": new, "wall_s": wall,
+        "ttft_s": [r.first_token_at - r.submitted_at for r in reqs],
+        "ragged_steps": steps,
+        "mixed_steps": st1["mixed_steps"] - st0["mixed_steps"],
+        "step_tokens": step_tokens,
+        "engine_step_ms": wall / steps * 1e3, "launches": launches,
+        "prefix": {k: st1["prefix"][k] for k in st1["prefix"]},
+        "prefix_hit_tokens": hit_tokens,
+        "prefix_hit_first_token_rank": hit_rank,
+        "pool_bytes": pool_bytes, "peak_memory_gb": peak, "card": card,
+    }
+    log(f"8B int8 ragged serving with the prefix cache ({card}): TTFT "
+        f"{[round(t, 4) for t in ragged['ttft_s']]} s (the last two share a "
+        f"512-token prefix: hit {hit_tokens} tokens, first token rank "
+        f"{hit_rank}), {steps} ragged steps ({ragged['mixed_steps']} mixed, "
+        f"{ragged['engine_step_ms']:.2f} ms/step), tokens {step_tokens}, "
+        f"pools {sum(pool_bytes.values()) / 1e9:.3f} GB (scales "
+        f"{(pool_bytes['k_scale'] + pool_bytes['v_scale']) / 1e6:.2f} MB), "
+        f"peak {peak:.2f} GB, launches {launches}")
+
+    # The bucketed path on int8 pools: K1 (int8) per layer, K3 per step.
+    ecfg = eng_mod.EngineConfig(max_slots=8, max_seq_len=1024, page_size=64,
+                                decode_chunk=8)
+    eng = eng_mod.LLMEngine(params, eng_mod.llama_paged_adapter(cfg), ecfg,
+                            device="cuda")
+    short = [prompts[0], prompts[1]]
+    new_b = 16
+    try:
+        eng.submit(prompts[0][:5], max_new_tokens=2).result(timeout_s=600)
+        steps0 = eng.stats()["steps"]
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        b_streams = [eng.submit(p, max_new_tokens=new_b) for p in short]
+        b_outs = [s.result(timeout_s=600) for s in b_streams]
+        b_wall = time.perf_counter() - t0
+        b_launches = read_counts(kernels)
+        b_steps = eng.stats()["steps"] - steps0
+    finally:
+        eng.shutdown()
+    for out in b_outs:
+        if len(out) != new_b or not all(0 <= t < cfg.vocab_size
+                                        for t in out):
+            raise AssertionError(f"8B int8 bucketed stream malformed: {out}")
+    if b_launches[K3] == 0 \
+            or b_launches[K1 + INT8] != cfg.n_layers * b_launches[K3] \
+            or b_launches[K1] != b_launches[K1 + INT8] \
+            or b_launches["paged_append"] or b_launches[K6] \
+            or b_launches["flash_forward"] == 0:
+        raise AssertionError(f"8B int8 bucketed: launches {b_launches}, want "
+                             f"K1 int8 = {cfg.n_layers} x K3 > 0, K9f > 0 "
+                             "and no K2")
+    check_first_token(torch, llama, params, cfg, short[0], b_outs[0][0],
+                      "8B int8 bucketed serving")
+    bucketed = {"prompt_lens": [len(p) for p in short],
+                "max_new_tokens": new_b, "wall_s": b_wall,
+                "decode_steps": b_steps, "launches": b_launches,
+                "ttft_s": [s.metrics["ttft_s"] for s in b_streams]}
+    log(f"8B int8 bucketed serving: {b_steps} decode steps, TTFT "
+        f"{[round(t, 4) for t in bucketed['ttft_s']]} s, launches "
+        f"{b_launches}")
+    return ragged, bucketed
+
+
+def first_token_rank(torch, llama, params, cfg, prompt, token) -> int:
+    """Rank (0 = argmax) of ``token`` among the dense forward's logits at
+    the end of ``prompt`` (einsum attention, no pages, no int8)."""
+    with torch.no_grad():
+        logits = llama.forward(params, torch.tensor([prompt], device="cuda"),
+                               cfg)
+    last = logits[0, -1]
+    if not torch.isfinite(last).all():
+        raise AssertionError("8B forward logits are not finite")
+    return int((last > last[token]).sum())
 
 
 def _to(tree, device):
@@ -719,14 +1281,13 @@ def serving_phase(torch, llama, eng_mod, kernels, card, params, init_s):
         # Warm-up request (first cuBLAS handles, allocator growth): not
         # part of the measured run.
         eng.submit(prompts[0][:5], max_new_tokens=2).result(timeout_s=600)
-        for fn in kernels.values():
-            fn.launches = 0
+        reset_counts(kernels)
         steps0 = eng.stats()["steps"]
         t0 = time.perf_counter()
         streams = [eng.submit(p, max_new_tokens=new) for p in prompts]
         outs = [s.result(timeout_s=600) for s in streams]
         wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in kernels.items()}
+        launches = read_counts(kernels)
         steps = eng.stats()["steps"] - steps0
         metrics = [s.metrics for s in streams]
         reqs = [s._req for s in streams]
@@ -741,8 +1302,11 @@ def serving_phase(torch, llama, eng_mod, kernels, card, params, init_s):
     if missing:
         raise AssertionError(f"8B serving never launched {missing}")
     if launches["paged_decode_attention_partial"] \
-            != cfg.n_layers * launches["paged_append"]:
-        raise AssertionError(f"K1 launches {launches} != L x K2 launches")
+            != cfg.n_layers * launches["paged_append"] \
+            or launches["paged_decode_attention_partial" + INT8] \
+            or launches["paged_append_quantized"]:
+        raise AssertionError(f"K1 launches {launches} != L x K2 launches, or "
+                             "an int8 kernel ran on bf16 pools")
     check_first_token(torch, llama, params, cfg, prompts[0], outs[0][0],
                       "8B serving")
     first = min(r.first_token_at for r in reqs)
@@ -833,8 +1397,7 @@ def ragged_serving_phase(torch, llama, eng_mod, kernels, card, params):
         # the measured run.
         eng.submit(prompts[0][:5], max_new_tokens=2).result(timeout_s=600)
         st0 = eng.stats()
-        for fn in kernels.values():
-            fn.launches = 0
+        reset_counts(kernels)
         t0 = time.perf_counter()
         streams = [eng.submit(p, max_new_tokens=new) for p in prompts]
         it = iter(streams[0])
@@ -844,7 +1407,7 @@ def ragged_serving_phase(torch, llama, eng_mod, kernels, card, params):
         outs += [s.result(timeout_s=600) for s in streams[1:]]
         outs.append(late.result(timeout_s=600))
         wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in kernels.items()}
+        launches = read_counts(kernels)
         st1 = eng.stats()
         reqs = [s._req for s in streams] + [late._req]
     finally:
@@ -858,10 +1421,12 @@ def ragged_serving_phase(torch, llama, eng_mod, kernels, card, params):
             raise AssertionError(f"8B ragged stream malformed: {out}")
     k4 = launches["ragged_paged_attention"]
     k5 = launches["ragged_paged_append"]
-    if steps == 0 or k4 != cfg.n_layers * steps or k5 != steps:
+    if steps == 0 or k4 != cfg.n_layers * steps or k5 != steps \
+            or launches["ragged_paged_attention" + INT8] \
+            or launches["ragged_paged_append_quantized"]:
         raise AssertionError(f"8B ragged: K4 {k4} / K5 {k5} launches over "
                              f"{steps} ragged steps, want {cfg.n_layers} "
-                             "and 1 per step")
+                             f"and 1 per step and no int8 kernel: {launches}")
     if mixed < 1 or min(step_tokens.values()) <= 0:
         raise AssertionError(f"8B ragged: no step packed decode rows beside "
                              f"prompt tokens (mixed {mixed}, tokens "
@@ -954,7 +1519,10 @@ def main() -> int:
                "paged_append": tpa.paged_append,
                "flash_forward": tfa.flash_forward,
                "ragged_paged_attention": trpa.ragged_paged_attention,
-               "ragged_paged_append": trpa.ragged_paged_append}
+               "ragged_paged_append": trpa.ragged_paged_append,
+               "paged_append_quantized": tpa.paged_append_quantized,
+               "ragged_paged_append_quantized":
+               trpa.ragged_paged_append_quantized}
     report = {}
     kernel_phase_k1(torch, F, tpa, report)
     kernel_phase_k2(torch, tpa, report)
@@ -962,38 +1530,55 @@ def main() -> int:
     kernel_phase_k4(torch, F, trpa, report)
     kernel_phase_k5(torch, trpa, report)
     torch.cuda.empty_cache()
+    kernel_phase_k1(torch, F, tpa, report, int8=True)
+    kernel_phase_k3(torch, tpa, report)
+    kernel_phase_k4(torch, F, trpa, report, int8=True)
+    torch.cuda.empty_cache()
+    kernel_phase_k6(torch, trpa, report)
+    torch.cuda.empty_cache()
     parity = parity_phase(torch, llama, eng_mod)
     ragged_parity = ragged_parity_phase(torch, llama, eng_mod, trpa)
+    int8_parity = int8_parity_phase(torch, llama, eng_mod, kernels)
     params, init_s = init_8b(torch, llama)
     # Each path is driven with every launch counter at 0 just before it
-    # and read just after: the bucketed path's K1, K2, K9f, then the
-    # ragged path's K4, K5.
+    # and read just after: the bucketed path's K1, K2, K9f, the ragged
+    # path's K4, K5, then on int8 pools the ragged path's K4 (int8), K6
+    # and the bucketed path's K1 (int8), K3.
     serving = serving_phase(torch, llama, eng_mod, kernels, card, params,
                             init_s)
     ragged = ragged_serving_phase(torch, llama, eng_mod, kernels, card,
                                   params)
+    int8_ragged, int8_bucketed = int8_serving_phase(
+        torch, llama, eng_mod, kernels, card, params)
     del params
+    order = ("K1", "K2", "K9f", "K4", "K5", "K1i8", "K3", "K4i8", "K6")
     for key, name, run in (
             ("K1", "paged_decode_attention_partial", serving),
             ("K2", "paged_append", serving),
             ("K9f", "flash_forward", serving),
             ("K4", "ragged_paged_attention", ragged),
-            ("K5", "ragged_paged_append", ragged)):
+            ("K5", "ragged_paged_append", ragged),
+            ("K1i8", "paged_decode_attention_partial" + INT8, int8_bucketed),
+            ("K3", "paged_append_quantized", int8_bucketed),
+            ("K4i8", "ragged_paged_attention" + INT8, int8_ragged),
+            ("K6", "ragged_paged_append_quantized", int8_ragged)):
         report[key]["launches"] = run["launches"][name]
         report[key]["kernel_ms"] = report[key]["ms"]
     total_s = time.perf_counter() - t_all
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    line = {"kernels": [{k: report[key][k] for k in keys}
-                        for key in ("K1", "K2", "K9f", "K4", "K5")]}
+    line = {"kernels": [{k: report[key][k] for k in keys} for key in order]}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": build_s,
                    "total_s": total_s, "kernels": report, "parity": parity,
-                   "ragged_parity": ragged_parity, "serving": serving,
-                   "ragged_serving": ragged}, f, indent=1)
+                   "ragged_parity": ragged_parity,
+                   "int8_parity": int8_parity, "serving": serving,
+                   "ragged_serving": ragged,
+                   "int8_ragged_serving": int8_ragged,
+                   "int8_bucketed_serving": int8_bucketed}, f, indent=1)
     log(f"total {total_s:.1f} s; details in {args.out}")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -1,4 +1,5 @@
-"""Parameter bridge between the JAX package and the port, through numpy.
+"""Parameter and KV-cache bridge between the JAX package and the port,
+through numpy.
 
 The port keeps the JAX package's parameter tree as it is — the same
 nesting, key names and layouts (``wq [L,d,H,hd]``, ``lm_head [d,V]``,
@@ -6,7 +7,11 @@ nesting, key names and layouts (``wq [L,d,H,hd]``, ``lm_head [d,V]``,
 JAX arrays into numpy (``jax.tree.map(np.asarray, params)``) outside
 this package: the bridge never imports jax.
 
-f32 leaves cross exactly.  bf16 leaves (numpy's ``bfloat16`` extension
+A paged cache crosses the same way (``paged_cache_from_jax`` /
+``paged_cache_to_numpy``): the port keeps the pools [L, KVH, P+1, page,
+D] and, for int8 pools, the page-major scales [L, P+1, KVH, 1].
+
+f32 and int8 leaves cross exactly.  bf16 leaves (numpy's ``bfloat16`` extension
 dtype, as ``np.asarray`` returns them) cross bit-exactly through a
 16-bit view.
 """
@@ -52,3 +57,27 @@ def params_to_numpy(tree: Any, bf16_dtype: Optional[Any] = None) -> Any:
             return t.float().numpy()
         return t.view(torch.int16).numpy().view(np.dtype(bf16_dtype))
     return t.numpy()
+
+
+_CACHE_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
+def paged_cache_from_jax(cache: Any, device: DeviceLike = None) -> Any:
+    """A JAX paged cache as numpy arrays (``k``, ``v`` and, for int8
+    pools, ``k_scale``, ``v_scale``) → the port's cache dict on
+    ``device``: new tensors, same layouts, so both sides can start from
+    one pool."""
+    unknown = set(cache) - set(_CACHE_KEYS)
+    if unknown or not {"k", "v"} <= set(cache) \
+            or ("k_scale" in cache) != ("v_scale" in cache):
+        raise ValueError(f"not a paged cache: keys {sorted(cache)}")
+    dev = resolve_device(device)
+    return {key: _leaf_to_torch(cache[key], dev)
+            for key in _CACHE_KEYS if key in cache}
+
+
+def paged_cache_to_numpy(cache: Any, bf16_dtype: Optional[Any] = None) -> Any:
+    """Inverse of ``paged_cache_from_jax``: the port's cache dict →
+    numpy arrays on the host (bf16 pools as ``params_to_numpy`` returns
+    them)."""
+    return params_to_numpy(dict(cache), bf16_dtype)

@@ -1,7 +1,9 @@
 // K1 — paged decode attention partials (one q token per slot).
 //
 // Replaces ray_tpu/ops/paged_attention.py paged_decode_attention_partial
-// (Pallas body _kernel_partial, pallas_call at :347), bf16/f32 pools.
+// (Pallas body _kernel_partial, pallas_call at :347): bf16/f32 pools, and
+// int8 pools with one f32 scale per physical page and kv head
+// ([L, P, KVH, 1], page-major; true value = int8 * scale).
 //
 // Computes, for slot b and query head h against the PAST tokens of the
 // layered page pool [L, KVH, P, page, D] (block table [B, maxp],
@@ -28,6 +30,13 @@
 // group), and the online softmax keeps m, l in shared memory and acc
 // in registers, in f32.  No TPU sublane padding of the q group
 // (_MIN_QPG) is carried over.
+//
+// int8 pools (QUANT): a page's int8 bytes are staged the same way (half
+// the bytes of bf16 leave HBM) and converted to f32 exactly; the page's
+// two scales are read once per (page, kv head); the k scale multiplies
+// the page's scores after the q.k dot, before the soft cap and the mask,
+// and the v scale multiplies the page's p.v sum before it joins the
+// accumulator.  m, l and acc stay f32 and unnormalised.
 #include "common.cuh"
 
 namespace {
@@ -35,10 +44,11 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int MAX_E = 4;  // accumulators per thread: qpg*D <= 1024
 
-template <typename T>
+template <typename T, typename TK, bool QUANT>
 __global__ void __launch_bounds__(THREADS) paged_decode_partial_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pools,
-    const T* __restrict__ v_pools, const int* __restrict__ block_table,
+    const T* __restrict__ q, const TK* __restrict__ k_pools,
+    const TK* __restrict__ v_pools, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ block_table,
     const int* __restrict__ lengths, float* __restrict__ acc_out,
     float* __restrict__ m_out, float* __restrict__ l_out, int layer,
     int KVH, int P, int page, int D, int qpg, int maxp, int pages_per_split,
@@ -48,9 +58,9 @@ __global__ void __launch_bounds__(THREADS) paged_decode_partial_kernel(
   const int b = blockIdx.x, g = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x;
   const int H = KVH * qpg;
-  const int ks = D + 4;  // padded f32 row stride of the staged k page
+  const int kst = D + 4;  // padded f32 row stride of the staged k page
   float* k_s = smem;                  // [page][D + 4]
-  float* v_s = k_s + page * ks;       // [page][D]
+  float* v_s = k_s + page * kst;      // [page][D]
   float* q_s = v_s + page * D;        // [qpg][D]
   float* p_s = q_s + qpg * D;         // [qpg][page] scores, then probs
   float* m_s = p_s + qpg * page;      // [qpg] running max
@@ -73,9 +83,9 @@ __global__ void __launch_bounds__(THREADS) paged_decode_partial_kernel(
       min(min((len + page - 1) / page, maxp), p_begin + pages_per_split);
   const size_t page_elems = (size_t)page * D;
   const size_t head_off = ((size_t)layer * KVH + g) * (size_t)P * page_elems;
-  const T* k_head = k_pools + head_off;
-  const T* v_head = v_pools + head_off;
-  constexpr int N = rtt::Vec<T>::N;
+  const TK* k_head = k_pools + head_off;
+  const TK* v_head = v_pools + head_off;
+  constexpr int N = rtt::Vec<TK>::N;
   const int chunks = D / N;
   const int warp = tid / 32, lane = tid % 32;
   __syncthreads();
@@ -83,17 +93,23 @@ __global__ void __launch_bounds__(THREADS) paged_decode_partial_kernel(
   for (int p = p_begin; p < p_end; ++p) {
     int pid = block_table[(size_t)b * maxp + p];
     pid = min(max(pid, 0), P - 1);
-    const T* kp = k_head + (size_t)pid * page_elems;
-    const T* vp = v_head + (size_t)pid * page_elems;
+    const TK* kp = k_head + (size_t)pid * page_elems;
+    const TK* vp = v_head + (size_t)pid * page_elems;
     const int n_valid = min(page, len - p * page);
+    float ks = 1.f, vs = 1.f;
+    if (QUANT) {
+      const size_t so = ((size_t)layer * P + pid) * KVH + g;
+      ks = k_scales[so];
+      vs = v_scales[so];
+    }
 
     for (int i = tid; i < n_valid * chunks; i += THREADS) {
       const int t = i / chunks, c = (i % chunks) * N;
       float tmp[N];
-      rtt::Vec<T>::load(kp + (size_t)t * D + c, tmp);
+      rtt::Vec<TK>::load(kp + (size_t)t * D + c, tmp);
 #pragma unroll
-      for (int j = 0; j < N; ++j) k_s[t * ks + c + j] = tmp[j];
-      rtt::Vec<T>::load(vp + (size_t)t * D + c, tmp);
+      for (int j = 0; j < N; ++j) k_s[t * kst + c + j] = tmp[j];
+      rtt::Vec<TK>::load(vp + (size_t)t * D + c, tmp);
 #pragma unroll
       for (int j = 0; j < N; ++j) v_s[t * D + c + j] = tmp[j];
     }
@@ -103,7 +119,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_partial_kernel(
       const int qi = i / page, t = i % page;
       float s = rtt::NEG_INF;
       if (t < n_valid) {
-        const float4* kr = reinterpret_cast<const float4*>(k_s + t * ks);
+        const float4* kr = reinterpret_cast<const float4*>(k_s + t * kst);
         const float4* qr = reinterpret_cast<const float4*>(q_s + qi * D);
         float dot = 0.f;
         for (int d4 = 0; d4 < D / 4; ++d4) {
@@ -111,6 +127,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_partial_kernel(
           dot += a.x * kk.x + a.y * kk.y + a.z * kk.z + a.w * kk.w;
         }
         s = dot * scale;
+        if (QUANT) s = s * ks;
         if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
       }
       p_s[qi * page + t] = s;
@@ -146,9 +163,15 @@ __global__ void __launch_bounds__(THREADS) paged_decode_partial_kernel(
       if (idx < qpg * D) {
         const int qi = idx / D, d = idx % D;
         const float* prow = p_s + qi * page;
-        float a = acc[e] * c_s[qi];
-        for (int t = 0; t < n_valid; ++t) a += prow[t] * v_s[t * D + d];
-        acc[e] = a;
+        if (QUANT) {
+          float pv = 0.f;
+          for (int t = 0; t < n_valid; ++t) pv += prow[t] * v_s[t * D + d];
+          acc[e] = acc[e] * c_s[qi] + pv * vs;
+        } else {
+          float a = acc[e] * c_s[qi];
+          for (int t = 0; t < n_valid; ++t) a += prow[t] * v_s[t * D + d];
+          acc[e] = a;
+        }
       }
     }
     __syncthreads();  // the next page overwrites k_s, v_s, p_s, c_s
@@ -198,8 +221,9 @@ __global__ void merge_splits_kernel(const float* __restrict__ part_acc,
   }
 }
 
-template <typename T>
+template <typename T, typename TK, bool QUANT>
 int launch(const void* q, const void* k_pools, const void* v_pools,
+           const void* k_scales, const void* v_scales,
            const void* block_table, const void* lengths, float* acc, float* m,
            float* l, float* part_acc, float* part_m, float* part_l, int B,
            int KVH, int P, int page, int D, int qpg, int maxp,
@@ -210,15 +234,17 @@ int launch(const void* q, const void* k_pools, const void* v_pools,
       sizeof(float) * ((size_t)page * (D + 4) + (size_t)page * D +
                        (size_t)qpg * D + (size_t)qpg * page + 3 * qpg);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_partial_kernel<T>,
+      paged_decode_partial_kernel<T, TK, QUANT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // One split writes the outputs directly; several write partials.
   const bool direct = nsplit == 1;
-  paged_decode_partial_kernel<T>
+  paged_decode_partial_kernel<T, TK, QUANT>
       <<<dim3(B, KVH, nsplit), THREADS, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k_pools),
-          static_cast<const T*>(v_pools),
+          static_cast<const T*>(q), static_cast<const TK*>(k_pools),
+          static_cast<const TK*>(v_pools),
+          static_cast<const float*>(k_scales),
+          static_cast<const float*>(v_scales),
           static_cast<const int*>(block_table),
           static_cast<const int*>(lengths), direct ? acc : part_acc,
           direct ? m : part_m, direct ? l : part_l, layer, KVH, P, page, D,
@@ -234,15 +260,18 @@ int launch(const void* q, const void* k_pools, const void* v_pools,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  soft_cap <= 0 means none.  The
-// partial buffers hold [ceil(maxp / pages_per_split), B, H] rows (f32,
-// times D for part_acc); unused when one split covers maxp.
+// dtype (of q): 0 = float32, 1 = bfloat16.  The pools have q's dtype when
+// k_scales is null, and are int8 with f32 scales [L, P, KVH, 1] when it is
+// not.  soft_cap <= 0 means none.  The partial buffers hold
+// [ceil(maxp / pages_per_split), B, H] rows (f32, times D for part_acc);
+// unused when one split covers maxp.
 extern "C" int rtt_paged_decode_partial(
     const void* q, const void* k_pools, const void* v_pools,
-    const void* block_table, const void* lengths, void* acc, void* m, void* l,
-    void* part_acc, void* part_m, void* part_l, int dtype, int B, int KVH,
-    int P, int page, int D, int qpg, int maxp, int pages_per_split, int layer,
-    float scale, float soft_cap, void* stream) {
+    const void* k_scales, const void* v_scales, const void* block_table,
+    const void* lengths, void* acc, void* m, void* l, void* part_acc,
+    void* part_m, void* part_l, int dtype, int B, int KVH, int P, int page,
+    int D, int qpg, int maxp, int pages_per_split, int layer, float scale,
+    float soft_cap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* a = static_cast<float*>(acc);
   float* mm = static_cast<float*>(m);
@@ -250,12 +279,14 @@ extern "C" int rtt_paged_decode_partial(
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
-  if (dtype == 0)
-    return launch<float>(q, k_pools, v_pools, block_table, lengths, a, mm, ll,
-                         pa, pm, pl, B, KVH, P, page, D, qpg, maxp,
-                         pages_per_split, layer, scale, soft_cap, s);
-  return launch<__nv_bfloat16>(q, k_pools, v_pools, block_table, lengths, a,
-                               mm, ll, pa, pm, pl, B, KVH, P, page, D, qpg,
-                               maxp, pages_per_split, layer, scale, soft_cap,
-                               s);
+#define RTT_K1_LAUNCH(T, TK, QUANT)                                          \
+  launch<T, TK, QUANT>(q, k_pools, v_pools, k_scales, v_scales, block_table, \
+                       lengths, a, mm, ll, pa, pm, pl, B, KVH, P, page, D,   \
+                       qpg, maxp, pages_per_split, layer, scale, soft_cap, s)
+  if (k_scales != nullptr)
+    return dtype == 0 ? RTT_K1_LAUNCH(float, int8_t, true)
+                      : RTT_K1_LAUNCH(__nv_bfloat16, int8_t, true);
+  return dtype == 0 ? RTT_K1_LAUNCH(float, float, false)
+                    : RTT_K1_LAUNCH(__nv_bfloat16, __nv_bfloat16, false);
+#undef RTT_K1_LAUNCH
 }

@@ -1,8 +1,9 @@
-// K4 — ragged paged attention (bf16/f32 pools), one layer.
+// K4 — ragged paged attention (bf16/f32 or int8 pools), one layer.
 //
 // Replaces ray_tpu/ops/ragged_paged_attention.py ragged_paged_attention
-// (Pallas body _ragged_kernel, pallas_call at :379), its bf16/f32-pool
-// branch.
+// (Pallas body _ragged_kernel, pallas_call at :379): bf16/f32 pools, and
+// int8 pools with one f32 scale per physical page and kv head
+// ([L, P, KVH, 1], page-major; true value = int8 * scale).
 //
 // A flat buffer of T tokens holds R rows (slot, start, len, off).  Token
 // t < len of row r sits at position start + t of its slot and attends to
@@ -34,6 +35,15 @@
 // (m, l per row, in f32) reduces with shuffles; probabilities go through
 // shared memory to the P.V product, where the same thread owns the same
 // RPT rows x D/16 strided output columns in registers.
+//
+// int8 pools (QUANT): a staged key block may span several pages (its 64
+// keys are indexed page by page), so the scales are carried PER KEY: the
+// thread that stages a pooled key's first piece also stores the key's
+// page scales beside the block.  The k scale multiplies the score after
+// the q.k dot (before the soft cap and the mask); the v scale multiplies
+// the probability on its way to the P.V product, while the row sum l
+// takes the unscaled one.  Fresh keys (the self phase) are f32/bf16 and
+// carry no scale.
 #include "common.cuh"
 
 namespace {
@@ -47,7 +57,7 @@ constexpr int MAX_ROWS = RG * 4;     // rows of the large tile
 template <int D>
 constexpr size_t smem_floats() {
   return (size_t)MAX_ROWS * (D + 4) + (size_t)KC * (D + 4) + (size_t)KC * D +
-         (size_t)MAX_ROWS * (KC + 4);
+         (size_t)MAX_ROWS * (KC + 4) + 2 * KC;
 }
 
 struct Row {
@@ -59,12 +69,42 @@ struct Args {
   float scale, soft_cap;
 };
 
+// Stage one block of nk keys (zero rows up to KC) as f32: key kk's k and
+// v rows come from src(kk), which returns their common element offset.
+template <typename TS, int D, typename Src>
+__device__ __forceinline__ void stage_block(float* k_s, float* v_s,
+                                            const TS* __restrict__ kbase,
+                                            const TS* __restrict__ vbase,
+                                            int nk, Src src) {
+  constexpr int KS = D + 4;
+  constexpr int N = rtt::Vec<TS>::N;
+  constexpr int CHUNKS = D / N;
+  for (int i = threadIdx.x; i < KC * CHUNKS; i += THREADS) {
+    const int kk = i / CHUNKS, c = (i % CHUNKS) * N;
+    float tk[N], tv[N];
+    if (kk < nk) {
+      const size_t o = src(kk, c == 0);
+      rtt::Vec<TS>::load(kbase + o + c, tk);
+      rtt::Vec<TS>::load(vbase + o + c, tv);
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < N; ++jj) tk[jj] = tv[jj] = 0.f;
+    }
+#pragma unroll
+    for (int jj = 0; jj < N; ++jj) {
+      k_s[kk * KS + c + jj] = tk[jj];
+      v_s[kk * D + c + jj] = tv[jj];
+    }
+  }
+}
+
 // One q tile: tokens [t0, t0 + ntok) of row `row`, kv head g.
-template <typename T, int D, int RPT>
+template <typename T, typename TK, bool QUANT, int D, int RPT>
 __device__ __forceinline__ void run_tile(
     float* smem, const T* __restrict__ q, const T* __restrict__ k_new,
-    const T* __restrict__ v_new, const T* __restrict__ k_pools,
-    const T* __restrict__ v_pools, const int* __restrict__ block_tables,
+    const T* __restrict__ v_new, const TK* __restrict__ k_pools,
+    const TK* __restrict__ v_pools, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     float* __restrict__ out, const Args& a, const Row& row, int g, int t0,
     int ntok) {
   constexpr int ROWS = RG * RPT;
@@ -76,6 +116,8 @@ __device__ __forceinline__ void run_tile(
   float* k_s = q_s + ROWS * QS;      // [KC][KS]
   float* v_s = k_s + KC * KS;        // [KC][D]
   float* p_s = v_s + KC * D;         // [ROWS][PS]
+  float* ks_s = p_s + ROWS * PS;     // [KC] k scale of each pooled key
+  float* vs_s = ks_s + KC;           // [KC] v scale
   const int tid = threadIdx.x, rg = tid / CG, cg = tid % CG;
   const int qpg = a.H / a.KVH;
   const int nrows = ntok * qpg;
@@ -121,37 +163,27 @@ __device__ __forceinline__ void run_tile(
     for (int kb = 0; kb < nkeys; kb += KC) {
       const int nk = min(KC, nkeys - kb);
       __syncthreads();  // the previous block's readers are done
-      for (int i = tid; i < KC * CHUNKS; i += THREADS) {
-        const int kk = i / CHUNKS, c = (i % CHUNKS) * N;
-        float tk[N], tv[N];
-        if (kk < nk) {
-          const int j = kb + kk;
-          const T *ksrc, *vsrc;
-          if (phase == 0) {
-            int pid = bt_row[j / a.page];
-            pid = min(max(pid, 0), a.P - 1);
-            const size_t o =
-                head_off + (size_t)pid * page_elems + (size_t)(j % a.page) * D;
-            ksrc = k_pools + o;
-            vsrc = v_pools + o;
-          } else {
-            const size_t o = ((size_t)(row.off + j) * a.KVH + g) * D;
-            ksrc = k_new + o;
-            vsrc = v_new + o;
-          }
-          rtt::Vec<T>::load(ksrc + c, tk);
-          rtt::Vec<T>::load(vsrc + c, tv);
-        } else {
-#pragma unroll
-          for (int jj = 0; jj < N; ++jj) tk[jj] = tv[jj] = 0.f;
-        }
-#pragma unroll
-        for (int jj = 0; jj < N; ++jj) {
-          k_s[kk * KS + c + jj] = tk[jj];
-          v_s[kk * D + c + jj] = tv[jj];
-        }
+      if (phase == 0) {
+        stage_block<TK, D>(
+            k_s, v_s, k_pools, v_pools, nk, [&](int kk, bool first) {
+              const int j = kb + kk;
+              int pid = bt_row[j / a.page];
+              pid = min(max(pid, 0), a.P - 1);
+              if (QUANT && first) {
+                const size_t so = ((size_t)a.layer * a.P + pid) * a.KVH + g;
+                ks_s[kk] = k_scales[so];
+                vs_s[kk] = v_scales[so];
+              }
+              return head_off + (size_t)pid * page_elems +
+                     (size_t)(j % a.page) * D;
+            });
+      } else {
+        stage_block<T, D>(k_s, v_s, k_new, v_new, nk, [&](int kk, bool) {
+          return ((size_t)(row.off + kb + kk) * a.KVH + g) * D;
+        });
       }
       __syncthreads();
+      const bool scaled = QUANT && phase == 0;
 
       // Scores of the thread's RPT rows x key columns cg + 16 j.
       float s[RPT][4];
@@ -190,6 +222,7 @@ __device__ __forceinline__ void run_tile(
           valid[j] = tok_of[i] >= 0 && col < nk &&
                      (phase == 0 || kb + col <= tok_of[i]);
           float x = s[i][j] * a.scale;
+          if (scaled) x = x * ks_s[col < nk ? col : 0];
           if (a.soft_cap > 0.f) x = a.soft_cap * tanhf(x / a.soft_cap);
           s[i][j] = x;
           if (valid[j]) mx = fmaxf(mx, x);
@@ -200,7 +233,8 @@ __device__ __forceinline__ void run_tile(
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-          p_s[r * PS + cg + CG * j] = p;
+          const int col = cg + CG * j;
+          p_s[r * PS + col] = scaled && col < nk ? p * vs_s[col] : p;
           sum += p;
         }
         sum = rtt::group_sum<CG>(sum);
@@ -239,11 +273,12 @@ __device__ __forceinline__ void run_tile(
   }
 }
 
-template <typename T, int D>
+template <typename T, typename TK, bool QUANT, int D>
 __global__ void __launch_bounds__(THREADS) ragged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k_new,
-    const T* __restrict__ v_new, const T* __restrict__ k_pools,
-    const T* __restrict__ v_pools, const int* __restrict__ row_slot,
+    const T* __restrict__ v_new, const TK* __restrict__ k_pools,
+    const TK* __restrict__ v_pools, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ row_slot,
     const int* __restrict__ row_start, const int* __restrict__ row_len,
     const int* __restrict__ row_off, const int* __restrict__ block_tables,
     float* __restrict__ out, Args a) {
@@ -255,80 +290,90 @@ __global__ void __launch_bounds__(THREADS) ragged_attention_kernel(
   const int qpg = a.H / a.KVH;
   if (row.len * qpg <= RG) {  // a decode row or a short chunk: one 16-row tile
     if (tile == 0)
-      run_tile<T, D, 1>(smem, q, k_new, v_new, k_pools, v_pools, block_tables,
-                        out, a, row, g, 0, row.len);
+      run_tile<T, TK, QUANT, D, 1>(smem, q, k_new, v_new, k_pools, v_pools,
+                                   k_scales, v_scales, block_tables, out, a,
+                                   row, g, 0, row.len);
     return;
   }
   const int per_tile = MAX_ROWS / qpg;
   const int t0 = tile * per_tile;
   if (t0 >= row.len) return;
-  run_tile<T, D, 4>(smem, q, k_new, v_new, k_pools, v_pools, block_tables,
-                    out, a, row, g, t0, min(per_tile, row.len - t0));
+  run_tile<T, TK, QUANT, D, 4>(smem, q, k_new, v_new, k_pools, v_pools,
+                               k_scales, v_scales, block_tables, out, a, row,
+                               g, t0, min(per_tile, row.len - t0));
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k_new, const void* v_new,
-           const void* k_pools, const void* v_pools, const void* row_slot,
-           const void* row_start, const void* row_len, const void* row_off,
-           const void* block_tables, float* out, const Args& a, int R,
-           int n_tiles, cudaStream_t stream) {
+struct Ptrs {
+  const void *q, *k_new, *v_new, *k_pools, *v_pools, *k_scales, *v_scales,
+      *row_slot, *row_start, *row_len, *row_off, *block_tables;
+  float* out;
+};
+
+template <typename T, typename TK, bool QUANT, int D>
+int launch(const Ptrs& p, const Args& a, int R, int n_tiles,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_attention_kernel<T, D>,
+      ragged_attention_kernel<T, TK, QUANT, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ragged_attention_kernel<T, D>
+  ragged_attention_kernel<T, TK, QUANT, D>
       <<<dim3(R, a.KVH, n_tiles), THREADS, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k_new),
-          static_cast<const T*>(v_new), static_cast<const T*>(k_pools),
-          static_cast<const T*>(v_pools), static_cast<const int*>(row_slot),
-          static_cast<const int*>(row_start),
-          static_cast<const int*>(row_len), static_cast<const int*>(row_off),
-          static_cast<const int*>(block_tables), out, a);
+          static_cast<const T*>(p.q), static_cast<const T*>(p.k_new),
+          static_cast<const T*>(p.v_new), static_cast<const TK*>(p.k_pools),
+          static_cast<const TK*>(p.v_pools),
+          static_cast<const float*>(p.k_scales),
+          static_cast<const float*>(p.v_scales),
+          static_cast<const int*>(p.row_slot),
+          static_cast<const int*>(p.row_start),
+          static_cast<const int*>(p.row_len),
+          static_cast<const int*>(p.row_off),
+          static_cast<const int*>(p.block_tables), p.out, a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k_new, const void* v_new,
-               const void* k_pools, const void* v_pools, const void* row_slot,
-               const void* row_start, const void* row_len,
-               const void* row_off, const void* block_tables, float* out,
-               const Args& a, int R, int n_tiles, cudaStream_t s) {
-#define RTT_K4_CASE(DD)                                                      \
-  case DD:                                                                   \
-    return launch<T, DD>(q, k_new, v_new, k_pools, v_pools, row_slot,        \
-                         row_start, row_len, row_off, block_tables, out, a, \
-                         R, n_tiles, s);
+template <typename T, typename TK, bool QUANT>
+int dispatch_d(int D, const Ptrs& p, const Args& a, int R, int n_tiles,
+               cudaStream_t s) {
   switch (D) {
-    RTT_K4_CASE(16)
-    RTT_K4_CASE(32)
-    RTT_K4_CASE(64)
-    RTT_K4_CASE(128)
+    case 16:
+      return launch<T, TK, QUANT, 16>(p, a, R, n_tiles, s);
+    case 32:
+      return launch<T, TK, QUANT, 32>(p, a, R, n_tiles, s);
+    case 64:
+      return launch<T, TK, QUANT, 64>(p, a, R, n_tiles, s);
+    case 128:
+      return launch<T, TK, QUANT, 128>(p, a, R, n_tiles, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef RTT_K4_CASE
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  soft_cap <= 0 means none.  out is
-// f32 [T, H, D], zeroed by the caller.  n_tiles = ceil(T / (64 / qpg)).
+// dtype (of q and the fresh k/v): 0 = float32, 1 = bfloat16.  The pools
+// have that dtype when k_scales is null, and are int8 with f32 scales
+// [L, P, KVH, 1] when it is not.  soft_cap <= 0 means none.  out is f32
+// [T, H, D], zeroed by the caller.  n_tiles = ceil(T / (64 / qpg)).
 extern "C" int rtt_ragged_attention(
     const void* q, const void* k_new, const void* v_new, const void* k_pools,
-    const void* v_pools, const void* row_slot, const void* row_start,
-    const void* row_len, const void* row_off, const void* block_tables,
-    void* out, int dtype, int H, int KVH, int P, int page, int D, int maxp,
-    int R, int n_tiles, int layer, float scale, float soft_cap,
-    void* stream) {
+    const void* v_pools, const void* k_scales, const void* v_scales,
+    const void* row_slot, const void* row_start, const void* row_len,
+    const void* row_off, const void* block_tables, void* out, int dtype,
+    int H, int KVH, int P, int page, int D, int maxp, int R, int n_tiles,
+    int layer, float scale, float soft_cap, void* stream) {
   const Args a{H, KVH, P, page, maxp, layer, scale, soft_cap};
+  const Ptrs p{q,        k_new,   v_new,     k_pools, v_pools,
+               k_scales, v_scales, row_slot, row_start, row_len,
+               row_off,  block_tables, static_cast<float*>(out)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(out);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k_new, v_new, k_pools, v_pools, row_slot,
-                             row_start, row_len, row_off, block_tables, o, a,
-                             R, n_tiles, s);
-  return dispatch_d<__nv_bfloat16>(D, q, k_new, v_new, k_pools, v_pools,
-                                   row_slot, row_start, row_len, row_off,
-                                   block_tables, o, a, R, n_tiles, s);
+  if (k_scales != nullptr)
+    return dtype == 0
+               ? dispatch_d<float, int8_t, true>(D, p, a, R, n_tiles, s)
+               : dispatch_d<__nv_bfloat16, int8_t, true>(D, p, a, R, n_tiles,
+                                                         s);
+  return dtype == 0
+             ? dispatch_d<float, float, false>(D, p, a, R, n_tiles, s)
+             : dispatch_d<__nv_bfloat16, __nv_bfloat16, false>(D, p, a, R,
+                                                               n_tiles, s);
 }

@@ -9,13 +9,17 @@ is a pure copy.  Matmuls run in ``cfg.dtype``; norms, RoPE and softmax
 in float32.
 
 The port covers the dense forward and the paged serving path with a
-bf16 (or f32) page pool: ``prefill_batch_paged`` / ``prefill_slot_paged``
-(prefill attention through ``ops.attention``, which runs the flash
-kernel K9f on the card for buckets >= 256), ``decode_slots_paged``
-(kernel K1 per layer, kernel K2 once per step), ``prefill_chunk_paged``
-(plain gather attention) and the unified ragged step
-``ragged_step_paged`` (kernel K4 per layer, kernel K5 once per step).
-int8 KV, fused decode, tensor and sequence parallelism and LoRA raise
+bf16 (or f32) page pool, or with ``cfg.kv_int8`` an int8 pool plus one
+f32 scale per page and kv head: ``prefill_batch_paged`` /
+``prefill_slot_paged`` (prefill attention through ``ops.attention``,
+which runs the flash kernel K9f on the card for buckets >= 256; int8
+pools quantise whole pages on the way in), ``decode_slots_paged``
+(kernel K1 per layer, kernel K2 once per step, K3 on int8 pools),
+``prefill_chunk_paged`` (plain gather attention; bf16/f32 pools only, as
+in the JAX package), the unified ragged step ``ragged_step_paged``
+(kernel K4 per layer, kernel K5 once per step, K6 on int8 pools) and
+``copy_page_paged`` (the prefix cache's copy-on-write split).  Fused
+decode, tensor and sequence parallelism and LoRA raise
 NotImplementedError.
 """
 
@@ -34,10 +38,12 @@ from ray_tpu_torch.ops.paged_attention import (
     NEG_INF,
     combine_with_self,
     paged_append,
+    paged_append_quantized,
     paged_decode_attention_partial,
 )
 from ray_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_append,
+    ragged_paged_append_quantized,
     ragged_paged_attention,
 )
 
@@ -92,8 +98,7 @@ LLAMA_TINY = LlamaConfig(vocab_size=256, dim=64, n_layers=2, n_heads=4,
 
 
 def _unported(cfg: LlamaConfig) -> None:
-    for field, slice_name in (("kv_int8", "int8 KV"),
-                              ("fused_decode", "fused decode"),
+    for field, slice_name in (("fused_decode", "fused decode"),
                               ("tensor_parallel", "tensor parallelism"),
                               ("sequence_parallel", "sequence parallelism"),
                               ("lora", "LoRA multiplexing")):
@@ -274,22 +279,67 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
 
 # --- paged serving --------------------------------------------------------
 
+def _quant_pages(pages: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., n_pages, page, D] values → (int8 pages, [..., n_pages] f32
+    per-page absmax scales): the int8 pool's write-side quantiser for
+    whole pages.  The absmax runs over the whole page, a prompt's bucket
+    padding included, as in the JAX package."""
+    x = pages.float()
+    amax = x.abs().amax(dim=(-2, -1))
+    scale = (amax / torch.full_like(amax, 127.0)).clamp(min=1e-8)
+    q = torch.round(x / scale[..., None, None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _scale_kwargs(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The attention kernels' ``k_scales``/``v_scales`` arguments for an
+    int8 cache; nothing for a bf16/f32 one."""
+    if "k_scale" not in cache:
+        return {}
+    return {"k_scales": cache["k_scale"], "v_scales": cache["v_scale"]}
+
+
 def init_paged_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
                      device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Page-pool cache: k/v [L, KVH, P+1, page, D] in ``cfg.dtype``
     (kv-head-major per layer, the paged kernels' layout).  The LAST
     physical page is a scratch page: OOB sentinel writes (inactive
     slots, chunk-ladder overshoot — sentinel value == num_pages) land
-    there instead of on a live page."""
-    if cfg.kv_int8:
-        raise NotImplementedError(
-            "kv_int8 page pools (kernel K3, paged_append_quantized, and "
-            "K1's int8 branch) are a later slice of the port")
+    there instead of on a live page.
+
+    With ``cfg.kv_int8`` the pools are int8 plus one f32 scale per
+    physical page per kv head (``k_scale``/``v_scale`` [L, P+1, KVH, 1],
+    page-major), all zeros: the pool takes half the bytes of bf16."""
     dev = resolve_device(device)
     shape = (cfg.n_layers, cfg.n_kv_heads, num_pages + 1, page_size,
              cfg.head_dim)
+    if cfg.kv_int8:
+        sshape = (cfg.n_layers, num_pages + 1, cfg.n_kv_heads, 1)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros(sshape, dtype=torch.float32,
+                                       device=dev),
+                "v_scale": torch.zeros(sshape, dtype=torch.float32,
+                                       device=dev)}
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+def copy_page_paged(cache: Dict[str, torch.Tensor], src, dst
+                    ) -> Dict[str, torch.Tensor]:
+    """Duplicate ONE physical page src → dst across every layer, in
+    place: k/v (page axis 2) and, for int8 pools, the per-page scales
+    (page axis 1).  The prefix cache's copy-on-write split: the only KV
+    write that may target a shared page (the last-token re-run of an
+    exact full-prompt hit) goes to the copy, never the cached
+    original."""
+    src, dst = int(src), int(dst)
+    for key in ("k", "v"):
+        cache[key][:, :, dst] = cache[key][:, :, src]
+    for key in ("k_scale", "v_scale"):
+        if key in cache:
+            cache[key][:, dst] = cache[key][:, src]
+    return cache
 
 
 def prefill_batch_paged(params: Params, tokens: torch.Tensor,
@@ -299,8 +349,9 @@ def prefill_batch_paged(params: Params, tokens: torch.Tensor,
     """Batched prefill into the PAGE POOL: one [K, S] forward; each
     layer's k/v land in the rows' pages (pages_rows [K, >= S // page]).
     Rows own disjoint pages (padding duplicates write identical data).
-    The pool is updated in place.  Returns (logits at each row's
-    true_len - 1 [K, V] f32, cache)."""
+    The pool is updated in place; int8 pools quantise each page whole
+    (``_quant_pages``) and store its scale.  Returns (logits at each
+    row's true_len - 1 [K, V] f32, cache)."""
     _unported(cfg)
     K, S = tokens.shape
     page = cache["k"].shape[3]
@@ -310,6 +361,7 @@ def prefill_batch_paged(params: Params, tokens: torch.Tensor,
     x = params["tok_embed"][tokens.long()].to(cfg.dtype)
     page_ids = pages_rows[:, :npg].reshape(K * npg).long()
     KVH, D = cfg.n_kv_heads, cfg.head_dim
+    quantized = "k_scale" in cache
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
         normed = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
@@ -318,10 +370,13 @@ def prefill_batch_paged(params: Params, tokens: torch.Tensor,
         x = h + _mlp_block(rms_norm(h, layer["ln_mlp"], cfg.norm_eps),
                            layer, cfg)
         # [K, S, KVH, D] → [KVH, K * S/page, page, D]
-        cache["k"][i][:, page_ids] = k.permute(2, 0, 1, 3).reshape(
-            KVH, K * npg, page, D).to(cache["k"].dtype)
-        cache["v"][i][:, page_ids] = v.permute(2, 0, 1, 3).reshape(
-            KVH, K * npg, page, D).to(cache["v"].dtype)
+        for key, new in (("k", k), ("v", v)):
+            pages = new.permute(2, 0, 1, 3).reshape(KVH, K * npg, page, D)
+            if quantized:
+                pages, scale = _quant_pages(pages)
+                # [KVH, pages] → page-major [pages, KVH, 1]
+                cache[key + "_scale"][i][page_ids] = scale.T[..., None]
+            cache[key][i][:, page_ids] = pages.to(cache[key].dtype)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     rows = torch.arange(K, device=tokens.device)
     last = x[rows, true_lens.long() - 1]
@@ -359,8 +414,12 @@ def decode_slots_paged(params: Params, tokens: torch.Tensor,
     pools are read-only — K1 returns flash partials over past tokens
     and the current token's self-attention folds in from the fresh k/v
     (combine_with_self); after the loop ONE K2 launch appends every
-    layer's new row, in place."""
+    layer's new row, in place.  On int8 pools K1 reads the page scales,
+    the self term uses the unquantised fresh k/v, and K3 takes K2's
+    place."""
     _unported(cfg)
+    quantized = "k_scale" in cache
+    scales = _scale_kwargs(cache)
     page = cache["k"].shape[3]
     scratch = cache["k"].shape[2] - 1  # physical scratch page
     maxp = block_tables.shape[1]
@@ -382,7 +441,7 @@ def decode_slots_paged(params: Params, tokens: torch.Tensor,
         k1, v1 = k[:, 0], v[:, 0]  # [B, KVH, D]
         acc, m, l = paged_decode_attention_partial(
             q[:, 0], cache["k"], cache["v"], i, block_tables, lengths,
-            soft_cap=cfg.logits_soft_cap)
+            soft_cap=cfg.logits_soft_cap, **scales)
         out = combine_with_self(q[:, 0], k1, v1, acc, m, l,
                                 soft_cap=cfg.logits_soft_cap)
         wo = layer["attn"]["wo"]
@@ -392,10 +451,16 @@ def decode_slots_paged(params: Params, tokens: torch.Tensor,
                            layer, cfg)
         k_news.append(k1)
         v_news.append(v1)
-    paged_append(cache["k"], cache["v"],
-                 torch.stack(k_news).to(cache["k"].dtype),
-                 torch.stack(v_news).to(cache["v"].dtype),
-                 pids.to(torch.int32), offs)
+    if quantized:
+        paged_append_quantized(cache["k"], cache["v"], cache["k_scale"],
+                               cache["v_scale"], torch.stack(k_news),
+                               torch.stack(v_news), pids.to(torch.int32),
+                               offs)
+    else:
+        paged_append(cache["k"], cache["v"],
+                     torch.stack(k_news).to(cache["k"].dtype),
+                     torch.stack(v_news).to(cache["v"].dtype),
+                     pids.to(torch.int32), offs)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _head_matmul(x[:, 0], _head(params, cfg), cfg)
     return logits.float(), cache, new_len
@@ -413,8 +478,16 @@ def prefill_chunk_paged(params: Params, tokens: torch.Tensor,
     pages (pages_rows [K, maxp]) in place, then attends over every
     cached position <= its own (plain gather attention, as in the JAX
     package: no kernel).  Padding tokens write the scratch page.
-    Returns (logits at each row's last true token [K, V] f32, cache)."""
+    Returns (logits at each row's last true token [K, V] f32, cache).
+    int8 pools raise, as in the JAX package: a per-token scatter cannot
+    grow a page's scale."""
     _unported(cfg)
+    if "k_scale" in cache:
+        raise NotImplementedError(
+            "chunked prefill with kv_int8 pools: per-token scatters "
+            "would need page-scale growth on the gather path; admit "
+            "long prompts via batched prefill (raise "
+            "prefill_chunk_tokens) or serve with bf16 KV")
     K, C = tokens.shape
     page = cache["k"].shape[3]
     scratch = cache["k"].shape[2] - 1
@@ -479,24 +552,22 @@ def ragged_step_paged(params: Params, tokens: torch.Tensor,
     block_tables [slots, maxp], all int32.  Every packed token attends to
     its slot's pooled past plus the causal prefix of its own row (kernel
     K4 per layer); the pools stay read-only in the layer loop and ONE K5
-    launch after it appends every layer's fresh k/v, in place.
+    launch after it appends every layer's fresh k/v, in place.  On int8
+    pools K4 reads the page scales and K6 takes K5's place.
 
     Returns (logits [R, V] f32 at each row's last fresh token, cache);
     padding rows return garbage logits.  With ``logit_idx`` [Tv] it
     returns (logits [R, V], logits [Tv, V] at those buffer positions,
     cache), from one gather + norm + head matmul, so the first R rows
-    equal the call without it.  The fused body, LoRA and int8 pools are
-    later slices and raise."""
+    equal the call without it.  The fused body and LoRA are later slices
+    and raise."""
     _unported(cfg)
     if lora is not None:
         raise NotImplementedError(
             "ragged_step_paged(lora=...): LoRA multiplexing is not ported "
             "to ray_tpu_torch yet (a later slice; see ROADMAP.md)")
-    if "k_scale" in cache:
-        raise NotImplementedError(
-            "ragged_step_paged on int8 pools (kernels K6 and K4's int8 "
-            "branch) is not ported to ray_tpu_torch yet (the int8 KV "
-            "slice; see ROADMAP.md)")
+    quantized = "k_scale" in cache
+    scales = _scale_kwargs(cache)
     T = tokens.shape[0]
     dt = cfg.dtype
     sin, cos = rope_table(cfg, tok_pos[None])      # [1, T, hd // 2]
@@ -510,7 +581,7 @@ def ragged_step_paged(params: Params, tokens: torch.Tensor,
         out = ragged_paged_attention(
             q, k1, v1, cache["k"], cache["v"], i, row_slot, row_start,
             row_len, row_off, block_tables, soft_cap=cfg.logits_soft_cap,
-            max_row_tokens=max_row_tokens)          # [T, H, hd] f32
+            max_row_tokens=max_row_tokens, **scales)  # [T, H, hd] f32
         # Round the f32 attention output to cfg.dtype BEFORE the o-proj:
         # the cast point of the prefill and decode paths.
         wo = layer["attn"]["wo"]
@@ -520,11 +591,17 @@ def ragged_step_paged(params: Params, tokens: torch.Tensor,
                            layer, cfg)
         k_news.append(k1)
         v_news.append(v1)
-    ragged_paged_append(cache["k"], cache["v"],
-                        torch.stack(k_news).to(cache["k"].dtype),
-                        torch.stack(v_news).to(cache["v"].dtype),
-                        row_slot, row_start, row_len, row_off, block_tables,
-                        max_row_tokens=max_row_tokens)
+    if quantized:
+        ragged_paged_append_quantized(
+            cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
+            torch.stack(k_news), torch.stack(v_news), row_slot, row_start,
+            row_len, row_off, block_tables, max_row_tokens=max_row_tokens)
+    else:
+        ragged_paged_append(cache["k"], cache["v"],
+                            torch.stack(k_news).to(cache["k"].dtype),
+                            torch.stack(v_news).to(cache["v"].dtype),
+                            row_slot, row_start, row_len, row_off,
+                            block_tables, max_row_tokens=max_row_tokens)
     last = (row_off.long() + row_len.long().clamp(min=1) - 1).clamp(0, T - 1)
     head = _head(params, cfg)
     if logit_idx is None:

@@ -29,8 +29,9 @@ from typing import Dict, List, Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("paged_decode", "paged_append", "flash_fwd", "ragged_attention",
-           "ragged_append")
+SOURCES = ("paged_decode", "paged_append", "paged_append_quantized",
+           "flash_fwd", "ragged_attention", "ragged_append",
+           "ragged_append_quantized")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -11,9 +11,14 @@ Layouts are the JAX package's:
                                          hold the OOB sentinel, never read
   lengths      [B] int32                 tokens already in the cache
 
-Two kernels live here, each a CUDA kernel for Hopper (``csrc/``) with
+int8 pools carry one f32 scale per physical page and kv head,
+``k_scales``/``v_scales`` [L, P, KVH, 1] (page-major, unlike the
+head-major pools); the true value is ``int8 * scale[layer, page, kvh]``.
+
+Three kernels live here, each a CUDA kernel for Hopper (``csrc/``) with
 its plain PyTorch version beside it: K1 ``paged_decode_attention_partial``
-and K2 ``paged_append``.  A wrapper takes the plain version only for
+(bf16/f32 pools, and int8 pools with scales), K2 ``paged_append`` and K3
+``paged_append_quantized``.  A wrapper takes the plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 ``combine_with_self`` is plain PyTorch, as it is plain jnp in the JAX
 package.
@@ -55,6 +60,28 @@ def _check_cuda(name: str, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: {key} is on {t.device}, not {dev}")
 
 
+def _check_scales(name: str, k_pools: torch.Tensor, v_pools: torch.Tensor,
+                  k_scales: Optional[torch.Tensor],
+                  v_scales: Optional[torch.Tensor]) -> bool:
+    """True when the call is on int8 pools with their page scales
+    [L, P, KVH, 1] f32; raises on int8 pools without scales, on scales
+    beside other pools and on a scale layout that does not fit."""
+    quantized = k_scales is not None
+    if (v_scales is not None) != quantized:
+        raise ValueError(f"{name}: k_scales and v_scales come together")
+    if (k_pools.dtype == torch.int8) != quantized:
+        raise ValueError(f"{name}: int8 pools need k_scales/v_scales, and "
+                         f"only int8 pools take them (pools {k_pools.dtype})")
+    if quantized:
+        L, KVH, P = k_pools.shape[:3]
+        for key, sc in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if sc.dtype != torch.float32 or sc.shape != (L, P, KVH, 1):
+                raise ValueError(
+                    f"{name}: {key} must be f32 [L, P, KVH, 1] = "
+                    f"{(L, P, KVH, 1)}, got {sc.dtype} {tuple(sc.shape)}")
+    return quantized
+
+
 # --------------------------------------------------------------------------
 # K1: layered decode partials
 # --------------------------------------------------------------------------
@@ -75,10 +102,14 @@ def paged_decode_attention_partial_plain(
     q: torch.Tensor, k_pools: torch.Tensor, v_pools: torch.Tensor,
     layer: int, block_table: torch.Tensor, lengths: torch.Tensor, *,
     soft_cap: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K1: gather the slot's pages, masked scores in
     f32, unnormalised (acc, m, l).  A slot with length 0 returns
-    acc = 0, m = -1e30, l = 0, as the kernel does."""
+    acc = 0, m = -1e30, l = 0, as the kernel does.  With int8 pools the
+    page scale multiplies the scores after the q.k dot (before the soft
+    cap and the mask) and the probabilities before the p.v product."""
     B, H, D = q.shape
     _, KVH, P, page, _ = k_pools.shape
     maxp = block_table.shape[1]
@@ -89,6 +120,12 @@ def paged_decode_attention_partial_plain(
     v = v.permute(1, 0, 2, 3, 4).reshape(B, KVH, maxp * page, D).float()
     qg = q.float().reshape(B, KVH, H // KVH, D)
     s = torch.einsum("bgqd,bgkd->bgqk", qg, k) * (D ** -0.5)
+    if k_scales is not None:
+        # [B, maxp, KVH] -> one scale per key position [B, KVH, 1, ctx].
+        ks, vs = (sc[layer][bt][..., 0].permute(0, 2, 1)
+                  .repeat_interleave(page, dim=2)[:, :, None, :]
+                  for sc in (k_scales, v_scales))
+        s = s * ks
     if soft_cap is not None:
         s = soft_cap * torch.tanh(s / soft_cap)
     pos = torch.arange(maxp * page, device=q.device)
@@ -98,6 +135,8 @@ def paged_decode_attention_partial_plain(
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
+    if k_scales is not None:
+        p = p * vs
     acc = torch.einsum("bgqk,bgkd->bgqd", p, v)
     return (acc.reshape(B, H, D), m.reshape(B, H, 1), l.reshape(B, H, 1))
 
@@ -106,6 +145,8 @@ def paged_decode_attention_partial(
     q: torch.Tensor, k_pools: torch.Tensor, v_pools: torch.Tensor,
     layer: int, block_table: torch.Tensor, lengths: torch.Tensor, *,
     soft_cap: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Read-only layered attention over PAST tokens only:
     q [B, H, D], pools [L, KVH, P, page, D], ``layer`` a Python int,
@@ -113,22 +154,33 @@ def paged_decode_attention_partial(
     unnormalised, m [B, H, 1], l [B, H, 1]).  Combine with the new
     token's self term via ``combine_with_self``.
 
-    CUDA tensors launch kernel K1 (csrc/paged_decode.cu); CPU tensors
-    run the plain version."""
+    int8 pools: pass ``k_scales``/``v_scales`` [L, P, KVH, 1] f32 (one
+    scale per physical page per kv head); q stays f32 or bf16.
+
+    CUDA tensors launch kernel K1 (csrc/paged_decode.cu; its int8
+    instantiation when scales are given, counted in ``launches_int8``
+    too); CPU tensors run the plain version."""
+    quantized = _check_scales("paged_decode_attention_partial", k_pools,
+                              v_pools, k_scales, v_scales)
     if not q.is_cuda:
         return paged_decode_attention_partial_plain(
             q, k_pools, v_pools, layer, block_table, lengths,
-            soft_cap=soft_cap)
+            soft_cap=soft_cap, k_scales=k_scales, v_scales=v_scales)
     B, H, D = q.shape
     L, KVH, P, page, Dk = k_pools.shape
     maxp = block_table.shape[1]
     _check_cuda("paged_decode_attention_partial", q=q, k_pools=k_pools,
                 v_pools=v_pools, block_table=block_table, lengths=lengths)
-    if q.dtype not in _DTYPE_CODE or k_pools.dtype != q.dtype \
-            or v_pools.dtype != q.dtype:
-        raise ValueError("paged_decode_attention_partial: q and pools must "
-                         f"share dtype f32 or bf16, got {q.dtype}, "
-                         f"{k_pools.dtype}, {v_pools.dtype}")
+    if quantized:
+        _check_cuda("paged_decode_attention_partial", k_scales=k_scales,
+                    v_scales=v_scales)
+    pool_dt = torch.int8 if quantized else q.dtype
+    if q.dtype not in _DTYPE_CODE or k_pools.dtype != pool_dt \
+            or v_pools.dtype != pool_dt:
+        raise ValueError("paged_decode_attention_partial: q must be f32 or "
+                         "bf16 and the pools of q's dtype (int8 with "
+                         f"scales), got {q.dtype}, {k_pools.dtype}, "
+                         f"{v_pools.dtype}")
     if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("block_table and lengths must be int32")
     if (v_pools.shape != k_pools.shape or Dk != D or H % KVH
@@ -138,7 +190,8 @@ def paged_decode_attention_partial(
             f"pools {tuple(k_pools.shape)}, block_table "
             f"{tuple(block_table.shape)}, lengths {tuple(lengths.shape)}")
     qpg = H // KVH
-    if D % 8 or qpg * D > _K1_THREADS * _K1_MAX_E or not 0 <= layer < L:
+    if D % (16 if quantized else 8) or qpg * D > _K1_THREADS * _K1_MAX_E \
+            or not 0 <= layer < L:
         raise ValueError(f"paged_decode_attention_partial: unsupported "
                          f"D={D}, qpg={qpg} or layer={layer}")
     smem = 4 * (page * (2 * D + 4) + qpg * D + qpg * page + 3 * qpg)
@@ -161,9 +214,11 @@ def paged_decode_attention_partial(
     lib = _build.library("paged_decode")
     fn = lib.rtt_paged_decode_partial
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pools.data_ptr(), v_pools.data_ptr(),
+             k_scales.data_ptr() if quantized else None,
+             v_scales.data_ptr() if quantized else None,
              block_table.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
              m.data_ptr(), l.data_ptr(), part_acc.data_ptr(),
              part_m.data_ptr(), part_l.data_ptr(),
@@ -173,10 +228,13 @@ def paged_decode_attention_partial(
              _stream_ptr(q))
     _build.check(err, "paged_decode_attention_partial")
     paged_decode_attention_partial.launches += 1
+    if quantized:
+        paged_decode_attention_partial.launches_int8 += 1
     return acc, m, l
 
 
 paged_decode_attention_partial.launches = 0
+paged_decode_attention_partial.launches_int8 = 0
 
 
 def combine_with_self(q, k_new, v_new, acc, m, l, *,
@@ -266,6 +324,110 @@ def paged_append(k_pools: torch.Tensor, v_pools: torch.Tensor,
 
 
 paged_append.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K3: in-place int8 append of one row per slot, all layers
+# --------------------------------------------------------------------------
+
+# The quantisers divide by a TENSOR of 127s: a tensor divided by a Python
+# scalar is a product with the reciprocal on a CUDA tensor, one ulp off
+# the true quotient that the CPU, the JAX package and the kernels compute.
+
+def _quant_round(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even and clip to the symmetric int8 range."""
+    return torch.round(x).clamp(-127, 127)
+
+
+def paged_append_quantized_plain(k_pools, v_pools, k_scales, v_scales,
+                                 k_new, v_new, pids, offs) -> None:
+    """Plain version of K3, in place.  Per (slot, layer, kv head), for k
+    and v alike: the page's scale grows to fit the new row's absmax / 127
+    (no floor: an all-zero row keeps a zero scale and divides by 1); a
+    grown scale requantises the page's stored bytes by old / new, a
+    stable one leaves them untouched; a write at offset 0 starts the page
+    fresh (stale bytes zeroed, scale reset to the row's own).  The row is
+    quantised by multiplying with 1 / scale."""
+    P = k_pools.shape[2]
+    B = pids.shape[0]
+    pid = pids.long().clamp(0, P - 1)
+    off = offs.long()
+    fresh = (off == 0)[None, :, None]
+    slots = torch.arange(B, device=pid.device)
+    for pools, scales, new in ((k_pools, k_scales, k_new),
+                               (v_pools, v_scales, v_new)):
+        row = new.float()                                 # [L, B, KVH, D]
+        amax = row.abs().amax(dim=-1)                     # [L, B, KVH]
+        needed = amax / torch.full_like(amax, 127.0)
+        old = scales[:, pid, :, 0]
+        new_scale = torch.where(fresh, needed, torch.maximum(old, needed))
+        safe = torch.where(new_scale == 0.0, torch.ones_like(new_scale),
+                           new_scale)
+        factor = torch.where(
+            fresh, torch.zeros_like(old),
+            torch.where(new_scale > old, old / safe, torch.ones_like(old)))
+        cur = pools[:, :, pid].float()                    # [L, KVH, B, pg, D]
+        out = torch.round(cur * factor.permute(0, 2, 1)[..., None, None])
+        row_q = _quant_round(row * (1.0 / safe)[..., None])
+        out[:, :, slots, off] = row_q.permute(0, 2, 1, 3)
+        pools[:, :, pid] = out.clamp(-127, 127).to(torch.int8)
+        scales[:, pid, :, 0] = new_scale
+
+
+def paged_append_quantized(k_pools: torch.Tensor, v_pools: torch.Tensor,
+                           k_scales: torch.Tensor, v_scales: torch.Tensor,
+                           k_new: torch.Tensor, v_new: torch.Tensor,
+                           pids: torch.Tensor, offs: torch.Tensor) -> None:
+    """Append one token per slot into int8 page pools, for EVERY layer at
+    once, IN PLACE on pools and scales: pools int8 [L, KVH, P, page, D],
+    scales f32 [L, P, KVH, 1], k_new/v_new [L, B, KVH, D] f32 or bf16,
+    pids/offs [B] int32.  A page id ≥ P - 1 writes the scratch page
+    (several inactive slots may race there: its bytes are garbage by
+    contract, its scale stays finite).  Nothing is returned.
+
+    CUDA tensors launch kernel K3 (csrc/paged_append_quantized.cu); CPU
+    tensors run the plain version."""
+    _check_scales("paged_append_quantized", k_pools, v_pools, k_scales,
+                  v_scales)
+    if not k_pools.is_cuda:
+        paged_append_quantized_plain(k_pools, v_pools, k_scales, v_scales,
+                                     k_new, v_new, pids, offs)
+        return
+    L, KVH, P, page, D = k_pools.shape
+    B = pids.shape[0]
+    _check_cuda("paged_append_quantized", k_pools=k_pools, v_pools=v_pools,
+                k_scales=k_scales, v_scales=v_scales, k_new=k_new,
+                v_new=v_new, pids=pids, offs=offs)
+    if k_new.dtype not in _DTYPE_CODE or v_new.dtype != k_new.dtype:
+        raise ValueError("paged_append_quantized: new rows must share dtype "
+                         f"f32 or bf16, got {k_new.dtype}, {v_new.dtype}")
+    if pids.dtype != torch.int32 or offs.dtype != torch.int32:
+        raise ValueError("pids and offs must be int32")
+    if (v_pools.shape != k_pools.shape or k_new.shape != (L, B, KVH, D)
+            or v_new.shape != k_new.shape or offs.shape != (B,)):
+        raise ValueError(
+            f"paged_append_quantized: bad shapes pools "
+            f"{tuple(k_pools.shape)}, new {tuple(k_new.shape)}, pids "
+            f"{tuple(pids.shape)}, offs {tuple(offs.shape)}")
+    if D % 16:
+        raise ValueError(f"paged_append_quantized: an int8 row of {D} B is "
+                         "not a multiple of 16")
+    if B == 0:
+        return
+    lib = _build.library("paged_append_quantized")
+    fn = lib.rtt_paged_append_quantized
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    err = fn(k_pools.data_ptr(), v_pools.data_ptr(), k_scales.data_ptr(),
+             v_scales.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+             pids.data_ptr(), offs.data_ptr(), _DTYPE_CODE[k_new.dtype], L,
+             B, KVH, P, page, D, _stream_ptr(k_pools))
+    _build.check(err, "paged_append_quantized")
+    paged_append_quantized.launches += 1
+
+
+paged_append_quantized.launches = 0
 
 
 def paged_decode_attention_reference(

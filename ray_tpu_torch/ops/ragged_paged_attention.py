@@ -1,6 +1,6 @@
 """Ragged paged attention: one batch of mixed prefill chunks and decode
-rows (port of ``ray_tpu/ops/ragged_paged_attention.py``, its bf16/f32
-pool branch).
+rows (port of ``ray_tpu/ops/ragged_paged_attention.py``, bf16/f32 and
+int8 pools).
 
 A ragged step packs R rows into one flat token buffer of T tokens:
 
@@ -16,14 +16,17 @@ Per layer, every packed token attends to its slot's pooled past plus the
 causal prefix of its own row's fresh tokens (K4,
 ``ragged_paged_attention``); the pools stay read-only inside the layer
 loop, and ONE in-place append after it writes every layer's fresh k/v
-into the pages (K5, ``ragged_paged_append``).
+into the pages (K5, ``ragged_paged_append``; on int8 pools K6,
+``ragged_paged_append_quantized``, which also keeps the grow-only scale
+of every page it touches).  int8 pools carry ``k_scales``/``v_scales``
+[L, P, KVH, 1] f32, page-major.
 
 Each kernel is a CUDA kernel for Hopper (``csrc/ragged_attention.cu``,
-``csrc/ragged_append.cu``) with its plain PyTorch version beside it.  A
-wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.  ``pack_ragged_batch`` is the
-host-side packer (numpy), a copy of the JAX package's.  int8 pools
-(``k_scales``/``v_scales``, kernel K6) are a later slice.
+``csrc/ragged_append.cu``, ``csrc/ragged_append_quantized.cu``) with its
+plain PyTorch version beside it.  A wrapper takes the plain version only
+for tensors on the CPU; for CUDA tensors it launches the kernel or
+raises.  ``pack_ragged_batch`` is the host-side packer (numpy), a copy of
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ from ray_tpu_torch.ops.paged_attention import (
     _SMEM_LIMIT,
     NEG_INF,
     _check_cuda,
+    _check_scales,
+    _quant_round,
     _stream_ptr,
 )
 
@@ -66,12 +71,9 @@ def window_size(T: int, max_row_tokens: Optional[int]) -> int:
     return min(_round8(T), _round8(cap) + 8)
 
 
-def _no_int8(k_scales, v_scales) -> None:
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "ragged_paged_attention with int8 pools (k_scales/v_scales; "
-            "kernel K4's int8 branch and K6) is not ported to "
-            "ray_tpu_torch yet (the int8 KV slice; see ROADMAP.md)")
+def pages_per_row(max_row_tokens: int, page: int) -> int:
+    """Static bound on the pages one row's fresh tokens can touch."""
+    return (max_row_tokens + page - 2) // page + 1
 
 
 # --------------------------------------------------------------------------
@@ -139,12 +141,15 @@ def ragged_attention_reference(
     row_slot: torch.Tensor, row_start: torch.Tensor, row_len: torch.Tensor,
     row_off: torch.Tensor, block_tables: torch.Tensor, *,
     soft_cap: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Dense gather reference for ONE layer's pages [KVH, P, page, D]:
     for each row, attention of its fresh tokens over (pooled past) +
     (intra-row causal fresh), f32 out [T, H, D].  Buffer tokens no row
-    covers come back zero.  Loops over the R rows (a shape, no host
-    sync)."""
+    covers come back zero.  int8 pages take that layer's scales
+    [P, KVH, 1] and are dequantised first; the fresh k/v never carry a
+    scale.  Loops over the R rows (a shape, no host sync)."""
     T, H, D = q.shape
     KVH, P, page, _ = k_pages.shape
     maxp = block_tables.shape[1]
@@ -160,14 +165,18 @@ def ragged_attention_reference(
         s_self = soft_cap * torch.tanh(s_self / soft_cap)
     kpos = torch.arange(ctx, device=dev)
     bt = block_tables.long().clamp(0, P - 1)
+    kf, vf = k_pages.float(), v_pages.float()
+    if k_scales is not None:
+        kf = kf * k_scales.permute(1, 0, 2)[:, :, None, :]
+        vf = vf * v_scales.permute(1, 0, 2)[:, :, None, :]
     for r in range(row_slot.shape[0]):
         slot, start = row_slot[r].long(), row_start[r]
         trel, in_row = _row_masks(T, row_off[r], row_len[r], dev)
         pages = bt[slot]                                   # [maxp]
-        kc = k_pages[:, pages].permute(1, 2, 0, 3).reshape(ctx, KVH, D)
-        vc = v_pages[:, pages].permute(1, 2, 0, 3).reshape(ctx, KVH, D)
-        kx = kc.float().repeat_interleave(group, dim=1)    # [ctx, H, D]
-        vx = vc.float().repeat_interleave(group, dim=1)
+        kc = kf[:, pages].permute(1, 2, 0, 3).reshape(ctx, KVH, D)
+        vc = vf[:, pages].permute(1, 2, 0, 3).reshape(ctx, KVH, D)
+        kx = kc.repeat_interleave(group, dim=1)            # [ctx, H, D]
+        vx = vc.repeat_interleave(group, dim=1)
         s_pool = torch.einsum("thd,khd->thk", qs, kx) * (D ** -0.5)
         if soft_cap is not None:
             s_pool = soft_cap * torch.tanh(s_pool / soft_cap)
@@ -215,12 +224,19 @@ def ragged_append_reference(k_pages, v_pages, k_new, v_new, row_slot,
 def ragged_paged_attention_plain(
     q, k_new, v_new, k_pools, v_pools, layer: int, row_slot, row_start,
     row_len, row_off, block_tables, *, soft_cap: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of K4: the dense gather reference on layer
-    ``layer`` of the pools [L, KVH, P, page, D]."""
+    ``layer`` of the pools [L, KVH, P, page, D] (and of the scales
+    [L, P, KVH, 1] of int8 pools)."""
+    scales = {}
+    if k_scales is not None:
+        scales = {"k_scales": k_scales[layer], "v_scales": v_scales[layer]}
     return ragged_attention_reference(
         q, k_new, v_new, k_pools[layer], v_pools[layer], row_slot,
-        row_start, row_len, row_off, block_tables, soft_cap=soft_cap)
+        row_start, row_len, row_off, block_tables, soft_cap=soft_cap,
+        **scales)
 
 
 def ragged_paged_attention(
@@ -242,13 +258,19 @@ def ragged_paged_attention(
     slots.  ``max_row_tokens`` bounds the JAX kernel's VMEM window; the
     CUDA kernel needs none and ignores it.
 
-    CUDA tensors launch kernel K4 (csrc/ragged_attention.cu); CPU
-    tensors run the plain version."""
-    _no_int8(k_scales, v_scales)
+    int8 pools: pass ``k_scales``/``v_scales`` [L, P, KVH, 1] f32; q and
+    the fresh k/v stay f32 or bf16 and carry no scale.
+
+    CUDA tensors launch kernel K4 (csrc/ragged_attention.cu; its int8
+    instantiation when scales are given, counted in ``launches_int8``
+    too); CPU tensors run the plain version."""
+    quantized = _check_scales("ragged_paged_attention", k_pools, v_pools,
+                              k_scales, v_scales)
     if not q.is_cuda:
         return ragged_paged_attention_plain(
             q, k_new, v_new, k_pools, v_pools, layer, row_slot, row_start,
-            row_len, row_off, block_tables, soft_cap=soft_cap)
+            row_len, row_off, block_tables, soft_cap=soft_cap,
+            k_scales=k_scales, v_scales=v_scales)
     T, H, D = q.shape
     L, KVH, P, page, Dk = k_pools.shape
     R = row_slot.shape[0]
@@ -257,11 +279,17 @@ def ragged_paged_attention(
                 k_pools=k_pools, v_pools=v_pools, row_slot=row_slot,
                 row_start=row_start, row_len=row_len, row_off=row_off,
                 block_tables=block_tables)
+    if quantized:
+        _check_cuda("ragged_paged_attention", k_scales=k_scales,
+                    v_scales=v_scales)
     dt = q.dtype
+    pool_dt = torch.int8 if quantized else dt
     if dt not in _DTYPE_CODE or any(
-            t.dtype != dt for t in (k_new, v_new, k_pools, v_pools)):
-        raise ValueError("ragged_paged_attention: q, k_new, v_new and pools "
-                         "must share dtype f32 or bf16, got "
+            t.dtype != dt for t in (k_new, v_new)) or any(
+            t.dtype != pool_dt for t in (k_pools, v_pools)):
+        raise ValueError("ragged_paged_attention: q, k_new and v_new must "
+                         "share dtype f32 or bf16 and the pools be of that "
+                         "dtype (int8 with scales), got "
                          f"{[t.dtype for t in (q, k_new, v_new, k_pools)]}")
     if any(t.dtype != torch.int32 for t in (row_slot, row_start, row_len,
                                             row_off, block_tables)):
@@ -280,7 +308,7 @@ def ragged_paged_attention(
                          f"one of {_K4_HEAD_DIMS}), qpg={qpg} (max "
                          f"{_K4_ROWS}) or layer={layer}")
     smem = 4 * (_K4_ROWS * (D + 4) + _K4_KEYS * (2 * D + 4)
-                + _K4_ROWS * (_K4_KEYS + 4))
+                + _K4_ROWS * (_K4_KEYS + 4) + 2 * _K4_KEYS)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"ragged_paged_attention: D={D} needs {smem} B of "
                          "shared memory, over the H100's 227 KB")
@@ -293,10 +321,13 @@ def ragged_paged_attention(
     lib = _build.library("ragged_attention")
     fn = lib.rtt_ragged_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-             k_pools.data_ptr(), v_pools.data_ptr(), row_slot.data_ptr(),
+             k_pools.data_ptr(), v_pools.data_ptr(),
+             k_scales.data_ptr() if quantized else None,
+             v_scales.data_ptr() if quantized else None,
+             row_slot.data_ptr(),
              row_start.data_ptr(), row_len.data_ptr(), row_off.data_ptr(),
              block_tables.data_ptr(), out.data_ptr(), _DTYPE_CODE[dt], H,
              KVH, P, page, D, maxp, R, n_tiles, int(layer), D ** -0.5,
@@ -304,10 +335,13 @@ def ragged_paged_attention(
              _stream_ptr(q))
     _build.check(err, "ragged_paged_attention")
     ragged_paged_attention.launches += 1
+    if quantized:
+        ragged_paged_attention.launches_int8 += 1
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.launches_int8 = 0
 
 
 # --------------------------------------------------------------------------
@@ -404,3 +438,137 @@ def ragged_paged_append(k_pools: torch.Tensor, v_pools: torch.Tensor,
 
 
 ragged_paged_append.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K6: ragged append into int8 pools, all layers, in place
+# --------------------------------------------------------------------------
+
+def _per_page(x: torch.Tensor) -> torch.Tensor:
+    """[L, R, KVH] page scalars -> [L, KVH, R, 1, 1] beside the pages."""
+    return x.permute(0, 2, 1)[..., None, None]
+
+
+def ragged_paged_append_quantized_plain(k_pools, v_pools, k_scales, v_scales,
+                                        k_new, v_new, row_slot, row_start,
+                                        row_len, row_off,
+                                        block_tables) -> None:
+    """Plain version of K6, in place.  Per (row, layer, page the row's
+    fresh tokens touch, kv head), for k and v alike: a page the row
+    writes from its offset 0 is fresh (stale bytes zeroed, scale = the
+    landing tokens' absmax / 127, floored at 1e-8); a page extended past
+    existing tokens keeps its bytes unless the scale must grow, and then
+    requantises them by old / new.  Tokens are quantised by dividing by
+    the scale.  Pages no token of a row touches, and tokens no row
+    covers, write nothing.  Walks each row's j-th touched page for j
+    below the static bound ``pages_per_row(T, page)``; the live (row, j)
+    pairs are picked by a boolean index (a host sync on a CUDA tensor)."""
+    L, KVH, P, page, D = k_pools.shape
+    T = k_new.shape[1]
+    maxp = block_tables.shape[1]
+    dev = k_new.device
+    start, nt, off = row_start.long(), row_len.long(), row_off.long()
+    bt = block_tables.long().clamp(0, P - 1)
+    cells = torch.arange(page, device=dev)
+    for j in range(pages_per_row(T, page)):
+        pg = start // page + j
+        base = pg * page
+        live = ((base < start + nt) & (nt > 0)).nonzero()[:, 0]
+        if live.numel() == 0:
+            break
+        tpage = base[live, None] + cells[None, :] - start[live, None]
+        wrote = (tpage >= 0) & (tpage < nt[live, None])          # [Rl, page]
+        src = (off[live, None] + tpage).clamp(0, T - 1)
+        pid = bt[row_slot.long()[live], pg[live].clamp(0, maxp - 1)]
+        fresh = (base >= start)[live][None, :, None]              # [1, Rl, 1]
+        w5 = wrote[None, None, :, :, None]            # [1, 1, Rl, page, 1]
+        for pools, scales, new in ((k_pools, k_scales, k_new),
+                                   (v_pools, v_scales, v_new)):
+            # [L, Rl, page, KVH, D] -> [L, KVH, Rl, page, D]
+            landing = new[:, src].float().permute(0, 3, 1, 2, 4)
+            amax = torch.where(w5, landing.abs(), 0.0).amax(dim=(3, 4))
+            needed = (amax / torch.full_like(amax, 127.0)).clamp(
+                min=1e-8).permute(0, 2, 1)
+            s_old = scales[:, pid, :, 0]                          # [L, Rl, KVH]
+            s_new = torch.where(fresh, needed, torch.maximum(s_old, needed))
+            factor = torch.where(
+                fresh, torch.zeros_like(s_old),
+                torch.where(s_new > s_old, s_old / s_new,
+                            torch.ones_like(s_old)))
+            cur = pools[:, :, pid].float()
+            out = torch.where(w5, _quant_round(landing / _per_page(s_new)),
+                              torch.round(cur * _per_page(factor)))
+            pools[:, :, pid] = out.clamp(-127, 127).to(torch.int8)
+            scales[:, pid, :, 0] = s_new
+
+
+def ragged_paged_append_quantized(
+        k_pools: torch.Tensor, v_pools: torch.Tensor,
+        k_scales: torch.Tensor, v_scales: torch.Tensor,
+        k_new: torch.Tensor, v_new: torch.Tensor, row_slot: torch.Tensor,
+        row_start: torch.Tensor, row_len: torch.Tensor,
+        row_off: torch.Tensor, block_tables: torch.Tensor, *,
+        max_row_tokens: Optional[int] = None) -> None:
+    """Append every row's fresh tokens into its int8 pages, for EVERY
+    layer at once, IN PLACE on pools and scales: pools int8
+    [L, KVH, P, page, D], scales f32 [L, P, KVH, 1], k_new/v_new
+    [L, T, KVH, D] f32 or bf16, rows [R] and block_tables [slots, maxp]
+    int32.  Rows occupy distinct slots, so no two rows share a live
+    page; a page a row does not touch (a borrowed prefix page before its
+    start) keeps bytes and scale.  ``max_row_tokens`` is accepted for
+    the JAX signature and ignored.  Nothing is returned.
+
+    CUDA tensors launch kernel K6 (csrc/ragged_append_quantized.cu); CPU
+    tensors run the plain version."""
+    _check_scales("ragged_paged_append_quantized", k_pools, v_pools,
+                  k_scales, v_scales)
+    if not k_pools.is_cuda:
+        ragged_paged_append_quantized_plain(
+            k_pools, v_pools, k_scales, v_scales, k_new, v_new, row_slot,
+            row_start, row_len, row_off, block_tables)
+        return
+    L, KVH, P, page, D = k_pools.shape
+    T = k_new.shape[1]
+    R = row_slot.shape[0]
+    maxp = block_tables.shape[1]
+    _check_cuda("ragged_paged_append_quantized", k_pools=k_pools,
+                v_pools=v_pools, k_scales=k_scales, v_scales=v_scales,
+                k_new=k_new, v_new=v_new, row_slot=row_slot,
+                row_start=row_start, row_len=row_len, row_off=row_off,
+                block_tables=block_tables)
+    if k_new.dtype not in _DTYPE_CODE or v_new.dtype != k_new.dtype:
+        raise ValueError("ragged_paged_append_quantized: new rows must share "
+                         f"dtype f32 or bf16, got {k_new.dtype}, "
+                         f"{v_new.dtype}")
+    if any(t.dtype != torch.int32 for t in (row_slot, row_start, row_len,
+                                            row_off, block_tables)):
+        raise ValueError("ragged_paged_append_quantized: rows and "
+                         "block_tables must be int32")
+    if (v_pools.shape != k_pools.shape or k_new.shape != (L, T, KVH, D)
+            or v_new.shape != k_new.shape
+            or any(t.shape != (R,) for t in (row_start, row_len, row_off))):
+        raise ValueError(
+            f"ragged_paged_append_quantized: bad shapes pools "
+            f"{tuple(k_pools.shape)}, new {tuple(k_new.shape)}, rows "
+            f"{tuple(row_slot.shape)}")
+    if D % 16:
+        raise ValueError(f"ragged_paged_append_quantized: an int8 row of "
+                         f"{D} B is not a multiple of 16")
+    if T == 0 or R == 0:
+        return
+    lib = _build.library("ragged_append_quantized")
+    fn = lib.rtt_ragged_append_quantized
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 \
+        + [ctypes.c_void_p]
+    err = fn(k_pools.data_ptr(), v_pools.data_ptr(), k_scales.data_ptr(),
+             v_scales.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+             row_slot.data_ptr(), row_start.data_ptr(), row_len.data_ptr(),
+             row_off.data_ptr(), block_tables.data_ptr(),
+             _DTYPE_CODE[k_new.dtype], L, T, R, KVH, P, page, D, maxp,
+             pages_per_row(T, page), _stream_ptr(k_pools))
+    _build.check(err, "ragged_paged_append_quantized")
+    ragged_paged_append_quantized.launches += 1
+
+
+ragged_paged_append_quantized.launches = 0

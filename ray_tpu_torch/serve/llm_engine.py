@@ -34,9 +34,20 @@ Two more scheduling modes, as in the JAX engine:
     Its per-step host arrays reach the card in one pinned, non-blocking
     copy.
 
-Out of the port so far (they raise if configured): the prefix cache,
-speculative decoding, LoRA, SLO accounting and shedding, migration, the
-request ring, telemetry and ``LLMServer``.
+int8 KV pools (``LlamaConfig.kv_int8``) serve on the bucketed and the
+ragged path (kernels K1/K3 and K4/K6 with page scales); chunked prefill
+outside the ragged step refuses them, as in the JAX engine.
+
+**The prefix cache** (``prefix_cache=True``, ragged only): finished
+requests donate their full KV pages to a radix tree
+(``serve/prefix_index.py``); admission borrows the longest cached prefix
+and the ragged prefill resumes at the hit boundary; an exact full-prompt
+hit copies the deepest shared page before the last token is re-run;
+admission pressure evicts unreferenced cached pages.
+
+Out of the port so far (they raise if configured): speculative decoding,
+LoRA, SLO accounting and shedding, migration, the request ring,
+telemetry, the audit plane and ``LLMServer``.
 """
 
 from __future__ import annotations
@@ -77,9 +88,9 @@ class EngineConfig:
     # Chunked prefill: prompts longer than this prefill in chunks of
     # this many tokens between decode chunks (0 = one bucketed prefill).
     prefill_chunk: int = 0
-    # slo, shed_queue_age_s and every field from prefix_cache on belong
-    # to modes the port does not have yet: each must keep its default
-    # (see _UNPORTED).
+    # slo, shed_queue_age_s and every field from adapter_pool_pages on
+    # belong to modes the port does not have yet: each must keep its
+    # default (see _UNPORTED).
     slo: Optional[Any] = None
     shed_queue_age_s: Optional[float] = None
     # Ragged unified step (K4 + K5): one device step packs decode rows
@@ -87,6 +98,9 @@ class EngineConfig:
     # max(prefill_chunk, page_size)).
     ragged_batching: bool = False
     token_budget: int = 0
+    # Radix-tree prefix cache over the page pool (requires
+    # ragged_batching: prefill-from-offset rides the ragged step's
+    # per-row start).
     prefix_cache: bool = False
     adapter_pool_pages: int = 0
     adapter_page_elems: int = 8192
@@ -110,7 +124,6 @@ class EngineConfig:
 _UNPORTED = {
     "slo": "SLO accounting",
     "shed_queue_age_s": "overload shedding",
-    "prefix_cache": "the prefix cache",
     "adapter_pool_pages": "LoRA multiplexing",
     "adapter_page_elems": "LoRA multiplexing",
     "max_batch_adapters": "LoRA multiplexing",
@@ -150,6 +163,8 @@ class PagedEngineAdapter:
     ragged_step(params, tokens[T], tok_pos[T], row_slot, row_start,
         row_len, row_off, block_tables, cache) -> (logits[R,V], cache)
         (the unified step; needed by ragged_batching)
+    copy_page(cache, src, dst) -> cache  (duplicate one physical page,
+        scales included; needed by prefix_cache)
     """
 
     init_cache: Callable[[int, int, torch.device], Any]
@@ -158,6 +173,7 @@ class PagedEngineAdapter:
     prefill_batch: Callable[..., Tuple[torch.Tensor, Any]]
     prefill_chunk: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
     ragged_step: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
+    copy_page: Optional[Callable[[Any, int, int], Any]] = None
 
 
 def llama_paged_adapter(cfg) -> PagedEngineAdapter:
@@ -184,6 +200,7 @@ def llama_paged_adapter(cfg) -> PagedEngineAdapter:
             llama.ragged_step_paged(params, tokens, tok_pos, row_slot,
                                     row_start, row_len, row_off, bt, cfg,
                                     cache),
+        copy_page=llama.copy_page_paged,
     )
 
 
@@ -214,6 +231,8 @@ class Request:
     finished_at: Optional[float] = None
     tokens: List[int] = dataclasses.field(default_factory=list)
     request_id: str = ""
+    # Prompt tokens served from the prefix cache (0 = cold prefill).
+    prefix_hit: int = 0
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -348,8 +367,39 @@ class LLMEngine:
         self._maxp = -(-config.max_seq_len // page)
         self._num_pages = config.num_pages or config.max_slots * self._maxp
         self._cache = adapter.init_cache(self._num_pages, page, self.device)
+        if (isinstance(self._cache, dict) and "k_scale" in self._cache
+                and config.prefill_chunk > 0 and not self._ragged):
+            # The ragged append works a page at a time and CAN grow page
+            # scales, so int8 KV with chunked prompts is a restriction
+            # of the chunked interleave only.
+            raise ValueError(
+                "kv_int8 pools do not support chunked prefill "
+                "(per-token page scatters cannot grow page scales "
+                "on the gather path) — set "
+                "EngineConfig.prefill_chunk=0, enable "
+                "ragged_batching, or serve with bf16 KV")
         self._free_pages = list(range(self._num_pages))
         self._slot_pages: Dict[int, List[int]] = {}
+        # Radix-tree prefix cache: finished requests donate full pages
+        # to the trie; slots borrow them at admission (_slot_borrowed
+        # tracks which block-table entries the cache owns, so release
+        # never returns them to the free list).
+        self._prefix = None
+        self._slot_borrowed: Dict[int, List[int]] = {}
+        if config.prefix_cache:
+            if not self._ragged:
+                raise ValueError(
+                    "prefix_cache requires ragged_batching=True "
+                    "(prefill-from-offset rides the ragged step's "
+                    "per-row start descriptor)")
+            if adapter.copy_page is None:
+                raise ValueError(
+                    "prefix_cache requires an adapter with "
+                    "copy_page (the COW split of a shared page)")
+            from ray_tpu_torch.serve.prefix_index import PrefixIndex
+            self._prefix = PrefixIndex(page)
+        self._prefix_hit_tokens = 0
+        self._prefix_prompt_tokens = 0
         # Unallocated block-table entries hold the OOB sentinel
         # (num_pages, the scratch page): never read by attention, and a
         # slot decoded past its allocation writes only scratch.
@@ -445,18 +495,34 @@ class LLMEngine:
         self._work.set()
 
     def stats(self) -> Dict[str, Any]:
-        return {"device": str(self.device),
-                "active_slots": self.config.max_slots - len(self._free_slots),
-                "waiting": self._waiting.qsize() + len(self._backlog),
-                "prefilling": len(self._prefilling),
-                "steps": self._steps,
-                "tokens_out": self._tokens_out,
-                # Tokens dispatched to the device by phase (prefill
-                # padding rows included), and ragged steps that packed
-                # decode rows beside prompt tokens.
-                "step_tokens": dict(self._step_tokens),
-                "mixed_steps": self._mixed_steps,
-                "kv_pages_free": len(self._free_pages)}
+        out = {"device": str(self.device),
+               "active_slots": self.config.max_slots - len(self._free_slots),
+               "waiting": self._waiting.qsize() + len(self._backlog),
+               "prefilling": len(self._prefilling),
+               "steps": self._steps,
+               "tokens_out": self._tokens_out,
+               # Tokens dispatched to the device by phase (prefill
+               # padding rows included), and ragged steps that packed
+               # decode rows beside prompt tokens.
+               "step_tokens": dict(self._step_tokens),
+               "mixed_steps": self._mixed_steps,
+               "kv_pages_free": len(self._free_pages),
+               "kv_pages_cached": (self._prefix.cached_pages
+                                   if self._prefix else 0)}
+        if self._prefix is not None:
+            pstats = self._prefix.stats()
+            pstats["hit_tokens"] = self._prefix_hit_tokens
+            pstats["prompt_tokens"] = self._prefix_prompt_tokens
+            out["prefix"] = pstats
+        return out
+
+    def prefix_summary(self, max_entries: int = 256) -> Optional[dict]:
+        """Compact routing summary of the prefix cache ({"page": …,
+        "hashes": [chained CRC32 path hashes]}), or None when the cache
+        is off."""
+        if self._prefix is None:
+            return None
+        return self._prefix.summary(max_entries)
 
     def shutdown(self, timeout_s: float = 30.0) -> None:
         """Stop the loop and wait for it; requests still running end
@@ -494,7 +560,15 @@ class LLMEngine:
         then the OOB sentinel.  None when the pool can't cover it."""
         if need is None:
             need = self._pages_needed(req)
-        if not self._free_slots or len(self._free_pages) < need:
+        if not self._free_slots:
+            return None
+        if len(self._free_pages) < need and self._prefix is not None:
+            # Admission pressure evicts refcount-0 LRU cache pages
+            # BEFORE the request queues: the cache borrows idle pool
+            # capacity, it never competes with admission for it.
+            self._free_pages.extend(
+                self._prefix.evict(need - len(self._free_pages)))
+        if len(self._free_pages) < need:
             return None
         slot = self._free_slots.pop()
         pages = [self._free_pages.pop() for _ in range(need)]
@@ -503,6 +577,52 @@ class LLMEngine:
         row[: len(pages)] = pages
         self._bt[slot] = row
         return slot
+
+    def _admit_slot_for(self, req: Request) -> Optional[Tuple[int, int]]:
+        """Claim a slot + pages, borrowing the longest cached prefix
+        when the prefix cache is on.  Returns (slot, start) — the
+        ragged prefill resumes at ``start`` instead of 0 — or None
+        under slot/page pressure (every borrowed ref released).
+
+        Only FULL pages are cached and prefill resumes at the hit
+        boundary, so shared pages are never written — except an exact
+        full-prompt hit, where the mandatory last-token re-run (the
+        sample needs its logits) lands inside the deepest shared page.
+        That page is copied into a fresh page before scheduling."""
+        if self._prefix is None:
+            slot = self._alloc_slot_pages(req)
+            return None if slot is None else (slot, 0)
+        page = self.config.page_size
+        hit_pages = self._prefix.acquire(req.prompt)
+        d = len(hit_pages)
+        start = hit = d * page
+        cow = d > 0 and hit >= len(req.prompt)
+        if cow:
+            start = len(req.prompt) - 1
+        slot = self._alloc_slot_pages(
+            req, need=self._pages_needed(req) - d + (1 if cow else 0))
+        if slot is None:
+            self._prefix.release(hit_pages)
+            return None
+        fresh = self._slot_pages[slot]
+        if cow:
+            src, dst = hit_pages[-1], fresh[0]
+            self._cache = self.adapter.copy_page(self._cache, src, dst)
+            self._prefix.release([src])
+            borrowed = hit_pages[:-1]
+            pages = borrowed + [dst] + fresh[1:]
+        else:
+            borrowed = hit_pages
+            pages = borrowed + fresh
+        self._slot_pages[slot] = pages
+        self._slot_borrowed[slot] = borrowed
+        row = np.full((self._maxp,), self._num_pages, np.int32)
+        row[: len(pages)] = pages
+        self._bt[slot] = row
+        req.prefix_hit = start
+        self._prefix_hit_tokens += start
+        self._prefix_prompt_tokens += len(req.prompt)
+        return slot, start
 
     def _admit_paged(self) -> None:
         """A request needs pages for max(prefill bucket, prompt+max_new)
@@ -599,11 +719,13 @@ class LLMEngine:
                     req = self._waiting.get_nowait()
                 except queue.Empty:
                     return
-            slot = self._alloc_slot_pages(req)
-            if slot is None:
+            got = self._admit_slot_for(req)
+            if got is None:
                 self._backlog.insert(0, req)
                 return
-            self._prefilling.append({"req": req, "slot": slot, "pos": 0})
+            slot, start = got
+            self._prefilling.append({"req": req, "slot": slot,
+                                     "pos": start})
             self._state_dirty = True  # bt rows changed
 
     def _run_prefill(self, tokens, true_lens, pages_rows, temps,
@@ -940,16 +1062,40 @@ class LLMEngine:
         if (eos or len(req.tokens) >= req.max_new_tokens
                 or len(req.prompt) + len(req.tokens)
                 >= self.config.max_seq_len):
-            self._release_slot(slot)
+            # KV is written for prompt + generated minus the last
+            # sampled token (it was never fed back): exactly the prefix
+            # a later request can resume from.
+            seq = req.prompt + req.tokens
+            self._release_slot(slot, cache_tokens=seq[:len(seq) - 1])
             req.finished_at = time.monotonic()
             req.stream.put(_DONE)
 
-    def _release_slot(self, slot: int) -> None:
+    def _release_slot(self, slot: int, *,
+                      cache_tokens: Optional[List[int]] = None) -> None:
         """Return a slot and its pages to the free pools (finish, cancel
-        and shutdown paths alike)."""
+        and shutdown paths alike).
+
+        With the prefix cache on: borrowed pages go back to the index
+        (refcount -1, never the free list), and on the FINISH path only
+        (``cache_tokens`` = the KV-written token sequence) the slot's
+        full pages are offered to the trie; pages the trie adopts stay
+        cached, the rest are freed.  Cancel and failure paths pass no
+        cache_tokens: their tail pages may be partially written, so
+        nothing is donated."""
         self._slot_req.pop(slot, None)
         self._free_slots.append(slot)
-        self._free_pages.extend(self._slot_pages.pop(slot, []))
+        pages = self._slot_pages.pop(slot, [])
+        if self._prefix is not None:
+            borrowed = self._slot_borrowed.pop(slot, [])
+            self._prefix.release(borrowed)
+            adopted: set = set()
+            if cache_tokens is not None:
+                full = len(cache_tokens) // self.config.page_size
+                adopted = self._prefix.insert(cache_tokens, pages[:full])
+            self._free_pages.extend(p for p in pages[len(borrowed):]
+                                    if p not in adopted)
+        else:
+            self._free_pages.extend(pages)
         self._bt[slot] = self._num_pages
         self._lens[slot] = 0
         self._state_dirty = True

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1, K2, K9f, K4, K5) against their plain
-PyTorch versions on the card, in f32 and bf16, across head dims, page
-sizes and GQA groups.  CUDA kernels have no CPU mode: without a card every
+"""The port's CUDA kernels (K1, K2, K3, K9f, K4, K5, K6; K1 and K4 on
+bf16/f32 and on int8 pools) against their plain PyTorch versions on the
+card, in f32 and bf16, across head dims, page sizes and GQA groups.  CUDA kernels have no CPU mode: without a card every
 test here skips.  On a machine with one (no jax needed):
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
@@ -226,3 +226,208 @@ def test_k5_matches_plain(dev, dtype, D, page):
     assert torch.equal(k1[:, :, -1], k[:, :, -1])
     n_rows = sum(n for _, n in _MIX)
     assert int((k1 != k).any(dim=-1).sum()) == L * KVH * n_rows
+
+
+# ---------------------------------------------------------------------------
+# int8 pools: K1 and K4 with page scales, the quantised appends K3 and K6
+# ---------------------------------------------------------------------------
+
+_INT8_DIMS = [(16, 16), (64, 16), (64, 64), (128, 16), (128, 64)]
+
+
+def _quantise(g, pools_like, P, KVH):
+    """Random int8 pools shaped like ``pools_like`` and page-major f32
+    scales [L, P, KVH, 1]."""
+    L = pools_like.shape[0]
+    k = torch.randint(-127, 128, pools_like.shape, generator=g,
+                      device="cuda", dtype=torch.int8)
+    v = torch.randint(-127, 128, pools_like.shape, generator=g,
+                      device="cuda", dtype=torch.int8)
+    ks = torch.rand((L, P, KVH, 1), generator=g, device="cuda") * 0.02 + 0.005
+    vs = torch.rand((L, P, KVH, 1), generator=g, device="cuda") * 0.02 + 0.005
+    return k, v, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,page", _INT8_DIMS)
+@pytest.mark.parametrize("qpg,soft_cap", [(1, None), (4, 30.0)])
+def test_k1_int8_matches_plain(dev, dtype, D, page, qpg, soft_cap):
+    g = _gen(qpg * D + page + 1)
+    L, B, KVH, maxp = 3, 6, 2, 5
+    P = B * maxp + 1
+    q = torch.randn((B, KVH * qpg, D), generator=g, device=dev, dtype=dtype)
+    k, v, ks, vs = _quantise(g, torch.empty((L, KVH, P, page, D)), P, KVH)
+    lens = [0, 1, page - 1, page, page + 1, maxp * page]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    perm = torch.randperm(P - 1, device=dev, generator=g).to(torch.int32)
+    bt = torch.full((B, maxp), P - 1, dtype=torch.int32, device=dev)
+    for b, n in enumerate(lens):
+        live = -(-n // page)
+        bt[b, :live] = perm[b * maxp: b * maxp + live]
+    before = (tpa.paged_decode_attention_partial.launches,
+              tpa.paged_decode_attention_partial.launches_int8)
+    for layer in range(L):
+        got = tpa.paged_decode_attention_partial(
+            q, k, v, layer, bt, lengths, soft_cap=soft_cap, k_scales=ks,
+            v_scales=vs)
+        want = tpa.paged_decode_attention_partial_plain(
+            q, k, v, layer, bt, lengths, soft_cap=soft_cap, k_scales=ks,
+            v_scales=vs)
+        torch.cuda.synchronize()
+        # f32 arithmetic on exactly converted inputs in both versions;
+        # only the order of the sums differs (values up to ~|q| * 127 *
+        # scale * sqrt(D) before the softmax).
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+        acc, m, l = got
+        assert (m[0] == -1e30).all() and (l[0] == 0).all() \
+            and (acc[0] == 0).all()
+    assert tpa.paged_decode_attention_partial.launches == before[0] + L
+    assert tpa.paged_decode_attention_partial.launches_int8 == before[1] + L
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,page", _INT8_DIMS)
+def test_k3_matches_plain_bytes(dev, dtype, D, page):
+    """Stored bytes and scales equal the plain version's bit for bit on
+    live pages, through a first write (offset 0 on a stale page), stable
+    scales, grown scales, an all-zero row and an inactive slot."""
+    g = _gen(D + page + 3)
+    L, KVH, P, B = 3, 2, 9, 6
+    k, v, ks, vs = _quantise(g, torch.empty((L, KVH, P, page, D)), P, KVH)
+    # Slots: 0 fresh page, 1 small row (stable), 2 large row (grown),
+    # 3 all-zero row at offset 0, 4 inactive (scratch), 5 the sentinel.
+    pids = torch.tensor([0, 3, 5, 6, P - 1, P], dtype=torch.int32,
+                        device=dev)
+    offs = torch.tensor([0, 3, page - 1, 0, 2, 1], dtype=torch.int32,
+                        device=dev)
+    mag = torch.tensor([1.0, 0.01, 50.0, 0.0, 1.0, 1.0], device=dev)
+    k_new = (torch.randn((L, B, KVH, D), generator=g, device=dev)
+             * mag[None, :, None, None]).to(dtype)
+    v_new = (torch.randn((L, B, KVH, D), generator=g, device=dev)
+             * mag[None, :, None, None]).to(dtype)
+    got = [t.clone() for t in (k, v, ks, vs)]
+    want = [t.clone() for t in (k, v, ks, vs)]
+    before = tpa.paged_append_quantized.launches
+    tpa.paged_append_quantized(*got, k_new, v_new, pids, offs)
+    tpa.paged_append_quantized_plain(*want, k_new, v_new, pids, offs)
+    torch.cuda.synchronize()
+    assert tpa.paged_append_quantized.launches == before + 1
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a[:, :, : P - 1], b[:, :, : P - 1])
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a[:, : P - 1], b[:, : P - 1])
+        assert torch.isfinite(a).all()
+    # The cases are what they claim: stable keeps every other byte,
+    # grown changes some, fresh zeroes the stale rows, zero row -> 0.
+    assert torch.equal(got[0][:, :, 3, :3], k[:, :, 3, :3])
+    assert torch.equal(got[2][:, 3], ks[:, 3])
+    assert (got[2][:, 5] > ks[:, 5]).all()
+    assert (got[0][:, :, 5, : page - 1] != k[:, :, 5, : page - 1]).any()
+    assert not got[0][:, :, 0, 1:].any() and got[0][:, :, 0, 0].any()
+    assert not got[2][:, 6].any() and not got[0][:, :, 6].any()
+    for p in (1, 2, 4, 7):
+        assert torch.equal(got[0][:, :, p], k[:, :, p])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,page", _INT8_DIMS)
+@pytest.mark.parametrize("soft_cap", [None, 30.0])
+def test_k4_int8_matches_plain(dev, dtype, D, page, soft_cap):
+    g = _gen(D + page + 4)
+    L, KVH, qpg = 2, 2, 4
+    kf, _vf, q, kn, vn, meta, bt, covered = _ragged_case(
+        dev, g, dtype, L, KVH * qpg, KVH, D, page, _MIX)
+    k, v, ks, vs = _quantise(g, kf, kf.shape[2], KVH)
+    before = (trpa.ragged_paged_attention.launches,
+              trpa.ragged_paged_attention.launches_int8)
+    for layer in range(L):
+        got = trpa.ragged_paged_attention(
+            q, kn, vn, k, v, layer, *meta, bt, soft_cap=soft_cap,
+            k_scales=ks, v_scales=vs)
+        want = trpa.ragged_paged_attention_plain(
+            q, kn, vn, k, v, layer, *meta, bt, soft_cap=soft_cap,
+            k_scales=ks, v_scales=vs)
+        torch.cuda.synchronize()
+        # f32 arithmetic in both versions, other summation order; the
+        # plain version dequantises first, the kernel scales the score.
+        torch.testing.assert_close(got[covered], want[covered], atol=2e-4,
+                                   rtol=2e-4)
+        assert not got[~covered].any()
+    assert trpa.ragged_paged_attention.launches == before[0] + L
+    assert trpa.ragged_paged_attention.launches_int8 == before[1] + L
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,page", _INT8_DIMS)
+def test_k6_matches_plain_bytes(dev, dtype, D, page):
+    """Stored bytes and scales equal the plain version's bit for bit on
+    every page but the scratch page, over decode rows, chunks crossing
+    pages, a chunk starting mid-page and a padding row; untouched pages
+    keep bytes and scale."""
+    g = _gen(D + page + 6)
+    L, KVH = 3, 2
+    kf, _vf, _q, _kn, _vn, meta, bt, _cov = _ragged_case(
+        dev, g, dtype, L, KVH, KVH, D, page, _MIX)
+    P = kf.shape[2]
+    k, v, ks, vs = _quantise(g, kf, P, KVH)
+    T = _kn.shape[0]
+    # Magnitudes per token: small ones keep a page's scale, large ones
+    # grow it.
+    mag = torch.rand((1, T, 1, 1), generator=g, device=dev) * 4.0
+    k_new = (torch.randn((L, T, KVH, D), generator=g, device=dev)
+             * mag).to(dtype)
+    v_new = (torch.randn((L, T, KVH, D), generator=g, device=dev)
+             * 0.001).to(dtype)
+    got = [t.clone() for t in (k, v, ks, vs)]
+    want = [t.clone() for t in (k, v, ks, vs)]
+    before = trpa.ragged_paged_append_quantized.launches
+    trpa.ragged_paged_append_quantized(*got, k_new, v_new, *meta, bt)
+    trpa.ragged_paged_append_quantized_plain(*want, k_new, v_new, *meta, bt)
+    torch.cuda.synchronize()
+    assert trpa.ragged_paged_append_quantized.launches == before + 1
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a[:, :, :-1], b[:, :, :-1])
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a[:, :-1], b[:, :-1])
+        assert torch.isfinite(a).all()
+    # The scratch page is never touched by the kernel (no row here runs
+    # past its block table), and the pages changed are exactly those the
+    # rows' fresh tokens touch.
+    assert torch.equal(got[0][:, :, -1], k[:, :, -1])
+    slot, start, ln, _off = (t.tolist() for t in meta)
+    touched = set()
+    for s_, st, n in zip(slot, start, ln):
+        for pos in range(st, st + n):
+            touched.add(int(bt[s_, pos // page]))
+    changed = {p for p in range(P - 1)
+               if not torch.equal(got[2][:, p], ks[:, p])
+               or not torch.equal(got[0][:, :, p], k[:, :, p])}
+    assert changed == touched
+    # v: tiny fresh values under a stable scale leave old cells alone.
+    stable = [p for p in touched if torch.equal(got[3][:, p], vs[:, p])]
+    assert stable
+    rows = dict(zip(slot, zip(start, ln)))
+    for s_, (st, n) in rows.items():
+        p = int(bt[s_, st // page])
+        if n and st % page and p in stable:
+            assert torch.equal(got[1][:, :, p, : st % page],
+                               v[:, :, p, : st % page])
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
+    pools = torch.zeros((1, 2, 3, 8, 16), dtype=torch.int8, device=dev)
+    sc = torch.ones((1, 3, 2, 1), device=dev)
+    q = torch.zeros((1, 4, 16), device=dev)
+    bt = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    lens = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int8 pools need"):
+        tpa.paged_decode_attention_partial(q, pools, pools, 0, bt, lens)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        tpa.paged_decode_attention_partial(q.half(), pools, pools, 0, bt,
+                                           lens, k_scales=sc, v_scales=sc)
+    pools8 = torch.zeros((1, 2, 3, 8, 8), dtype=torch.int8, device=dev)
+    new = torch.zeros((1, 1, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tpa.paged_append_quantized(pools8, pools8, sc, sc, new, new,
+                                   lens, lens)

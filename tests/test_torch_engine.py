@@ -106,7 +106,7 @@ def test_sampling_is_seeded_and_greedy_at_zero_temperature():
 
 
 @pytest.mark.parametrize("field,value", [("adapter_pool_pages", 4),
-                                         ("prefix_cache", True),
+                                         ("adapter_int8", True),
                                          ("shed_queue_age_s", 1.0),
                                          ("spec_decode", True)])
 def test_unported_modes_raise(params, field, value):

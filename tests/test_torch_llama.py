@@ -139,7 +139,17 @@ def test_prefill_slot_equals_batch_row(params):
     assert torch.equal(c1["k"], c2["k"]) and torch.equal(c1["v"], c2["v"])
 
 
-def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="kv_int8"):
-        tl.init_paged_cache(dataclasses.replace(T_CFG, kv_int8=True), 4, 16,
-                            device="cpu")
+def test_unported_modes_raise(params):
+    _, tp = params
+    cache = tl.init_paged_cache(T_CFG, 4, 16, device="cpu")
+    toks = torch.zeros((1, 16), dtype=torch.int32)
+    for field, value in (("fused_decode", True), ("tensor_parallel", True),
+                         ("lora", object())):
+        with pytest.raises(NotImplementedError, match=field):
+            tl.prefill_batch_paged(
+                tp, toks, torch.tensor([3]),
+                torch.zeros((1, 1), dtype=torch.int32),
+                dataclasses.replace(T_CFG, **{field: value}), cache)
+    # int8 KV pools are ported: the cache builds, with its page scales.
+    assert "k_scale" in tl.init_paged_cache(
+        dataclasses.replace(T_CFG, kv_int8=True), 4, 16, device="cpu")

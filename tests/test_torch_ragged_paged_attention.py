@@ -141,15 +141,29 @@ def test_k5_plain_matches_jax_kernel_exactly():
 
 
 def test_k4_k5_int8_pools_raise():
+    """Scales belong to int8 pools and int8 pools to K6: scales beside
+    f32 pools, int8 pools without scales, and int8 pools handed to the
+    copying append K5 all raise."""
     q = torch.zeros((8, 2, 8))
     pools = torch.zeros((1, 1, 3, 16, 8))
     rows = [torch.zeros(2, dtype=torch.int32)] * 4
     bt = torch.zeros((2, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="int8"):
+    sc = torch.ones((1, 3, 1, 1))
+    with pytest.raises(ValueError, match="int8"):
         trpa.ragged_paged_attention(
             q, q[:, :1], q[:, :1], pools, pools, 0, *rows, bt,
-            k_scales=torch.ones((1, 3, 1, 1)),
-            v_scales=torch.ones((1, 3, 1, 1)))
+            k_scales=sc, v_scales=sc)
+    with pytest.raises(ValueError, match="int8"):
+        trpa.ragged_paged_attention(
+            q, q[:, :1], q[:, :1], pools.to(torch.int8),
+            pools.to(torch.int8), 0, *rows, bt)
+    with pytest.raises(ValueError, match="int8"):
+        trpa.ragged_paged_append_quantized(
+            pools, pools, sc, sc, q[None, :, :1], q[None, :, :1], *rows, bt)
+    out = trpa.ragged_paged_attention(
+        q, q[:, :1], q[:, :1], pools.to(torch.int8), pools.to(torch.int8),
+        0, *rows, bt, k_scales=sc, v_scales=sc)
+    assert out.shape == q.shape and not out.any()
 
 
 def test_pack_ragged_batch_matches_jax():
