@@ -49,12 +49,26 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    before, and K4 (its int8 instantiation) must run 32 times and K6 once
    per ragged step, K5 never, and the hit must be 512 tokens.  Then a
    short bucketed int8 run, counters again at 0: K1 (int8) 32 times and
-   K3 once per decode step, K2 never.
+   K3 once per decode step, K2 never;
+8. the fused decode path over int8 weights (the JAX package's headline
+   8B serving configuration): K7 and K8 on one LLAMA3_8B layer of the
+   fused int8 artifact, each on bf16 and on int8 pools, held against
+   their plain versions and timed beside the bound and the port's
+   unfused layer (no single library call computes a layer); cuda-vs-cpu
+   greedy streams of a tiny f32 model with ``fused_decode=True`` on both
+   engines, with f32 weights and pools and with an int8 fused artifact
+   on int8 pools; then LLAMA3_8B from ``init_quantized_llama`` +
+   ``fuse_for_decode`` with ``kv_int8=True, fused_decode=True``: the
+   bucketed engine at 48 slots (48 prompts of 128 tokens, 32 new
+   tokens: K7 = 32 x K3, no K1 or K2; one decode step timed as a CUDA
+   graph against the int8 weight-streaming bound), the ragged engine
+   with phase 6's traffic (K8 32 and K6 1 per step, no K4 or K5), and a
+   short run of both on bf16 pools (K7 beside K2, K8 beside K5).
 
 The last three lines of standard output are the kernel table (K1, K2,
-K9f, K4, K5, K1 int8, K3, K4 int8, K6) as one JSON object, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.  Details go
-to ``--out``.
+K9f, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8 int8) as one
+JSON object, the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.  Details go to ``--out``.
 """
 
 from __future__ import annotations
@@ -1471,6 +1485,565 @@ def ragged_serving_phase(torch, llama, eng_mod, kernels, card, params):
     return res
 
 
+# --------------------------------------------------------------------------
+# the fused decode path over int8 weights (K7, K8)
+# --------------------------------------------------------------------------
+
+FUSED_SLOTS = 48                 # the bench's bucketed decode width
+FUSED_TOL = 3e-2                 # bf16 outputs: |a - b| <= tol + tol |b|
+
+
+def fused_layer_8b(torch, llama, quant, seed):
+    """One LLAMA3_8B layer of the fused int8 artifact (init_quantized_llama
+    from a seeded generator on the card, then fuse_for_decode), and its
+    leaves' bytes (int8 weights, f32 scales, bf16 norms)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=1, vocab_size=256)
+    params = quant.fuse_for_decode(quant.init_quantized_llama(
+        torch.Generator(device="cuda").manual_seed(seed), cfg,
+        device="cuda"), cfg)
+    layer = llama._layers(params, 1)[0]
+    return layer, quant.quantized_bytes(params["layers"])
+
+
+def fused_check(tag, got, want, tol):
+    """Max abs error of (x_out, k_new, v_new) against the plain version;
+    raises past tol + tol * |plain| or on a non-finite value."""
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    for name, a, b in zip(("x_out", "k_new", "v_new"), got, want):
+        a, b = a.float(), b.float()
+        if not a.isfinite().all() or ((a - b).abs()
+                                      > tol + tol * b.abs()).any():
+            raise AssertionError(f"{tag} disagrees with its plain version "
+                                 f"on {name}: max error {err} (tolerance "
+                                 f"{tol} + {tol}|plain|)")
+    return err
+
+
+def unfused_decode_layer(llama, tpa, cfg, layer, x, k, v, bt, lengths, sin,
+                         cos, scales):
+    """The port's unfused decode layer at the same shapes (eager ATen,
+    the layer dequantised to bf16, K1 and combine_with_self): the body of
+    decode_slots_paged's layer loop, the yardstick beside K7."""
+    lay = llama._deq_layer(layer, cfg.dtype)
+    B = x.shape[0]
+    xx = x[:, None]
+    normed = llama.rms_norm(xx, lay["ln_attn"], cfg.norm_eps)
+    q, kk, vv = llama._qkv(normed, lay, cfg, sin[:, None], cos[:, None])
+    acc, m, l = tpa.paged_decode_attention_partial(q[:, 0], k, v, 0, bt,
+                                                   lengths, **scales)
+    out = tpa.combine_with_self(q[:, 0], kk[:, 0], vv[:, 0], acc, m, l)
+    wo = lay["attn"]["wo"]
+    h = xx + (out.reshape(B, -1) @ wo.reshape(-1, wo.shape[-1]))[:, None]
+    return h + llama._mlp_block(llama.rms_norm(h, lay["ln_mlp"],
+                                               cfg.norm_eps), lay, cfg)
+
+
+def unfused_ragged_layer(llama, trpa, cfg, layer, x, k, v, rows, bt, sin,
+                         cos, scales):
+    """The port's unfused ragged layer (eager ATen + K4), as in
+    ragged_step_paged's layer loop."""
+    lay = llama._deq_layer(layer, cfg.dtype)
+    T = x.shape[0]
+    normed = llama.rms_norm(x, lay["ln_attn"], cfg.norm_eps)
+    q, kk, vv = llama._qkv(normed[None], lay, cfg, sin[None], cos[None])
+    out = trpa.ragged_paged_attention(q[0], kk[0], vv[0], k, v, 0, *rows, bt,
+                                      **scales)
+    wo = lay["attn"]["wo"]
+    h = x + out.to(cfg.dtype).reshape(T, -1) @ wo.reshape(-1, wo.shape[-1])
+    return h + llama._mlp_block(llama.rms_norm(h, lay["ln_mlp"],
+                                               cfg.norm_eps), lay, cfg)
+
+
+def kernel_breakdown(torch, fn, reps: int = 3) -> dict:
+    """Device ms per call of each CUDA kernel that ``fn`` launches, from
+    torch.profiler (CUPTI) over ``reps`` calls; an "error" entry where the
+    profiler records no device time."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except RuntimeError as e:  # no CUPTI here: report, don't guess
+        return {"error": repr(e)[:200]}
+    out = {}
+    for evt in events:
+        us = getattr(evt, "device_time_total", 0) or getattr(
+            evt, "cuda_time_total", 0)
+        if us:
+            m = re.search(r"(\w+_kernel|\w+Kernel\w*|\w+)(<[^(]*>)?\(",
+                          evt.key)
+            name = (m.group(1) + (m.group(2) or "")) if m else evt.key[:50]
+            out[name] = out.get(name, 0.0) + us / reps / 1e3
+    return out or {"error": "the profiler recorded no device time"}
+
+
+def _fmt_breakdown(bd: dict) -> str:
+    if "error" in bd:
+        return f"not measured ({bd['error']})"
+    return ", ".join(f"{k} {v:.4f}" for k, v in
+                     sorted(bd.items(), key=lambda kv: -kv[1]))
+
+
+def _layer_flops(T, D, H, KVH, hd, M):
+    return 2 * T * (D * (H + 2 * KVH) * hd + H * hd * D + D * 2 * M + M * D)
+
+
+def kernel_phase_k7(torch, llama, quant, tfd, tpa, report, int8=False):
+    """K7 at the bench's bucketed shape: 48 slots with 128-160 past
+    tokens, page 64, one LLAMA3_8B layer of the fused int8 artifact."""
+    cfg = llama.LLAMA3_8B
+    D, H, KVH, hd, M = (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                        cfg.mlp_dim)
+    layer, w_bytes = fused_layer_8b(torch, llama, quant, 21)
+    B, page, maxp = FUSED_SLOTS, 64, 4
+    P = B * maxp + 1
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(22)
+    scales = {}
+    if int8:
+        k, v, ks, vs = int8_pools(torch, g, (1, KVH, P, page, hd))
+        scales = {"k_scales": ks, "v_scales": vs}
+    else:
+        k = torch.randn((1, KVH, P, page, hd), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        v = torch.randn_like(k)
+    x = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.randint(128, 161, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(23))
+    bt = perm[: B * maxp].reshape(B, maxp).to(torch.int32).to(dev)
+    sin, cos = llama.rope_table(cfg, lengths[:, None])
+    sin, cos = sin[:, 0], cos[:, 0]
+    tag = "K7 int8" if int8 else "K7"
+    kw = dict(eps=cfg.norm_eps, n_heads=H, n_kv_heads=KVH, **scales)
+    got = tfd.fused_decode_layer(x, layer, k, v, 0, bt, lengths, sin, cos,
+                                 **kw)
+    want = tfd.fused_decode_layer_reference(x, layer, k, v, 0, bt, lengths,
+                                            sin, cos, **kw)
+    err = fused_check(tag, got, want, FUSED_TOL)
+    ms = time_ms(torch, lambda i: tfd.fused_decode_layer(
+        x, layer, k, v, 0, bt, lengths, sin, cos, **kw))
+    plain_ms = time_ms(torch, lambda i: tfd.fused_decode_layer_reference(
+        x, layer, k, v, 0, bt, lengths, sin, cos, **kw), n=2, blocks=3)
+    unfused_ms = time_ms(torch, lambda i: unfused_decode_layer(
+        llama, tpa, cfg, layer, x, k, v, bt, lengths, sin, cos, scales),
+        n=5, blocks=3)
+    phases = kernel_breakdown(torch, lambda: tfd.fused_decode_layer(
+        x, layer, k, v, 0, bt, lengths, sin, cos, **kw))
+    tokens = int(lengths.sum())
+    pages = int(((lengths + page - 1) // page).sum())
+    kv_bytes = 2 * tokens * KVH * hd * (1 if int8 else 2) \
+        + (2 * pages * KVH * 4 if int8 else 0)
+    nbytes = (w_bytes + kv_bytes + B * D * 2 + B * hd * 4 + bt.numel() * 4
+              + B * 4 + B * D * 2 + 2 * B * KVH * hd * 2)
+    flops = _layer_flops(B, D, H, KVH, hd, M) + 4 * (tokens + B) * H * hd
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    report["K7i8" if int8 else "K7"] = {
+        "name": "fused_decode_layer" + (" (int8 pools)" if int8 else ""),
+        "route": "cuda", "source": "ray_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "ray_tpu/ops/fused_decode.py:325",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None, "unfused_layer_ms": unfused_ms,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"B={B} D={D} H={H} KVH={KVH} hd={hd} M={M} page={page}, "
+                 f"one LLAMA3_8B layer of the fused int8 artifact "
+                 f"({w_bytes / 1e6:.1f} MB), x bf16, pools "
+                 f"{'int8 + f32 page scales' if int8 else 'bf16'}, "
+                 f"{tokens} past tokens (128-160 per slot)",
+        "bound_bytes": nbytes, "bound_flops": flops,
+        "phase_ms": phases,
+    }
+    log(f"{tag} fused_decode_layer: err {err:.3e}  kernel {ms:.4f} ms  plain "
+        f"{plain_ms:.4f} ms  no single library call (unfused layer, eager "
+        f"ATen + K1: {unfused_ms:.4f} ms)  bound {b_ms:.4f} ms ({b_by})")
+    log(f"  {tag} phases (device ms per call): {_fmt_breakdown(phases)}")
+
+
+def kernel_phase_k8(torch, llama, quant, trpa, report, int8=False):
+    """K8 at the 8B ragged mix (seven decode rows, one 256-token chunk;
+    T = 264), one LLAMA3_8B layer of the fused int8 artifact."""
+    cfg = llama.LLAMA3_8B
+    D, H, KVH, hd, M = (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                        cfg.mlp_dim)
+    layer, w_bytes = fused_layer_8b(torch, llama, quant, 24)
+    k, v, _q, _kn, _vn, rows, bt = ragged_inputs(torch, L=1, seed=25)
+    del _q, _kn, _vn
+    scales = {}
+    if int8:
+        g = torch.Generator(device="cuda").manual_seed(26)
+        k, v, ks, vs = int8_pools(torch, g, tuple(k.shape))
+        scales = {"k_scales": ks, "v_scales": vs}
+    T, page = RAGGED_T, k.shape[3]
+    g = torch.Generator(device="cuda").manual_seed(27)
+    x = torch.randn((T, D), generator=g, device="cuda").to(torch.bfloat16)
+    tok_pos = torch.zeros(T, dtype=torch.int32)
+    at = 0
+    for s, n in RAGGED_ROWS:
+        tok_pos[at:at + n] = torch.arange(s, s + n, dtype=torch.int32)
+        at += n
+    sin, cos = llama.rope_table(cfg, tok_pos.cuda()[None])
+    sin, cos = sin[0], cos[0]
+    tag = "K8 int8" if int8 else "K8"
+    kw = dict(eps=cfg.norm_eps, n_heads=H, n_kv_heads=KVH, **scales)
+    got = trpa.fused_ragged_layer(x, layer, k, v, 0, *rows, bt, sin, cos,
+                                  **kw)
+    want = trpa.fused_ragged_layer_reference(x, layer, k, v, 0, *rows, bt,
+                                             sin, cos, **kw)
+    err = fused_check(tag, got, want, FUSED_TOL)
+    ms = time_ms(torch, lambda i: trpa.fused_ragged_layer(
+        x, layer, k, v, 0, *rows, bt, sin, cos, **kw), n=5, blocks=3)
+    plain_ms = time_ms(torch, lambda i: trpa.fused_ragged_layer_reference(
+        x, layer, k, v, 0, *rows, bt, sin, cos, **kw), n=2, blocks=3)
+    unfused_ms = time_ms(torch, lambda i: unfused_ragged_layer(
+        llama, trpa, cfg, layer, x, k, v, rows, bt, sin, cos, scales),
+        n=5, blocks=3)
+    phases = kernel_breakdown(torch, lambda: trpa.fused_ragged_layer(
+        x, layer, k, v, 0, *rows, bt, sin, cos, **kw))
+    past = sum(s for s, _ in RAGGED_ROWS)
+    past_pages = sum(-(-s // page) for s, _ in RAGGED_ROWS)
+    attended = sum(n * s + n * (n + 1) // 2 for s, n in RAGGED_ROWS)
+    past_bytes = 2 * past * KVH * hd * (1 if int8 else 2) \
+        + (2 * past_pages * KVH * 4 if int8 else 0)
+    nbytes = (w_bytes + past_bytes + 2 * T * D * 2 + T * hd * 4
+              + 2 * T * KVH * hd * 2 + bt.numel() * 4 + 4 * len(RAGGED_ROWS)
+              * 4)
+    flops = _layer_flops(T, D, H, KVH, hd, M) + 4 * attended * H * hd
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    report["K8i8" if int8 else "K8"] = {
+        "name": "fused_ragged_layer" + (" (int8 pools)" if int8 else ""),
+        "route": "cuda", "source": "ray_tpu_torch/csrc/fused_ragged.cu",
+        "replaces": "ray_tpu/ops/ragged_paged_attention.py:837",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None, "unfused_layer_ms": unfused_ms,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"T={T} D={D} H={H} KVH={KVH} hd={hd} M={M} page={page}, "
+                 f"one LLAMA3_8B layer of the fused int8 artifact, x bf16, "
+                 f"pools {'int8 + f32 page scales' if int8 else 'bf16'}, "
+                 f"rows (start, len) {RAGGED_ROWS}",
+        "bound_bytes": nbytes, "bound_flops": flops,
+        "phase_ms": phases,
+    }
+    log(f"{tag} fused_ragged_layer: err {err:.3e}  kernel {ms:.4f} ms  plain "
+        f"{plain_ms:.4f} ms  no single library call (unfused layer, eager "
+        f"ATen + K4: {unfused_ms:.4f} ms)  bound {b_ms:.4f} ms ({b_by})")
+    log(f"  {tag} phases (device ms per call): {_fmt_breakdown(phases)}")
+
+
+K7, K8 = "fused_decode_layer", "fused_ragged_layer"
+
+
+def fused_parity_phase(torch, llama, quant, eng_mod, kernels):
+    """Tiny f32 Llama with ``fused_decode=True``: the bucketed and the
+    ragged engine on the card (K7, K8) against the same engines on the CPU
+    (plain versions), identical greedy streams; once with f32 weights and
+    f32 pools, once with an int8 fuse_for_decode artifact and int8 pools."""
+    import dataclasses
+
+    import numpy as np
+
+    base_cfg = dataclasses.replace(llama.LLAMA_TINY, max_seq_len=512,
+                                   dtype=torch.float32, fused_decode=True)
+    f32_params = llama.init_params(torch.Generator().manual_seed(3),
+                                   base_cfg, device="cpu",
+                                   dtype=torch.float32)
+    int8_params = quant.fuse_for_decode(quant.init_quantized_llama(
+        torch.Generator().manual_seed(4), base_cfg, device="cpu"), base_cfg)
+    base = dict(max_slots=4, max_seq_len=512, page_size=64, decode_chunk=8,
+                max_new_tokens_default=16)
+    ragged = dict(base, ragged_batching=True, prefill_chunk=64)
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, base_cfg.vocab_size, n).tolist()
+               for n in (9, 70, 150, 300, 33)]
+    out = {}
+    for weights, params, kv_int8 in (("f32", f32_params, False),
+                                     ("int8 fused", int8_params, True)):
+        cfg = dataclasses.replace(base_cfg, kv_int8=kv_int8)
+        for mode, kw, must in (("bucketed", base, K7), ("ragged", ragged, K8)):
+            streams, counts = {}, {}
+            for device in ("cuda", "cpu"):
+                reset_counts(kernels)
+                eng = eng_mod.LLMEngine(_to(params, device),
+                                        eng_mod.llama_paged_adapter(cfg),
+                                        eng_mod.EngineConfig(**kw),
+                                        device=device)
+                try:
+                    streams[device] = [s.result(timeout_s=300) for s in
+                                       [eng.submit(p) for p in prompts]]
+                finally:
+                    eng.shutdown()
+                counts[device] = read_counts(kernels)
+            name = f"{mode}, {weights} weights"
+            if counts["cuda"][must] == 0 or any(counts["cpu"].values()):
+                raise AssertionError(f"fused parity ({name}): kernel "
+                                     f"launches {counts}")
+            if streams["cuda"] != streams["cpu"]:
+                raise AssertionError(f"fused parity ({name}): greedy streams "
+                                     f"differ: cuda {streams['cuda']} vs "
+                                     f"cpu {streams['cpu']}")
+            tokens = sum(len(s) for s in streams["cuda"])
+            log(f"fused parity ({name}, {'int8' if kv_int8 else 'f32'} "
+                f"pools): LLAMA_TINY f32, {len(prompts)} prompts of "
+                f"{[len(p) for p in prompts]} tokens: cuda == cpu greedy "
+                f"streams ({tokens} tokens; {must} launches "
+                f"{counts['cuda'][must]})")
+            out[name] = {"tokens": tokens, "launches": counts["cuda"][must]}
+    return out
+
+
+def dense_rank(torch, llama, params, cfg, prompt, token) -> int:
+    """Rank (0 = argmax) of ``token`` among the logits of a dense bf16
+    forward at the end of ``prompt``: einsum attention, no pages, each
+    layer's int8 leaves dequantised by llama._deq_layer, int8 head."""
+    with torch.no_grad():
+        tokens = torch.tensor([prompt], device="cuda")
+        sin, cos = llama.rope_table(cfg, torch.arange(
+            len(prompt), device="cuda")[None])
+        x = params["tok_embed"][tokens].to(cfg.dtype)
+        for layer in llama._layers(params, cfg.n_layers):
+            layer = llama._deq_layer(layer, cfg.dtype)
+            h = x + llama._attn_block(
+                llama.rms_norm(x, layer["ln_attn"], cfg.norm_eps), layer,
+                cfg, sin, cos, None)[0]
+            x = h + llama._mlp_block(
+                llama.rms_norm(h, layer["ln_mlp"], cfg.norm_eps), layer, cfg)
+        x = llama.rms_norm(x[0, -1], params["final_norm"], cfg.norm_eps)
+        last = llama._head_matmul(x, llama._head(params, cfg), cfg).float()
+    if not torch.isfinite(last).all():
+        raise AssertionError("8B dense forward logits are not finite")
+    return int((last > last[token]).sum())
+
+
+def fused_serving_phase(torch, llama, quant, eng_mod, kernels, card):
+    """The JAX package's headline 8B serving configuration: int8 weights
+    (init_quantized_llama from a seeded generator on the card, then
+    fuse_for_decode), int8 KV, fused_decode=True.  The bucketed engine at
+    48 slots (48 prompts of 128 tokens, 32 new tokens each: K7 per layer,
+    K3 per step), then the ragged engine with the ragged phase's traffic
+    (K8 per layer, K6 per step); then a short run of both on bf16 pools
+    (K7 and K8 beside K2 and K5)."""
+    import dataclasses
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = llama.LLAMA3_8B
+    params = quant.init_quantized_llama(
+        torch.Generator(device="cuda").manual_seed(0), base, device="cuda")
+    params = quant.fuse_for_decode(params, base)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    artifact = quant.quantized_bytes(params)
+    stream_bytes = quant.quantized_bytes(params["layers"]) \
+        + quant.quantized_bytes(params["lm_head"])
+    cfg = dataclasses.replace(base, kv_int8=True, fused_decode=True)
+    L = cfg.n_layers
+    rng = np.random.default_rng(29)
+    prompts = [rng.integers(0, cfg.vocab_size, 128).tolist()
+               for _ in range(FUSED_SLOTS)]
+    new = 32
+    ecfg = eng_mod.EngineConfig(max_slots=FUSED_SLOTS, max_seq_len=256,
+                                page_size=64, decode_chunk=8)
+    eng = eng_mod.LLMEngine(params, eng_mod.llama_paged_adapter(cfg), ecfg,
+                            device="cuda")
+    try:
+        # Warm-up request (allocator growth): not part of the measured run.
+        eng.submit(prompts[0][:5], max_new_tokens=2).result(timeout_s=600)
+        steps0 = eng.stats()["steps"]
+        reset_counts(kernels)
+        t1 = time.perf_counter()
+        streams = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        outs = [s.result(timeout_s=900) for s in streams]
+        wall = time.perf_counter() - t1
+        launches = read_counts(kernels)
+        steps = eng.stats()["steps"] - steps0
+        reqs = [s._req for s in streams]
+        if eng._cache["k"].dtype != torch.int8:
+            raise AssertionError("8B fused: the engine did not build int8 "
+                                 "pools")
+    finally:
+        eng.shutdown()
+    for o in outs:
+        if len(o) != new or not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError(f"8B fused bucketed stream malformed: {o}")
+    k7, k3 = launches[K7], launches[K3]
+    if k3 == 0 or k7 != L * k3 or launches[K7 + INT8] != k7 \
+            or launches[K1] or launches["paged_append"] or launches[K8]:
+        raise AssertionError(f"8B fused bucketed: launches {launches}, want "
+                             f"K7 = {L} x K3 > 0 and no K1, K2")
+    rank0 = dense_rank(torch, llama, params, cfg, prompts[0], outs[0][0])
+    if rank0 >= 5:
+        raise AssertionError(f"8B fused: first token ranks {rank0} in the "
+                             "dense forward (want top 5)")
+    # The second token is K7's: its rank says the fused layers serve the
+    # model, not noise (a random token ranks ~64k of 128k).
+    rank1 = dense_rank(torch, llama, params, cfg, prompts[0] + outs[0][:1],
+                       outs[0][1])
+    if rank1 >= 1000:
+        raise AssertionError(f"8B fused: the first K7 token ranks {rank1} "
+                             "in the dense forward")
+    first = min(r.first_token_at for r in reqs)
+    last_done = max(r.finished_at for r in reqs)
+    decode_tokens = sum(len(o) - 1 for o in outs)
+    breakdown = decode_step_breakdown(torch, llama, params, cfg,
+                                      [128] * FUSED_SLOTS,
+                                      slots=FUSED_SLOTS, maxp=4)
+    breakdown["weight_stream_bound_ms"] = stream_bytes / HBM_BYTES_PER_S * 1e3
+    breakdown["weights_gb"] = stream_bytes / 1e9
+    bucketed = {
+        "config": "LLAMA3_8B, int8 weights (fuse_for_decode), int8 KV, "
+                  "fused_decode=True, 32 layers, random weights (seed 0)",
+        "engine": f"max_slots={FUSED_SLOTS} max_seq_len=256 page_size=64 "
+                  "decode_chunk=8",
+        "artifact_bytes": artifact, "init_s": init_s,
+        "prompt_lens": [128] * FUSED_SLOTS, "max_new_tokens": new,
+        "wall_s": wall, "decode_steps": steps,
+        "ttft_s": [r.first_token_at - r.submitted_at for r in reqs],
+        "decode_tokens_per_s": decode_tokens / (last_done - first),
+        "engine_step_ms": (last_done - first) / max(steps, 1) * 1e3,
+        "decode_step": breakdown, "launches": launches,
+        "first_token_rank": rank0, "second_token_rank": rank1,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": card,
+    }
+    dev_ms = breakdown["device_ms"]
+    if dev_ms is not None:
+        bucketed["device_idle_share"] = 1 - dev_ms / bucketed["engine_step_ms"]
+    ttft = bucketed["ttft_s"]
+    log(f"8B fused int8 bucketed serving ({card}): artifact "
+        f"{artifact / 1e9:.3f} GB (init + fuse {init_s:.1f} s), {steps} "
+        f"decode steps at {bucketed['engine_step_ms']:.2f} ms/step, "
+        f"{bucketed['decode_tokens_per_s']:.1f} decode tok/s, TTFT "
+        f"{min(ttft):.3f}-{max(ttft):.3f} s, peak "
+        f"{bucketed['peak_memory_gb']:.2f} GB, first token rank {rank0}, "
+        f"first K7 token rank {rank1}, launches {launches}")
+    log(f"8B fused decode step alone ({breakdown['aten_ops']} ATen ops, "
+        f"{FUSED_SLOTS} slots): host {breakdown['host_ms']:.2f} ms, device "
+        + (f"{dev_ms:.2f} ms" if dev_ms is not None else
+           f"not measured ({breakdown['device_ms_error']})")
+        + f", int8 weight-streaming bound "
+        f"{breakdown['weight_stream_bound_ms']:.2f} ms "
+        f"({breakdown['weights_gb']:.2f} GB)")
+
+    # The ragged engine on the same weights, with the ragged phase's mix.
+    ecfg = eng_mod.EngineConfig(max_slots=8, max_seq_len=2048, page_size=64,
+                                decode_chunk=8, ragged_batching=True,
+                                prefill_chunk=256)
+    eng = eng_mod.LLMEngine(params, eng_mod.llama_paged_adapter(cfg), ecfg,
+                            device="cuda")
+    rng = np.random.default_rng(13)
+    lens, late_len = (17, 300, 700, 1500), 1000
+    r_prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    late_prompt = rng.integers(0, cfg.vocab_size, late_len).tolist()
+    try:
+        eng.submit(r_prompts[0][:5], max_new_tokens=2).result(timeout_s=600)
+        st0 = eng.stats()
+        reset_counts(kernels)
+        t1 = time.perf_counter()
+        streams = [eng.submit(p, max_new_tokens=new) for p in r_prompts]
+        it = iter(streams[0])
+        first0 = [next(it)]
+        late = eng.submit(late_prompt, max_new_tokens=new)
+        r_outs = [first0 + list(it)]
+        r_outs += [s.result(timeout_s=900) for s in streams[1:]]
+        r_outs.append(late.result(timeout_s=900))
+        r_wall = time.perf_counter() - t1
+        r_launches = read_counts(kernels)
+        st1 = eng.stats()
+        r_reqs = [s._req for s in streams] + [late._req]
+    finally:
+        eng.shutdown()
+    r_steps = st1["steps"] - st0["steps"]
+    step_tokens = {k: st1["step_tokens"][k] - st0["step_tokens"][k]
+                   for k in st1["step_tokens"]}
+    for o in r_outs:
+        if len(o) != new or not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError(f"8B fused ragged stream malformed: {o}")
+    k8 = r_launches[K8]
+    if r_steps == 0 or k8 != L * r_steps or r_launches[K6] != r_steps \
+            or r_launches[K8 + INT8] != k8 or r_launches[K4] \
+            or r_launches["ragged_paged_append"] or r_launches[K7]:
+        raise AssertionError(f"8B fused ragged: launches {r_launches} over "
+                             f"{r_steps} steps, want K8 {L} and K6 1 per "
+                             "step and no K4, K5")
+    if step_tokens["prefill"] != sum(lens) + late_len:
+        raise AssertionError(f"8B fused ragged: {step_tokens['prefill']} "
+                             f"prompt tokens, want {sum(lens) + late_len}")
+    r_rank = dense_rank(torch, llama, params, cfg, r_prompts[0], r_outs[0][0])
+    if r_rank >= 5:
+        raise AssertionError(f"8B fused ragged: first token ranks {r_rank} "
+                             "in the dense forward (want top 5)")
+    r_first = min(r.first_token_at for r in r_reqs)
+    r_last = max(r.finished_at for r in r_reqs)
+    ragged = {
+        "config": bucketed["config"],
+        "engine": "max_slots=8 max_seq_len=2048 page_size=64 decode_chunk=8 "
+                  f"ragged_batching=True prefill_chunk=256 (token budget "
+                  f"{RAGGED_T})",
+        "prompt_lens": list(lens) + [late_len], "max_new_tokens": new,
+        "wall_s": r_wall, "ragged_steps": r_steps,
+        "mixed_steps": st1["mixed_steps"] - st0["mixed_steps"],
+        "step_tokens": step_tokens,
+        "ttft_s": [r.first_token_at - r.submitted_at for r in r_reqs],
+        "decode_tokens_per_s": step_tokens["decode"] / (r_last - r_first),
+        "engine_step_ms": r_wall / r_steps * 1e3,
+        "launches": r_launches, "first_token_rank": r_rank,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": card,
+    }
+    log(f"8B fused int8 ragged serving ({card}): {r_steps} ragged steps "
+        f"({ragged['mixed_steps']} mixed, {ragged['engine_step_ms']:.2f} "
+        f"ms/step), {ragged['decode_tokens_per_s']:.1f} decode tok/s, TTFT "
+        f"{[round(t, 3) for t in ragged['ttft_s']]} s, tokens {step_tokens}, "
+        f"first token rank {r_rank}, launches {r_launches}")
+
+    # bf16 pools on the same weights: K7 beside K2, K8 beside K5.
+    cfg16 = dataclasses.replace(cfg, kv_int8=False)
+    short = {}
+    for mode, kw, must in (
+            ("bucketed", dict(max_slots=8, max_seq_len=256, page_size=64,
+                              decode_chunk=8), (K7, "paged_append")),
+            ("ragged", dict(max_slots=8, max_seq_len=512, page_size=64,
+                            decode_chunk=8, ragged_batching=True,
+                            prefill_chunk=256),
+             (K8, "ragged_paged_append"))):
+        eng = eng_mod.LLMEngine(params, eng_mod.llama_paged_adapter(cfg16),
+                                eng_mod.EngineConfig(**kw), device="cuda")
+        try:
+            eng.submit(prompts[0][:5], max_new_tokens=2).result(
+                timeout_s=600)
+            steps0 = eng.stats()["steps"]
+            reset_counts(kernels)
+            b_outs = [s.result(timeout_s=600) for s in
+                      [eng.submit(p, max_new_tokens=8) for p in prompts[:4]]]
+            b_launches = read_counts(kernels)
+            b_steps = eng.stats()["steps"] - steps0
+        finally:
+            eng.shutdown()
+        if any(len(o) != 8 for o in b_outs) or b_launches[must[0]] == 0 \
+                or b_launches[must[0] + INT8] or b_launches[must[1]] == 0 \
+                or b_launches[must[0]] != L * b_launches[must[1]]:
+            raise AssertionError(f"8B fused {mode} on bf16 pools: launches "
+                                 f"{b_launches}, want {must[0]} = {L} x "
+                                 f"{must[1]} > 0 and no int8 kernel")
+        short[mode] = {"steps": b_steps, "launches": b_launches}
+        log(f"8B fused {mode} on bf16 pools: {b_steps} steps, launches "
+            f"{ {k: b_launches[k] for k in must} }")
+    del params
+    torch.cuda.empty_cache()
+    return bucketed, ragged, short
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(
@@ -1488,8 +2061,10 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from ray_tpu_torch.models import llama
+        from ray_tpu_torch.models import quant
         from ray_tpu_torch.ops import _build
         from ray_tpu_torch.ops import flash_attention as tfa
+        from ray_tpu_torch.ops import fused_decode as tfd
         from ray_tpu_torch.ops import paged_attention as tpa
         from ray_tpu_torch.ops import ragged_paged_attention as trpa
         from ray_tpu_torch.serve import llm_engine as eng_mod
@@ -1522,7 +2097,8 @@ def main() -> int:
                "ragged_paged_append": trpa.ragged_paged_append,
                "paged_append_quantized": tpa.paged_append_quantized,
                "ragged_paged_append_quantized":
-               trpa.ragged_paged_append_quantized}
+               trpa.ragged_paged_append_quantized,
+               K7: tfd.fused_decode_layer, K8: trpa.fused_ragged_layer}
     report = {}
     kernel_phase_k1(torch, F, tpa, report)
     kernel_phase_k2(torch, tpa, report)
@@ -1536,14 +2112,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernel_phase_k6(torch, trpa, report)
     torch.cuda.empty_cache()
+    for int8 in (False, True):
+        kernel_phase_k7(torch, llama, quant, tfd, tpa, report, int8=int8)
+        kernel_phase_k8(torch, llama, quant, trpa, report, int8=int8)
+        torch.cuda.empty_cache()
     parity = parity_phase(torch, llama, eng_mod)
     ragged_parity = ragged_parity_phase(torch, llama, eng_mod, trpa)
     int8_parity = int8_parity_phase(torch, llama, eng_mod, kernels)
+    fused_parity = fused_parity_phase(torch, llama, quant, eng_mod, kernels)
     params, init_s = init_8b(torch, llama)
     # Each path is driven with every launch counter at 0 just before it
     # and read just after: the bucketed path's K1, K2, K9f, the ragged
     # path's K4, K5, then on int8 pools the ragged path's K4 (int8), K6
-    # and the bucketed path's K1 (int8), K3.
+    # and the bucketed path's K1 (int8), K3; then the fused path over int8
+    # weights: K7 (int8 pools) and K3, K8 (int8 pools) and K6, and on
+    # bf16 pools K7 and K2, K8 and K5.
     serving = serving_phase(torch, llama, eng_mod, kernels, card, params,
                             init_s)
     ragged = ragged_serving_phase(torch, llama, eng_mod, kernels, card,
@@ -1551,7 +2134,11 @@ def main() -> int:
     int8_ragged, int8_bucketed = int8_serving_phase(
         torch, llama, eng_mod, kernels, card, params)
     del params
-    order = ("K1", "K2", "K9f", "K4", "K5", "K1i8", "K3", "K4i8", "K6")
+    torch.cuda.empty_cache()
+    fused_bucketed, fused_ragged, fused_short = fused_serving_phase(
+        torch, llama, quant, eng_mod, kernels, card)
+    order = ("K1", "K2", "K9f", "K4", "K5", "K1i8", "K3", "K4i8", "K6", "K7",
+             "K7i8", "K8", "K8i8")
     for key, name, run in (
             ("K1", "paged_decode_attention_partial", serving),
             ("K2", "paged_append", serving),
@@ -1561,7 +2148,11 @@ def main() -> int:
             ("K1i8", "paged_decode_attention_partial" + INT8, int8_bucketed),
             ("K3", "paged_append_quantized", int8_bucketed),
             ("K4i8", "ragged_paged_attention" + INT8, int8_ragged),
-            ("K6", "ragged_paged_append_quantized", int8_ragged)):
+            ("K6", "ragged_paged_append_quantized", int8_ragged),
+            ("K7", K7, fused_short["bucketed"]),
+            ("K7i8", K7 + INT8, fused_bucketed),
+            ("K8", K8, fused_short["ragged"]),
+            ("K8i8", K8 + INT8, fused_ragged)):
         report[key]["launches"] = run["launches"][name]
         report[key]["kernel_ms"] = report[key]["ms"]
     total_s = time.perf_counter() - t_all
@@ -1578,7 +2169,11 @@ def main() -> int:
                    "int8_parity": int8_parity, "serving": serving,
                    "ragged_serving": ragged,
                    "int8_ragged_serving": int8_ragged,
-                   "int8_bucketed_serving": int8_bucketed}, f, indent=1)
+                   "int8_bucketed_serving": int8_bucketed,
+                   "fused_parity": fused_parity,
+                   "fused_bucketed_serving": fused_bucketed,
+                   "fused_ragged_serving": fused_ragged,
+                   "fused_bf16_pool_runs": fused_short}, f, indent=1)
     log(f"total {total_s:.1f} s; details in {args.out}")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -18,9 +18,17 @@ pools quantise whole pages on the way in), ``decode_slots_paged``
 ``prefill_chunk_paged`` (plain gather attention; bf16/f32 pools only, as
 in the JAX package), the unified ragged step ``ragged_step_paged``
 (kernel K4 per layer, kernel K5 once per step, K6 on int8 pools) and
-``copy_page_paged`` (the prefix cache's copy-on-write split).  Fused
-decode, tensor and sequence parallelism and LoRA raise
-NotImplementedError.
+``copy_page_paged`` (the prefix cache's copy-on-write split).
+
+Weights may be int8 (w8a16, ``models/quant.py``): ``{"q", "scale"}``
+leaves, dequantised one layer at a time inside the serving layer loops
+(``_deq_layer``; the dense ``forward`` takes plain weights, as in the JAX
+package), the fused ``wqkv``/``w_gateup`` operands of
+``quant.fuse_for_decode``, and an int8 head whose scale multiplies the
+logits.  With ``cfg.fused_decode`` the decode step runs each layer as one
+fused kernel, K7 (``decode_slots_paged_fused``), and the ragged step as
+K8; the prefills stay unfused, as in the JAX package.  Tensor and
+sequence parallelism and LoRA raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import dot_product_attention
+from ray_tpu_torch.ops.fused_decode import fused_decode_layer
 from ray_tpu_torch.ops.paged_attention import (
     NEG_INF,
     combine_with_self,
@@ -42,6 +51,7 @@ from ray_tpu_torch.ops.paged_attention import (
     paged_decode_attention_partial,
 )
 from ray_tpu_torch.ops.ragged_paged_attention import (
+    fused_ragged_layer,
     ragged_paged_append,
     ragged_paged_append_quantized,
     ragged_paged_attention,
@@ -98,8 +108,7 @@ LLAMA_TINY = LlamaConfig(vocab_size=256, dim=64, n_layers=2, n_heads=4,
 
 
 def _unported(cfg: LlamaConfig) -> None:
-    for field, slice_name in (("fused_decode", "fused decode"),
-                              ("tensor_parallel", "tensor parallelism"),
+    for field, slice_name in (("tensor_parallel", "tensor parallelism"),
                               ("sequence_parallel", "sequence parallelism"),
                               ("lora", "LoRA multiplexing")):
         if getattr(cfg, field):
@@ -151,12 +160,16 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
     return params
 
 
-def _layer(params: Params, i: int) -> Params:
-    """Layer ``i``'s slice of the stacked layer tree (views)."""
+def _layers(params: Params, n_layers: int):
+    """Every layer's slice of the stacked layer tree (views), one unbind
+    per leaf: a host-side ATen call per leaf and step, not per leaf and
+    layer."""
     def walk(node):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return node[i]
+            per_key = {k: walk(v) for k, v in node.items()}
+            return [{k: v[i] for k, v in per_key.items()}
+                    for i in range(n_layers)]
+        return node.unbind(0)
     return walk(params["layers"])
 
 
@@ -217,13 +230,20 @@ def _proj(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 def _qkv(x, layer, cfg: LlamaConfig, sin, cos):
     """Shared q/k/v projection + RoPE (prefill and decode)."""
     a = layer["attn"]
-    if "wqkv" in a:
-        raise NotImplementedError(
-            "fused wqkv serving artifacts are not ported yet")
     dt = cfg.dtype
-    q = _proj(x, a["wq"], dt)
-    k = _proj(x, a["wk"], dt)
-    v = _proj(x, a["wv"], dt)
+    if "wqkv" in a:
+        # A fused serving artifact (quant.fuse_for_decode): one matmul.
+        H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        lead = x.shape[:-1]
+        qkv = _proj(x, a["wqkv"], dt)
+        q = qkv[..., :H * hd].reshape(*lead, H, hd)
+        k = qkv[..., H * hd:(H + KVH) * hd].reshape(*lead, KVH, hd)
+        # v is a column slice of qkv: the kernels take contiguous rows.
+        v = qkv[..., (H + KVH) * hd:].reshape(*lead, KVH, hd).contiguous()
+    else:
+        q = _proj(x, a["wq"], dt)
+        k = _proj(x, a["wk"], dt)
+        v = _proj(x, a["wv"], dt)
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
 
@@ -242,16 +262,42 @@ def _attn_block(x, layer, cfg: LlamaConfig, sin, cos, segment_ids):
 def _mlp_block(x, layer, cfg: LlamaConfig):
     m = layer["mlp"]
     dt = cfg.dtype
-    gate = x @ m["w_gate"].to(dt)
-    up = x @ m["w_up"].to(dt)
+    if "w_gateup" in m:  # fused serving artifact (quant.fuse_for_decode)
+        gate, up = (x @ m["w_gateup"].to(dt)).chunk(2, dim=-1)
+    else:
+        gate = x @ m["w_gate"].to(dt)
+        up = x @ m["w_up"].to(dt)
     return (F.silu(gate) * up) @ m["w_down"].to(dt)
 
 
+# --- int8 weights (w8a16, models/quant.py) ---------------------------------
+
+def _is_qdict(node) -> bool:
+    return isinstance(node, dict) and set(node.keys()) == {"q", "scale"}
+
+
+def _deq_layer(layer, dtype: torch.dtype):
+    """Dequantise one layer's int8 leaves INSIDE the layer loop, so only
+    one layer ever exists in ``dtype`` (the 8B's whole tree would be 16
+    GB in bf16).  Identity for unquantised layers."""
+    def walk(node):
+        if _is_qdict(node):
+            return node["q"].to(dtype) * node["scale"].to(dtype)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    return walk(layer)
+
+
 def _head_matmul(x, head, cfg: LlamaConfig):
-    """Logits projection x [..., d] @ head [d, V] (unquantised head)."""
-    if isinstance(head, dict):
-        raise NotImplementedError("int8 heads are not ported yet")
-    return x @ head.to(cfg.dtype)
+    """Logits projection x [..., d] @ head [d, V].  For an int8 head the
+    per-OUTPUT-channel scale [1, V] multiplies the matmul RESULT, so the
+    operand is a bare int8 → dtype convert."""
+    if not _is_qdict(head):
+        return x @ head.to(cfg.dtype)
+    out = x @ head["q"].to(cfg.dtype)
+    return out.float() * head["scale"][0].float()
 
 
 # --- forward --------------------------------------------------------------
@@ -267,8 +313,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
                                  device=tokens.device).expand(tokens.shape)
     sin, cos = rope_table(cfg, positions)
     x = params["tok_embed"][tokens.long()].to(cfg.dtype)
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
+    for layer in _layers(params, cfg.n_layers):
         h = x + _attn_block(rms_norm(x, layer["ln_attn"], cfg.norm_eps),
                             layer, cfg, sin, cos, segment_ids)[0]
         x = h + _mlp_block(rms_norm(h, layer["ln_mlp"], cfg.norm_eps),
@@ -362,8 +407,8 @@ def prefill_batch_paged(params: Params, tokens: torch.Tensor,
     page_ids = pages_rows[:, :npg].reshape(K * npg).long()
     KVH, D = cfg.n_kv_heads, cfg.head_dim
     quantized = "k_scale" in cache
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
+    for i, layer in enumerate(_layers(params, cfg.n_layers)):
+        layer = _deq_layer(layer, cfg.dtype)
         normed = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
         out, (k, v) = _attn_block(normed, layer, cfg, sin, cos, None)
         h = x + out
@@ -416,26 +461,20 @@ def decode_slots_paged(params: Params, tokens: torch.Tensor,
     (combine_with_self); after the loop ONE K2 launch appends every
     layer's new row, in place.  On int8 pools K1 reads the page scales,
     the self term uses the unquantised fresh k/v, and K3 takes K2's
-    place."""
+    place.  With ``cfg.fused_decode`` the layers run as K7
+    (``decode_slots_paged_fused``)."""
     _unported(cfg)
-    quantized = "k_scale" in cache
+    if cfg.fused_decode:
+        return decode_slots_paged_fused(params, tokens, active, block_tables,
+                                        lengths, cfg, cache)
     scales = _scale_kwargs(cache)
-    page = cache["k"].shape[3]
-    scratch = cache["k"].shape[2] - 1  # physical scratch page
-    maxp = block_tables.shape[1]
     new_len = torch.where(active, lengths + 1, lengths)
     sin, cos = rope_table(cfg, lengths[:, None])
     x = params["tok_embed"][tokens[:, None].long()].to(cfg.dtype)
     B = tokens.shape[0]
-    slot_page = torch.clamp(lengths // page, max=maxp - 1).long()
-    pids = torch.gather(block_tables, 1, slot_page[:, None])[:, 0]
-    # Inactive slots must not write to live pages (theirs may already
-    # belong to another request) — route them to the scratch page.
-    pids = torch.where(active, pids, torch.full_like(pids, scratch))
-    offs = (lengths % page).to(torch.int32)
     k_news, v_news = [], []
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
+    for i, layer in enumerate(_layers(params, cfg.n_layers)):
+        layer = _deq_layer(layer, cfg.dtype)
         normed = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
         q, k, v = _qkv(normed, layer, cfg, sin, cos)
         k1, v1 = k[:, 0], v[:, 0]  # [B, KVH, D]
@@ -451,7 +490,27 @@ def decode_slots_paged(params: Params, tokens: torch.Tensor,
                            layer, cfg)
         k_news.append(k1)
         v_news.append(v1)
-    if quantized:
+    _append_decode_rows(cache, k_news, v_news, active, block_tables, lengths)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _head_matmul(x[:, 0], _head(params, cfg), cfg)
+    return logits.float(), cache, new_len
+
+
+def _append_decode_rows(cache, k_news, v_news, active, block_tables,
+                        lengths) -> None:
+    """The decode step's deferred append: every layer's new row of each
+    slot goes to page block_tables[b, lengths[b] // page] at offset
+    lengths[b] % page in ONE K2 launch (K3 on int8 pools), in place.
+    Inactive slots must not write to live pages (theirs may already
+    belong to another request): they go to the scratch page."""
+    page = cache["k"].shape[3]
+    scratch = cache["k"].shape[2] - 1  # physical scratch page
+    maxp = block_tables.shape[1]
+    slot_page = torch.clamp(lengths // page, max=maxp - 1).long()
+    pids = torch.gather(block_tables, 1, slot_page[:, None])[:, 0]
+    pids = torch.where(active, pids, torch.full_like(pids, scratch))
+    offs = (lengths % page).to(torch.int32)
+    if "k_scale" in cache:
         paged_append_quantized(cache["k"], cache["v"], cache["k_scale"],
                                cache["v_scale"], torch.stack(k_news),
                                torch.stack(v_news), pids.to(torch.int32),
@@ -461,7 +520,37 @@ def decode_slots_paged(params: Params, tokens: torch.Tensor,
                      torch.stack(k_news).to(cache["k"].dtype),
                      torch.stack(v_news).to(cache["v"].dtype),
                      pids.to(torch.int32), offs)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def decode_slots_paged_fused(params: Params, tokens: torch.Tensor,
+                             active: torch.Tensor,
+                             block_tables: torch.Tensor,
+                             lengths: torch.Tensor, cfg: LlamaConfig,
+                             cache: Dict[str, torch.Tensor]
+                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                        torch.Tensor]:
+    """``decode_slots_paged`` with one fused kernel per layer (K7,
+    ``ops/fused_decode.fused_decode_layer``).  Same contract and same
+    deferred append: the pools are read-only in the layer loop, each
+    layer's k/v rows ride out of the loop, one K2 (K3 on int8 pools)
+    after it appends them all.  On CUDA tensors every layer launches K7
+    or raises."""
+    _unported(cfg)
+    new_len = torch.where(active, lengths + 1, lengths)
+    sin, cos = rope_table(cfg, lengths[:, None])
+    sin, cos = sin[:, 0], cos[:, 0]                       # [B, hd // 2]
+    x = params["tok_embed"][tokens.long()].to(cfg.dtype)  # [B, D]
+    k_news, v_news = [], []
+    for i, layer in enumerate(_layers(params, cfg.n_layers)):
+        x, k1, v1 = fused_decode_layer(
+            x, layer, cache["k"], cache["v"], i, block_tables,
+            lengths, sin, cos, eps=cfg.norm_eps, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, soft_cap=cfg.logits_soft_cap,
+            k_scales=cache.get("k_scale"), v_scales=cache.get("v_scale"))
+        k_news.append(k1)
+        v_news.append(v1)
+    _append_decode_rows(cache, k_news, v_news, active, block_tables, lengths)
+    x = rms_norm(x[:, None], params["final_norm"], cfg.norm_eps)
     logits = _head_matmul(x[:, 0], _head(params, cfg), cfg)
     return logits.float(), cache, new_len
 
@@ -507,8 +596,8 @@ def prefill_chunk_paged(params: Params, tokens: torch.Tensor,
                 < chunk_lens.long()[:, None])
     pid = torch.where(in_chunk, pid, torch.full_like(pid, scratch))
     off = positions % page
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
+    for i, layer in enumerate(_layers(params, cfg.n_layers)):
+        layer = _deq_layer(layer, cfg.dtype)
         normed = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
         q, k, v = _qkv(normed, layer, cfg, sin, cos)   # [K, C, H/KVH, D]
         kp, vp = cache["k"][i], cache["v"][i]          # [KVH, P, page, D]
@@ -559,8 +648,10 @@ def ragged_step_paged(params: Params, tokens: torch.Tensor,
     padding rows return garbage logits.  With ``logit_idx`` [Tv] it
     returns (logits [R, V], logits [Tv, V] at those buffer positions,
     cache), from one gather + norm + head matmul, so the first R rows
-    equal the call without it.  The fused body and LoRA are later slices
-    and raise."""
+    equal the call without it.  With ``cfg.fused_decode`` each layer
+    runs as one fused kernel (K8, ``fused_ragged_layer``); the append
+    after the loop and ``logit_idx`` are the same.  LoRA is a later slice
+    and raises."""
     _unported(cfg)
     if lora is not None:
         raise NotImplementedError(
@@ -573,8 +664,18 @@ def ragged_step_paged(params: Params, tokens: torch.Tensor,
     sin, cos = rope_table(cfg, tok_pos[None])      # [1, T, hd // 2]
     x = params["tok_embed"][tokens.long()].to(dt)   # [T, d]
     k_news, v_news = [], []
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
+    for i, layer in enumerate(_layers(params, cfg.n_layers)):
+        if cfg.fused_decode:
+            x, k1, v1 = fused_ragged_layer(
+                x, layer, cache["k"], cache["v"], i, row_slot,
+                row_start, row_len, row_off, block_tables, sin[0], cos[0],
+                eps=cfg.norm_eps, n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, soft_cap=cfg.logits_soft_cap,
+                max_row_tokens=max_row_tokens, **scales)
+            k_news.append(k1)
+            v_news.append(v1)
+            continue
+        layer = _deq_layer(layer, cfg.dtype)
         normed = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
         q, k, v = _qkv(normed[None], layer, cfg, sin, cos)
         q, k1, v1 = q[0], k[0], v[0]                # [T, H or KVH, hd]

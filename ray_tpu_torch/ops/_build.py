@@ -7,8 +7,9 @@ own by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 entry returns ``cudaGetLastError()`` after its launch, which
 ``check`` turns into an exception.
 
-The library name carries a hash of the sources it was built from, so
-an edited kernel never loads a stale build.  Nothing is built at
+The library name carries a hash of the sources it was built from (its
+``.cu`` and every header), so an edited kernel never loads a stale
+build.  Nothing is built at
 import: ``library(name)`` builds on first use, ``build_all()`` builds
 every source at once (one ``nvcc`` each, all started together).
 """
@@ -31,7 +32,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("paged_decode", "paged_append", "paged_append_quantized",
            "flash_fwd", "ragged_attention", "ragged_append",
-           "ragged_append_quantized")
+           "ragged_append_quantized", "fused_decode", "fused_ragged")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -56,7 +57,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
-    for src in [CSRC_DIR / f"{name}.cu", CSRC_DIR / "common.cuh"]:
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"

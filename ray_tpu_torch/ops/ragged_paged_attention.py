@@ -21,9 +21,14 @@ into the pages (K5, ``ragged_paged_append``; on int8 pools K6,
 of every page it touches).  int8 pools carry ``k_scales``/``v_scales``
 [L, P, KVH, 1] f32, page-major.
 
+With ``LlamaConfig.fused_decode`` the whole decoder layer runs as one
+call over the ragged batch (K8, ``fused_ragged_layer``: K7's layer with
+ragged attention in the middle); its fresh rows go through the same
+append.
+
 Each kernel is a CUDA kernel for Hopper (``csrc/ragged_attention.cu``,
-``csrc/ragged_append.cu``, ``csrc/ragged_append_quantized.cu``) with its
-plain PyTorch version beside it.  A wrapper takes the plain version only
+``csrc/ragged_append.cu``, ``csrc/ragged_append_quantized.cu``,
+``csrc/fused_ragged.cu``) with its plain PyTorch version beside it.  A wrapper takes the plain version only
 for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.  ``pack_ragged_batch`` is the host-side packer (numpy), a copy of
 the JAX package's.
@@ -38,6 +43,11 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops.fused_decode import (
+    launch_fused_layer,
+    layer_mlp_reference,
+    layer_qkv_reference,
+)
 from ray_tpu_torch.ops.paged_attention import (
     _DTYPE_CODE,
     _SMEM_LIMIT,
@@ -572,3 +582,103 @@ def ragged_paged_append_quantized(
 
 
 ragged_paged_append_quantized.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K8: one fused decoder layer over the ragged batch
+# --------------------------------------------------------------------------
+
+# K8's attention phase (csrc/fused_ragged.cu): query rows (tokens x the
+# heads of one kv group) per CTA, keys per block, and the head dims it is
+# instantiated for.
+_K8_QROWS = 32
+_K8_KEYS = 64
+_K8_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def fused_ragged_layer_reference(
+    x: torch.Tensor, layer, k_pools: torch.Tensor, v_pools: torch.Tensor,
+    layer_idx: int, row_slot: torch.Tensor, row_start: torch.Tensor,
+    row_len: torch.Tensor, row_off: torch.Tensor,
+    block_tables: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, *,
+    eps: float, n_heads: int, n_kv_heads: int,
+    soft_cap: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    max_row_tokens: Optional[int] = None,
+):
+    """Plain version of K8: K7's layer phases around ragged attention in
+    f32 (q unrounded, pool values and probabilities in f32, the fresh
+    k/v as rounded to x.dtype); tokens no row covers get a zero
+    attention output."""
+    q, k_new, v_new = layer_qkv_reference(
+        x, layer, sin, cos, eps=eps, n_heads=n_heads, n_kv_heads=n_kv_heads)
+    ao = ragged_paged_attention_plain(
+        q, k_new, v_new, k_pools, v_pools, int(layer_idx), row_slot,
+        row_start, row_len, row_off, block_tables, soft_cap=soft_cap,
+        k_scales=k_scales, v_scales=v_scales)
+    x_out = layer_mlp_reference(x, ao, layer, eps=eps, n_heads=n_heads)
+    return x_out, k_new, v_new
+
+
+def fused_ragged_layer(
+    x: torch.Tensor, layer, k_pools: torch.Tensor, v_pools: torch.Tensor,
+    layer_idx: int, row_slot: torch.Tensor, row_start: torch.Tensor,
+    row_len: torch.Tensor, row_off: torch.Tensor,
+    block_tables: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, *,
+    eps: float, n_heads: int, n_kv_heads: int,
+    soft_cap: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    max_row_tokens: Optional[int] = None,
+):
+    """K7's fused layer over a ragged batch: x [T, D] (f32 or bf16, the
+    dot dtype) → (x_out [T, D], k_new [T, KVH, hd], v_new [T, KVH, hd]),
+    pools read-only, ``layer_idx`` a Python int, rows [R] and
+    block_tables [slots, maxp] int32, sin/cos [T, hd//2] f32 per token.
+    Every covered token attends to its slot's pooled past plus the causal
+    prefix of its own row; tokens no row covers give garbage the caller
+    masks.  ``max_row_tokens`` bounds the JAX kernel's VMEM window; the
+    CUDA kernel needs none and ignores it.
+
+    CUDA tensors launch kernel K8 (csrc/fused_ragged.cu; on int8 pools
+    counted in ``launches_int8`` too); CPU tensors run the plain
+    version."""
+    quantized = _check_scales("fused_ragged_layer", k_pools, v_pools,
+                              k_scales, v_scales)
+    if not x.is_cuda:
+        return fused_ragged_layer_reference(
+            x, layer, k_pools, v_pools, layer_idx, row_slot, row_start,
+            row_len, row_off, block_tables, sin, cos, eps=eps,
+            n_heads=n_heads, n_kv_heads=n_kv_heads, soft_cap=soft_cap,
+            k_scales=k_scales, v_scales=v_scales)
+    rows = (row_slot, row_start, row_len, row_off)
+    R = row_slot.shape[0]
+    _check_cuda("fused_ragged_layer", row_slot=row_slot, row_start=row_start,
+                row_len=row_len, row_off=row_off)
+    if any(t.dtype != torch.int32 or t.shape != (R,) for t in rows):
+        raise ValueError("fused_ragged_layer: rows must be int32 [R]")
+    _, _, _, page, hd = k_pools.shape
+    qpg = n_heads // n_kv_heads
+    if hd not in _K8_HEAD_DIMS or qpg > _K8_QROWS:
+        raise ValueError(f"fused_ragged_layer: unsupported head_dim {hd} "
+                         f"(want one of {_K8_HEAD_DIMS}) or qpg {qpg} (max "
+                         f"{_K8_QROWS})")
+    tq = _K8_QROWS // qpg
+    smem = 4 * ((_K8_QROWS + 2 * _K8_KEYS) * (hd + 4)
+                + _K8_QROWS * (_K8_KEYS + 4) + 3 * _K8_QROWS)
+    out = launch_fused_layer(
+        "fused_ragged", "rtt_fused_ragged_layer", x, layer, k_pools, v_pools,
+        int(layer_idx), sin, cos, eps=eps, n_heads=n_heads,
+        n_kv_heads=n_kv_heads, soft_cap=soft_cap,
+        k_scales=k_scales if quantized else None,
+        v_scales=v_scales if quantized else None,
+        block_tables=block_tables, rows_desc=rows, tq=tq, attn_smem=smem)
+    fused_ragged_layer.launches += 1
+    if quantized:
+        fused_ragged_layer.launches_int8 += 1
+    return out
+
+
+fused_ragged_layer.launches = 0
+fused_ragged_layer.launches_int8 = 0

@@ -73,9 +73,12 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ray_tpu' or m.startswith('ray_tpu.')]\n"
         "assert not bad, bad\n"
+        "need = {'ray_tpu_torch.models.quant', 'ray_tpu_torch.ops.fused_decode',\n"
+        "        'ray_tpu_torch.ops.ragged_paged_attention'}\n"
+        "assert need <= set(mods), sorted(need - set(mods))\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 8
+    assert int(out.stdout.strip().splitlines()[-1]) >= 10

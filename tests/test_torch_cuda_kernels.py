@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K2, K3, K9f, K4, K5, K6; K1 and K4 on
+"""The port's CUDA kernels (K1, K2, K3, K9f, K4, K5, K6, K7, K8; K1 and K4 on
 bf16/f32 and on int8 pools) against their plain PyTorch versions on the
 card, in f32 and bf16, across head dims, page sizes and GQA groups.  CUDA kernels have no CPU mode: without a card every
 test here skips.  On a machine with one (no jax needed):
@@ -431,3 +431,300 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="multiple of 16"):
         tpa.paged_append_quantized(pools8, pools8, sc, sc, new, new,
                                    lens, lens)
+
+
+# ---------------------------------------------------------------------------
+# K7 fused decode layer and K8 fused ragged layer
+# ---------------------------------------------------------------------------
+
+# Widths (D, H, KVH, M): a small layer and one LLAMA3_8B layer.
+_SMALL = (128, 4, 2, 256)
+_8B = (4096, 32, 8, 14336)
+# f32: the kernel and the plain version do the same f32 arithmetic, the
+# projections sum over D or M in another order.  bf16: both round the
+# norm, the dot operands and the outputs to bf16 at the same points; an
+# f32 value that differs in its last bits may round one bf16 ulp apart,
+# and that propagates through the layer.
+_FUSED_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+
+
+def _fused_layer(seed, widths, form, dtype):
+    """One layer's weights on the card: plain (``dtype``), separate int8
+    leaves, or the fused int8 artifact; norms random around one."""
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.models import quant as tq
+
+    D, H, KVH, M = widths
+    cfg = tl.LlamaConfig(vocab_size=64, dim=D, n_layers=1, n_heads=H,
+                         n_kv_heads=KVH, mlp_dim=M, dtype=dtype)
+    g = _gen(seed)
+    params = tq.init_quantized_llama(g, cfg, device="cuda")
+    if form == "fused":
+        params = tq.fuse_for_decode(params, cfg)
+    elif form == "plain":
+        params = tq.dequantize_params(params, dtype)
+    for key in ("ln_attn", "ln_mlp"):
+        params["layers"][key] = (1 + 0.1 * torch.randn(
+            (1, D), generator=g, device="cuda")).to(dtype)
+
+    def first(node):
+        if isinstance(node, dict):
+            return {k: first(v) for k, v in node.items()}
+        return node[0]
+
+    return first(params["layers"])
+
+
+def _fused_pools(g, pool, L, KVH, P, page, hd, dtype):
+    shape = (L, KVH, P, page, hd)
+    if pool == "int8":
+        k = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                          dtype=torch.int8)
+        ks = torch.rand((L, P, KVH, 1), generator=g, device="cuda") * 0.02 \
+            + 0.005
+        vs = torch.rand((L, P, KVH, 1), generator=g, device="cuda") * 0.02 \
+            + 0.005
+        return k, v, {"k_scales": ks, "v_scales": vs}
+    k = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    return k, torch.randn_like(k), {}
+
+
+def _rope_rows(positions, hd, theta=500_000.0):
+    half = hd // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device="cuda") / half)
+    ang = positions.float()[:, None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def _assert_fused_close(got, want, dtype, rows=None):
+    tol = _FUSED_TOL[dtype]
+    for name, a, b in zip(("x_out", "k_new", "v_new"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        if rows is not None:
+            a, b = a[rows], b[rows]
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                   msg=name)
+
+
+# (pool kind, activation dtype)
+_POOLS = [("f32", torch.float32), ("bf16", torch.bfloat16),
+          ("int8", torch.float32), ("int8", torch.bfloat16)]
+
+
+@pytest.mark.parametrize("form", ["plain", "int8", "fused"])
+@pytest.mark.parametrize("pool,dtype", _POOLS)
+def test_k7_matches_plain(dev, form, pool, dtype):
+    from ray_tpu_torch.ops import fused_decode as tfd
+
+    D, H, KVH, M = _SMALL
+    hd = D // H
+    layer = _fused_layer(3, _SMALL, form, dtype)
+    g = _gen(4)
+    L, B, page, maxp = 2, 13, 16, 5       # B not a multiple of 8
+    P = B * maxp + 1
+    k, v, scales = _fused_pools(g, pool, L, KVH, P, page, hd, dtype)
+    x = torch.randn((B, D), generator=g, device=dev).to(dtype)
+    lens = [0, 1, 15, 16, 17, 80, 33, 0, 2, 64, 50, 31, 5]  # 0: inactive
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    perm = torch.randperm(P - 1, device=dev, generator=g).to(torch.int32)
+    bt = torch.full((B, maxp), P - 1, dtype=torch.int32, device=dev)
+    for b, n in enumerate(lens):
+        live = -(-n // page)
+        bt[b, :live] = perm[b * maxp: b * maxp + live]
+    sin, cos = _rope_rows(lengths, hd)
+    soft_cap = 20.0 if form == "fused" else None
+    before = tfd.fused_decode_layer.launches
+    for layer_idx in range(L):
+        got = tfd.fused_decode_layer(
+            x, layer, k, v, layer_idx, bt, lengths, sin, cos, eps=1e-5,
+            n_heads=H, n_kv_heads=KVH, soft_cap=soft_cap, **scales)
+        want = tfd.fused_decode_layer_reference(
+            x, layer, k, v, layer_idx, bt, lengths, sin, cos, eps=1e-5,
+            n_heads=H, n_kv_heads=KVH, soft_cap=soft_cap, **scales)
+        torch.cuda.synchronize()
+        _assert_fused_close(got, want, dtype)
+    assert tfd.fused_decode_layer.launches == before + L
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_k7_matches_plain_8b_layer(dev, pool):
+    """One LLAMA3_8B layer from the fused int8 artifact, 48 slots with
+    128-160 past tokens, page 64, bf16."""
+    from ray_tpu_torch.ops import fused_decode as tfd
+
+    D, H, KVH, M = _8B
+    hd = D // H
+    layer = _fused_layer(5, _8B, "fused", torch.bfloat16)
+    g = _gen(6)
+    B, page, maxp = 48, 64, 4
+    P = B * maxp + 1
+    k, v, scales = _fused_pools(g, pool, 1, KVH, P, page, hd, torch.bfloat16)
+    x = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.randint(128, 161, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    bt = torch.arange(B * maxp, dtype=torch.int32, device=dev).reshape(B, maxp)
+    sin, cos = _rope_rows(lengths, hd)
+    got = tfd.fused_decode_layer(x, layer, k, v, 0, bt, lengths, sin, cos,
+                                 eps=1e-5, n_heads=H, n_kv_heads=KVH,
+                                 **scales)
+    want = tfd.fused_decode_layer_reference(
+        x, layer, k, v, 0, bt, lengths, sin, cos, eps=1e-5, n_heads=H,
+        n_kv_heads=KVH, **scales)
+    torch.cuda.synchronize()
+    _assert_fused_close(got, want, torch.bfloat16)
+
+
+def _ragged_rows(rows_spec, T):
+    """(slot, start, len) rows → int32 row tensors and per-token
+    positions (tokens no row covers sit at position 0)."""
+    offs, at = [], 0
+    for _s, _st, n in rows_spec:
+        offs.append(at)
+        at += n
+    assert at <= T
+    cols = [torch.tensor(c, dtype=torch.int32, device="cuda")
+            for c in zip(*rows_spec)]
+    cols.append(torch.tensor(offs, dtype=torch.int32, device="cuda"))
+    pos = torch.zeros(T, dtype=torch.int32)
+    for (_s, st, n), off in zip(rows_spec, offs):
+        pos[off:off + n] = torch.arange(st, st + n, dtype=torch.int32)
+    return cols, pos.cuda()
+
+
+def _ragged_bt(g, rows_spec, maxp, page, P):
+    perm = torch.randperm(P - 1, device="cuda", generator=g).to(torch.int32)
+    bt = torch.full((len(rows_spec), maxp), P - 1, dtype=torch.int32,
+                    device="cuda")
+    for r, (s, st, n) in enumerate(rows_spec):
+        live = -(-(st + n) // page)
+        bt[s, :live] = perm[s * maxp: s * maxp + live]
+    return bt
+
+
+@pytest.mark.parametrize("form", ["plain", "int8", "fused"])
+@pytest.mark.parametrize("pool,dtype", _POOLS)
+def test_k8_matches_plain(dev, form, pool, dtype):
+    from ray_tpu_torch.ops import ragged_paged_attention as trpa
+
+    D, H, KVH, M = _SMALL
+    hd = D // H
+    layer = _fused_layer(7, _SMALL, form, dtype)
+    g = _gen(8)
+    L, page, maxp, T = 2, 16, 8, 96
+    # A chunk over a pooled past longer than 64 fresh keys, decode rows
+    # (one with no past), a fresh prompt, a zero-length padding row, and
+    # buffer tokens no row covers.
+    spec = [(0, 40, 70), (1, 33, 1), (2, 0, 1), (3, 0, 9), (4, 100, 1),
+            (5, 0, 0)]
+    rows, pos = _ragged_rows(spec, T)
+    P = len(spec) * maxp + 1
+    k, v, scales = _fused_pools(g, pool, L, KVH, P, page, hd, dtype)
+    bt = _ragged_bt(g, spec, maxp, page, P)
+    x = torch.randn((T, D), generator=g, device=dev).to(dtype)
+    sin, cos = _rope_rows(pos, hd)
+    soft_cap = 20.0 if form == "int8" else None
+    before = trpa.fused_ragged_layer.launches
+    for layer_idx in range(L):
+        got = trpa.fused_ragged_layer(
+            x, layer, k, v, layer_idx, *rows, bt, sin, cos, eps=1e-5,
+            n_heads=H, n_kv_heads=KVH, soft_cap=soft_cap, **scales)
+        want = trpa.fused_ragged_layer_reference(
+            x, layer, k, v, layer_idx, *rows, bt, sin, cos, eps=1e-5,
+            n_heads=H, n_kv_heads=KVH, soft_cap=soft_cap, **scales)
+        torch.cuda.synchronize()
+        _assert_fused_close(got, want, dtype)
+    assert trpa.fused_ragged_layer.launches == before + L
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_k8_matches_plain_8b_layer(dev, pool):
+    """One LLAMA3_8B layer from the fused int8 artifact at the 8B ragged
+    mix (seven decode rows, one 256-token chunk at 512; T = 264)."""
+    from ray_tpu_torch.ops import ragged_paged_attention as trpa
+
+    D, H, KVH, M = _8B
+    hd = D // H
+    layer = _fused_layer(9, _8B, "fused", torch.bfloat16)
+    g = _gen(10)
+    page, maxp, T = 64, 32, 264
+    spec = [(r, s, n) for r, (s, n) in enumerate(
+        [(300, 1), (517, 1), (700, 1), (900, 1), (1100, 1), (1300, 1),
+         (1500, 1), (512, 256)])]
+    rows, pos = _ragged_rows(spec, T)
+    P = len(spec) * maxp + 1
+    k, v, scales = _fused_pools(g, pool, 1, KVH, P, page, hd, torch.bfloat16)
+    bt = _ragged_bt(g, spec, maxp, page, P)
+    x = torch.randn((T, D), generator=g, device=dev).to(torch.bfloat16)
+    sin, cos = _rope_rows(pos, hd)
+    got = trpa.fused_ragged_layer(x, layer, k, v, 0, *rows, bt, sin, cos,
+                                  eps=1e-5, n_heads=H, n_kv_heads=KVH,
+                                  **scales)
+    want = trpa.fused_ragged_layer_reference(
+        x, layer, k, v, 0, *rows, bt, sin, cos, eps=1e-5, n_heads=H,
+        n_kv_heads=KVH, **scales)
+    torch.cuda.synchronize()
+    _assert_fused_close(got, want, torch.bfloat16)
+
+
+def test_k7_is_capturable(dev):
+    """One K7 call captured in a CUDA graph replays to the eager result
+    (no host sync, no host-made tensor inside the call)."""
+    from ray_tpu_torch.ops import fused_decode as tfd
+
+    D, H, KVH, M = _SMALL
+    hd = D // H
+    layer = _fused_layer(11, _SMALL, "fused", torch.bfloat16)
+    g = _gen(12)
+    B, page, maxp = 8, 16, 4
+    P = B * maxp + 1
+    k, v, scales = _fused_pools(g, "int8", 1, KVH, P, page, hd,
+                                torch.bfloat16)
+    x = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.randint(0, maxp * page, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    bt = torch.arange(B * maxp, dtype=torch.int32, device=dev).reshape(B, maxp)
+    sin, cos = _rope_rows(lengths, hd)
+
+    def call():
+        return tfd.fused_decode_layer(x, layer, k, v, 0, bt, lengths, sin,
+                                      cos, eps=1e-5, n_heads=H,
+                                      n_kv_heads=KVH, **scales)
+
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(a, b)
+
+
+def test_fused_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from ray_tpu_torch.ops import fused_decode as tfd
+
+    D, H, KVH, M = _SMALL
+    hd = D // H
+    layer = _fused_layer(13, _SMALL, "int8", torch.float32)
+    k = torch.zeros((1, KVH, 5, 16, hd), device=dev)
+    bt = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    lengths = torch.zeros((2,), dtype=torch.int32, device=dev)
+    x = torch.zeros((2, D), device=dev)
+    sin = torch.zeros((2, hd // 2), device=dev)
+    mixed = dict(layer, attn=dict(layer["attn"],
+                                  wk=layer["attn"]["wk"]["q"].float()))
+    with pytest.raises(ValueError, match="mixed"):
+        tfd.fused_decode_layer(x, mixed, k, k, 0, bt, lengths, sin, sin,
+                               eps=1e-5, n_heads=H, n_kv_heads=KVH)
+    with pytest.raises(ValueError, match="dtype"):
+        tfd.fused_decode_layer(x.bfloat16(), layer, k, k, 0, bt, lengths,
+                               sin, sin, eps=1e-5, n_heads=H,
+                               n_kv_heads=KVH)

@@ -143,13 +143,27 @@ def test_unported_modes_raise(params):
     _, tp = params
     cache = tl.init_paged_cache(T_CFG, 4, 16, device="cpu")
     toks = torch.zeros((1, 16), dtype=torch.int32)
-    for field, value in (("fused_decode", True), ("tensor_parallel", True),
-                         ("lora", object())):
+    for field, value in (("tensor_parallel", True), ("lora", object())):
         with pytest.raises(NotImplementedError, match=field):
             tl.prefill_batch_paged(
                 tp, toks, torch.tensor([3]),
                 torch.zeros((1, 1), dtype=torch.int32),
                 dataclasses.replace(T_CFG, **{field: value}), cache)
+    # Fused decode is ported; the prefills never read the flag, as in the
+    # JAX package, and it still refuses tensor parallelism.
+    fused = dataclasses.replace(T_CFG, fused_decode=True)
+    want, _ = tl.prefill_batch_paged(
+        tp, toks, torch.tensor([3]), torch.zeros((1, 1), dtype=torch.int32),
+        T_CFG, tl.init_paged_cache(T_CFG, 4, 16, device="cpu"))
+    got, _ = tl.prefill_batch_paged(
+        tp, toks, torch.tensor([3]), torch.zeros((1, 1), dtype=torch.int32),
+        fused, cache)
+    assert torch.equal(got, want)
+    with pytest.raises(NotImplementedError, match="tensor_parallel"):
+        tl.prefill_batch_paged(
+            tp, toks, torch.tensor([3]),
+            torch.zeros((1, 1), dtype=torch.int32),
+            dataclasses.replace(fused, tensor_parallel=True), cache)
     # int8 KV pools are ported: the cache builds, with its page scales.
     assert "k_scale" in tl.init_paged_cache(
         dataclasses.replace(T_CFG, kv_int8=True), 4, 16, device="cpu")

@@ -310,11 +310,16 @@ def test_ragged_step_unported_modes_raise(params):
     args = [torch.zeros(8, dtype=torch.int32)] * 2 \
         + [torch.zeros(1, dtype=torch.int32)] * 4 + [bt]
     cache = tl.init_paged_cache(T_CFG, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="fused"):
-        tl.ragged_step_paged(tp, *args, dataclasses.replace(
-            T_CFG, fused_decode=True), cache)
+    # The fused body is ported; with LoRA, tensor parallelism or
+    # sequence parallelism it still raises, as the unfused body does.
+    fused = dataclasses.replace(T_CFG, fused_decode=True)
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        tl.ragged_step_paged(tp, *args, fused, cache, lora=object())
     with pytest.raises(NotImplementedError, match="LoRA"):
         tl.ragged_step_paged(tp, *args, T_CFG, cache, lora=object())
+    with pytest.raises(NotImplementedError, match="tensor_parallel"):
+        tl.ragged_step_paged(tp, *args, dataclasses.replace(
+            fused, tensor_parallel=True), cache)
 
 
 @pytest.mark.parametrize("chunk_lens", [(16, 16), (16, 9)])
