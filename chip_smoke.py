@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 2. build: every kernel of ``ray_tpu_torch/csrc`` through ``nvcc``
    (one process per source, all started together);
 3. kernels at LLAMA3_8B shapes (bf16, H=32, KVH=8, D=128, page 64,
-   L=32): K1 paged decode partials, K2 paged append, K9f flash forward,
+   L=32): K1 paged decode partials, K2 paged append, K9f flash forward
+   (then K10 and K11, phase 9),
    each held against its plain PyTorch version on the same inputs and
    timed beside it, beside one PyTorch library call computing the same
    function (a yardstick the port never calls), and beside its bound;
@@ -63,19 +64,38 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    tokens: K7 = 32 x K3, no K1 or K2; one decode step timed as a CUDA
    graph against the int8 weight-streaming bound), the ragged engine
    with phase 6's traffic (K8 32 and K6 1 per step, no K4 or K5), and a
-   short run of both on bf16 pools (K7 beside K2, K8 beside K5).
+   short run of both on bf16 pools (K7 beside K2, K8 beside K5);
+9. training (bench.py's headline path): K10 and K11 (flash backward dq,
+   dk/dv) at BENCH_CFG's attention shapes (B 8, S 2048, 8/4 heads of
+   128, causal, bf16) and one small f32 case against their plain
+   versions, timed beside the bound and the backward of causal SDPA,
+   with K9f's output and lse on the same cases held against its plain
+   version (kernel phase, after K9f); then a small f32 Llama at S = 256 trained
+   3 steps through ``TorchTrainer.fit`` on the card and on the CPU from
+   the same weights (losses and grad norms agree; K9f, K10, K11 counted);
+   then BENCH_CFG (319M params, 8 x 2048 tokens, bf16 compute, f32
+   master, "dots" remat, bf16 first moment) as bench.py's ``_measure``
+   drives it: ``trainer.state``, ``trainer._step_fn``, staged batches, 2
+   warm-up and 5 timed steps, one step's stream time between CUDA events
+   and its kernel time under the profiler, then ``fit`` for 2 steps with a checkpoint written and
+   restored; counters at 0 before and read after: K9f 32, K10 and K11 16
+   per step; the loss on the first batch must fall; then BENCH_1B_CFG
+   (bf16 master, "full" remat, loss chunks of 512) for 2 steps.
 
 The last three lines of standard output are the kernel table (K1, K2,
-K9f, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8 int8) as one
-JSON object, the card's name and power limit, and ``{"ok": true,
-"device": {...}}``.  Details go to ``--out``.
+K9f, K10, K11, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8
+int8) as one JSON object, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  Details go to ``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -311,6 +331,29 @@ def kernel_phase_k2(torch, tpa, report):
         f"{b_ms:.5f} ms ({b_by})")
 
 
+# K9f against its plain version, |o - o_plain| / (1 + |o_plain|) and
+# |lse - lse_plain|.  bf16: both round p to bf16 before p.v (the kernel
+# at its running max, the plain version at the final lse) and the output
+# once, a bf16 ulp or two (2^-8 relative) apart; lse stays f32.  f32:
+# summation order only.
+K9F_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-4)}
+
+
+def check_k9f(torch, tfa, q, k, v, o, lse, where: str):
+    """Hold K9f's (o, lse) on (q, k, v) against ``flash_forward_plain``;
+    returns (max abs error of o, its relative error, lse error)."""
+    o_p, lse_p = tfa.flash_forward_plain(q, k, v, causal=True)
+    diff = (o.float() - o_p.float()).abs()
+    err = diff.max().item()
+    rel = (diff / (1 + o_p.float().abs())).max().item()
+    lse_err = (lse - lse_p).abs().max().item()
+    rel_tol, lse_tol = K9F_TOL[str(q.dtype).split(".")[-1]]
+    if not (rel <= rel_tol and lse_err <= lse_tol):
+        raise AssertionError(f"K9f disagrees with its plain version at "
+                             f"{where}: abs {err}, rel {rel}, lse {lse_err}")
+    return err, rel, lse_err
+
+
 def kernel_phase_k9(torch, F, tfa, report):
     B, H, KVH, D = 2, 32, 8, 128
     dev = torch.device("cuda")
@@ -324,17 +367,7 @@ def kernel_phase_k9(torch, F, tfa, report):
         v = torch.randn((B, S, KVH, D), generator=g, device=dev,
                         dtype=torch.bfloat16)
         o, lse = tfa.flash_forward(q, k, v, causal=True)
-        o_p, lse_p = tfa.flash_forward_plain(q, k, v, causal=True)
-        err = (o.float() - o_p.float()).abs().max().item()
-        rel = ((o.float() - o_p.float()).abs()
-               / (1 + o_p.float().abs())).max().item()
-        lse_err = (lse - lse_p).abs().max().item()
-        # Both round an f32 result to bf16: at most about one bf16 ulp
-        # (2^-8 relative) apart; lse stays f32.
-        if rel > 1e-2 or lse_err > 1e-3:
-            raise AssertionError(f"K9f disagrees with its plain version at "
-                                 f"S={S}: abs {err}, rel {rel}, lse "
-                                 f"{lse_err}")
+        err, rel, lse_err = check_k9f(torch, tfa, q, k, v, o, lse, f"S={S}")
         ms = time_ms(torch, lambda i: tfa.flash_forward(q, k, v, True))
         plain_ms = time_ms(torch, lambda i: tfa.flash_forward_plain(
             q, k, v, True), n=4, blocks=3)
@@ -1561,8 +1594,6 @@ def kernel_breakdown(torch, fn, reps: int = 3) -> dict:
     """Device ms per call of each CUDA kernel that ``fn`` launches, from
     torch.profiler (CUPTI) over ``reps`` calls; an "error" entry where the
     profiler records no device time."""
-    import re
-
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2044,6 +2075,427 @@ def fused_serving_phase(torch, llama, quant, eng_mod, kernels, card):
     return bucketed, ragged, short
 
 
+# --------------------------------------------------------------------------
+# training: the flash backward (K10, K11) and the train step
+# --------------------------------------------------------------------------
+
+K9F, K10, K11 = "flash_forward", "flash_backward_dq", "flash_backward_dkv"
+TRAIN_B, TRAIN_S = 8, 2048       # bench.py's BATCH x SEQ
+# bf16 gradients: one ulp is 2^-8 relative, and the rounded p and ds feed
+# the products in both versions, so a value an f32 ulp apart that rounds
+# to the other side moves a term by one ulp; f32: summation order only.
+# Both relative to the largest element of the plain version's output.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def bench_cfg(torch, llama, big: bool = False):
+    """bench.py's BENCH_CFG (319M) or, with ``big``, BENCH_1B_CFG (bf16
+    master params, full remat, chunked loss)."""
+    if big:
+        return llama.LlamaConfig(
+            vocab_size=32_768, dim=2048, n_layers=16, n_heads=16,
+            n_kv_heads=8, mlp_dim=8192, max_seq_len=TRAIN_S,
+            param_dtype=torch.bfloat16, remat_policy="full", loss_chunk=512)
+    return llama.LlamaConfig(vocab_size=32_768, dim=1024, n_layers=16,
+                             n_heads=8, n_kv_heads=4, mlp_dim=4096,
+                             max_seq_len=TRAIN_S)
+
+
+def _bwd_case(torch, tfa, g, B, S, H, KVH, D, dtype):
+    dev = torch.device("cuda")
+    q = torch.randn((B, S, H, D), generator=g, device=dev, dtype=dtype)
+    k = torch.randn((B, S, KVH, D), generator=g, device=dev, dtype=dtype)
+    v = torch.randn((B, S, KVH, D), generator=g, device=dev, dtype=dtype)
+    do = torch.randn((B, S, H, D), generator=g, device=dev, dtype=dtype)
+    o, lse = tfa.flash_forward(q, k, v, True)
+    return q, k, v, do, o, lse, tfa.flash_backward_delta(o, do)
+
+
+def _k9f_training_row(torch, F, tfa, q, k, v, o, lse, tag):
+    """K9f on a training case's (q, k, v), which the case's backward
+    reads: (o, lse) held against the plain version; at BENCH_CFG's
+    shapes also timed beside the plain version, causal SDPA and the
+    bound."""
+    err, rel, lse_err = check_k9f(torch, tfa, q, k, v, o, lse, tag)
+    row = {"max_abs_err": err, "max_rel_err": rel, "lse_err": lse_err}
+    log(f"K9f flash_forward {tag}: err {err:.3e} (rel {rel:.3e}, lse "
+        f"{lse_err:.3e})")
+    if tag != "bench":
+        return row
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    row["ms"] = time_ms(torch, lambda i: tfa.flash_forward(q, k, v, True),
+                        n=5, blocks=3)
+    row["plain_ms"] = time_ms(torch, lambda i: tfa.flash_forward_plain(
+        q, k, v, True), n=2, blocks=3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row["library_ms"] = time_ms(
+        torch, lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), n=5, blocks=3)
+    flops = 4 * B * H * D * (S * (S + 1) // 2)
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KVH * D) + 4 * B * H * S
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+    log(f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+        f"SDPA {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def kernel_phase_k10_k11(torch, F, tfa, report):
+    """K10 and K11 at BENCH_CFG's attention shapes (B 8, S 2048, 8 heads
+    of 128, 4 kv heads, causal, bf16) and one small f32 case, against
+    their plain versions; timed beside the plain versions, the bound and
+    the backward of causal SDPA (dq + dk + dv, one autograd call).  K9f's
+    (o, lse) of each case, which K10/K11 read, is held against its plain
+    version too and its row kept beside K9f's serving rows."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    rows, k9f_rows = {}, {}
+    for tag, shape in (("bench", (TRAIN_B, TRAIN_S, 8, 4, 128,
+                                  torch.bfloat16)),
+                       ("small_f32", (1, 256, 4, 2, 64, torch.float32))):
+        B, S, H, KVH, D, dtype = shape
+        q, k, v, do, o, lse, delta = _bwd_case(torch, tfa, g, *shape)
+        k9f_rows[tag] = _k9f_training_row(torch, F, tfa, q, k, v, o, lse,
+                                          tag)
+        del o
+        got = (tfa.flash_backward_dq(q, k, v, do, lse, delta, True),
+               *tfa.flash_backward_dkv(q, k, v, do, lse, delta, True))
+        want = (tfa.flash_backward_dq_plain(q, k, v, do, lse, delta, True),
+                *tfa.flash_backward_dkv_plain(q, k, v, do, lse, delta, True))
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            err = (a.float() - b.float()).abs().max().item()
+            rel = err / b.float().abs().max().item()
+            errs[name] = {"max_abs_err": err, "rel_to_max": rel}
+            if not rel <= BWD_TOL[str(dtype).split(".")[-1]]:
+                raise AssertionError(
+                    f"K10/K11 {name} disagrees with its plain version "
+                    f"({tag}): abs {err}, {rel} of the largest element")
+        rows[tag] = {"shape": f"B={B} S={S} H={H} KVH={KVH} D={D} causal "
+                              f"{str(dtype).split('.')[-1]}", "errs": errs}
+        log(f"K10/K11 {tag}: " + ", ".join(
+            f"{n} err {e['max_abs_err']:.3e} ({e['rel_to_max']:.2e} of max)"
+            for n, e in errs.items()))
+        if tag != "bench":
+            del q, k, v, do, lse, delta, got, want
+            continue
+        ms_dq = time_ms(torch, lambda i: tfa.flash_backward_dq(
+            q, k, v, do, lse, delta, True), n=3, blocks=3)
+        ms_dkv = time_ms(torch, lambda i: tfa.flash_backward_dkv(
+            q, k, v, do, lse, delta, True), n=3, blocks=3)
+        plain_dq = time_ms(torch, lambda i: tfa.flash_backward_dq_plain(
+            q, k, v, do, lse, delta, True), n=2, blocks=3)
+        plain_dkv = time_ms(torch, lambda i: tfa.flash_backward_dkv_plain(
+            q, k, v, do, lse, delta, True), n=2, blocks=3)
+        del got, want
+        # Library yardstick: the backward of causal SDPA with GQA on the
+        # same tensors ([B, H, S, D] views), dq + dk + dv in one call.
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        try:
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+        except TypeError:
+            out = F.scaled_dot_product_attention(
+                qt, kt.repeat_interleave(H // KVH, dim=1),
+                vt.repeat_interleave(H // KVH, dim=1), is_causal=True)
+        dot = do.transpose(1, 2)
+        library_ms = time_ms(torch, lambda i: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), n=3, blocks=3)
+        del out, qt, kt, vt
+        pairs = S * (S + 1) // 2            # causal (query, key) pairs
+        io = 2 * (2 * B * S * H * D + 2 * B * S * KVH * D) + 8 * B * H * S
+        b10 = bound(io + 2 * B * S * H * D, 3 * 2 * B * H * D * pairs,
+                    BF16_FLOPS)
+        b11 = bound(io + 2 * 2 * B * S * KVH * D, 4 * 2 * B * H * D * pairs,
+                    BF16_FLOPS)
+        for key, name, line, ms, plain, bnd, err in (
+                ("K10", K10, 263, ms_dq, plain_dq, b10, errs["dq"]),
+                ("K11", K11, 284, ms_dkv, plain_dkv, b11,
+                 max(errs["dk"], errs["dv"],
+                     key=lambda e: e["max_abs_err"]))):
+            report[key] = {
+                "name": name, "route": "cuda",
+                "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+                "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
+                "max_abs_err": err["max_abs_err"], "ms": ms,
+                "plain_ms": plain, "library_ms": library_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "shape": rows["bench"]["shape"], "cases": rows}
+            log(f"{key} {name}: kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+                f"SDPA backward (dq+dk+dv) {library_ms:.4f} ms  bound "
+                f"{bnd[0]:.4f} ms ({bnd[1]})")
+        del q, k, v, do, lse, delta
+    k9f = report["K9f"]
+    k9f["training_shapes"] = k9f_rows
+    k9f["max_abs_err"] = max(k9f["max_abs_err"], *(
+        r["max_abs_err"] for r in k9f_rows.values()))
+    torch.cuda.empty_cache()
+
+
+def _clone_to(torch, tree, device):
+    if isinstance(tree, dict):
+        return {k: _clone_to(torch, v, device) for k, v in tree.items()}
+    return tree.detach().clone().to(device)
+
+
+def train_parity_phase(torch, llama, train, kernels):
+    """A small f32 Llama at S = 256 trained 3 steps from the same weights
+    and batches on the card (K9f, K10, K11) and on the CPU (the einsum
+    path): losses and grad norms per step must agree."""
+    cfg = llama.LlamaConfig(vocab_size=512, dim=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, mlp_dim=256, max_seq_len=256,
+                            dtype=torch.float32, param_dtype=torch.float32)
+    base = llama.init_params(torch.Generator().manual_seed(5), cfg,
+                             device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (3, 2, 256),
+                           generator=torch.Generator().manual_seed(6),
+                           dtype=torch.int32)
+    hist, counts = {}, None
+    for dev in ("cuda", "cpu"):
+        params = _clone_to(torch, base, dev)
+        trainer = train.TorchTrainer(
+            init_params=lambda g, p=params: p,
+            loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+            optimizer=train.default_optimizer(1e-3, warmup_steps=1),
+            scaling_config=train.ScalingConfig(devices=[dev]),
+            run_config=train.RunConfig(report_every=1))
+        trainer.state
+        if dev == "cuda":
+            reset_counts(kernels)
+        res = trainer.fit(({"tokens": t} for t in tokens), num_steps=3)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts(kernels)
+        if res.error is not None:
+            raise res.error
+        hist[dev] = res.metrics_history
+    # Under "dots" remat K9f runs twice a layer (forward, recompute).
+    want = {K9F: 2 * 2 * 3, K10: 2 * 3, K11: 2 * 3}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"train parity: launches {got}, want {want}")
+    worst = {}
+    for key in ("loss", "grad_norm"):
+        a = [m[key] for m in hist["cuda"]]
+        b = [m[key] for m in hist["cpu"]]
+        worst[key] = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        # f32 both sides (TF32 off); kernel vs einsum and cuBLAS vs the
+        # CPU's matmuls sum in other orders.
+        if worst[key] > 1e-4:
+            raise AssertionError(f"train parity: {key} cuda {a} vs cpu {b}")
+    log(f"train parity (f32, S=256, 3 steps): losses cuda "
+        f"{[round(m['loss'], 6) for m in hist['cuda']]} cpu "
+        f"{[round(m['loss'], 6) for m in hist['cpu']]}, worst relative "
+        f"loss {worst['loss']:.2e}, grad_norm {worst['grad_norm']:.2e}; "
+        f"launches {got}")
+    return {"launches": got, "history": hist, "worst_rel": worst}
+
+
+def _host_batches(torch, cfg, seed):
+    gen = torch.Generator().manual_seed(seed)
+    while True:
+        yield {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                                       generator=gen, dtype=torch.int32)}
+
+
+def _trainer(torch, llama, train, cfg, **run):
+    return train.TorchTrainer(
+        init_params=lambda g: llama.init_params(g, cfg),
+        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+        optimizer=train.default_optimizer(1e-4, warmup_steps=10,
+                                          mu_dtype=torch.bfloat16),
+        run_config=train.RunConfig(**run))
+
+
+def _step_breakdown(torch, step_once) -> dict:
+    """Device ms of one train step by kernel (torch.profiler): the flash
+    kernels, cuBLAS's matrix products, the rest (elementwise ATen), and
+    the flash kernels' share of all kernel time."""
+    bd = kernel_breakdown(torch, step_once, reps=1)
+    if "error" in bd:
+        return bd
+    total = sum(bd.values())
+    flash = {name: sum(v for k, v in bd.items() if k.startswith(prefix))
+             for name, prefix in ((K9F, "flash_fwd_"),
+                                  (K10, "flash_bwd_dq_"),
+                                  (K11, "flash_bwd_dkv_"))}
+    gemm = sum(v for k, v in bd.items()
+               if re.search(r"gemm|nvjet|cutlass|xmma", k, re.I))
+    return {"kernel_ms_total": total, "flash_ms": flash,
+            "flash_share": sum(flash.values()) / total,
+            "gemm_ms": gemm,
+            "other_ms": total - gemm - sum(flash.values()),
+            "by_kernel": dict(sorted(bd.items(), key=lambda kv: -kv[1]))}
+
+
+def headline_train_phase(torch, llama, train, kernels, repo):
+    """BENCH_CFG at full width and depth on the card, as bench.py's
+    _measure drives it: the trainer's state and step function, batches of
+    8 x 2048 staged on the card, 2 warm-up and 5 timed steps, one step's
+    stream time between CUDA events, one step's kernels under the
+    profiler, then ``fit`` for 2
+    steps through the RunConfig with a checkpoint written, then restored.
+    Every launch counter is 0 just before the first step and read after
+    the fit: K9f 32 (forward and "dots" recompute), K10 and K11 16 per
+    step."""
+    cfg = bench_cfg(torch, llama)
+    ckpt_root = os.path.join(repo, "smoke_out", "train_ckpt")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    trainer = _trainer(torch, llama, train, cfg, name="bench",
+                       storage_path=ckpt_root, report_every=1_000_000)
+    t0 = time.perf_counter()
+    state = trainer.state
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = trainer._step_fn
+    batches = _host_batches(torch, cfg, 0)
+    staged = [trainer.shard_batch(next(batches)) for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps, losses = 0, []
+    reset_counts(kernels)
+    for _ in range(2):
+        state, metrics = step(state, staged[0])
+        losses.append(metrics["loss"])
+        n_steps += 1
+    float(metrics["loss"])
+    timed = 5
+    t0 = time.perf_counter()
+    for i in range(timed):
+        state, metrics = step(state, staged[i % len(staged)])
+        losses.append(metrics["loss"])
+        n_steps += 1
+    float(metrics["loss"])
+    wall = time.perf_counter() - t0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    ev0.record()
+    state, metrics = step(state, staged[1])
+    host_ms = (time.perf_counter() - h0) * 1e3
+    ev1.record()
+    torch.cuda.synchronize()
+    # Stream time between two events: the step's kernels and the gaps
+    # where the host's enqueue kept the card waiting.  Device busy time
+    # is the profiler's kernel sum below.
+    stream_ms = ev0.elapsed_time(ev1)
+    n_steps += 1
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], staged[2])
+
+    breakdown = _step_breakdown(torch, one_step)
+    n_steps += 2  # the profiler's warm-up call and the profiled one
+    trainer._state = holder[0]
+    result = trainer.fit(batches, num_steps=2)
+    n_steps += 2
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if result.error is not None:
+        raise result.error
+    per_step = {k: counts[k] / n_steps for k in (K9F, K10, K11)}
+    want = {K9F: 2 * cfg.n_layers, K10: cfg.n_layers, K11: cfg.n_layers}
+    if per_step != want:
+        raise AssertionError(f"headline training: launches per step "
+                             f"{per_step}, want {want} ({n_steps} steps)")
+    losses = [float(x) for x in losses] + [m["loss"] for m in
+                                           result.metrics_history]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"headline training: losses {losses}")
+    # The loss falls: the first batch again, after every update.
+    with torch.no_grad():
+        end_loss = float(llama.loss_fn(trainer.state.params, staged[0],
+                                       cfg)[0])
+    if not end_loss < losses[0]:
+        raise AssertionError(f"headline training: loss on the first batch "
+                             f"{losses[0]} -> {end_loss}: not falling")
+    # The fit wrote the final checkpoint: restore it over a changed leaf.
+    leaf = trainer.state.params["final_norm"]
+    saved = leaf.detach().clone()
+    with torch.no_grad():
+        leaf.zero_()
+    restored_step = trainer.restore(result.checkpoint_path)
+    if restored_step != trainer.state.step or not torch.equal(
+            trainer.state.params["final_norm"], saved):
+        raise AssertionError("headline training: checkpoint restore")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    tokens_per_s = TRAIN_B * TRAIN_S * timed / wall
+    out = {
+        "config": "BENCH_CFG (bench.py:40-51)", "params": cfg.num_params(),
+        "batch": [TRAIN_B, TRAIN_S], "init_s": init_s,
+        "tokens_per_s": tokens_per_s, "step_ms": wall / timed * 1e3,
+        "stream_ms_one_step": stream_ms, "host_ms_one_step": host_ms,
+        "mfu": 6 * cfg.num_params() * tokens_per_s / BF16_FLOPS,
+        "peak_gb": peak_gb, "losses": losses, "end_loss_first_batch":
+        end_loss, "launches": counts, "launches_per_step": per_step,
+        "steps": n_steps, "breakdown": breakdown,
+        "fit_steps_per_sec": result.metrics["steps_per_sec"],
+        "checkpoint_restored_step": restored_step}
+    log(f"BENCH_CFG train ({cfg.num_params() / 1e6:.1f} M params, "
+        f"{TRAIN_B} x {TRAIN_S}): {tokens_per_s:.0f} tokens/s, step "
+        f"{out['step_ms']:.1f} ms (one step: stream {stream_ms:.1f} ms, "
+        f"host enqueue {host_ms:.1f} ms), MFU {out['mfu']:.4f}, peak "
+        f"{peak_gb:.2f} GB; loss {losses[0]:.4f} -> first batch again "
+        f"{end_loss:.4f}; launches per step {per_step}")
+    if "error" in breakdown:
+        log(f"  breakdown: not measured ({breakdown['error']})")
+    else:
+        out["device_idle_share"] = 1 - breakdown["kernel_ms_total"] / (
+            wall / timed * 1e3)
+        top = dict(list(breakdown["by_kernel"].items())[:6])
+        log(f"  one step's kernels {breakdown['kernel_ms_total']:.1f} ms "
+            f"(idle {out['device_idle_share']:.3f} of the step): flash "
+            f"{breakdown['flash_share']:.3f} "
+            f"({_fmt_breakdown(breakdown['flash_ms'])}), matrix products "
+            f"{breakdown['gemm_ms']:.1f}, other {breakdown['other_ms']:.1f};"
+            f" top: {_fmt_breakdown(top)}")
+    del trainer, state, holder, staged, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_1b_phase(torch, llama, train, kernels):
+    """BENCH_1B_CFG (bf16 master params, "full" remat, loss chunks of 512)
+    for 2 steps of ``fit`` on the card: K9f twice a layer a step (forward
+    and full recompute), K10 and K11 once."""
+    cfg = bench_cfg(torch, llama, big=True)
+    trainer = _trainer(torch, llama, train, cfg, report_every=1)
+    trainer.state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    result = trainer.fit(_host_batches(torch, cfg, 1), num_steps=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    if result.error is not None:
+        raise result.error
+    want = {K9F: 2 * 2 * cfg.n_layers, K10: 2 * cfg.n_layers,
+            K11: 2 * cfg.n_layers}
+    got = {k: counts[k] for k in want}
+    losses = [m["loss"] for m in result.metrics_history]
+    if got != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"1B training: launches {got} (want {want}), "
+                             f"losses {losses}")
+    out = {"config": "BENCH_1B_CFG (bench.py:56-67)",
+           "params": cfg.num_params(), "steps": 2, "wall_s": wall,
+           "losses": losses, "launches": got,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"BENCH_1B_CFG train ({cfg.num_params() / 1e6:.1f} M params, bf16 "
+        f"master, full remat, loss chunk 512): 2 steps in {wall:.1f} s, "
+        f"losses {[round(x, 4) for x in losses]}, peak "
+        f"{out['peak_gb']:.2f} GB, launches {got}")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(
@@ -2060,6 +2512,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from ray_tpu_torch import train
         from ray_tpu_torch.models import llama
         from ray_tpu_torch.models import quant
         from ray_tpu_torch.ops import _build
@@ -2098,11 +2551,13 @@ def main() -> int:
                "paged_append_quantized": tpa.paged_append_quantized,
                "ragged_paged_append_quantized":
                trpa.ragged_paged_append_quantized,
-               K7: tfd.fused_decode_layer, K8: trpa.fused_ragged_layer}
+               K7: tfd.fused_decode_layer, K8: trpa.fused_ragged_layer,
+               K10: tfa.flash_backward_dq, K11: tfa.flash_backward_dkv}
     report = {}
     kernel_phase_k1(torch, F, tpa, report)
     kernel_phase_k2(torch, tpa, report)
     kernel_phase_k9(torch, F, tfa, report)
+    kernel_phase_k10_k11(torch, F, tfa, report)
     kernel_phase_k4(torch, F, trpa, report)
     kernel_phase_k5(torch, trpa, report)
     torch.cuda.empty_cache()
@@ -2137,12 +2592,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     fused_bucketed, fused_ragged, fused_short = fused_serving_phase(
         torch, llama, quant, eng_mod, kernels, card)
-    order = ("K1", "K2", "K9f", "K4", "K5", "K1i8", "K3", "K4i8", "K6", "K7",
-             "K7i8", "K8", "K8i8")
+    # Training: cuda-vs-cpu parity, then the headline BENCH_CFG path
+    # (K9f, K10, K11 counted from 0 over its steps), then BENCH_1B_CFG.
+    train_parity = train_parity_phase(torch, llama, train, kernels)
+    headline = headline_train_phase(torch, llama, train, kernels,
+                                    os.path.dirname(os.path.abspath(
+                                        __file__)))
+    train_1b = train_1b_phase(torch, llama, train, kernels)
+    order = ("K1", "K2", "K9f", "K10", "K11", "K4", "K5", "K1i8", "K3",
+             "K4i8", "K6", "K7", "K7i8", "K8", "K8i8")
     for key, name, run in (
             ("K1", "paged_decode_attention_partial", serving),
             ("K2", "paged_append", serving),
             ("K9f", "flash_forward", serving),
+            ("K10", K10, headline),
+            ("K11", K11, headline),
             ("K4", "ragged_paged_attention", ragged),
             ("K5", "ragged_paged_append", ragged),
             ("K1i8", "paged_decode_attention_partial" + INT8, int8_bucketed),
@@ -2173,7 +2637,9 @@ def main() -> int:
                    "fused_parity": fused_parity,
                    "fused_bucketed_serving": fused_bucketed,
                    "fused_ragged_serving": fused_ragged,
-                   "fused_bf16_pool_runs": fused_short}, f, indent=1)
+                   "fused_bf16_pool_runs": fused_short,
+                   "train_parity": train_parity, "train_headline": headline,
+                   "train_1b": train_1b}, f, indent=1)
     log(f"total {total_s:.1f} s; details in {args.out}")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

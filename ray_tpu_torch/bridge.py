@@ -7,6 +7,10 @@ nesting, key names and layouts (``wq [L,d,H,hd]``, ``lm_head [d,V]``,
 JAX arrays into numpy (``jax.tree.map(np.asarray, params)``) outside
 this package: the bridge never imports jax.
 
+An optimizer state (``train.AdamW``'s ``{"count", "mu", "nu"}``) comes
+back to the host through ``opt_state_to_numpy``, so its moments can be
+held against optax's.
+
 A paged cache crosses the same way (``paged_cache_from_jax`` /
 ``paged_cache_to_numpy``): the port keeps the pools [L, KVH, P+1, page,
 D] and, for int8 pools, the page-major scales [L, P+1, KVH, 1].
@@ -81,3 +85,12 @@ def paged_cache_to_numpy(cache: Any, bf16_dtype: Optional[Any] = None) -> Any:
     numpy arrays on the host (bf16 pools as ``params_to_numpy`` returns
     them)."""
     return params_to_numpy(dict(cache), bf16_dtype)
+
+
+def opt_state_to_numpy(opt_state: Any, bf16_dtype: Optional[Any] = None
+                       ) -> Any:
+    """``train.AdamW``'s state → ``{"count": int, "mu": ..., "nu": ...}``
+    with numpy moments (bf16 ones as ``params_to_numpy`` returns them)."""
+    return {"count": int(opt_state["count"]),
+            "mu": params_to_numpy(opt_state["mu"], bf16_dtype),
+            "nu": params_to_numpy(opt_state["nu"], bf16_dtype)}

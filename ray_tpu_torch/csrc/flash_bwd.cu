@@ -1,0 +1,616 @@
+// K10 and K11 — flash attention backward (causal or full), GQA by kv-head
+// index, p recomputed from the forward's log-sum-exp.
+//
+// Replace ray_tpu/ops/flash_attention.py _flash_backward: K10 its dq
+// kernel (Pallas body _dq_kernel, pallas_call at :263), K11 its dk/dv
+// kernel (_dkv_kernel, pallas_call at :284) together with the GQA group
+// sum of _flash_bwd_rule (:346-349).
+//
+// Layout (the model's own, no transposes): q, do, dq [B, S, H, D];
+// k, v, dk, dv [B, S, KVH, D]; lse and delta [B, H, S] f32, delta =
+// sum(o * do) over D (computed by the wrapper).  q, k, v, do, dq, dk, dv
+// share one dtype T (f32 or bf16); every product accumulates in f32.
+// Rounding points are the Pallas bodies': K10 rounds ds to T before
+// ds.k; K11 rounds p to T for dv and ds to T for dk.  Outputs are
+// stored in T.  K11 sums the group's q heads in f32 before rounding
+// (the TPU kernels round each head's dk/dv to T, then sum in T).
+//
+// What bounds them on the H100: operations.  K10 runs three causal
+// products per tile (q.k^T, do.v^T, ds.k), K11 four (k.q^T, v.do^T,
+// p^T.do, ds^T.q); at S >= 256 each loaded element feeds ~S/2
+// multiply-adds.  Causal tiles strictly above the diagonal are skipped
+// by the position test of the TPU kernels (key tile start <= last query
+// row of the tile); masked scores are -1e30, so p = 0 there.
+//  K10: one CTA per (64-row q tile, head, batch); q and do staged once,
+//       the CTA walks the kv tiles 0 .. diagonal.
+//  K11: one CTA per (64-row kv tile, kv head, batch); k and v staged
+//       once, the CTA walks the group's q heads and, for each, the q
+//       tiles from the diagonal down.  Each CTA owns its dk/dv rows
+//       outright: no atomics, a fixed summation order, deterministic.
+//
+// bf16 runs on the tensor cores: mma.sync m16n8k16 on bf16 fragments
+// with f32 accumulators, 4 warps of 16 rows each; the score tiles stay
+// in registers, and p / ds, rounded to bf16 where the Pallas bodies
+// round them, become the A fragments of the next product directly (the
+// accumulator layout of two n-tiles is the A layout of one k-step).  B
+// fragments of a row-major [k][n] tile come through ldmatrix.trans.
+// Tiles load synchronously (no cp.async / TMA ring: later work).
+// f32 runs on the CUDA cores, the design of K9f: 256 threads as a
+// 16 x 16 grid, each owning 4 rows x 4 columns of each score tile (rows
+// ty + 16i, columns tx + 16j: strided, so the 16-byte shared reads of
+// the padded rows are bank-conflict free) and 4 rows x D/16 columns of
+// its f32 accumulators.
+#include <type_traits>
+
+#include "common.cuh"
+#include "flash_tiles.cuh"
+
+namespace {
+
+constexpr int BQ = 64, BK = 64, THREADS = 256;
+constexpr int PS = BK + 16;  // p / ds tile row stride: conflict-free writes
+
+// Shared floats: four [64][D + 4] row tiles, `ptiles` [64][PS] tiles,
+// and lse / delta for 64 rows.
+template <int D>
+constexpr size_t smem_bytes(int ptiles) {
+  return sizeof(float) * (4 * (size_t)BQ * (D + 4) +
+                          (size_t)ptiles * BQ * PS + 2 * BQ);
+}
+
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      size_t src_stride) {
+  constexpr int N = rtt::Vec<float>::N;
+  constexpr int CH = D / N;
+  for (int i = threadIdx.x; i < BQ * CH; i += THREADS) {
+    const int r = i / CH, c = (i % CH) * N;
+    float tmp[N];
+    rtt::Vec<float>::load(src + (size_t)r * src_stride + c, tmp);
+#pragma unroll
+    for (int j = 0; j < N; ++j) dst[r * (D + 4) + c + j] = tmp[j];
+  }
+}
+
+// s[i][j] = a_row(ty + 16i) . b_row(tx + 16j) and
+// t[i][j] = c_row(ty + 16i) . d_row(tx + 16j) over D, rows of the
+// [64][D + 4] tiles a, b, c, d: the two score products of one tile.
+template <int D>
+__device__ __forceinline__ void two_products(const float* a, const float* b,
+                                             const float* c, const float* d,
+                                             float s[4][4], float t[4][4]) {
+  constexpr int RS = D + 4;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
+#pragma unroll 2
+  for (int e = 0; e < D; e += 4) {
+    float4 av[4], bv[4], cv[4], dv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * RS + e);
+      cv[i] = *reinterpret_cast<const float4*>(c + (ty + 16 * i) * RS + e);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * RS + e);
+      dv[j] = *reinterpret_cast<const float4*>(d + (tx + 16 * j) * RS + e);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] += av[i].x * bv[j].x + av[i].y * bv[j].y +
+                   av[i].z * bv[j].z + av[i].w * bv[j].w;
+        t[i][j] += cv[i].x * dv[j].x + cv[i].y * dv[j].y +
+                   cv[i].z * dv[j].z + cv[i].w * dv[j].w;
+      }
+  }
+}
+
+// acc[i][cc] += sum_c p[(ty + 16i)][c] * x[c][tx + 16cc]: a [64][PS]
+// tile times a [64][D + 4] row tile.
+template <int D>
+__device__ __forceinline__ void accumulate(const float* p, const float* x,
+                                           float acc[4][D / 16]) {
+  constexpr int RS = D + 4, DPT = D / 16;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll 4
+  for (int c = 0; c < BK; ++c) {
+    float pv[4], xv[DPT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[i] = p[(ty + 16 * i) * PS + c];
+#pragma unroll
+    for (int cc = 0; cc < DPT; ++cc) xv[cc] = x[c * RS + tx + 16 * cc];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int cc = 0; cc < DPT; ++cc) acc[i][cc] += pv[i] * xv[cc];
+  }
+}
+
+// --- f32: CUDA-core tiles ---------------------------------------------------
+
+// K10 (f32): dq for one (q tile, head, batch).
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int S, int H, int KVH, float scale, int causal) {
+  constexpr int RS = D + 4, DPT = D / 16;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // [BQ][RS]
+  float* do_s = q_s + BQ * RS;                    // [BQ][RS]
+  float* k_s = do_s + BQ * RS;                    // [BK][RS]
+  float* v_s = k_s + BK * RS;                     // [BK][RS]
+  float* ds_s = v_s + BK * RS;                    // [BQ][PS]
+  float* lse_s = ds_s + BQ * PS;                  // [BQ]
+  float* delta_s = lse_s + BQ;                    // [BQ]
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int q0 = qt * BQ;
+  const size_t q_row = (size_t)H * D, kv_row = (size_t)KVH * D;
+  const size_t qoff = ((size_t)b * S + q0) * q_row + (size_t)h * D;
+  const float* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
+  const float* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
+  const size_t stat = ((size_t)b * H + h) * S + q0;
+
+  stage<D>(q_s, q + qoff, q_row);
+  stage<D>(do_s, dout + qoff, q_row);
+  if (threadIdx.x < BQ) {
+    lse_s[threadIdx.x] = lse[stat + threadIdx.x];
+    delta_s[threadIdx.x] = delta[stat + threadIdx.x];
+  }
+
+  float acc[4][DPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
+
+  const int n_tiles = causal ? (q0 + BQ - 1) / BK + 1 : S / BK;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile is done with k_s, v_s, ds_s
+    stage<D>(k_s, kb + (size_t)k0 * kv_row, kv_row);
+    stage<D>(v_s, vb + (size_t)k0 * kv_row, kv_row);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    two_products<D>(q_s, k_s, do_s, v_s, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = s[i][j] * scale;
+        if (causal && k0 + tx + 16 * j > q0 + r) x = rtt::NEG_INF;
+        const float p = expf(x - lse_s[r]);
+        ds_s[r * PS + tx + 16 * j] = p * (dp[i][j] - delta_s[r]);
+      }
+    }
+    __syncthreads();
+    accumulate<D>(ds_s, k_s, acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* row = dq + qoff + (size_t)(ty + 16 * i) * q_row;
+#pragma unroll
+    for (int cc = 0; cc < DPT; ++cc)
+      row[tx + 16 * cc] = scale * acc[i][cc];
+  }
+}
+
+// K11 (f32): dk, dv for one (kv tile, kv head, batch), summed over the
+// group.
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KVH,
+    float scale, int causal) {
+  constexpr int RS = D + 4, DPT = D / 16;
+  extern __shared__ float4 smem4[];
+  float* k_s = reinterpret_cast<float*>(smem4);  // [BK][RS]
+  float* v_s = k_s + BK * RS;                     // [BK][RS]
+  float* q_s = v_s + BK * RS;                     // [BQ][RS]
+  float* do_s = q_s + BQ * RS;                    // [BQ][RS]
+  float* p_s = do_s + BQ * RS;                    // [BK][PS]: p^T
+  float* ds_s = p_s + BK * PS;                    // [BK][PS]: ds^T
+  float* lse_s = ds_s + BK * PS;                  // [BQ]
+  float* delta_s = lse_s + BQ;                    // [BQ]
+
+  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int group = H / KVH;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int k0 = kt * BK;
+  const size_t q_row = (size_t)H * D, kv_row = (size_t)KVH * D;
+  const size_t kvoff = ((size_t)b * S + k0) * kv_row + (size_t)kvh * D;
+
+  stage<D>(k_s, k + kvoff, kv_row);
+  stage<D>(v_s, v + kvoff, kv_row);
+
+  float acc_k[4][DPT], acc_v[4][DPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  // First q tile whose last row reaches the kv tile's first key.
+  const int qt0 = causal ? k0 / BQ : 0;
+  for (int g = 0; g < group; ++g) {
+    const int h = kvh * group + g;
+    for (int qt = qt0; qt < S / BQ; ++qt) {
+      const int q0 = qt * BQ;
+      const size_t qoff = ((size_t)b * S + q0) * q_row + (size_t)h * D;
+      const size_t stat = ((size_t)b * H + h) * S + q0;
+      __syncthreads();  // the previous tile is done with q_s, do_s, p_s
+      stage<D>(q_s, q + qoff, q_row);
+      stage<D>(do_s, dout + qoff, q_row);
+      if (threadIdx.x < BQ) {
+        lse_s[threadIdx.x] = lse[stat + threadIdx.x];
+        delta_s[threadIdx.x] = delta[stat + threadIdx.x];
+      }
+      __syncthreads();
+
+      // Transposed tiles: rows are keys (ty + 16i), columns queries.
+      float s[4][4], dp[4][4];
+      two_products<D>(k_s, q_s, v_s, do_s, s, dp);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          float x = s[i][j] * scale;
+          if (causal && k0 + r > q0 + c) x = rtt::NEG_INF;
+          const float p = expf(x - lse_s[c]);
+          p_s[r * PS + c] = p;
+          ds_s[r * PS + c] = p * (dp[i][j] - delta_s[c]);
+        }
+      }
+      __syncthreads();
+      accumulate<D>(p_s, do_s, acc_v);
+      accumulate<D>(ds_s, q_s, acc_k);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const size_t row = kvoff + (size_t)(ty + 16 * i) * kv_row;
+#pragma unroll
+    for (int cc = 0; cc < DPT; ++cc) {
+      dk[row + tx + 16 * cc] = scale * acc_k[i][cc];
+      dv[row + tx + 16 * cc] = acc_v[i][cc];
+    }
+  }
+}
+
+// --- bf16: tensor-core tiles (helpers in flash_tiles.cuh) -----------------
+
+using namespace rtt::flash;
+
+// K10 (bf16): dq for one (q tile, head, batch); warp w owns q rows
+// 16w .. 16w + 15.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int S, int H, int KVH, float scale, int causal) {
+  constexpr int RS = D + 8;
+  extern __shared__ float4 smem4[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem4);
+  bf16* do_s = q_s + BQ * RS;
+  bf16* k_s = do_s + BQ * RS;
+  bf16* v_s = k_s + BK * RS;
+  float* lse_s = reinterpret_cast<float*>(v_s + BK * RS);
+  float* delta_s = lse_s + BQ;
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int m0 = (threadIdx.x >> 5) * 16;
+  const int g = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+  const int q0 = qt * BQ;
+  const size_t q_row = (size_t)H * D, kv_row = (size_t)KVH * D;
+  const size_t qoff = ((size_t)b * S + q0) * q_row + (size_t)h * D;
+  const bf16* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
+  const bf16* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
+  const size_t stat = ((size_t)b * H + h) * S + q0;
+
+  stage_bf16<D>(q_s, q + qoff, q_row);
+  stage_bf16<D>(do_s, dout + qoff, q_row);
+  if (threadIdx.x < BQ) {
+    lse_s[threadIdx.x] = lse[stat + threadIdx.x];
+    delta_s[threadIdx.x] = delta[stat + threadIdx.x];
+  }
+  __syncthreads();
+  const int r0 = m0 + g;  // this thread's rows: r0 and r0 + 8
+  const float lse0 = lse_s[r0], lse1 = lse_s[r0 + 8];
+  const float dl0 = delta_s[r0], dl1 = delta_s[r0 + 8];
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  const int n_tiles = causal ? (q0 + BQ - 1) / BK + 1 : S / BK;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile is done with k_s, v_s
+    stage_bf16<D>(k_s, kb + (size_t)k0 * kv_row, kv_row);
+    stage_bf16<D>(v_s, vb + (size_t)k0 * kv_row, kv_row);
+    __syncthreads();
+
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t aq[4], ado[4];
+      load_a<D>(aq, q_s, m0, kk);
+      load_a<D>(ado, do_s, m0, kk);
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        uint32_t bk[2], bv[2];
+        load_bt<D>(bk, k_s, nt * 8, kk);
+        load_bt<D>(bv, v_s, nt * 8, kk);
+        mma_bf16(s[nt], aq, bk);
+        mma_bf16(dp[nt], ado, bv);
+      }
+    }
+    uint32_t ads[BK / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + r0 + (e >> 1) * 8;
+        const int c = k0 + nt * 8 + 2 * tig + (e & 1);
+        float x = s[nt][e] * scale;
+        if (causal && c > r) x = rtt::NEG_INF;
+        const float p = expf(x - (e >> 1 ? lse1 : lse0));
+        ds[e] = p * (dp[nt][e] - (e >> 1 ? dl1 : dl0));
+      }
+      to_a(ads, nt, ds);
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) mma_rows<D>(acc, ads[j], k_s, j * 16);
+  }
+  store_rows<D>(dq + qoff, m0, q_row, acc, scale);
+}
+
+// K11 (bf16): dk, dv for one (kv tile, kv head, batch), summed over the
+// group; warp w owns keys 16w .. 16w + 15 and walks each q tile in two
+// 32-query halves (fewer live score registers beside its accumulators).
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkv_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int KVH,
+    float scale, int causal) {
+  constexpr int RS = D + 8, QC = 32;
+  extern __shared__ float4 smem4[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem4);
+  bf16* v_s = k_s + BK * RS;
+  bf16* q_s = v_s + BK * RS;
+  bf16* do_s = q_s + BQ * RS;
+  float* lse_s = reinterpret_cast<float*>(do_s + BQ * RS);
+  float* delta_s = lse_s + BQ;
+
+  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int group = H / KVH;
+  const int m0 = (threadIdx.x >> 5) * 16;
+  const int g = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+  const int k0 = kt * BK;
+  const size_t q_row = (size_t)H * D, kv_row = (size_t)KVH * D;
+  const size_t kvoff = ((size_t)b * S + k0) * kv_row + (size_t)kvh * D;
+
+  stage_bf16<D>(k_s, k + kvoff, kv_row);
+  stage_bf16<D>(v_s, v + kvoff, kv_row);
+
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
+
+  const int qt0 = causal ? k0 / BQ : 0;
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = kvh * group + gi;
+    for (int qt = qt0; qt < S / BQ; ++qt) {
+      const int q0 = qt * BQ;
+      const size_t qoff = ((size_t)b * S + q0) * q_row + (size_t)h * D;
+      const size_t stat = ((size_t)b * H + h) * S + q0;
+      __syncthreads();  // the previous tile is done with q_s, do_s
+      stage_bf16<D>(q_s, q + qoff, q_row);
+      stage_bf16<D>(do_s, dout + qoff, q_row);
+      if (threadIdx.x < BQ) {
+        lse_s[threadIdx.x] = lse[stat + threadIdx.x];
+        delta_s[threadIdx.x] = delta[stat + threadIdx.x];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int qc = 0; qc < BQ; qc += QC) {
+        // Every (key, query) pair of this warp's half tile masked: skip
+        // (warp-uniform; no barrier inside).
+        if (causal && q0 + qc + QC - 1 < k0 + m0) continue;
+        float s[QC / 8][4], dp[QC / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < QC / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D; kk += 16) {
+          uint32_t ak[4], av[4];
+          load_a<D>(ak, k_s, m0, kk);
+          load_a<D>(av, v_s, m0, kk);
+#pragma unroll
+          for (int nt = 0; nt < QC / 8; ++nt) {
+            uint32_t bq[2], bdo[2];
+            load_bt<D>(bq, q_s, qc + nt * 8, kk);
+            load_bt<D>(bdo, do_s, qc + nt * 8, kk);
+            mma_bf16(s[nt], ak, bq);
+            mma_bf16(dp[nt], av, bdo);
+          }
+        }
+        // Transposed tiles: rows are keys, columns queries.
+        uint32_t ap[QC / 16][4], ads[QC / 16][4];
+#pragma unroll
+        for (int nt = 0; nt < QC / 8; ++nt) {
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = qc + nt * 8 + 2 * tig + (e & 1);
+            float x = s[nt][e] * scale;
+            if (causal && k0 + m0 + g + (e >> 1) * 8 > q0 + c)
+              x = rtt::NEG_INF;
+            p[e] = expf(x - lse_s[c]);
+            ds[e] = p[e] * (dp[nt][e] - delta_s[c]);
+          }
+          to_a(ap, nt, p);
+          to_a(ads, nt, ds);
+        }
+#pragma unroll
+        for (int j = 0; j < QC / 16; ++j) {
+          mma_rows<D>(acc_v, ap[j], do_s, qc + j * 16);
+          mma_rows<D>(acc_k, ads[j], q_s, qc + j * 16);
+        }
+      }
+    }
+  }
+  store_rows<D>(dk + kvoff, m0, kv_row, acc_k, scale);
+  store_rows<D>(dv + kvoff, m0, kv_row, acc_v, 1.f);
+}
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *dq, *dk, *dv;
+  int B, S, H, KVH;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+int launch_dq(const Args& a) {
+  const dim3 grid(a.S / BQ, a.H, a.B);
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr size_t smem = mma_smem_bytes<D>(4, 2);
+    err = cudaFuncSetAttribute(flash_bwd_dq_mma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_mma<D><<<grid, MMA_THREADS, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<bf16*>(a.dq), a.S, a.H, a.KVH, a.scale, a.causal);
+  } else {
+    const size_t smem = smem_bytes<D>(1);
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_kernel<D><<<grid, THREADS, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<float*>(a.dq), a.S, a.H, a.KVH, a.scale, a.causal);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dkv(const Args& a) {
+  const dim3 grid(a.S / BK, a.KVH, a.B);
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr size_t smem = mma_smem_bytes<D>(4, 2);
+    err = cudaFuncSetAttribute(flash_bwd_dkv_mma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dkv_mma<D><<<grid, MMA_THREADS, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, a.H, a.KVH,
+        a.scale, a.causal);
+  } else {
+    const size_t smem = smem_bytes<D>(2);
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S, a.H,
+        a.KVH, a.scale, a.causal);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch(int which, const Args& a) {
+  return which == 0 ? launch_dq<T, D>(a) : launch_dkv<T, D>(a);
+}
+
+template <typename T>
+int dispatch_d(int which, int D, const Args& a) {
+  switch (D) {
+    case 16: return launch<T, 16>(which, a);
+    case 32: return launch<T, 32>(which, a);
+    case 64: return launch<T, 64>(which, a);
+    case 128: return launch<T, 128>(which, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int entry(int which, const void* q, const void* k, const void* v,
+          const void* dout, const void* lse, const void* delta, void* dq,
+          void* dk, void* dv, int dtype, int B, int S, int H, int KVH, int D,
+          float scale, int causal, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KVH,
+               scale, causal, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return dispatch_d<float>(which, D, a);
+  return dispatch_d<__nv_bfloat16>(which, D, a);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  S % 64 == 0, D in {16,32,64,128}.
+// K10: dq [B, S, H, D].
+extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dq, int dtype, int B,
+                                int S, int H, int KVH, int D, float scale,
+                                int causal, void* stream) {
+  return entry(0, q, k, v, dout, lse, delta, dq, nullptr, nullptr, dtype, B,
+               S, H, KVH, D, scale, causal, stream);
+}
+
+// K11: dk, dv [B, S, KVH, D], summed over each kv head's q heads.
+extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dk, void* dv,
+                                 int dtype, int B, int S, int H, int KVH,
+                                 int D, float scale, int causal,
+                                 void* stream) {
+  return entry(1, q, k, v, dout, lse, delta, nullptr, dk, dv, dtype, B, S, H,
+               KVH, D, scale, causal, stream);
+}

@@ -8,19 +8,26 @@
 // lse [B, H, S] f32 (log-sum-exp per row, kept for the backward pass).
 //
 // What bounds it on the H100: operations.  Causal prefill at
-// S >= 256 does ~S/2 multiply-adds per loaded element; this first
-// kernel runs them as f32 FMAs on the CUDA cores (a fraction of the
-// tensor-core peak the bound is stated against).  Later work: mma.sync
-// or wgmma on bf16 tiles with TMA loads.
+// S >= 256 does ~S/2 multiply-adds per loaded element.  bf16 runs them
+// on the tensor cores (flash_tiles.cuh: mma.sync m16n8k16, 4 warps of
+// 16 q rows, scores and probabilities in registers, the online softmax's
+// row max and sum reduced over each quad of lanes, p rounded to bf16 for
+// p.v as the Pallas body rounds it); tiles load synchronously (no
+// cp.async / TMA ring, no wgmma: later work).  f32 runs them as FMAs on
+// the CUDA cores (a fraction of the tensor-core peak the bound is
+// stated against).
 //
-// Design: one CTA per (64-row q tile, head, batch); 256 threads as a
+// f32 design: one CTA per (64-row q tile, head, batch); 256 threads as a
 // 16 x 16 grid, each owning 4 q rows x 4 kv columns of the score tile
 // (rows ty + 16i, columns tx + 16j: strided, so the 16-byte shared
 // reads of the padded k rows are bank-conflict free) and 4 rows x D/16
 // output columns.  The CTA loops over 64-row kv tiles with an online
 // softmax (running m, l in registers, f32), skips tiles above the
 // diagonal, and indexes k/v by h / (H/KVH) so they are never expanded.
+#include <type_traits>
+
 #include "common.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
@@ -34,26 +41,27 @@ constexpr size_t smem_bytes() {
           (size_t)BQ * PS);
 }
 
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void stage(float* dst, int dst_stride,
-                                      const T* src, size_t src_stride,
+                                      const float* src, size_t src_stride,
                                       int rows) {
-  constexpr int N = rtt::Vec<T>::N;
+  constexpr int N = rtt::Vec<float>::N;
   constexpr int CH = D / N;
   for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
     const int r = i / CH, c = (i % CH) * N;
     float tmp[N];
-    rtt::Vec<T>::load(src + (size_t)r * src_stride + c, tmp);
+    rtt::Vec<float>::load(src + (size_t)r * src_stride + c, tmp);
 #pragma unroll
     for (int j = 0; j < N; ++j) dst[r * dst_stride + c + j] = tmp[j];
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int S, int H, int KVH,
-    float scale, int causal) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int KVH, float scale,
+    int causal) {
   constexpr int QS = D + 4;
   constexpr int DPT = D / 16;
   extern __shared__ float4 smem4[];
@@ -67,11 +75,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int q0 = qt * BQ;
   const size_t q_row = (size_t)H * D, kv_row = (size_t)KVH * D;
-  const T* qb = q + ((size_t)b * S + q0) * q_row + (size_t)h * D;
-  const T* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
-  const T* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
+  const float* qb = q + ((size_t)b * S + q0) * q_row + (size_t)h * D;
+  const float* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
+  const float* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
 
-  stage<T, D>(q_s, QS, qb, q_row, BQ);
+  stage<D>(q_s, QS, qb, q_row, BQ);
 
   float m_i[4], l_i[4], acc[4][DPT];
 #pragma unroll
@@ -86,8 +94,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile is done with k_s, v_s, p_s
-    stage<T, D>(k_s, QS, kb + (size_t)k0 * kv_row, kv_row, BK);
-    stage<T, D>(v_s, D, vb + (size_t)k0 * kv_row, kv_row, BK);
+    stage<D>(k_s, QS, kb + (size_t)k0 * kv_row, kv_row, BK);
+    stage<D>(v_s, D, vb + (size_t)k0 * kv_row, kv_row, BK);
     __syncthreads();
 
     float s[4][4];
@@ -160,12 +168,130 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const int r = q0 + ty + 16 * i;
     const float l_safe = l_i[i] == 0.f ? 1.f : l_i[i];
     const float inv = 1.f / l_safe;
-    T* orow = o + ((size_t)b * S + r) * q_row + (size_t)h * D;
+    float* orow = o + ((size_t)b * S + r) * q_row + (size_t)h * D;
 #pragma unroll
     for (int cc = 0; cc < DPT; ++cc)
-      orow[tx + 16 * cc] = rtt::from_float<T>(acc[i][cc] * inv);
+      orow[tx + 16 * cc] = acc[i][cc] * inv;
     if (tx == 0)
       lse[((size_t)b * H + h) * S + r] = m_i[i] + logf(l_safe);
+  }
+}
+
+using namespace rtt::flash;
+
+// bf16: one CTA per (64-row q tile, head, batch); warp w owns q rows
+// 16w .. 16w + 15 (this thread: rows g and g + 8 of them).
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+    int S, int H, int KVH, float scale, int causal) {
+  constexpr int RS = D + 8;
+  extern __shared__ float4 smem4[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem4);
+  bf16* k_s = q_s + BQ * RS;
+  bf16* v_s = k_s + BK * RS;
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int m0 = (threadIdx.x >> 5) * 16;
+  const int g = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+  const int q0 = qt * BQ;
+  const size_t q_row = (size_t)H * D, kv_row = (size_t)KVH * D;
+  const size_t qoff = ((size_t)b * S + q0) * q_row + (size_t)h * D;
+  const bf16* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
+  const bf16* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
+
+  stage_bf16<D>(q_s, q + qoff, q_row);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m_i[2] = {rtt::NEG_INF, rtt::NEG_INF}, l_i[2] = {0.f, 0.f};
+
+  const int n_tiles = causal ? (q0 + BQ - 1) / BK + 1 : S / BK;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile is done with k_s, v_s
+    stage_bf16<D>(k_s, kb + (size_t)k0 * kv_row, kv_row);
+    stage_bf16<D>(v_s, vb + (size_t)k0 * kv_row, kv_row);
+    __syncthreads();
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t aq[4];
+      load_a<D>(aq, q_s, m0, kk);
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        uint32_t bk[2];
+        load_bt<D>(bk, k_s, nt * 8, kk);
+        mma_bf16(s[nt], aq, bk);
+      }
+    }
+    // Online softmax; element e of an n-tile is row g + 8 (e / 2).
+    float mx[2] = {rtt::NEG_INF, rtt::NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + m0 + g + (e >> 1) * 8;
+        float x = s[nt][e] * scale;
+        if (causal && k0 + nt * 8 + 2 * tig + (e & 1) > r) x = rtt::NEG_INF;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = rtt::group_max<4>(mx[i]);
+      const float m_new = fmaxf(m_i[i], mx[i]);
+      corr[i] = expf(m_i[i] - m_new);
+      m_i[i] = m_new;
+    }
+    uint32_t ap[BK / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = expf(s[nt][e] - m_i[e >> 1]);
+        sum[e >> 1] += p[e];
+      }
+      to_a(ap, nt, p);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      l_i[i] = corr[i] * l_i[i] + rtt::group_sum<4>(sum[i]);
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      acc[nd][0] *= corr[0];
+      acc[nd][1] *= corr[0];
+      acc[nd][2] *= corr[1];
+      acc[nd][3] *= corr[1];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) mma_rows<D>(acc, ap[j], v_s, j * 16);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l_safe = l_i[i] == 0.f ? 1.f : l_i[i];
+    const int r = m0 + g + 8 * i;
+    bf16* orow = o + qoff + (size_t)r * q_row;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + 2 * tig) =
+          __floats2bfloat162_rn(acc[nd][2 * i] / l_safe,
+                                acc[nd][2 * i + 1] / l_safe);
+    if (tig == 0)
+      lse[((size_t)b * H + h) * S + q0 + r] = m_i[i] + logf(l_safe);
   }
 }
 
@@ -173,15 +299,29 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int S, int H, int KVH, float scale, int causal,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<T, D><<<dim3(S / BQ, H, B), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, H, KVH, scale, causal);
+  const dim3 grid(S / BQ, H, B);
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr size_t smem = mma_smem_bytes<D>(3, 0);
+    err = cudaFuncSetAttribute(flash_fwd_mma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_fwd_mma<D><<<grid, MMA_THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o),
+        static_cast<float*>(lse), S, H, KVH, scale, causal);
+  } else {
+    constexpr size_t smem = smem_bytes<D>();
+    err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o),
+        static_cast<float*>(lse), S, H, KVH, scale, causal);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-"""Llama-3 family for serving (port of ``ray_tpu/models/llama.py``).
+"""Llama-3 family for training and serving (port of
+``ray_tpu/models/llama.py``).
 
 Plain functions on tensors, as in the JAX package: parameters are a
 nested dict with the JAX package's key names and layouts
@@ -8,7 +9,16 @@ nested dict with the JAX package's key names and layouts
 is a pure copy.  Matmuls run in ``cfg.dtype``; norms, RoPE and softmax
 in float32.
 
-The port covers the dense forward and the paged serving path with a
+Training: ``forward_hidden`` (the backbone, with per-layer
+rematerialisation under ``cfg.remat``: ``"dots"`` keeps the matmul
+outputs and recomputes the rest, the flash kernel K9f included;
+``"full"`` keeps nothing), ``forward``, ``next_token_loss``,
+``chunked_next_token_loss`` (``cfg.loss_chunk``: never the whole
+[B, S, V] logits) and ``loss_fn``, differentiable by autograd; attention
+at S >= 256 on the card runs K9f forward and K10 + K11 backward
+(``ops/flash_attention.py``).
+
+Serving: the paged path with a
 bf16 (or f32) page pool, or with ``cfg.kv_int8`` an int8 pool plus one
 f32 scale per page and kv head: ``prefill_batch_paged`` /
 ``prefill_slot_paged`` (prefill attention through ``ops.attention``,
@@ -39,6 +49,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import dot_product_attention
@@ -73,8 +88,10 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    # Training-side fields of the JAX config, kept so configs cross
-    # unchanged; the serving path never reads them.
+    # Training (forward_hidden, loss_fn): per-layer rematerialisation
+    # when gradients are taken ("dots": keep matmul outputs, recompute the
+    # rest; "full": keep nothing), and the head-projection chunk along S
+    # for the loss (0 = whole logits).  The serving path never reads them.
     remat: bool = True
     remat_policy: str = "dots"
     loss_chunk: int = 0
@@ -97,6 +114,15 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
+
+    def num_params(self) -> int:
+        d, h = self.dim, self.head_dim
+        attn = (d * self.n_heads * h + 2 * d * self.n_kv_heads * h
+                + self.n_heads * h * d)
+        mlp = 3 * d * self.mlp_dim
+        per_layer = attn + mlp + 2 * d
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + d
 
 
 LLAMA3_8B = LlamaConfig()
@@ -302,24 +328,160 @@ def _head_matmul(x, head, cfg: LlamaConfig):
 
 # --- forward --------------------------------------------------------------
 
-def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
-            positions: Optional[torch.Tensor] = None,
-            segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [B, S] → logits [B, S, V] (float32)."""
+def _layer_fn(cfg: LlamaConfig, x, layer, sin, cos, segment_ids):
+    h = x + _attn_block(rms_norm(x, layer["ln_attn"], cfg.norm_eps), layer,
+                        cfg, sin, cos, segment_ids)[0]
+    return h + _mlp_block(rms_norm(h, layer["ln_mlp"], cfg.norm_eps), layer,
+                          cfg)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep matmuls with no batch dims (``x [B,S,d] @ w [d,n]`` reaches ATen
+    as ``mm``), what ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable`` keeps; recompute the rest.
+    Attention's products sit inside the flash Function or batched einsums
+    (``bmm``), so they are recomputed, as in the JAX package."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(cfg: LlamaConfig) -> Dict[str, Any]:
+    if cfg.remat_policy == "full":
+        return {}
+    return {"context_fn": lambda: create_selective_checkpoint_contexts(
+        _dots_policy)}
+
+
+def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                   *, positions: Optional[torch.Tensor] = None,
+                   segment_ids: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Any]:
+    """Backbone only: tokens [B, S] → (hidden [B, S, D], head [D, V]).
+    The head projection is left to the caller so the loss can run it
+    chunked.  With ``cfg.remat`` and gradients enabled each layer runs
+    under ``torch.utils.checkpoint`` (non-reentrant): ``"dots"`` keeps
+    the matmul outputs and recomputes the rest in the backward, the
+    flash forward included; ``"full"`` recomputes the whole layer."""
     if cfg.sequence_parallel:
         _unported(cfg)
+    if cfg.remat_policy not in ("dots", "full"):
+        raise ValueError(
+            f"remat_policy must be 'dots' or 'full', got {cfg.remat_policy!r}"
+        )
     if positions is None:
         positions = torch.arange(tokens.shape[1],
                                  device=tokens.device).expand(tokens.shape)
     sin, cos = rope_table(cfg, positions)
     x = params["tok_embed"][tokens.long()].to(cfg.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
+    kwargs = _remat_kwargs(cfg) if remat else {}
     for layer in _layers(params, cfg.n_layers):
-        h = x + _attn_block(rms_norm(x, layer["ln_attn"], cfg.norm_eps),
-                            layer, cfg, sin, cos, segment_ids)[0]
-        x = h + _mlp_block(rms_norm(h, layer["ln_mlp"], cfg.norm_eps),
-                           layer, cfg)
+        if remat:
+            x = checkpoint(_layer_fn, cfg, x, layer, sin, cos, segment_ids,
+                           use_reentrant=False, **kwargs)
+        else:
+            x = _layer_fn(cfg, x, layer, sin, cos, segment_ids)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _head_matmul(x, _head(params, cfg), cfg).float()
+    return x, _head(params, cfg)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
+            positions: Optional[torch.Tensor] = None,
+            segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B, S] → logits [B, S, V] (float32)."""
+    x, head = forward_hidden(params, tokens, cfg, positions=positions,
+                             segment_ids=segment_ids)
+    return _head_matmul(x, head, cfg).float()
+
+
+# --- training loss ----------------------------------------------------------
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor, z_loss: float
+         ) -> torch.Tensor:
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = logz - tgt
+    if z_loss:
+        nll = nll + z_loss * logz ** 2
+    return nll
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    loss_mask: Optional[torch.Tensor] = None, *,
+                    z_loss: float = 0.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shifted next-token masked cross-entropy.  logits [B, S, V], tokens
+    [B, S] → (mean_nll, ntokens)."""
+    nll = _nll(logits[:, :-1], tokens[:, 1:], z_loss)
+    if loss_mask is None:
+        mask = torch.ones_like(nll)
+    else:
+        mask = loss_mask[:, 1:].to(nll.dtype)
+    total = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return total, mask.sum()
+
+
+def chunked_next_token_loss(x: torch.Tensor, head: torch.Tensor,
+                            tokens: torch.Tensor,
+                            loss_mask: Optional[torch.Tensor] = None, *,
+                            chunk: int = 512, z_loss: float = 0.0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy with the head projection chunked over the sequence
+    axis: only [B, chunk, V] logits exist at a time, and with gradients
+    enabled each chunk runs under ``torch.utils.checkpoint`` so the
+    backward recomputes them.  The sequence is padded to a chunk multiple
+    (padding masked out); chunks are summed in order, as the JAX scan
+    does."""
+    x = x[:, :-1]
+    targets = tokens[:, 1:].long()
+    B, S1, _ = x.shape
+    mask = (torch.ones((B, S1), dtype=torch.float32, device=x.device)
+            if loss_mask is None else loss_mask[:, 1:].float())
+    pad = (-S1) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    hd = head.to(x.dtype)
+
+    def body(xi, ti, mi):
+        return (_nll((xi @ hd).float(), ti, z_loss) * mi).sum()
+
+    grad = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, S1 + pad, chunk):
+        xi, ti, mi = x[:, c:c + chunk], targets[:, c:c + chunk], \
+            mask[:, c:c + chunk]
+        part = (checkpoint(body, xi, ti, mi, use_reentrant=False) if grad
+                else body(xi, ti, mi))
+        tot = tot + part
+        cnt = cnt + mi.sum()
+    return tot / cnt.clamp_min(1.0), cnt
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: LlamaConfig, *, z_loss: float = 0.0
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy.  batch: tokens [B, S], optional
+    loss_mask [B, S] and segment_ids [B, S]."""
+    tokens = batch["tokens"]
+    # The full sequence runs (S stays block-divisible for the flash
+    # kernels) and the logits shift, not the inputs.
+    if cfg.loss_chunk:
+        x, head = forward_hidden(params, tokens, cfg,
+                                 segment_ids=batch.get("segment_ids"))
+        total, ntokens = chunked_next_token_loss(
+            x, head, tokens, batch.get("loss_mask"), chunk=cfg.loss_chunk,
+            z_loss=z_loss)
+    else:
+        logits = forward(params, tokens, cfg,
+                         segment_ids=batch.get("segment_ids"))
+        total, ntokens = next_token_loss(logits, tokens,
+                                         batch.get("loss_mask"),
+                                         z_loss=z_loss)
+    return total, {"loss": total, "ntokens": ntokens}
 
 
 # --- paged serving --------------------------------------------------------

@@ -1,9 +1,11 @@
 """Attention ops (port of ``ray_tpu/ops/attention.py``).
 
-The einsum path below is the portable reference; the flash kernel
-(``ops/flash_attention.py``, K9f) takes over for CUDA tensors under
-the same eligibility rule as the JAX package (causal, unpacked, no soft
-cap, no decode offset, block-divisible S >= 256).
+The einsum path below is the portable reference, differentiable by
+autograd; the flash kernels (``ops/flash_attention.py``: K9f forward,
+K10 + K11 backward through one ``torch.autograd.Function``) take over
+for CUDA tensors under the same eligibility rule as the JAX package
+(causal, unpacked, no soft cap, no decode offset, block-divisible
+S >= 256).
 
 Conventions: q [B, S, H, D], k/v [B, S, KVH, D] with H a multiple of
 KVH (grouped-query attention).
@@ -22,6 +24,11 @@ def _gqa_expand(k: torch.Tensor, groups: int) -> torch.Tensor:
     return k if groups == 1 else k.repeat_interleave(groups, dim=2)
 
 
+def _on_card(q: torch.Tensor) -> bool:
+    """The JAX package's ``_on_tpu``: the flash kernels run on the card."""
+    return q.is_cuda
+
+
 def _flash_eligible(q, k, causal, segment_ids, logits_soft_cap) -> bool:
     B, S, H, D = q.shape
     # must mirror flash_attention's own validation: blocks clamp to S
@@ -36,7 +43,7 @@ def _flash_eligible(q, k, causal, segment_ids, logits_soft_cap) -> bool:
         and S % bk == 0
         and S >= 256
         and H % k.shape[2] == 0
-        and q.is_cuda
+        and _on_card(q)
     )
 
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K2, K3, K9f, K4, K5, K6, K7, K8; K1 and K4 on
+"""The port's CUDA kernels (K1, K2, K3, K9f, K10, K11, K4, K5, K6, K7, K8; K1 and K4 on
 bf16/f32 and on int8 pools) against their plain PyTorch versions on the
 card, in f32 and bf16, across head dims, page sizes and GQA groups.  CUDA kernels have no CPU mode: without a card every
 test here skips.  On a machine with one (no jax needed):
@@ -31,7 +31,8 @@ def _gen(seed):
 
 # f32: same arithmetic, other summation order.  bf16 inputs convert
 # exactly to f32 in both versions, so K1 keeps the f32 tolerance; K9f
-# rounds its f32 result to bf16 (one ulp = 2^-8 relative).
+# rounds p to bf16 before p.v (at its running max; the plain version at
+# the final lse) and its f32 result to bf16 (one ulp = 2^-8 relative).
 K1_TOL = 1e-4
 K9_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
@@ -106,6 +107,66 @@ def test_k9f_matches_plain(dev, dtype, D, S, causal):
     tol = K9_TOL[dtype]
     torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+
+
+# K10/K11: f32 sums in another order; bf16 outputs round once (one ulp
+# = 2^-8 relative) and the rounded p / ds feed the products in both
+# versions, so a rounding that lands on the other side of a tie moves a
+# few terms by one ulp.  Both versions of K11 sum the group in f32
+# before their one rounding.
+K10_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("H,KVH", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("S,causal", [(64, True), (256, True),
+                                      (192, False)])
+def test_k10_k11_match_plain(dev, dtype, D, H, KVH, S, causal):
+    g = _gen(D + S + H * KVH)
+    B = 2
+    q = torch.randn((B, S, H, D), generator=g, device=dev, dtype=dtype)
+    k = torch.randn((B, S, KVH, D), generator=g, device=dev, dtype=dtype)
+    v = torch.randn_like(k)
+    do = torch.randn_like(q)
+    o, lse = tfa.flash_forward_plain(q, k, v, causal)
+    delta = tfa.flash_backward_delta(o, do)
+    b10, b11 = tfa.flash_backward_dq.launches, tfa.flash_backward_dkv.launches
+    dq = tfa.flash_backward_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = tfa.flash_backward_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_backward_dq.launches == b10 + 1
+    assert tfa.flash_backward_dkv.launches == b11 + 1
+    dq_p = tfa.flash_backward_dq_plain(q, k, v, do, lse, delta, causal)
+    dk_p, dv_p = tfa.flash_backward_dkv_plain(q, k, v, do, lse, delta,
+                                              causal)
+    tol = K10_TOL[dtype]
+    for name, a, b in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
+        scale = b.float().abs().max().item()
+        torch.testing.assert_close(a.float() / scale, b.float() / scale,
+                                   atol=tol, rtol=0, msg=name)
+
+
+def test_autograd_function_launches_k9f_k10_k11(dev):
+    g = _gen(7)
+    q, k, v = (torch.randn((1, 256, H, 64), generator=g, device=dev)
+               for H in (4, 2, 2))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    before = (tfa.flash_forward.launches, tfa.flash_backward_dq.launches,
+              tfa.flash_backward_dkv.launches)
+    o = tfa.flash_attention(q, k, v, causal=True)
+    # A non-contiguous upstream gradient, as autograd may hand one over.
+    do = torch.randn((1, 64, 4, 256), generator=g, device=dev).transpose(1, 3)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    after = (tfa.flash_forward.launches, tfa.flash_backward_dq.launches,
+             tfa.flash_backward_dkv.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    o_p, _ = tfa.flash_forward_plain(q, k, v, True)
+    want = torch.autograd.grad(o_p, (q, k, v), do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
