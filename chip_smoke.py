@@ -80,17 +80,35 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    and its kernel time under the profiler, then ``fit`` for 2 steps with a checkpoint written and
    restored; counters at 0 before and read after: K9f 32, K10 and K11 16
    per step; the loss on the first batch must fall; then BENCH_1B_CFG
-   (bf16 master, "full" remat, loss chunks of 512) for 2 steps.
+   (bf16 master, "full" remat, loss chunks of 512) for 2 steps;
+10. Mamba-2 training and K13: K12 (the SSD chunk scan) against its plain
+   version at bench.py's ``_measure_ssd`` shape (B 4, S 4096, H 8, P 64,
+   N 128, chunk 128), at one 2.7B layer's (B 2, S 2048, H 80, P 64, N
+   128, chunk 64, bf16 B/C) and with the chunk kept (S 1984), timed
+   beside the plain version, the port's ``ssd_chunked`` and the bound,
+   and the ``ssd_pallas`` Function's gradients card vs CPU; K13 (normalised
+   paged decode attention) against its plain version at LLAMA3_8B decode
+   shapes, an empty slot, OOB page ids and a soft-capped case, timed
+   beside SDPA; MAMBA2_TINY (f32, ``use_pallas_ssd=True``) trained 3
+   steps on the card and on the CPU (losses agree); JAMBA_TINY at S 512
+   for 2 steps (K12 and K9f/K10/K11 once a step); MAMBA2_2_7B with
+   ``use_pallas_ssd=True`` at full width and depth on a fixed 2 x 2048
+   batch through ``TorchTrainer.fit`` (2 warm-up, 3 timed steps, one
+   profiled by kernel and one by op): finite logits, a falling loss, K12
+   128 a step from 0; then
+   K13's path, ``paged_decode_attention_tp`` without a mesh over 32
+   layers (K13 32 times from 0).
 
 The last three lines of standard output are the kernel table (K1, K2,
 K9f, K10, K11, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8
-int8) as one JSON object, the card's name and power limit, and
+int8, K12, K13) as one JSON object, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Details go to ``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -1536,7 +1554,7 @@ def fused_layer_8b(torch, llama, quant, seed):
     params = quant.fuse_for_decode(quant.init_quantized_llama(
         torch.Generator(device="cuda").manual_seed(seed), cfg,
         device="cuda"), cfg)
-    layer = llama._layers(params, 1)[0]
+    layer = llama._layers(params["layers"], 1)[0]
     return layer, quant.quantized_bytes(params["layers"])
 
 
@@ -1840,7 +1858,7 @@ def dense_rank(torch, llama, params, cfg, prompt, token) -> int:
         sin, cos = llama.rope_table(cfg, torch.arange(
             len(prompt), device="cuda")[None])
         x = params["tok_embed"][tokens].to(cfg.dtype)
-        for layer in llama._layers(params, cfg.n_layers):
+        for layer in llama._layers(params["layers"], cfg.n_layers):
             layer = llama._deq_layer(layer, cfg.dtype)
             h = x + llama._attn_block(
                 llama.rms_norm(x, layer["ln_attn"], cfg.norm_eps), layer,
@@ -2496,6 +2514,503 @@ def train_1b_phase(torch, llama, train, kernels):
     return out
 
 
+# --------------------------------------------------------------------------
+# Mamba-2 training (K12) and normalised paged decode attention (K13)
+# --------------------------------------------------------------------------
+
+K12, K13 = "ssd_forward", "paged_decode_attention"
+# K12 against ssd_pallas_plain, relative to 1 + |y|: the same f32
+# recurrence, walked in 64-position blocks by the kernel and at the
+# resolved chunk (up to 256) by the plain version, sums in other orders.
+K12_TOL = 2e-4
+MAMBA_B, MAMBA_S = 2, 2048       # the 2.7B phase's fixed batch
+
+
+def _ssd_case(torch, g, B, S, H, P, N, bc_dtype):
+    x = torch.randn((B, S, H, P), generator=g, device="cuda")
+    log_a = -torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device="cuda"))
+    Bm = (torch.randn((B, S, N), generator=g, device="cuda") * 0.3).to(
+        bc_dtype)
+    Cm = (torch.randn((B, S, N), generator=g, device="cuda") * 0.3).to(
+        bc_dtype)
+    return x, log_a, Bm, Cm
+
+
+def k12_flops(tssd, B: int, S: int, H: int, P: int, N: int) -> int:
+    """Operations of K12 as it does its work, two a multiply-add: C·Bᵀ
+    over the whole T × T square once per batch and block of
+    ``BLOCK_T`` positions, then per head and column the masked decay
+    product over each block's lower triangle, C·state and the state
+    update."""
+    T = tssd.BLOCK_T
+    nblk = -(-S // T)
+    scores = 2 * B * nblk * T * T * N
+    scan = 2 * B * H * P * (nblk * T * (T + 1) // 2 + 2 * nblk * T * N)
+    return scores + scan
+
+
+def _k12_err(got, want) -> float:
+    return ((got - want).abs() / (1 + want.abs())).max().item()
+
+
+def kernel_phase_k12(torch, tssd, tm, report):
+    """K12 against ssd_pallas_plain at bench.py's ``_measure_ssd`` shape
+    (B 4, S 4096, H 8, P 64, N 128, chunk 128 → 256, f32), at one 2.7B
+    layer's (B 2, S 2048, H 80, P 64, N 128, chunk 64 → 256, bf16 B/C)
+    and at S = 1984 (chunk 64 kept); timed at the two main shapes beside
+    the plain version, the port's ``ssd_chunked``
+    (the JAX benchmark's own comparison) and the bound; then the
+    ``ssd_pallas`` Function's gradients on the card against the CPU's."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    cases = {"measure_ssd": (4, 4096, 8, 64, 128, 128, torch.float32),
+             "mamba2_2.7b_layer": (2, 2048, 80, 64, 128, 64, torch.bfloat16),
+             "chunk_kept": (2, 1984, 80, 64, 128, 64, torch.bfloat16)}
+    rows = {}
+    for tag, (B, S, H, P, N, chunk, bc) in cases.items():
+        x, la, Bm, Cm = _ssd_case(torch, g, B, S, H, P, N, bc)
+        want = tssd.ssd_pallas_plain(x, la, Bm, Cm, chunk)
+        got = tssd.ssd_forward(x, la, Bm, Cm, chunk)
+        torch.cuda.synchronize()
+        err = _k12_err(got, want)
+        row = {"shape": f"B={B} S={S} H={H} P={P} N={N} chunk={chunk} -> "
+                        f"{tssd.resolve_chunk(S, chunk)}, B/C "
+                        f"{str(bc).split('.')[-1]}",
+               "max_rel_err": err,
+               "max_abs_err": (got - want).abs().max().item(),
+               "p_tile": tssd.p_tile_for(P)}
+        if not err <= K12_TOL:
+            raise AssertionError(f"K12 disagrees with its plain version "
+                                 f"({tag}): {err} > {K12_TOL}")
+        if tag != "chunk_kept":
+            row["ms"] = time_ms(torch, lambda i: tssd.ssd_forward(
+                x, la, Bm, Cm, chunk), n=5, blocks=3)
+            row["plain_ms"] = time_ms(torch, lambda i: tssd.ssd_pallas_plain(
+                x, la, Bm, Cm, chunk), n=2, blocks=3)
+            row["ssd_chunked_ms"] = time_ms(torch, lambda i: tm.ssd_chunked(
+                x, la, Bm, Cm, chunk), n=2, blocks=3)
+            nbytes = (2 * B * S * H * P * 4 + B * S * H * 4
+                      + 2 * B * S * N * Bm.element_size())
+            row["flops"] = k12_flops(tssd, B, S, H, P, N)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, row["flops"],
+                                                     F32_FLOPS)
+            log(f"K12 ssd_forward {tag} ({row['shape']}): err {err:.2e} "
+                f"kernel {row['ms']:.4f} ms (p_tile {row['p_tile']})  plain "
+                f"{row['plain_ms']:.4f} ms  ssd_chunked "
+                f"{row['ssd_chunked_ms']:.4f} ms  bound {row['bound_ms']:.4f}"
+                f" ms ({row['bound_by']}, {row['flops'] / 1e9:.2f} GFLOP)")
+        else:
+            log(f"K12 ssd_forward {tag} ({row['shape']}): err {err:.2e}")
+        rows[tag] = row
+        del x, la, Bm, Cm, want, got
+
+    # The Function's gradients: card (K12 forward, ssd_chunked backward on
+    # the card) against the CPU (plain forward, ssd_chunked on the CPU).
+    x, la, Bm, Cm = _ssd_case(torch, g, 1, 512, 8, 64, 64, torch.bfloat16)
+    gy = torch.randn(x.shape, generator=g, device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        ins = [t.detach().to(dev).requires_grad_(True)
+               for t in (x, la, Bm, Cm)]
+        y = tssd.ssd_pallas(*ins, 64)
+        grads[dev] = torch.autograd.grad(y, ins, gy.to(dev))
+    grad_err = {}
+    for name, a, b in zip(("x", "log_a", "Bm", "Cm"), grads["cuda"],
+                          grads["cpu"]):
+        if a.dtype != b.dtype:
+            raise AssertionError(f"K12 Function: d{name} dtype {a.dtype} on "
+                                 f"the card, {b.dtype} on the CPU")
+        a, b = a.float().cpu(), b.float()
+        grad_err[name] = ((a - b).abs().max() / b.abs().max()).item()
+    # f32 grads: sums in other orders; bf16 ones (B, C): one bf16 ulp.
+    tol = {"x": 1e-4, "log_a": 1e-4, "Bm": 2 ** -7, "Cm": 2 ** -7}
+    if any(grad_err[k] > tol[k] for k in tol):
+        raise AssertionError(f"K12 Function grads card vs CPU: {grad_err} "
+                             f"(tolerance {tol}, relative to the largest)")
+    log(f"K12 Function grads, card vs CPU (B 1, S 512, H 8, P 64, N 64, "
+        f"bf16 B/C): {grad_err}")
+    main = rows["mamba2_2.7b_layer"]
+    report["K12"] = {
+        "name": K12, "route": "cuda",
+        "source": "ray_tpu_torch/csrc/mamba_ssd.cu",
+        "replaces": "ray_tpu/ops/mamba_ssd.py:113",
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "library_ms": None,
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "shape": main["shape"], "cases": rows, "function_grad_err": grad_err}
+    torch.cuda.empty_cache()
+
+
+def _k13_inputs(torch, g, L, B, H, KVH, D, page, maxp, lens_list):
+    dev = torch.device("cuda")
+    P = B * maxp + 1
+    k = torch.randn((L, KVH, P, page, D), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    q = torch.randn((B, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+    lengths = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(13))
+    # OOB sentinels (P) past each slot's live pages: clamped, never read.
+    bt = torch.full((B, maxp), P, dtype=torch.int32)
+    for b, n in enumerate(lens_list):
+        live = -(-n // page)
+        bt[b, :live] = perm[b * maxp: b * maxp + live].to(torch.int32)
+    return q, k, v, bt.to(dev), lengths
+
+
+def k13_err(got, want) -> dict:
+    """K13 against its plain version: both do the same f32 arithmetic
+    and round to q's dtype, so in bf16 they differ by at most one ulp of
+    the output, which is at most 2^-7 |out|; 1e-5 covers f32 sums in
+    other orders near 0.  ``over_limit`` > 1 fails."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    limit = 2 ** -7 * want.abs() + 1e-5
+    return {"max_abs_err": err.max().item(),
+            "over_limit": (err / limit).max().item()}
+
+
+def kernel_phase_k13(torch, F, tpa, report):
+    """K13 against its plain version at LLAMA3_8B decode shapes (8 slots,
+    32/8 heads of 128, page 64, one layer's bf16 pages), with a zero-length
+    slot and OOB page ids, without and with a soft cap; timed beside the
+    plain version, SDPA on the gathered dense k/v and the bound (bytes)."""
+    B, H, KVH, D, page, maxp = 8, 32, 8, 128, 64, 16
+    lens_list = [0, 1, 63, 64, 65, 1000, 517, 230]
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, bt, lengths = _k13_inputs(torch, g, 1, B, H, KVH, D, page, maxp,
+                                       lens_list)
+    kp, vp = k[0], v[0]
+    errs = {}
+    for soft_cap in (None, 30.0):
+        got = tpa.paged_decode_attention(q, kp, vp, bt, lengths,
+                                         soft_cap=soft_cap)
+        want = tpa.paged_decode_attention_plain(q, kp, vp, bt, lengths,
+                                                soft_cap=soft_cap)
+        torch.cuda.synchronize()
+        if not (got[0] == 0).all():
+            raise AssertionError("K13: a slot with length 0 must give 0")
+        errs[str(soft_cap)] = k13_err(got, want)
+    if any(e["over_limit"] > 1 for e in errs.values()):
+        raise AssertionError(f"K13 disagrees with its plain version: {errs}")
+    # The limit must see a wrong page: the plain version with one page id
+    # of the 1000-token slot pointing at another slot's page fails it.
+    bad = bt.clone()
+    bad[5, 3] = bt[6, 0]
+    swapped = k13_err(got, tpa.paged_decode_attention_plain(
+        q, kp, vp, bad, lengths, soft_cap=30.0))
+    if swapped["over_limit"] <= 1:
+        raise AssertionError(f"K13's limit passes a swapped page: {swapped}")
+    errs["swapped_page"] = swapped
+    ms = time_ms(torch, lambda i: tpa.paged_decode_attention(
+        q, kp, vp, bt, lengths))
+    plain_ms = time_ms(torch, lambda i: tpa.paged_decode_attention_plain(
+        q, kp, vp, bt, lengths), n=4, blocks=3)
+    T = maxp * page
+    btc = bt.long().clamp(max=kp.shape[1] - 1)
+    kd = kp[:, btc].permute(1, 0, 2, 3, 4).reshape(B, KVH, T, D)
+    vd = vp[:, btc].permute(1, 0, 2, 3, 4).reshape(B, KVH, T, D)
+    mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None])
+    mask = mask[:, None, None, :]
+    q4 = q[:, :, None, :]
+    try:
+        F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
+                                       enable_gqa=True)
+        lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+            q4, kd, vd, attn_mask=mask, enable_gqa=True)
+    except TypeError:
+        kx, vx = (t.repeat_interleave(H // KVH, dim=1) for t in (kd, vd))
+        lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+            q4, kx, vx, attn_mask=mask)
+    library_ms = time_ms(torch, lib)
+    tokens = sum(lens_list)
+    nbytes = (2 * B * H * D * 2 + tokens * KVH * D * 2 * 2 + bt.numel() * 4
+              + B * 4)
+    b_ms, b_by = bound(nbytes, 4 * tokens * H * D, BF16_FLOPS)
+    report["K13"] = {
+        "name": K13, "route": "cuda",
+        "source": "ray_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "ray_tpu/ops/paged_attention.py:157",
+        "max_abs_err": max(e["max_abs_err"] for k, e in errs.items()
+                           if k != "swapped_page"),
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"B={B} H={H} KVH={KVH} D={D} page={page} bf16, lengths "
+                 f"{lens_list}, OOB ids past the live pages",
+        "errors": errs, "bound_bytes": nbytes}
+    log(f"K13 paged_decode_attention: err {errs}  kernel {ms:.4f} ms  plain "
+        f"{plain_ms:.4f} ms  SDPA {library_ms:.4f} ms  bound {b_ms:.5f} ms "
+        f"({b_by})")
+
+
+def k13_path_phase(torch, tpa, kernels):
+    """K13's path: ``paged_decode_attention_tp`` without a mesh (the JAX
+    package's fallback, K13 itself) over each layer of a LLAMA3_8B-shaped
+    bf16 pool, as a decode step calls it once a layer; counters at 0
+    before and read after: K13 32 times, no K1."""
+    L, B, H, KVH, D, page, maxp = 32, 8, 32, 8, 128, 64, 16
+    lens_list = [0, 1, 63, 64, 65, 1000, 517, 230]
+    g = torch.Generator(device="cuda").manual_seed(31)
+    q, k, v, bt, lengths = _k13_inputs(torch, g, L, B, H, KVH, D, page, maxp,
+                                       lens_list)
+    reset_counts(kernels)
+    outs = [tpa.paged_decode_attention_tp(q, k[layer], v[layer], bt, lengths)
+            for layer in range(L)]
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    if counts[K13] != L or counts[K1] != 0:
+        raise AssertionError(f"K13 path: launches {counts}")
+    if not all(torch.isfinite(o).all() and (o[0] == 0).all() for o in outs):
+        raise AssertionError("K13 path: outputs not finite, or an empty "
+                             "slot not 0")
+    log(f"K13 path (paged_decode_attention_tp, no mesh, {L} layers): "
+        f"launches {K13} {counts[K13]}")
+    return {"launches": counts, "layers": L}
+
+
+def mamba_parity_phase(torch, tm, train, kernels):
+    """MAMBA2_TINY in f32 with ``use_pallas_ssd=True`` trained 3 steps
+    through ``TorchTrainer.fit`` from the same weights and batches on the
+    card (K12 forward) and on the CPU (its plain version): the losses and
+    grad norms agree."""
+    cfg = dataclasses.replace(tm.MAMBA2_TINY, dtype=torch.float32,
+                                 use_pallas_ssd=True)
+    base = tm.init_params(torch.Generator().manual_seed(7), cfg,
+                          device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (3, 2, cfg.max_seq_len),
+                           generator=torch.Generator().manual_seed(8),
+                           dtype=torch.int32)
+    hist, counts = {}, None
+    for dev in ("cuda", "cpu"):
+        params = _clone_to(torch, base, dev)
+        trainer = train.TorchTrainer(
+            init_params=lambda g, p=params: p,
+            loss_fn=lambda p, b: tm.loss_fn(p, b, cfg),
+            optimizer=train.default_optimizer(3e-3, warmup_steps=1),
+            scaling_config=train.ScalingConfig(devices=[dev]),
+            run_config=train.RunConfig(report_every=1))
+        trainer.state
+        if dev == "cuda":
+            reset_counts(kernels)
+        res = trainer.fit(({"tokens": t} for t in tokens), num_steps=3)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts(kernels)
+        if res.error is not None:
+            raise res.error
+        hist[dev] = res.metrics_history
+    want = cfg.n_layers * 3   # no remat in MAMBA2_TINY: once a layer
+    if counts[K12] != want:
+        raise AssertionError(f"Mamba-2 parity: K12 {counts[K12]}, "
+                             f"want {want}")
+    worst = {}
+    for key in ("loss", "grad_norm"):
+        a = [m[key] for m in hist["cuda"]]
+        b = [m[key] for m in hist["cpu"]]
+        worst[key] = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        # f32 on both (TF32 off): K12 vs the plain recurrence, cuBLAS vs
+        # the CPU's products sum in other orders.
+        if worst[key] > 1e-4:
+            raise AssertionError(f"Mamba-2 parity: {key} cuda {a} vs cpu {b}")
+    log(f"Mamba-2 parity (MAMBA2_TINY f32, use_pallas_ssd, S "
+        f"{cfg.max_seq_len}, 3 steps): losses cuda "
+        f"{[round(m['loss'], 6) for m in hist['cuda']]} cpu "
+        f"{[round(m['loss'], 6) for m in hist['cpu']]}, worst relative "
+        f"{worst}; K12 {counts[K12]}")
+    return {"launches": counts, "history": hist, "worst_rel": worst}
+
+
+def jamba_phase(torch, tm, train, kernels):
+    """JAMBA_TINY (an SSM layer, then an attention layer) with
+    ``use_pallas_ssd=True`` at S = 512 through ``TorchTrainer.fit`` for 2
+    steps on the card: K12 once and K9f, K10, K11 once a step (a hybrid
+    does not rematerialise, as in the JAX package)."""
+    cfg = dataclasses.replace(tm.JAMBA_TINY, use_pallas_ssd=True)
+    gen = torch.Generator().manual_seed(9)
+    trainer = train.TorchTrainer(
+        init_params=lambda g: tm.init_params(g, cfg),
+        loss_fn=lambda p, b: tm.loss_fn(p, b, cfg),
+        optimizer=train.default_optimizer(1e-3, warmup_steps=1),
+        run_config=train.RunConfig(report_every=1))
+    trainer.state
+    reset_counts(kernels)
+    res = trainer.fit(({"tokens": torch.randint(0, cfg.vocab_size, (2, 512),
+                                                generator=gen,
+                                                dtype=torch.int32)}
+                       for _ in range(2)), num_steps=2)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    if res.error is not None:
+        raise res.error
+    want = {K12: 2, K9F: 2, K10: 2, K11: 2}
+    got = {k: counts[k] for k in want}
+    losses = [m["loss"] for m in res.metrics_history]
+    if got != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"JAMBA_TINY: launches {got} (want {want}), "
+                             f"losses {losses}")
+    log(f"JAMBA_TINY (S 512, bf16, use_pallas_ssd): 2 steps, losses "
+        f"{[round(x, 4) for x in losses]}, launches {got}")
+    return {"launches": counts, "losses": losses}
+
+
+def _mamba_breakdown(torch, step_once) -> dict:
+    """Device ms of one train step by kernel family: K12 (its scores and
+    scan kernels), cuBLAS's matrix products, the rest (ATen elementwise,
+    reductions, copies)."""
+    bd = kernel_breakdown(torch, step_once, reps=1)
+    if "error" in bd:
+        return bd
+    total = sum(bd.values())
+    k12 = sum(v for k, v in bd.items() if k.startswith("ssd_"))
+    gemm = sum(v for k, v in bd.items()
+               if re.search(r"gemm|nvjet|cutlass|xmma", k, re.I))
+    return {"kernel_ms_total": total, "k12_ms": k12, "gemm_ms": gemm,
+            "other_ms": total - gemm - k12, "k12_share": k12 / total,
+            "by_kernel": dict(sorted(bd.items(), key=lambda kv: -kv[1]))}
+
+
+def op_breakdown(torch, fn, top: int = 12) -> dict:
+    """Self device ms of the ATen ops (by name and input shapes) that one
+    call of ``fn`` runs, from torch.profiler with CPU and CUDA activity:
+    the ``top`` largest, so a kernel family's time can be traced to the
+    op that launched it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages(group_by_input_shape=True)
+    except RuntimeError as e:
+        return {"error": repr(e)[:200]}
+    rows = []
+    for evt in events:
+        us = getattr(evt, "self_device_time_total", 0) or getattr(
+            evt, "self_cuda_time_total", 0)
+        if us and evt.key.startswith("aten::"):
+            shapes = str(evt.input_shapes)[:80]
+            rows.append((f"{evt.key} {shapes} x{evt.count}", us / 1e3))
+    rows.sort(key=lambda kv: -kv[1])
+    return dict(rows[:top]) or {"error": "no op with device time"}
+
+
+def mamba_27b_phase(torch, tm, train, kernels):
+    """MAMBA2_2_7B with ``use_pallas_ssd=True`` at full width and depth
+    (2.70 B params, 64 layers, bf16 compute, f32 master params, full
+    remat) trained through ``TorchTrainer.fit`` on a fixed batch of 2 x
+    2048 random tokens: 2 warm-up steps, 3 timed steps, one step under
+    the profiler by kernel and one by ATen op, one AdamW update timed on
+    its own; counters at 0 before the first step and read after:
+    K12 twice a layer a step (forward and recompute), 128 a step.  The
+    forward's logits on the batch must be finite and the loss on it must
+    fall from the first step to the last."""
+    cfg = dataclasses.replace(tm.MAMBA2_2_7B, use_pallas_ssd=True)
+    tokens = torch.randint(0, cfg.vocab_size, (MAMBA_B, MAMBA_S),
+                           generator=torch.Generator().manual_seed(27),
+                           dtype=torch.int32)
+    trainer = train.TorchTrainer(
+        init_params=lambda g: tm.init_params(g, cfg),
+        loss_fn=lambda p, b: tm.loss_fn(p, b, cfg),
+        optimizer=train.default_optimizer(1e-4, warmup_steps=10,
+                                          mu_dtype=torch.bfloat16),
+        run_config=train.RunConfig(report_every=1))
+    t0 = time.perf_counter()
+    trainer.state
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {"tokens": tokens}
+    with torch.no_grad():
+        logits = tm.forward(trainer.state.params, tokens.cuda(), cfg)
+        finite = bool(torch.isfinite(logits).all())
+        logits_shape = list(logits.shape)
+        del logits
+    if not finite:
+        raise AssertionError("Mamba-2 2.7B: non-finite logits")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    warm = trainer.fit(iter([batch] * 2), num_steps=2)
+    if warm.error is not None:
+        raise warm.error
+    t0 = time.perf_counter()
+    timed = trainer.fit(iter([batch] * 3), num_steps=3)
+    wall = time.perf_counter() - t0
+    if timed.error is not None:
+        raise timed.error
+    step = trainer._step_fn
+    staged = trainer.shard_batch(batch)
+    holder = [trainer.state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], staged)
+
+    breakdown = _mamba_breakdown(torch, one_step)
+    by_op = op_breakdown(torch, one_step)
+    trainer._state = holder[0]
+    torch.cuda.synchronize()
+    # The kernel profile's warm-up call and profiled one, the op profile's.
+    n_steps = 2 + 3 + 3
+    counts = read_counts(kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # The optimizer's share: one AdamW update of the 2.7 B params (f32
+    # master, bf16 first moment) on zero grads (the same arithmetic),
+    # stream time between CUDA events.
+    state = trainer.state
+    grads = train.state.tree_map(torch.zeros_like, state.params)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    trainer.tx.update_(state.params, grads, state.opt_state)
+    ev1.record()
+    torch.cuda.synchronize()
+    optimizer_ms = ev0.elapsed_time(ev1)
+    del grads, state
+    losses = [m["loss"] for m in warm.metrics_history
+              + timed.metrics_history]
+    want = 2 * cfg.n_layers * n_steps
+    if counts[K12] != want:
+        raise AssertionError(f"Mamba-2 2.7B: K12 {counts[K12]} in {n_steps} "
+                             f"steps, want {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"Mamba-2 2.7B: losses {losses} not falling")
+    tokens_per_s = MAMBA_B * MAMBA_S * 3 / wall
+    params = cfg.num_params()
+    out = {"config": "MAMBA2_2_7B (ray_tpu/models/mamba2.py:77), "
+                     "use_pallas_ssd=True", "params": params,
+           "batch": [MAMBA_B, MAMBA_S], "init_s": init_s,
+           "logits_shape": logits_shape, "logits_finite": finite,
+           "losses": losses, "step_ms": wall / 3 * 1e3,
+           "tokens_per_s": tokens_per_s,
+           "mfu": 6 * params * tokens_per_s / BF16_FLOPS,
+           "peak_gb": peak_gb, "launches": counts, "steps": n_steps,
+           "k12_per_step": counts[K12] / n_steps, "breakdown": breakdown,
+           "by_op": by_op, "optimizer_ms": optimizer_ms}
+    log(f"Mamba-2 2.7B train ({params / 1e9:.3f} B params, {MAMBA_B} x "
+        f"{MAMBA_S}, use_pallas_ssd): {tokens_per_s:.0f} tokens/s, step "
+        f"{out['step_ms']:.1f} ms, MFU {out['mfu']:.4f} (6 N tokens/s, "
+        f"without the SSD's own work), peak {peak_gb:.2f} GB; losses "
+        f"{[round(x, 4) for x in losses]}; K12 {counts[K12]} in {n_steps} "
+        f"steps; one AdamW update {optimizer_ms:.1f} ms")
+    if "error" in breakdown:
+        log(f"  breakdown: not measured ({breakdown['error']})")
+    else:
+        out["device_idle_share"] = 1 - breakdown["kernel_ms_total"] / (
+            out["step_ms"])
+        top = dict(list(breakdown["by_kernel"].items())[:6])
+        log(f"  one step's kernels {breakdown['kernel_ms_total']:.1f} ms "
+            f"(idle {out['device_idle_share']:.3f} of the step): K12 "
+            f"{breakdown['k12_ms']:.1f} ({breakdown['k12_share']:.3f}), "
+            f"matrix products {breakdown['gemm_ms']:.1f}, other "
+            f"{breakdown['other_ms']:.1f}; top: {_fmt_breakdown(top)}")
+    log(f"  by ATen op (self device ms, one step): {_fmt_breakdown(by_op)}")
+    del trainer, holder, staged
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(
@@ -2514,10 +3029,12 @@ def main() -> int:
     try:
         from ray_tpu_torch import train
         from ray_tpu_torch.models import llama
+        from ray_tpu_torch.models import mamba2 as tm
         from ray_tpu_torch.models import quant
         from ray_tpu_torch.ops import _build
         from ray_tpu_torch.ops import flash_attention as tfa
         from ray_tpu_torch.ops import fused_decode as tfd
+        from ray_tpu_torch.ops import mamba_ssd as tssd
         from ray_tpu_torch.ops import paged_attention as tpa
         from ray_tpu_torch.ops import ragged_paged_attention as trpa
         from ray_tpu_torch.serve import llm_engine as eng_mod
@@ -2552,7 +3069,8 @@ def main() -> int:
                "ragged_paged_append_quantized":
                trpa.ragged_paged_append_quantized,
                K7: tfd.fused_decode_layer, K8: trpa.fused_ragged_layer,
-               K10: tfa.flash_backward_dq, K11: tfa.flash_backward_dkv}
+               K10: tfa.flash_backward_dq, K11: tfa.flash_backward_dkv,
+               K12: tssd.ssd_forward, K13: tpa.paged_decode_attention}
     report = {}
     kernel_phase_k1(torch, F, tpa, report)
     kernel_phase_k2(torch, tpa, report)
@@ -2571,6 +3089,8 @@ def main() -> int:
         kernel_phase_k7(torch, llama, quant, tfd, tpa, report, int8=int8)
         kernel_phase_k8(torch, llama, quant, trpa, report, int8=int8)
         torch.cuda.empty_cache()
+    kernel_phase_k12(torch, tssd, tm, report)
+    kernel_phase_k13(torch, F, tpa, report)
     parity = parity_phase(torch, llama, eng_mod)
     ragged_parity = ragged_parity_phase(torch, llama, eng_mod, trpa)
     int8_parity = int8_parity_phase(torch, llama, eng_mod, kernels)
@@ -2599,8 +3119,14 @@ def main() -> int:
                                     os.path.dirname(os.path.abspath(
                                         __file__)))
     train_1b = train_1b_phase(torch, llama, train, kernels)
+    # Mamba-2: cuda-vs-cpu parity, the small hybrid, then the 2.7B at full
+    # width and depth (K12 counted from 0 over its steps); then K13's path.
+    mamba_parity = mamba_parity_phase(torch, tm, train, kernels)
+    jamba = jamba_phase(torch, tm, train, kernels)
+    mamba_27b = mamba_27b_phase(torch, tm, train, kernels)
+    k13_path = k13_path_phase(torch, tpa, kernels)
     order = ("K1", "K2", "K9f", "K10", "K11", "K4", "K5", "K1i8", "K3",
-             "K4i8", "K6", "K7", "K7i8", "K8", "K8i8")
+             "K4i8", "K6", "K7", "K7i8", "K8", "K8i8", "K12", "K13")
     for key, name, run in (
             ("K1", "paged_decode_attention_partial", serving),
             ("K2", "paged_append", serving),
@@ -2616,7 +3142,9 @@ def main() -> int:
             ("K7", K7, fused_short["bucketed"]),
             ("K7i8", K7 + INT8, fused_bucketed),
             ("K8", K8, fused_short["ragged"]),
-            ("K8i8", K8 + INT8, fused_ragged)):
+            ("K8i8", K8 + INT8, fused_ragged),
+            ("K12", K12, mamba_27b),
+            ("K13", K13, k13_path)):
         report[key]["launches"] = run["launches"][name]
         report[key]["kernel_ms"] = report[key]["ms"]
     total_s = time.perf_counter() - t_all
@@ -2639,7 +3167,9 @@ def main() -> int:
                    "fused_ragged_serving": fused_ragged,
                    "fused_bf16_pool_runs": fused_short,
                    "train_parity": train_parity, "train_headline": headline,
-                   "train_1b": train_1b}, f, indent=1)
+                   "train_1b": train_1b, "mamba_parity": mamba_parity,
+                   "jamba_tiny": jamba, "mamba2_2_7b": mamba_27b,
+                   "k13_path": k13_path}, f, indent=1)
     log(f"total {total_s:.1f} s; details in {args.out}")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

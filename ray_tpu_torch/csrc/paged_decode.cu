@@ -1,4 +1,5 @@
-// K1 — paged decode attention partials (one q token per slot).
+// K1 — paged decode attention partials (one q token per slot), and
+// K13 — normalised paged decode attention over one layer's pages.
 //
 // Replaces ray_tpu/ops/paged_attention.py paged_decode_attention_partial
 // (Pallas body _kernel_partial, pallas_call at :347): bf16/f32 pools, and
@@ -37,6 +38,17 @@
 // the page's scores after the q.k dot, before the soft cap and the mask,
 // and the v scale multiplies the page's p.v sum before it joins the
 // accumulator.  m, l and acc stay f32 and unnormalised.
+//
+// K13 replaces ray_tpu/ops/paged_attention.py paged_decode_attention
+// (Pallas body _kernel, pallas_call at :157): q [B, H, D] against one
+// layer's bf16/f32 pages [KVH, P, page, D], lengths counting every token
+// (the current one included), out = sum_t p_t v_t / sum_t p_t in q's
+// dtype, 0 for a slot with no token.  It runs K1's page-split body on the
+// pages as a one-layer pool, always into per-split partials, then its own
+// epilogue (merge_normalise_kernel) merges the splits and divides, where
+// the TPU kernel divided at its last grid step.  Bytes bound it, as K1.
+// The Pallas body rounds p to bf16 before p.v on bf16 pages; K1's body
+// keeps p in f32, so in bf16 the two differ by about a bf16 ulp of p.
 #include "common.cuh"
 
 namespace {
@@ -221,6 +233,65 @@ __global__ void merge_splits_kernel(const float* __restrict__ part_acc,
   }
 }
 
+// K13's epilogue: merge the splits of one (slot, head) row as
+// merge_splits_kernel does, then out = acc / l in q's dtype, with l = 0
+// (no live token) dividing by 1, so the row is 0.
+template <typename T>
+__global__ void merge_normalise_kernel(const float* __restrict__ part_acc,
+                                       const float* __restrict__ part_m,
+                                       const float* __restrict__ part_l,
+                                       T* __restrict__ out, int rows, int D,
+                                       int nsplit) {
+  const int row = blockIdx.x;
+  float mx = rtt::NEG_INF;
+  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, part_m[s * rows + row]);
+  float l = 0.f;
+  for (int s = 0; s < nsplit; ++s)
+    l += part_l[s * rows + row] * expf(part_m[s * rows + row] - mx);
+  const float l_safe = l == 0.f ? 1.f : l;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float a = 0.f;
+    for (int s = 0; s < nsplit; ++s)
+      a += part_acc[((size_t)s * rows + row) * D + d] *
+           expf(part_m[s * rows + row] - mx);
+    out[(size_t)row * D + d] = rtt::from_float<T>(a / l_safe);
+  }
+}
+
+size_t partial_smem(int page, int D, int qpg) {
+  return sizeof(float) * ((size_t)page * (D + 4) + (size_t)page * D +
+                          (size_t)qpg * D + (size_t)qpg * page + 3 * qpg);
+}
+
+template <typename T>
+int launch_normalised(const void* q, const void* k_pages, const void* v_pages,
+                      const void* block_table, const void* lengths, void* out,
+                      float* part_acc, float* part_m, float* part_l, int B,
+                      int KVH, int P, int page, int D, int qpg, int maxp,
+                      int pages_per_split, float scale, float soft_cap,
+                      cudaStream_t stream) {
+  const int nsplit = (maxp + pages_per_split - 1) / pages_per_split;
+  const size_t smem = partial_smem(page, D, qpg);
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_decode_partial_kernel<T, T, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  paged_decode_partial_kernel<T, T, false>
+      <<<dim3(B, KVH, nsplit), THREADS, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k_pages),
+          static_cast<const T*>(v_pages), nullptr, nullptr,
+          static_cast<const int*>(block_table),
+          static_cast<const int*>(lengths), part_acc, part_m, part_l, 0, KVH,
+          P, page, D, qpg, maxp, pages_per_split, scale, soft_cap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int rows = B * KVH * qpg;
+  const int threads = D < 32 ? 32 : (D > 256 ? 256 : D);
+  merge_normalise_kernel<T><<<rows, threads, 0, stream>>>(
+      part_acc, part_m, part_l, static_cast<T*>(out), rows, D, nsplit);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, typename TK, bool QUANT>
 int launch(const void* q, const void* k_pools, const void* v_pools,
            const void* k_scales, const void* v_scales,
@@ -230,9 +301,7 @@ int launch(const void* q, const void* k_pools, const void* v_pools,
            int pages_per_split, int layer, float scale, float soft_cap,
            cudaStream_t stream) {
   const int nsplit = (maxp + pages_per_split - 1) / pages_per_split;
-  const size_t smem =
-      sizeof(float) * ((size_t)page * (D + 4) + (size_t)page * D +
-                       (size_t)qpg * D + (size_t)qpg * page + 3 * qpg);
+  const size_t smem = partial_smem(page, D, qpg);
   cudaError_t err = cudaFuncSetAttribute(
       paged_decode_partial_kernel<T, TK, QUANT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -289,4 +358,27 @@ extern "C" int rtt_paged_decode_partial(
   return dtype == 0 ? RTT_K1_LAUNCH(float, float, false)
                     : RTT_K1_LAUNCH(__nv_bfloat16, __nv_bfloat16, false);
 #undef RTT_K1_LAUNCH
+}
+
+// K13.  dtype (of q and the pages): 0 = float32, 1 = bfloat16.  The
+// pages are one layer's [KVH, P, page, D]; the partial buffers hold
+// [ceil(maxp / pages_per_split), B, H] rows (f32, times D for part_acc);
+// out is [B, H, D] in q's dtype.  soft_cap <= 0 means none.
+extern "C" int rtt_paged_decode_attention(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* block_table, const void* lengths, void* out, void* part_acc,
+    void* part_m, void* part_l, int dtype, int B, int KVH, int P, int page,
+    int D, int qpg, int maxp, int pages_per_split, float scale,
+    float soft_cap, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_m);
+  float* pl = static_cast<float*>(part_l);
+  if (dtype == 0)
+    return launch_normalised<float>(q, k_pages, v_pages, block_table, lengths,
+                                    out, pa, pm, pl, B, KVH, P, page, D, qpg,
+                                    maxp, pages_per_split, scale, soft_cap, s);
+  return launch_normalised<__nv_bfloat16>(
+      q, k_pages, v_pages, block_table, lengths, out, pa, pm, pl, B, KVH, P,
+      page, D, qpg, maxp, pages_per_split, scale, soft_cap, s);
 }

@@ -186,17 +186,15 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
     return params
 
 
-def _layers(params: Params, n_layers: int):
-    """Every layer's slice of the stacked layer tree (views), one unbind
+def _layers(stack: Params, n_layers: int):
+    """Every layer's slice of a stacked layer tree (views), one unbind
     per leaf: a host-side ATen call per leaf and step, not per leaf and
     layer."""
-    def walk(node):
-        if isinstance(node, dict):
-            per_key = {k: walk(v) for k, v in node.items()}
-            return [{k: v[i] for k, v in per_key.items()}
-                    for i in range(n_layers)]
-        return node.unbind(0)
-    return walk(params["layers"])
+    if isinstance(stack, dict):
+        per_key = {k: _layers(v, n_layers) for k, v in stack.items()}
+        return [{k: v[i] for k, v in per_key.items()}
+                for i in range(n_layers)]
+    return stack.unbind(0)
 
 
 def _head(params: Params, cfg: LlamaConfig) -> torch.Tensor:
@@ -376,7 +374,7 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     x = params["tok_embed"][tokens.long()].to(cfg.dtype)
     remat = cfg.remat and torch.is_grad_enabled()
     kwargs = _remat_kwargs(cfg) if remat else {}
-    for layer in _layers(params, cfg.n_layers):
+    for layer in _layers(params["layers"], cfg.n_layers):
         if remat:
             x = checkpoint(_layer_fn, cfg, x, layer, sin, cos, segment_ids,
                            use_reentrant=False, **kwargs)
@@ -569,7 +567,7 @@ def prefill_batch_paged(params: Params, tokens: torch.Tensor,
     page_ids = pages_rows[:, :npg].reshape(K * npg).long()
     KVH, D = cfg.n_kv_heads, cfg.head_dim
     quantized = "k_scale" in cache
-    for i, layer in enumerate(_layers(params, cfg.n_layers)):
+    for i, layer in enumerate(_layers(params["layers"], cfg.n_layers)):
         layer = _deq_layer(layer, cfg.dtype)
         normed = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
         out, (k, v) = _attn_block(normed, layer, cfg, sin, cos, None)
@@ -635,7 +633,7 @@ def decode_slots_paged(params: Params, tokens: torch.Tensor,
     x = params["tok_embed"][tokens[:, None].long()].to(cfg.dtype)
     B = tokens.shape[0]
     k_news, v_news = [], []
-    for i, layer in enumerate(_layers(params, cfg.n_layers)):
+    for i, layer in enumerate(_layers(params["layers"], cfg.n_layers)):
         layer = _deq_layer(layer, cfg.dtype)
         normed = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
         q, k, v = _qkv(normed, layer, cfg, sin, cos)
@@ -703,7 +701,7 @@ def decode_slots_paged_fused(params: Params, tokens: torch.Tensor,
     sin, cos = sin[:, 0], cos[:, 0]                       # [B, hd // 2]
     x = params["tok_embed"][tokens.long()].to(cfg.dtype)  # [B, D]
     k_news, v_news = [], []
-    for i, layer in enumerate(_layers(params, cfg.n_layers)):
+    for i, layer in enumerate(_layers(params["layers"], cfg.n_layers)):
         x, k1, v1 = fused_decode_layer(
             x, layer, cache["k"], cache["v"], i, block_tables,
             lengths, sin, cos, eps=cfg.norm_eps, n_heads=cfg.n_heads,
@@ -758,7 +756,7 @@ def prefill_chunk_paged(params: Params, tokens: torch.Tensor,
                 < chunk_lens.long()[:, None])
     pid = torch.where(in_chunk, pid, torch.full_like(pid, scratch))
     off = positions % page
-    for i, layer in enumerate(_layers(params, cfg.n_layers)):
+    for i, layer in enumerate(_layers(params["layers"], cfg.n_layers)):
         layer = _deq_layer(layer, cfg.dtype)
         normed = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
         q, k, v = _qkv(normed, layer, cfg, sin, cos)   # [K, C, H/KVH, D]
@@ -826,7 +824,7 @@ def ragged_step_paged(params: Params, tokens: torch.Tensor,
     sin, cos = rope_table(cfg, tok_pos[None])      # [1, T, hd // 2]
     x = params["tok_embed"][tokens.long()].to(dt)   # [T, d]
     k_news, v_news = [], []
-    for i, layer in enumerate(_layers(params, cfg.n_layers)):
+    for i, layer in enumerate(_layers(params["layers"], cfg.n_layers)):
         if cfg.fused_decode:
             x, k1, v1 = fused_ragged_layer(
                 x, layer, cache["k"], cache["v"], i, row_slot,

@@ -33,7 +33,7 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("paged_decode", "paged_append", "paged_append_quantized",
            "flash_fwd", "ragged_attention", "ragged_append",
            "ragged_append_quantized", "fused_decode", "fused_ragged",
-           "flash_bwd")
+           "flash_bwd", "mamba_ssd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

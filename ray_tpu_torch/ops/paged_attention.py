@@ -15,11 +15,14 @@ int8 pools carry one f32 scale per physical page and kv head,
 ``k_scales``/``v_scales`` [L, P, KVH, 1] (page-major, unlike the
 head-major pools); the true value is ``int8 * scale[layer, page, kvh]``.
 
-Three kernels live here, each a CUDA kernel for Hopper (``csrc/``) with
+Four kernels live here, each a CUDA kernel for Hopper (``csrc/``) with
 its plain PyTorch version beside it: K1 ``paged_decode_attention_partial``
-(bf16/f32 pools, and int8 pools with scales), K2 ``paged_append`` and K3
-``paged_append_quantized``.  A wrapper takes the plain version only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+(bf16/f32 pools, and int8 pools with scales), K2 ``paged_append``, K3
+``paged_append_quantized`` and K13 ``paged_decode_attention`` (normalised
+attention over one layer's pages [KVH, P, page, D], which no model path
+calls: ``paged_decode_attention_tp``'s no-mesh path reaches it).  A
+wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.
 ``combine_with_self`` is plain PyTorch, as it is plain jnp in the JAX
 package.
 """
@@ -28,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -97,6 +100,20 @@ def _pages_per_split(groups: int, maxp: int, device: torch.device) -> int:
     under-fill the card at decode batch sizes)."""
     want = -(-4 * _sm_count(device.index or 0) // max(groups, 1))
     return -(-maxp // max(1, min(maxp, want)))
+
+
+def _check_k1_body(name: str, D: int, qpg: int, page: int,
+                   d_multiple: int) -> None:
+    """What K1's page-split body (K1 and K13) takes: D a multiple of one
+    16-byte load's elements, at most 1024 accumulators per CTA
+    (qpg · D), and a staged page within the H100's shared memory."""
+    if D % d_multiple or qpg * D > _K1_THREADS * _K1_MAX_E:
+        raise ValueError(f"{name}: unsupported D={D} or qpg={qpg}")
+    smem = 4 * (page * (2 * D + 4) + qpg * D + qpg * page + 3 * qpg)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"page {page} x D {D} needs {smem} B of shared "
+                         "memory, over the H100's 227 KB")
+
 
 def paged_decode_attention_partial_plain(
     q: torch.Tensor, k_pools: torch.Tensor, v_pools: torch.Tensor,
@@ -190,14 +207,11 @@ def paged_decode_attention_partial(
             f"pools {tuple(k_pools.shape)}, block_table "
             f"{tuple(block_table.shape)}, lengths {tuple(lengths.shape)}")
     qpg = H // KVH
-    if D % (16 if quantized else 8) or qpg * D > _K1_THREADS * _K1_MAX_E \
-            or not 0 <= layer < L:
-        raise ValueError(f"paged_decode_attention_partial: unsupported "
-                         f"D={D}, qpg={qpg} or layer={layer}")
-    smem = 4 * (page * (2 * D + 4) + qpg * D + qpg * page + 3 * qpg)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"page {page} x D {D} needs {smem} B of shared "
-                         "memory, over the H100's 227 KB")
+    if not 0 <= layer < L:
+        raise ValueError(f"paged_decode_attention_partial: layer {layer} "
+                         f"out of [0, {L})")
+    _check_k1_body("paged_decode_attention_partial", D, qpg, page,
+                   16 if quantized else 8)
     acc = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
@@ -428,6 +442,107 @@ def paged_append_quantized(k_pools: torch.Tensor, v_pools: torch.Tensor,
 
 
 paged_append_quantized.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K13: normalised decode attention over one layer's pages
+# --------------------------------------------------------------------------
+
+def paged_decode_attention_plain(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    block_table: torch.Tensor, lengths: torch.Tensor, *,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version of K13: K1's plain partials over the pages as a
+    one-layer pool, then acc / l in q's dtype (l = 0, a slot with no
+    token, divides by 1: the row is 0).  p stays f32 for p·v, as in K1;
+    the Pallas body rounds it to v's dtype first."""
+    acc, _, l = paged_decode_attention_partial_plain(
+        q, k_pages[None], v_pages[None], 0, block_table, lengths,
+        soft_cap=soft_cap)
+    return (acc / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype)
+
+
+def paged_decode_attention(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    block_table: torch.Tensor, lengths: torch.Tensor, *,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """q [B, H, D], k/v_pages [KVH, P, page, D] (one layer, q's dtype,
+    f32 or bf16), block_table [B, maxp] int32, lengths [B] int32 (every
+    token, the current one included) → out [B, H, D] in q's dtype.  Page
+    ids clamp to P - 1; a slot with length 0 gives 0.
+
+    CUDA tensors launch kernel K13 (csrc/paged_decode.cu: K1's page-split
+    body, then a merge that normalises); CPU tensors run the plain
+    version."""
+    if not q.is_cuda:
+        return paged_decode_attention_plain(q, k_pages, v_pages, block_table,
+                                            lengths, soft_cap=soft_cap)
+    B, H, D = q.shape
+    KVH, P, page, Dk = k_pages.shape
+    maxp = block_table.shape[1]
+    _check_cuda("paged_decode_attention", q=q, k_pages=k_pages,
+                v_pages=v_pages, block_table=block_table, lengths=lengths)
+    if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise ValueError("paged_decode_attention: q and the pages must share "
+                         f"dtype f32 or bf16, got {q.dtype}, "
+                         f"{k_pages.dtype}, {v_pages.dtype}")
+    if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("block_table and lengths must be int32")
+    if (v_pages.shape != k_pages.shape or Dk != D or H % KVH
+            or block_table.shape[0] != B or lengths.shape != (B,)):
+        raise ValueError(
+            f"paged_decode_attention: bad shapes q {tuple(q.shape)}, pages "
+            f"{tuple(k_pages.shape)}, block_table "
+            f"{tuple(block_table.shape)}, lengths {tuple(lengths.shape)}")
+    qpg = H // KVH
+    _check_k1_body("paged_decode_attention", D, qpg, page, 8)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    if maxp == 0:
+        return out.zero_()
+    pps = _pages_per_split(B * KVH, maxp, q.device)
+    n_part = -(-maxp // pps)
+    part_acc = torch.empty((n_part, B, H, D), dtype=torch.float32,
+                           device=q.device)
+    part_m = torch.empty((n_part, B, H), dtype=torch.float32, device=q.device)
+    part_l = torch.empty((n_part, B, H), dtype=torch.float32, device=q.device)
+    fn = _build.library("paged_decode").rtt_paged_decode_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+             _DTYPE_CODE[q.dtype], B, KVH, P, page, D, qpg, maxp, pps,
+             D ** -0.5, float(soft_cap) if soft_cap is not None else 0.0,
+             _stream_ptr(q))
+    _build.check(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_tp(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    block_table: torch.Tensor, lengths: torch.Tensor, *,
+    soft_cap: Optional[float] = None, mesh: Any = None,
+) -> torch.Tensor:
+    """The JAX package's tensor-parallel entry.  Without a mesh it is K13
+    itself (the JAX no-mesh fallback); any mesh raises
+    NotImplementedError: tensor parallelism is not ported yet (see
+    ROADMAP.md)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "paged_decode_attention_tp over a mesh: tensor parallelism is "
+            "not ported to ray_tpu_torch yet (see ROADMAP.md)")
+    return paged_decode_attention(q, k_pages, v_pages, block_table, lengths,
+                                  soft_cap=soft_cap)
 
 
 def paged_decode_attention_reference(

@@ -16,10 +16,16 @@ dtype.  ``torch.optim.AdamW`` cannot keep the first moment in bf16 and
 orders its update differently.
 
 The update runs in place on the params and moments (the JAX step
-donates its state buffers, so no caller keeps the old one).  The global
-norm is taken in f32 whatever the grads' dtype.  Sharding of the state
-(``state_logical_axes``, ``state_shardings``, ZeRO) is not ported: the
-port trains on one device.
+donates its state buffers, so no caller keeps the old one), a leaf of
+more than ``_UPDATE_SLICE`` elements one slice of its leading axis at a
+time: every operation of the update is elementwise, so the slices give
+the whole leaf's bits while the temporaries stay one slice in size.
+The global norm is ``optax.global_norm``'s: each leaf's ``sum(g*g)`` in
+the leaf's dtype (a bf16 square summed in f32, rounded back to bf16, as
+``jnp.sum`` does), summed over the leaves left to right in the promoted
+dtype (all-bf16 stays bf16), its square root in that dtype.  Sharding of
+the state (``state_logical_axes``, ``state_shardings``, ZeRO) is not
+ported: the port trains on one device.
 """
 
 from __future__ import annotations
@@ -119,6 +125,28 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 
 # --- the optimizer ----------------------------------------------------------
 
+# Leaves above this many elements update one slice of their leading axis
+# at a time (Mamba-2 2.7B's stacked in-projection is 1.7 G elements: whole,
+# its f32 temporaries alone would take tens of GB).
+_UPDATE_SLICE = 1 << 24
+
+
+def _slices(p: torch.Tensor) -> List[slice]:
+    if p.dim() == 0 or p.numel() <= _UPDATE_SLICE:
+        return [slice(None)]
+    rows = max(1, _UPDATE_SLICE // (p.numel() // p.shape[0]))
+    return [slice(a, a + rows) for a in range(0, p.shape[0], rows)]
+
+
+def global_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm``: sqrt of the left-to-right sum over leaves of
+    ``sum(g*g)`` in each leaf's dtype (bf16 squares summed in f32 and
+    rounded back, as ``jnp.sum`` of bf16 does); the sum promotes as JAX
+    does (bf16 + bf16 stays bf16, bf16 + f32 is f32)."""
+    return torch.sqrt(sum((g * g).sum(dtype=torch.float32).to(g.dtype)
+                          for g in leaves))
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1, b2,
@@ -159,22 +187,28 @@ class AdamW:
         bc1 = _f32(1 - _f32(b1) ** count_inc)
         bc2 = _f32(1 - _f32(b2) ** count_inc)
         step_size = -self.schedule(count)
-        gnorm = torch.sqrt(sum(g.float().pow(2).sum() for g in gs))
-        keep = gnorm < self.grad_clip
+        gnorm = global_norm(gs)
+        keep = gnorm < _as(self.grad_clip, gnorm.dtype)
         for p, g, mu, nu in zip(ps, gs, mus, nus):
-            dt = g.dtype
-            g = torch.where(keep, g, (g / gnorm.to(dt))
-                            * _as(self.grad_clip, dt))
-            mu_new = _as(1 - b1, dt) * g + _as(b1, mu.dtype) * mu
-            nu_new = _as(1 - b2, dt) * (g * g) + _as(b2, nu.dtype) * nu
-            u = ((mu_new / _as(bc1, mu_new.dtype))
-                 / (torch.sqrt(nu_new / _as(bc2, nu_new.dtype))
-                    + _as(self.eps, nu_new.dtype)))
-            u = u + _as(self.weight_decay, p.dtype) * p
-            p.copy_(p + _as(step_size, u.dtype) * u)
-            mu.copy_(mu_new)
-            nu.copy_(nu_new)
+            for sl in _slices(p):
+                self._update_leaf(p[sl], g[sl], mu[sl], nu[sl], keep, gnorm,
+                                  bc1, bc2, step_size)
         return dict(opt_state, count=count_inc), gnorm
+
+    def _update_leaf(self, p, g, mu, nu, keep, gnorm, bc1, bc2, step_size):
+        """optax's clip and adamw on one leaf (or slice of one), in place."""
+        b1, b2 = self.b1, self.b2
+        dt = g.dtype
+        g = torch.where(keep, g, (g / gnorm.to(dt)) * _as(self.grad_clip, dt))
+        mu_new = _as(1 - b1, dt) * g + _as(b1, mu.dtype) * mu
+        nu_new = _as(1 - b2, dt) * (g * g) + _as(b2, nu.dtype) * nu
+        u = ((mu_new / _as(bc1, mu_new.dtype))
+             / (torch.sqrt(nu_new / _as(bc2, nu_new.dtype))
+                + _as(self.eps, nu_new.dtype)))
+        u = u + _as(self.weight_decay, p.dtype) * p
+        p.copy_(p + _as(step_size, u.dtype) * u)
+        mu.copy_(mu_new)
+        nu.copy_(nu_new)
 
 
 def default_optimizer(

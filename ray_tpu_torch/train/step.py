@@ -40,7 +40,7 @@ def make_train_step(loss_fn: LossFn, tx: AdamW, *, grad_accum: int = 1
     optimizer update (the JAX scan's mean of means).  Metrics are the
     loss function's aux (from the last microbatch), then ``loss`` (the
     mean over microbatches), ``grad_norm`` (global norm of the unclipped
-    grads) and ``step`` (the step before this one), as tensors on the
+    grads, in their dtype, as ``optax.global_norm`` takes it) and ``step`` (the step before this one), as tensors on the
     device and a host int: nothing here waits for the device."""
 
     def _grads(params, batch):

@@ -74,6 +74,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "       ('jax', 'ray_tpu', 'optax', 'orbax')]\n"
         "assert not bad, bad\n"
         "need = {'ray_tpu_torch.models.quant', 'ray_tpu_torch.ops.fused_decode',\n"
+        "        'ray_tpu_torch.models.mamba2', 'ray_tpu_torch.ops.mamba_ssd',\n"
         "        'ray_tpu_torch.ops.ragged_paged_attention',\n"
         "        'ray_tpu_torch.train.trainer', 'ray_tpu_torch.train.step',\n"
         "        'ray_tpu_torch.train.state', 'ray_tpu_torch.train.checkpoint'}\n"

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1, K2, K3, K9f, K10, K11, K4, K5, K6, K7, K8; K1 and K4 on
-bf16/f32 and on int8 pools) against their plain PyTorch versions on the
-card, in f32 and bf16, across head dims, page sizes and GQA groups.  CUDA kernels have no CPU mode: without a card every
+"""The port's CUDA kernels (K1, K2, K3, K9f, K10, K11, K4, K5, K6, K7,
+K8, K12, K13; K1 and K4 on bf16/f32 and on int8 pools) against their
+plain PyTorch versions on the card, in f32 and bf16, across head dims,
+page sizes and GQA groups.  CUDA kernels have no CPU mode: without a card every
 test here skips.  On a machine with one (no jax needed):
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
@@ -789,3 +790,152 @@ def test_fused_wrappers_reject_what_the_kernels_do_not_take(dev):
         tfd.fused_decode_layer(x.bfloat16(), layer, k, k, 0, bt, lengths,
                                sin, sin, eps=1e-5, n_heads=H,
                                n_kv_heads=KVH)
+
+
+# ---------------------------------------------------------------------------
+# K12 SSD chunk scan and K13 normalised paged decode attention
+# ---------------------------------------------------------------------------
+
+# K12 against ssd_pallas_plain: the same f32 recurrence, but the kernel
+# walks 64-position blocks where the plain version walks the resolved
+# chunk (up to 256) and sums in other orders.  Relative to 1 + |y|.
+K12_TOL = 2e-4
+
+
+def _ssd_inputs(g, B, S, H, P, N, bc_dtype):
+    x = torch.randn((B, S, H, P), generator=g, device="cuda")
+    log_a = -torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device="cuda"))
+    Bm = (torch.randn((B, S, N), generator=g, device="cuda") * 0.3).to(
+        bc_dtype)
+    Cm = (torch.randn((B, S, N), generator=g, device="cuda") * 0.3).to(
+        bc_dtype)
+    return x, log_a, Bm, Cm
+
+
+def _assert_k12_close(got, want):
+    err = ((got - want).abs() / (1 + want.abs())).max().item()
+    assert err <= K12_TOL, err
+
+
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 512, 4, 64, 128, 64),   # S % 256 == 0: the chunk becomes 256
+    (1, 192, 3, 32, 16, 64),    # S % 256 != 0: chunk 64 kept
+    (2, 100, 2, 16, 8, 20),     # a partial last block of 64
+    (1, 256, 2, 16, 128, 256),  # two CTAs: a grid far below the SM count
+])
+def test_k12_matches_plain(dev, bc_dtype, B, S, H, P, N, chunk):
+    from ray_tpu_torch.ops import mamba_ssd as tssd
+
+    g = _gen(S + N)
+    x, log_a, Bm, Cm = _ssd_inputs(g, B, S, H, P, N, bc_dtype)
+    want = tssd.ssd_pallas_plain(x, log_a, Bm, Cm, chunk)
+    # P 16 runs the 16-column tile, P 32 and 64 the 32-column one.
+    before = tssd.ssd_forward.launches
+    got = tssd.ssd_forward(x, log_a, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert tssd.ssd_forward.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    _assert_k12_close(got, want)
+    # B and C as column slices of one projection, as the model passes them.
+    proj = torch.cat([Bm, Cm, Bm[..., :8]], dim=-1)
+    got = tssd.ssd_forward(x, log_a, proj[..., :N], proj[..., N:2 * N],
+                           chunk)
+    torch.cuda.synchronize()
+    _assert_k12_close(got, want)
+
+
+def test_k12_function_backward_on_the_card(dev):
+    """The Function on the card: K12 forward, the backward through
+    ``ssd_chunked`` on the card, each cotangent in its input's dtype,
+    against autograd of ``ssd_chunked`` itself."""
+    from ray_tpu_torch.models import mamba2 as tm
+    from ray_tpu_torch.ops import mamba_ssd as tssd
+
+    g = _gen(77)
+    x, log_a, Bm, Cm = _ssd_inputs(g, 2, 256, 4, 32, 16, torch.bfloat16)
+    gy = torch.randn(x.shape, generator=g, device="cuda")
+    ins = [t.clone().requires_grad_(True) for t in (x, log_a, Bm, Cm)]
+    ref = [t.clone().requires_grad_(True) for t in (x, log_a, Bm, Cm)]
+    before = tssd.ssd_forward.launches
+    got = torch.autograd.grad(tssd.ssd_pallas(*ins, 64), ins, gy)
+    want = torch.autograd.grad(tm.ssd_chunked(*ref, chunk=64), ref, gy)
+    torch.cuda.synchronize()
+    assert tssd.ssd_forward.launches == before + 1
+    # The same ssd_chunked VJP on the same inputs: equal up to the order
+    # cuBLAS picks for a product.
+    for name, a, b, t in zip(("x", "log_a", "Bm", "Cm"), got, want, ins):
+        assert a.dtype == t.dtype, name
+        tol = 1e-5 if a.dtype == torch.float32 else 2 ** -7
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol, msg=name)
+
+
+def test_k12_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from ray_tpu_torch.ops import mamba_ssd as tssd
+
+    g = _gen(5)
+    x, log_a, Bm, Cm = _ssd_inputs(g, 1, 64, 2, 16, 8, torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        tssd.ssd_forward(x.bfloat16(), log_a, Bm, Cm, 64)
+    with pytest.raises(ValueError, match="share dtype"):
+        tssd.ssd_forward(x, log_a, Bm, Cm.bfloat16(), 64)
+    with pytest.raises(ValueError, match="unsupported P"):
+        tssd.ssd_forward(x[..., :8], log_a, Bm, Cm, 64)
+    with pytest.raises(ValueError, match="unsupported P"):
+        tssd.ssd_forward(x, log_a, Bm[..., :4], Cm[..., :4], 64)
+    with pytest.raises(ValueError, match="not divisible"):
+        tssd.ssd_forward(x, log_a, Bm, Cm, 48)
+    with pytest.raises(ValueError, match="is on cpu"):
+        tssd.ssd_forward(x, log_a.cpu(), Bm, Cm, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qpg,D,page", [(1, 16, 16), (2, 64, 16),
+                                        (4, 128, 64), (8, 128, 32)])
+@pytest.mark.parametrize("soft_cap", [None, 30.0])
+def test_k13_matches_plain(dev, dtype, qpg, D, page, soft_cap):
+    g = _gen(qpg * D + page + 13)
+    B, KVH, maxp = 6, 2, 5
+    P = B * maxp + 1
+    q = torch.randn((B, KVH * qpg, D), generator=g, device=dev, dtype=dtype)
+    k = torch.randn((KVH, P, page, D), generator=g, device=dev, dtype=dtype)
+    v = torch.randn_like(k)
+    lens = [0, 1, page - 1, page, page + 1, maxp * page]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    perm = torch.randperm(P - 1, device=dev, generator=g).to(torch.int32)
+    # OOB ids past each slot's live pages (P + 3 clamps to P - 1).
+    bt = torch.full((B, maxp), P + 3, dtype=torch.int32, device=dev)
+    for b, n in enumerate(lens):
+        live = -(-n // page)
+        bt[b, :live] = perm[b * maxp: b * maxp + live]
+    before = tpa.paged_decode_attention.launches
+    got = tpa.paged_decode_attention(q, k, v, bt, lengths, soft_cap=soft_cap)
+    want = tpa.paged_decode_attention_plain(q, k, v, bt, lengths,
+                                            soft_cap=soft_cap)
+    torch.cuda.synchronize()
+    assert tpa.paged_decode_attention.launches == before + 1
+    assert got.dtype == dtype and (got[0] == 0).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=K1_TOL, rtol=K1_TOL)
+    else:
+        # The same f32 arithmetic rounded to bf16 on both sides: at most
+        # one ulp of the output apart, which is at most 2^-7 |out|; 1e-5
+        # covers f32 sums in other orders near 0.
+        err = (got.float() - want.float()).abs()
+        limit = 2 ** -7 * want.float().abs() + 1e-5
+        assert (err <= limit).all(), (err / limit).max().item()
+
+
+def test_k13_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q = torch.zeros((1, 4, 16), device=dev)
+    pages = torch.zeros((2, 3, 8, 16), device=dev)
+    bt = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    lens = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="share dtype"):
+        tpa.paged_decode_attention(q, pages.to(torch.int8),
+                                   pages.to(torch.int8), bt, lens)
+    with pytest.raises(ValueError, match="int32"):
+        tpa.paged_decode_attention(q, pages, pages, bt.long(), lens)
+    with pytest.raises(ValueError, match="bad shapes"):
+        tpa.paged_decode_attention(q[:, :3], pages, pages, bt, lens)

@@ -1,7 +1,8 @@
-"""Port of the paged decode kernels (K1 partials + combine, K2 append)
-against ray_tpu.ops.paged_attention, run in interpret mode on the CPU
-as tests/test_paged_attention.py runs it.  Inputs come from a seeded
-numpy generator and go to both sides; f32 throughout."""
+"""Port of the paged decode kernels (K1 partials + combine, K2 append,
+K13 normalised attention) against ray_tpu.ops.paged_attention, run in
+interpret mode on the CPU as tests/test_paged_attention.py runs it.
+Inputs come from a seeded numpy generator and go to both sides; f32
+throughout."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -111,3 +112,39 @@ def test_append_matches_jax_with_inactive_slot_on_scratch():
     changed = np.argwhere((kt.numpy() != k).any(axis=-1))
     live = {(p, o) for _, _, p, o in changed if p < P - 1}
     assert live == {(3, 0), (5, 7)}
+
+
+@pytest.mark.parametrize("soft_cap", [None, 20.0])
+@pytest.mark.parametrize("qpg", [1, 4])
+def test_k13_normalised_matches_jax_kernel(qpg, soft_cap):
+    """K13 (``paged_decode_attention``, here its plain version) against
+    the JAX Pallas kernel in interpret mode on one layer's pages: MHA and
+    GQA, a soft cap, an empty slot (output 0) and OOB sentinels past each
+    slot's live pages; ``paged_decode_attention_tp`` without a mesh is K13
+    itself and refuses any mesh."""
+    q, k, v, bt, lengths = _inputs(qpg, seed=20 + qpg)
+    layer = 1
+    kp, vp = k[layer], v[layer]
+    P, page = kp.shape[1], kp.shape[2]
+    bt = bt.copy()
+    for b, n in enumerate(lengths):
+        bt[b, -(-n // page):] = P  # sentinel: clamped to P - 1, never read
+    want = jpa.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(lengths), soft_cap=soft_cap)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, bt, lengths)]
+    got = tpa.paged_decode_attention(*args, soft_cap=soft_cap)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+    assert (got[0] == 0).all()  # length 0
+    live = lengths > 0
+    ref = tpa.paged_decode_attention_reference(
+        *[torch.from_numpy(a) for a in (q, kp, vp)],
+        torch.from_numpy(np.minimum(bt, P - 1)), args[4], soft_cap=soft_cap)
+    np.testing.assert_allclose(got.numpy()[live], ref.numpy()[live],
+                               atol=ATOL, rtol=RTOL)
+    assert torch.equal(tpa.paged_decode_attention_tp(
+        *args, soft_cap=soft_cap), got)
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        tpa.paged_decode_attention_tp(*args, mesh=object())

@@ -236,7 +236,7 @@ def test_fused_qkv_rows_are_contiguous(jparams):
     contiguous rows on the card (v is a column slice of the product)."""
     tqp = bridge.params_from_jax(_np(jq.fuse_for_decode(
         jq.quantize_params(jparams), J_CFG)), device="cpu")
-    layer = tl._deq_layer(tl._layers(tqp, 2)[0], torch.float32)
+    layer = tl._deq_layer(tl._layers(tqp["layers"], 2)[0], torch.float32)
     x = torch.randn((1, 5, 64))
     sin, cos = tl.rope_table(T_CFG, torch.arange(5)[None])
     for t in tl._qkv(x, layer, T_CFG, sin, cos):

@@ -200,7 +200,8 @@ def _adam_state(jstate):
     return jstate[1][0]
 
 
-@pytest.mark.parametrize("case", ["plain", "mu_bf16", "clipped", "cosine"])
+@pytest.mark.parametrize("case", ["plain", "mu_bf16", "clipped", "cosine",
+                                  "bf16_params"])
 def test_default_optimizer_matches_optax(np_params, case):
     kw = dict(warmup_steps=2, weight_decay=0.1)
     if case == "mu_bf16":
@@ -210,44 +211,87 @@ def test_default_optimizer_matches_optax(np_params, case):
         kw_j = kw_t = dict(kw, total_steps=5)
     else:
         kw_j = kw_t = kw
+    # bf16 master params, grads and moments: optax takes the global norm
+    # in bf16 and the port must too, so everything is bit for bit.
+    bf16 = case == "bf16_params"
+    base = (jax.tree.map(lambda a: a.astype(ml_dtypes.bfloat16), np_params)
+            if bf16 else np_params)
     # Grads of norm ~ 1.6: clipped at 1.0, not at 10.
     clip = 1.0 if case == "clipped" else 10.0
     jtx = j_default_optimizer(1e-2, grad_clip=clip, **kw_j)
     ttx = train.default_optimizer(1e-2, grad_clip=clip, **kw_t)
-    jp = jax.tree.map(jnp.asarray, np_params)
+    jp = jax.tree.map(jnp.asarray, base)
     jstate = jtx.init(jp)
-    tstate = train.create_train_state(_tparams(np_params), ttx)
+    tstate = train.create_train_state(_tparams(base), ttx)
     params, opt = tstate.params, tstate.opt_state
     rng = np.random.default_rng(8)
-    for step in range(4):
+    # bf16: optax under jit, as the JAX step runs it (and one compile
+    # instead of each bf16 op's own).
+    update = jax.jit(jtx.update) if bf16 else jtx.update
+    for step in range(6 if bf16 else 4):
         g = jax.tree.map(
             lambda a: (rng.standard_normal(a.shape) * 0.005).astype(
-                np.float32), np_params)
-        updates, jstate = jtx.update(jax.tree.map(jnp.asarray, g), jstate, jp)
+                np.float32).astype(a.dtype), base)
+        updates, jstate = update(jax.tree.map(jnp.asarray, g), jstate, jp)
         jp = optax.apply_updates(jp, updates)
         opt, gnorm = ttx.update_(params, bridge.params_from_jax(g, "cpu"),
                                  opt)
-        np.testing.assert_allclose(gnorm.item(), float(optax.global_norm(g)),
-                                   rtol=1e-6)
+        want_norm = optax.global_norm(jax.tree.map(jnp.asarray, g))
+        if bf16:
+            assert gnorm.dtype == torch.bfloat16
+            assert gnorm.item() == float(want_norm)
+        else:
+            np.testing.assert_allclose(gnorm.item(), float(want_norm),
+                                       rtol=1e-6)
         assert (gnorm.item() >= clip) == (case == "clipped")
         if step == 0:
             # The schedule starts at 0: the first update moves nothing.
-            _close_trees(params, np_params, 0, 0, "step 0")
-        _close_trees(params, jax.tree.map(np.asarray, jp), 1e-7, 1e-6,
+            _close_trees(params, base, 0, 0, "step 0")
+        tol = (0, 0) if bf16 else (1e-7, 1e-6)
+        _close_trees(params, jax.tree.map(np.asarray, jp), *tol,
                      f"params after step {step}")
         got = bridge.opt_state_to_numpy(opt, bf16_dtype=ml_dtypes.bfloat16)
         want = _adam_state(jstate)
         assert got["count"] == int(want.count) == step + 1
-        # bf16 moments: one bf16 ulp (2^-8) where an f32 sum an ulp
-        # apart rounds to the other side.
+        # bf16 moments beside f32 params: one bf16 ulp (2^-8) where an
+        # f32 sum an ulp apart rounds to the other side.
         mu_rtol = 8e-3 if case == "mu_bf16" else 1e-5
-        _close_trees(got["mu"], jax.tree.map(np.asarray, want.mu), 1e-9,
-                     mu_rtol, f"mu after step {step}")
-        _close_trees(got["nu"], jax.tree.map(np.asarray, want.nu), 1e-12,
-                     1e-5, f"nu after step {step}")
+        _close_trees(got["mu"], jax.tree.map(np.asarray, want.mu),
+                     *((0, 0) if bf16 else (1e-9, mu_rtol)),
+                     f"mu after step {step}")
+        _close_trees(got["nu"], jax.tree.map(np.asarray, want.nu),
+                     *((0, 0) if bf16 else (1e-12, 1e-5)),
+                     f"nu after step {step}")
         if case == "mu_bf16":
             assert all(m.dtype == torch.bfloat16
                        for m in train.state.tree_leaves(opt["mu"]))
+
+
+def test_update_in_slices_equals_whole_leaf(monkeypatch):
+    """A leaf above ``_UPDATE_SLICE`` elements updates one slice of its
+    leading axis at a time: the same bits as the whole leaf at once."""
+    rng = np.random.default_rng(9)
+    leaves = {"w": rng.standard_normal((6, 5, 4)).astype(np.float32),
+              "b": rng.standard_normal((7,)).astype(np.float32)}
+    grads = [jax.tree.map(lambda a: (rng.standard_normal(a.shape) * 0.5)
+                          .astype(np.float32), leaves) for _ in range(3)]
+    out = []
+    for limit in (1 << 24, 40):
+        monkeypatch.setattr(train.state, "_UPDATE_SLICE", limit)
+        tx = train.default_optimizer(1e-2, warmup_steps=1,
+                                     mu_dtype=torch.bfloat16)
+        st = train.create_train_state(bridge.params_from_jax(leaves, "cpu"),
+                                      tx)
+        opt = st.opt_state
+        for g in grads:
+            opt, _ = tx.update_(st.params, bridge.params_from_jax(g, "cpu"),
+                                opt)
+        out.append((st.params, opt))
+    assert [len(train.state._slices(torch.zeros(6, 5, 4)))] == [3]
+    for key in ("w", "b"):
+        assert torch.equal(out[0][0][key], out[1][0][key]), key
+        for m in ("mu", "nu"):
+            assert torch.equal(out[0][1][m][key], out[1][1][m][key]), (m, key)
 
 
 # --- step and trainer -------------------------------------------------------
@@ -274,6 +318,35 @@ def test_train_step_with_grad_accum_matches_jax(np_params):
                  "params after 2 steps")
     with pytest.raises(ValueError, match="grad_accum=2"):
         tstep(ts, {"tokens": torch.zeros((3, 32), dtype=torch.int32)})
+
+
+def test_train_step_bf16_params_matches_jax(np_params):
+    """bf16 master params (f32 compute): the step's grad_norm is taken in
+    bf16 on both sides, and loss, grad_norm and params after two steps
+    agree to one bf16 ulp: the f32 grads round to bf16 from sums taken in
+    other orders.  One bf16 ulp is 2^-8 to 2^-7 of a value, and a param
+    moves by about lr (1e-2), whose ulp is 2^-14, whatever its own size."""
+    jc = dataclasses.replace(J_CFG, param_dtype=jnp.bfloat16)
+    tc = dataclasses.replace(T_CFG, param_dtype=torch.bfloat16)
+    base = jax.tree.map(lambda a: a.astype(ml_dtypes.bfloat16), np_params)
+    jtx = j_default_optimizer(1e-2, warmup_steps=1)
+    ttx = train.default_optimizer(1e-2, warmup_steps=1)
+    jstep = jax.jit(j_make_train_step(lambda p, b: jl.loss_fn(p, b, jc), jtx))
+    tstep = train.make_train_step(lambda p, b: tl.loss_fn(p, b, tc), ttx)
+    js = j_create_state(jax.tree.map(jnp.asarray, base), jtx)
+    ts = train.create_train_state(_tparams(base), ttx)
+    for i in range(2):
+        toks = _tokens(40 + i)
+        js, jm = jstep(js, {"tokens": jnp.asarray(toks)})
+        ts, tm = tstep(ts, {"tokens": torch.from_numpy(toks)})
+        assert jm["grad_norm"].dtype == jnp.bfloat16
+        assert tm["grad_norm"].dtype == torch.bfloat16
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=2 ** -7)
+    _close_trees(ts.params, jax.tree.map(np.asarray, js.params), 2 ** -14,
+                 2 ** -7, "bf16 params after 2 steps")
 
 
 def _data(seed, B=4, S=32):
