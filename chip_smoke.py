@@ -7,10 +7,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 
 1. device: torch/CUDA versions, the card's name and power limit;
 2. build: every kernel of ``ray_tpu_torch/csrc`` through ``nvcc``
-   (one process per source, all started together);
+   (one process per source, all started together); the Hopper kernels
+   (K9f and K11 in bf16 at D 64 and 128) must show no ptxas report of
+   serialised wgmma and, where the toolkit has ``cuobjdump``, HGMMA and
+   UTMALDG instructions in their SASS (counts printed);
 3. kernels at LLAMA3_8B shapes (bf16, H=32, KVH=8, D=128, page 64,
    L=32): K1 paged decode partials, K2 paged append, K9f flash forward
-   (then K10 and K11, phase 9),
+   (then K10 and K11, phase 9; K9f and K11 also with TFLOP/s and
+   kernel / SDPA),
    each held against its plain PyTorch version on the same inputs and
    timed beside it, beside one PyTorch library call computing the same
    function (a yardstick the port never calls), and beside its bound;
@@ -165,6 +169,65 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+# The libraries holding the Hopper kernels (K9f and K11 in bf16 at D 64
+# and 128), whose names carry "wgmma".
+HOPPER_LIBS = ("flash_fwd", "flash_bwd")
+
+
+def _cuobjdump(_build):
+    """The toolkit's cuobjdump: on PATH or beside nvcc; None without."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    try:
+        cand = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    except RuntimeError:
+        return None
+    return cand if os.path.exists(cand) else None
+
+
+def hopper_check(_build) -> dict:
+    """The Hopper kernels run wgmma on TMA-fed shared memory: in the SASS
+    of each one, HGMMA (warpgroup MMA) and UTMALDG (TMA tile load) counts
+    above 0, and no ptxas report of serialised wgmma in their builds.
+    Fails otherwise; without cuobjdump the SASS counts are not taken."""
+    out = {}
+    for lib in HOPPER_LIBS:
+        for line in _build.build_logs.get(lib, "").splitlines():
+            if "wgmma" in line and "serializ" in line.lower():
+                raise AssertionError(f"ptxas serialised wgmma in csrc/{lib}"
+                                     f".cu: {line.strip()}")
+    tool = _cuobjdump(_build)
+    if tool is None:
+        log("hopper kernels: no cuobjdump here, SASS not counted")
+        return {"sass": "not measured (no cuobjdump)"}
+    for lib in HOPPER_LIBS:
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1) if "wgmma" in m.group(1) else None
+                if fn:
+                    out[fn] = {"lib": lib, "HGMMA": 0, "UTMALDG": 0}
+            elif fn:
+                for op in ("HGMMA", "UTMALDG"):
+                    out[fn][op] += op in line
+        found = [f for f, c in out.items() if c["lib"] == lib]
+        if not found or any(out[f][op] == 0 for f in found
+                            for op in ("HGMMA", "UTMALDG")):
+            raise AssertionError(f"csrc/{lib}.cu: Hopper kernels without "
+                                 f"wgmma or TMA loads in their SASS: "
+                                 f"{ {f: out[f] for f in found} }")
+    for f, c in out.items():
+        short = re.search(r"hk\d+(\w+?)ILi(\d+)E", f)
+        name = f"{short.group(1)}<{short.group(2)}>" if short else f[:60]
+        log(f"  SASS {name}: HGMMA {c['HGMMA']}  UTMALDG {c['UTMALDG']}")
+    return out
 
 
 def int8_pools(torch, g, shape):
@@ -377,7 +440,10 @@ def kernel_phase_k9(torch, F, tfa, report):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
     rows = {}
-    for S in (256, 1024):
+    # Prefill buckets of 256 and 1024 tokens, and a 4096-token prompt,
+    # where each CTA's fixed costs (its first loads, its unoverlapped
+    # first and last products) weigh least.
+    for S in (256, 1024, 4096):
         q = torch.randn((B, S, H, D), generator=g, device=dev,
                         dtype=torch.bfloat16)
         k = torch.randn((B, S, KVH, D), generator=g, device=dev,
@@ -408,11 +474,13 @@ def kernel_phase_k9(torch, F, tfa, report):
                    "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": b_ms,
                    "bound_by": b_by,
-                   "tflops": flops / (ms * 1e-3) / 1e12}
+                   "tflops": flops / (ms * 1e-3) / 1e12,
+                   "vs_library": ms / library_ms}
         log(f"K9f flash_forward S={S}: err {err:.3e} (rel {rel:.3e}, lse "
             f"{lse_err:.3e})  kernel {ms:.4f} ms ({rows[S]['tflops']:.1f} "
             f"TFLOP/s)  plain {plain_ms:.4f} ms  SDPA {library_ms:.4f} ms  "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"kernel / SDPA {ms / library_ms:.3f}  bound {b_ms:.4f} ms "
+            f"({b_by})")
     top = rows[1024]
     report["K9f"] = {
         "name": "flash_forward", "route": "cuda",
@@ -421,7 +489,8 @@ def kernel_phase_k9(torch, F, tfa, report):
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "library_ms": top["library_ms"], "bound_ms": top["bound_ms"],
-        "bound_by": top["bound_by"],
+        "bound_by": top["bound_by"], "tflops": top["tflops"],
+        "vs_library": top["vs_library"],
         "shape": f"B={B} S=1024 H={H} KVH={KVH} D={D} causal bf16",
         "by_seq_len": rows,
     }
@@ -2153,9 +2222,12 @@ def _k9f_training_row(torch, F, tfa, q, k, v, o, lse, tag):
     flops = 4 * B * H * D * (S * (S + 1) // 2)
     nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KVH * D) + 4 * B * H * S
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
-    log(f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
-        f"SDPA {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']})")
+    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+    row["vs_library"] = row["ms"] / row["library_ms"]
+    log(f"  kernel {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s)  plain "
+        f"{row['plain_ms']:.4f} ms  SDPA {row['library_ms']:.4f} ms  "
+        f"kernel / SDPA {row['vs_library']:.3f}  bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
 
@@ -2224,15 +2296,14 @@ def kernel_phase_k10_k11(torch, F, tfa, report):
         del out, qt, kt, vt
         pairs = S * (S + 1) // 2            # causal (query, key) pairs
         io = 2 * (2 * B * S * H * D + 2 * B * S * KVH * D) + 8 * B * H * S
-        b10 = bound(io + 2 * B * S * H * D, 3 * 2 * B * H * D * pairs,
-                    BF16_FLOPS)
-        b11 = bound(io + 2 * 2 * B * S * KVH * D, 4 * 2 * B * H * D * pairs,
-                    BF16_FLOPS)
-        for key, name, line, ms, plain, bnd, err in (
-                ("K10", K10, 263, ms_dq, plain_dq, b10, errs["dq"]),
+        flops10, flops11 = (n * 2 * B * H * D * pairs for n in (3, 4))
+        b10 = bound(io + 2 * B * S * H * D, flops10, BF16_FLOPS)
+        b11 = bound(io + 2 * 2 * B * S * KVH * D, flops11, BF16_FLOPS)
+        for key, name, line, ms, plain, bnd, err, flops in (
+                ("K10", K10, 263, ms_dq, plain_dq, b10, errs["dq"], flops10),
                 ("K11", K11, 284, ms_dkv, plain_dkv, b11,
                  max(errs["dk"], errs["dv"],
-                     key=lambda e: e["max_abs_err"]))):
+                     key=lambda e: e["max_abs_err"]), flops11)):
             report[key] = {
                 "name": name, "route": "cuda",
                 "source": "ray_tpu_torch/csrc/flash_bwd.cu",
@@ -2240,10 +2311,14 @@ def kernel_phase_k10_k11(torch, F, tfa, report):
                 "max_abs_err": err["max_abs_err"], "ms": ms,
                 "plain_ms": plain, "library_ms": library_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1],
+                "tflops": flops / (ms * 1e-3) / 1e12,
+                "vs_library": ms / library_ms,
                 "shape": rows["bench"]["shape"], "cases": rows}
-            log(f"{key} {name}: kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-                f"SDPA backward (dq+dk+dv) {library_ms:.4f} ms  bound "
-                f"{bnd[0]:.4f} ms ({bnd[1]})")
+            log(f"{key} {name}: kernel {ms:.4f} ms "
+                f"({report[key]['tflops']:.1f} TFLOP/s)  plain {plain:.4f} "
+                f"ms  SDPA backward (dq+dk+dv) {library_ms:.4f} ms  kernel / "
+                f"SDPA backward {ms / library_ms:.3f}  bound {bnd[0]:.4f} ms "
+                f"({bnd[1]})")
         del q, k, v, do, lse, delta
     k9f = report["K9f"]
     k9f["training_shapes"] = k9f_rows
@@ -3058,6 +3133,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    hopper = hopper_check(_build)
 
     kernels = {"paged_decode_attention_partial":
                tpa.paged_decode_attention_partial,
@@ -3156,7 +3232,8 @@ def main() -> int:
     with open(args.out, "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": build_s,
-                   "total_s": total_s, "kernels": report, "parity": parity,
+                   "total_s": total_s, "kernels": report,
+                   "hopper_sass": hopper, "parity": parity,
                    "ragged_parity": ragged_parity,
                    "int8_parity": int8_parity, "serving": serving,
                    "ragged_serving": ragged,

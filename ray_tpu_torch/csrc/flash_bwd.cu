@@ -28,13 +28,15 @@
 //       tiles from the diagonal down.  Each CTA owns its dk/dv rows
 //       outright: no atomics, a fixed summation order, deterministic.
 //
-// bf16 runs on the tensor cores: mma.sync m16n8k16 on bf16 fragments
-// with f32 accumulators, 4 warps of 16 rows each; the score tiles stay
-// in registers, and p / ds, rounded to bf16 where the Pallas bodies
-// round them, become the A fragments of the next product directly (the
+// bf16 runs on the tensor cores.  K10, and K11 at D in {16, 32} (the
+// tiny test models): mma.sync m16n8k16 on bf16 fragments with f32
+// accumulators, 4 warps of 16 rows each; the score tiles stay in
+// registers, and p / ds, rounded to bf16 where the Pallas bodies round
+// them, become the A fragments of the next product directly (the
 // accumulator layout of two n-tiles is the A layout of one k-step).  B
-// fragments of a row-major [k][n] tile come through ldmatrix.trans.
-// Tiles load synchronously (no cp.async / TMA ring: later work).
+// fragments of a row-major [k][n] tile come through ldmatrix.trans;
+// tiles load synchronously.  K11 at D in {64, 128} (every real
+// configuration) is the Hopper design of flash_bwd_dkv_wgmma below.
 // f32 runs on the CUDA cores, the design of K9f: 256 threads as a
 // 16 x 16 grid, each owning 4 rows x 4 columns of each score tile (rows
 // ty + 16i, columns tx + 16j: strided, so the 16-byte shared reads of
@@ -44,6 +46,7 @@
 
 #include "common.cuh"
 #include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -503,6 +506,238 @@ struct Args {
   cudaStream_t stream;
 };
 
+// K11 (bf16, D in {64, 128}): the Hopper design (hopper.cuh).  One CTA
+// per (128-row kv tile, kv head, batch), 3 warpgroups: warpgroup 0 is
+// the producer (one thread issues every TMA load, on 24 registers), 1
+// and 2 the consumers (240 registers), each owning 64 kv rows.  K and V
+// (128 x D) load once; a 3-stage ring over (q head of the group, 64-row
+// q tile) brings q, do, lse and delta (33 KB a stage at D = 128).  Per
+// stage each consumer computes S^T = K.Q^T and dP^T = V.dO^T (wgmma
+// m64n64k16, both operands in shared memory, K-major), P^T and dS^T in
+// registers, rounded to bf16 into A fragments, then dV += P^T.dO and
+// dK += dS^T.Q (wgmma m64nDk16, A in registers, dO and Q MN-major).  dK
+// and dV stay in registers (128 f32 a thread at D = 128, without
+// spills); the group is summed in f32 in a fixed order, with no atomics.
+// The kv tiles with the most q tiles to walk launch first.
+namespace hk {
+
+namespace hp = rtt::hopper;
+constexpr int BKV = 128, BQT = 64, STAGES = 3, THREADS = 3 * hp::WG_THREADS;
+
+template <int D>
+struct Smem {
+  static constexpr uint32_t KV_BYTES = BKV * D * 2, QT_BYTES = BQT * D * 2;
+  static constexpr uint32_t V_OFF = KV_BYTES;
+  static constexpr uint32_t STAGE_OFF = 2 * KV_BYTES;
+  // q, do, then lse and delta (256 bytes each), padded to 1024 bytes.
+  static constexpr uint32_t STAGE_BYTES = 2 * QT_BYTES + 1024;
+  static constexpr uint32_t BYTES = STAGE_OFF + STAGES * STAGE_BYTES;
+  static constexpr uint32_t TX_BYTES = 2 * QT_BYTES + 2 * BQT * 4;
+};
+
+// Barriers: kv_full, full[STAGES], empty[STAGES].
+constexpr int N_BARS = 1 + 2 * STAGES;
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_wgmma(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int S, int H, int KVH, float scale, int causal) {
+  using L = Smem<D>;
+  constexpr int NB = D / 64;  // 64-column swizzle blocks of a row
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[N_BARS];
+  const uint32_t raw = hp::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint8_t* sbase = smem_raw + (base - raw);
+  const uint32_t kv_full = hp::smem_u32(bars);
+  auto full = [&](int s) { return kv_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8u * (1 + STAGES + s); };
+
+  const int kvh = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int group = H / KVH;
+  const int k0 = kt * BKV;
+  const int qt0 = causal ? k0 / BQT : 0;
+  const int per_head = S / BQT - qt0;
+  const int n_stages = group * per_head;
+  const int wg = threadIdx.x / hp::WG_THREADS;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hp::mbar_init(full(s), 1);
+      hp::mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hp::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hp::mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
+      for (int c = 0; c < NB; ++c) {
+        hp::tma_load_4d(base + c * BKV * 128, &tm_k, kv_full, c * 64, kvh,
+                        k0, b);
+        hp::tma_load_4d(base + L::V_OFF + c * BKV * 128, &tm_v, kv_full,
+                        c * 64, kvh, k0, b);
+      }
+      for (int i = 0; i < n_stages; ++i) {
+        const int s = i % STAGES;
+        const int h = kvh * group + i / per_head;
+        const int q0 = (qt0 + i % per_head) * BQT;
+        const uint32_t st = base + L::STAGE_OFF + s * L::STAGE_BYTES;
+        const size_t stat = ((size_t)b * H + h) * S + q0;
+        hp::mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
+        hp::mbar_expect_tx(full(s), L::TX_BYTES);
+        for (int c = 0; c < NB; ++c) {
+          hp::tma_load_4d(st + c * BQT * 128, &tm_q, full(s), c * 64, h, q0,
+                          b);
+          hp::tma_load_4d(st + L::QT_BYTES + c * BQT * 128, &tm_do, full(s),
+                          c * 64, h, q0, b);
+        }
+        hp::bulk_load(st + 2 * L::QT_BYTES, lse + stat, BQT * 4, full(s));
+        hp::bulk_load(st + 2 * L::QT_BYTES + 256, delta + stat, BQT * 4,
+                      full(s));
+      }
+    }
+    return;
+  }
+
+  hp::setmaxnreg_inc<240>();
+  const int w = wg - 1;  // which 64 kv rows of the tile
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int kr0 = k0 + 64 * w + 16 * warp + g;  // this thread's keys: + 0, 8
+  const bool live = k0 + 64 * w < S;  // the last tile's second half may not
+  const float sl2 = scale * hp::LOG2E;
+  const uint32_t ka = base + w * 64 * 128;
+  const uint32_t va = base + L::V_OFF + w * 64 * 128;
+
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  hp::mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_stages; ++i) {
+    const int s = i % STAGES;
+    const int q0 = (qt0 + i % per_head) * BQT;
+    const uint32_t qs = base + L::STAGE_OFF + s * L::STAGE_BYTES;
+    const uint32_t dos = qs + L::QT_BYTES;
+    const float* lse_s = reinterpret_cast<const float*>(
+        sbase + L::STAGE_OFF + s * L::STAGE_BYTES + 2 * L::QT_BYTES);
+    const float* delta_s = lse_s + 64;
+    hp::mbar_wait(full(s), (i / STAGES) & 1);
+    // Every (key, query) pair of this warpgroup masked: nothing to add.
+    if (live && !(causal && q0 + BQT - 1 < k0 + 64 * w)) {
+      float st[BQT / 2], dpt[BQT / 2];
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // 16 columns a k-step
+        hp::wgmma_ss(st,
+                     hp::desc_sw128(ka + (kk / 4) * BKV * 128 + off, 16, 1024),
+                     hp::desc_sw128(qs + (kk / 4) * BQT * 128 + off, 16, 1024),
+                     kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        hp::wgmma_ss(dpt,
+                     hp::desc_sw128(va + (kk / 4) * BKV * 128 + off, 16, 1024),
+                     hp::desc_sw128(dos + (kk / 4) * BQT * 128 + off, 16,
+                                    1024),
+                     kk > 0);
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_operand(st);
+      hp::fence_operand(dpt);
+
+      // Transposed tiles: element e of block j is key kr0 + 8 (e / 2),
+      // query q0 + 8j + 2 tig + e % 2.
+      const bool edge = causal && k0 + 64 * w + 63 > q0;
+      uint32_t ap[BQT / 16][4], ads[BQT / 16][4];
+#pragma unroll
+      for (int j = 0; j < BQT / 8; ++j) {
+        const int c = 8 * j + 2 * tig;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + c);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = st[4 * j + e] * sl2;
+          if (edge && kr0 + 8 * (e >> 1) > q0 + c + (e & 1)) x = rtt::NEG_INF;
+          p[e] = hp::ex2(x - (e & 1 ? l2.y : l2.x) * hp::LOG2E);
+          ds[e] = p[e] * (dpt[4 * j + e] - (e & 1 ? dl.y : dl.x));
+        }
+        to_a(ap, j, p);
+        to_a(ads, j, ds);
+      }
+      hp::fence_operand(acc_v);
+      hp::fence_operand(acc_k);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BQT / 16; ++j)
+        hp::wgmma_rs(acc_v, ap[j],
+                     hp::desc_sw128(dos + j * 16 * 128, BQT * 128, 1024), 1);
+#pragma unroll
+      for (int j = 0; j < BQT / 16; ++j)
+        hp::wgmma_rs(acc_k, ads[j],
+                     hp::desc_sw128(qs + j * 16 * 128, BQT * 128, 1024), 1);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_operand(acc_v);
+      hp::fence_operand(acc_k);
+    }
+    if (lane == 0) hp::mbar_arrive(empty(s));
+  }
+
+  const size_t kv_row = (size_t)KVH * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kr0 + 8 * r;
+    if (key >= S) continue;
+    const size_t off = ((size_t)b * S + key) * kv_row + (size_t)kvh * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int c = 8 * i + 2 * tig;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + c) =
+          __floats2bfloat162_rn(scale * acc_k[4 * i + 2 * r],
+                                scale * acc_k[4 * i + 2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + c) =
+          __floats2bfloat162_rn(acc_v[4 * i + 2 * r],
+                                acc_v[4 * i + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dkv(const Args& a) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = hp::encode_bshd(&tq, a.q, a.B, a.S, a.H, D, BQT);
+  if (!err) err = hp::encode_bshd(&tdo, a.dout, a.B, a.S, a.H, D, BQT);
+  if (!err) err = hp::encode_bshd(&tk, a.k, a.B, a.S, a.KVH, D, BKV);
+  if (!err) err = hp::encode_bshd(&tv, a.v, a.B, a.S, a.KVH, D, BKV);
+  if (err) return err;
+  constexpr size_t smem = Smem<D>::BYTES + 1024;  // + alignment slack
+  err = (int)cudaFuncSetAttribute(flash_bwd_dkv_wgmma<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem);
+  if (err) return err;
+  const dim3 grid(a.KVH, a.B, (a.S + BKV - 1) / BKV);
+  flash_bwd_dkv_wgmma<D><<<grid, THREADS, smem, a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.S, a.H, a.KVH, a.scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace hk
+
 template <typename T, int D>
 int launch_dq(const Args& a) {
   const dim3 grid(a.S / BQ, a.H, a.B);
@@ -565,9 +800,15 @@ int launch_dkv(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// K11 by dtype and D: bf16 at D 64 and 128 takes the Hopper kernel, bf16
+// at D 16 and 32 the mma.sync tiles, f32 the FMA tiles.
 template <typename T, int D>
 int launch(int which, const Args& a) {
-  return which == 0 ? launch_dq<T, D>(a) : launch_dkv<T, D>(a);
+  if (which == 0) return launch_dq<T, D>(a);
+  if constexpr (std::is_same<T, bf16>::value && D >= 64)
+    return hk::launch_dkv<D>(a);
+  else
+    return launch_dkv<T, D>(a);
 }
 
 template <typename T>

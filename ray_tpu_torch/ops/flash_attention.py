@@ -12,7 +12,10 @@ both recomputing p from that log-sum-exp, so nothing S × S reaches
 device memory.  ``flash_attention`` goes through ``_Flash``, a
 ``torch.autograd.Function`` pairing K9f with K10 + K11, as the JAX
 package pairs its kernels in a ``custom_vjp``.  Tensors on the CPU run
-the plain versions of all three.
+the plain versions of all three.  In bf16 at D 64 and 128 (every real
+configuration) K9f and K11 are Hopper kernels (wgmma on TMA-fed shared
+memory, csrc/hopper.cuh); f32, D 16 or 32, and K10 run mma.sync (bf16)
+or FMA (f32) tiles.
 """
 
 from __future__ import annotations
@@ -190,9 +193,11 @@ def _bwd_args(q, k, v, do, lse, delta):
         raise ValueError("flash_backward: v must have k's shape, do q's")
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.dtype != torch.float32 or t.shape != (B, H, S)
-                or not t.is_contiguous() or t.device != q.device):
+                or not t.is_contiguous() or t.device != q.device
+                or t.data_ptr() % 16):
             raise ValueError(f"flash_backward: {name} must be f32 "
-                             f"[B, H, S] on {q.device}, contiguous")
+                             f"[B, H, S] on {q.device}, contiguous and "
+                             "16-byte aligned")
     return [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr()]
 

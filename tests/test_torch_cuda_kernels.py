@@ -92,13 +92,20 @@ def test_k2_matches_plain(dev, dtype, D):
     assert torch.equal(v1[:, :, : P - 1], v2[:, :, : P - 1])
 
 
+# Sequence lengths and heads: S % 128 == 64 leaves the last 128-row tile
+# of the bf16 D in {64, 128} kernels half empty; (8, 4, 2048) are
+# BENCH_CFG's heads and length; groups 1, 2 and 8.
+K9F_CASES = [(64, True, 4, 2), (256, True, 4, 2), (128, False, 4, 2),
+             (192, True, 4, 2), (192, False, 4, 2), (320, True, 4, 2),
+             (192, True, 8, 1), (320, True, 4, 4), (2048, True, 8, 4)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [16, 64, 128])
-@pytest.mark.parametrize("S,causal", [(64, True), (256, True),
-                                      (128, False)])
-def test_k9f_matches_plain(dev, dtype, D, S, causal):
-    g = _gen(D + S)
-    B, H, KVH = 2, 4, 2
+@pytest.mark.parametrize("S,causal,H,KVH", K9F_CASES)
+def test_k9f_matches_plain(dev, dtype, D, S, causal, H, KVH):
+    g = _gen(D + S + H * KVH)
+    B = 2
     q = torch.randn((B, S, H, D), generator=g, device=dev, dtype=dtype)
     k = torch.randn((B, S, KVH, D), generator=g, device=dev, dtype=dtype)
     v = torch.randn_like(k)
@@ -118,11 +125,17 @@ def test_k9f_matches_plain(dev, dtype, D, S, causal):
 K10_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
+# Every head pair at every (S, causal), then BENCH_CFG's attention.
+K10_CASES = [(H, KVH, S, causal)
+             for H, KVH in ((4, 4), (4, 2), (8, 1))
+             for S, causal in ((64, True), (256, True), (192, False),
+                               (192, True), (320, True), (320, False))]
+K10_CASES.append((8, 4, 2048, True))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [16, 64, 128])
-@pytest.mark.parametrize("H,KVH", [(4, 4), (4, 2), (8, 1)])
-@pytest.mark.parametrize("S,causal", [(64, True), (256, True),
-                                      (192, False)])
+@pytest.mark.parametrize("H,KVH,S,causal", K10_CASES)
 def test_k10_k11_match_plain(dev, dtype, D, H, KVH, S, causal):
     g = _gen(D + S + H * KVH)
     B = 2
@@ -146,6 +159,54 @@ def test_k10_k11_match_plain(dev, dtype, D, H, KVH, S, causal):
         scale = b.float().abs().max().item()
         torch.testing.assert_close(a.float() / scale, b.float() / scale,
                                    atol=tol, rtol=0, msg=name)
+
+
+def _bench_attention(g, dev, B=2, S=2048, H=8, KVH=4, D=128):
+    """bf16 q, k, v and do at BENCH_CFG's heads (8 of 128, 4 kv)."""
+    q = torch.randn((B, S, H, D), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    k = torch.randn((B, S, KVH, D), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    do = torch.randn_like(q)
+    return q, k, v, do
+
+
+def test_k11_is_deterministic(dev):
+    """K11 sums each kv head's group in a fixed order inside one CTA, with
+    no atomics: two launches give the same bits."""
+    q, k, v, do = _bench_attention(_gen(21), dev)
+    o, lse = tfa.flash_forward(q, k, v, True)
+    delta = tfa.flash_backward_delta(o, do)
+    first = tfa.flash_backward_dkv(q, k, v, do, lse, delta, True)
+    second = tfa.flash_backward_dkv(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_forward_and_backward_are_capturable(dev):
+    """K9f, then K10 and K11, captured in one CUDA graph, replay to the
+    eager results (the tensor maps travel as kernel parameters)."""
+    q, k, v, do = _bench_attention(_gen(22), dev, S=320)
+
+    def call():
+        o, lse = tfa.flash_forward(q, k, v, True)
+        return (o, lse, *tfa.flash_backward(q, k, v, o, lse, do, True))
+
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(a, b)
 
 
 def test_autograd_function_launches_k9f_k10_k11(dev):
@@ -179,6 +240,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="S % 64"):
         tfa.flash_forward(q[:, :100].contiguous(), k[:, :100].contiguous(),
                           k[:, :100].contiguous())
+    # K11 copies lse and delta rows in 16-byte bulk copies.
+    lse = torch.zeros(2 * 4 * 128 + 1, device=dev)[1:].view(2, 4, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_backward_dkv(q, k, k, q, lse, lse, True)
     pools = torch.zeros((1, 2, 3, 8, 64), device=dev)
     with pytest.raises(ValueError, match="int32"):
         tpa.paged_decode_attention_partial(
