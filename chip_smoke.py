@@ -8,9 +8,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 1. device: torch/CUDA versions, the card's name and power limit;
 2. build: every kernel of ``ray_tpu_torch/csrc`` through ``nvcc``
    (one process per source, all started together); the Hopper kernels
-   (K9f and K11 in bf16 at D 64 and 128) must show no ptxas report of
-   serialised wgmma and, where the toolkit has ``cuobjdump``, HGMMA and
-   UTMALDG instructions in their SASS (counts printed);
+   (K9f, K10 and K11 in bf16 at D 64 and 128) must show no ptxas report
+   of serialised wgmma and, where the toolkit has ``cuobjdump``, HGMMA
+   and UTMALDG instructions in their SASS, and K13 its bulk copies
+   (UBLKCP) (counts printed);
 3. kernels at LLAMA3_8B shapes (bf16, H=32, KVH=8, D=128, page 64,
    L=32): K1 paged decode partials, K2 paged append, K9f flash forward
    (then K10 and K11, phase 9; K9f and K11 also with TFLOP/s and
@@ -92,8 +93,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    beside the plain version, the port's ``ssd_chunked`` and the bound,
    and the ``ssd_pallas`` Function's gradients card vs CPU; K13 (normalised
    paged decode attention) against its plain version at LLAMA3_8B decode
-   shapes, an empty slot, OOB page ids and a soft-capped case, timed
-   beside SDPA; MAMBA2_TINY (f32, ``use_pallas_ssd=True``) trained 3
+   shapes on each of 32 layers' pages, an empty slot, OOB page ids and a
+   soft-capped case, timed beside SDPA with each call on the next
+   layer's pages (and on one layer's, L2-hot); MAMBA2_TINY (f32,
+   ``use_pallas_ssd=True``) trained 3
    steps on the card and on the CPU (losses agree); JAMBA_TINY at S 512
    for 2 steps (K12 and K9f/K10/K11 once a step); MAMBA2_2_7B with
    ``use_pallas_ssd=True`` at full width and depth on a fixed 2 x 2048
@@ -171,9 +174,12 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-# The libraries holding the Hopper kernels (K9f and K11 in bf16 at D 64
-# and 128), whose names carry "wgmma".
-HOPPER_LIBS = ("flash_fwd", "flash_bwd")
+# The libraries holding the Hopper kernels (K9f, K10 and K11 in bf16 at D
+# 64 and 128), whose names carry "wgmma", and the kernels each must hold.
+HOPPER_KERNELS = {"flash_fwd": ("flash_fwd_wgmma",),
+                  "flash_bwd": ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")}
+# K13's kernel, which copies its pages with cp.async.bulk (UBLKCP).
+K13_KERNEL = ("paged_decode", "paged_decode_attention_hopper")
 
 
 def _cuobjdump(_build):
@@ -188,13 +194,33 @@ def _cuobjdump(_build):
     return cand if os.path.exists(cand) else None
 
 
+def _sass_counts(tool, _build, lib, name_part, ops) -> dict:
+    """Per function of csrc/<lib>.cu whose name holds ``name_part``: the
+    number of SASS lines holding each opcode of ``ops``."""
+    sass = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if name_part in m.group(1) else None
+            if fn:
+                out[fn] = {"lib": lib, **{op: 0 for op in ops}}
+        elif fn:
+            for op in ops:
+                out[fn][op] += op in line
+    return out
+
+
 def hopper_check(_build) -> dict:
     """The Hopper kernels run wgmma on TMA-fed shared memory: in the SASS
-    of each one, HGMMA (warpgroup MMA) and UTMALDG (TMA tile load) counts
-    above 0, and no ptxas report of serialised wgmma in their builds.
+    of each one (K9f, K10, K11), HGMMA (warpgroup MMA) and UTMALDG (TMA
+    tile load) counts above 0, and no ptxas report of serialised wgmma in
+    their builds; K13's kernel copies its pages with UBLKCP (bulk copies).
     Fails otherwise; without cuobjdump the SASS counts are not taken."""
     out = {}
-    for lib in HOPPER_LIBS:
+    for lib in HOPPER_KERNELS:
         for line in _build.build_logs.get(lib, "").splitlines():
             if "wgmma" in line and "serializ" in line.lower():
                 raise AssertionError(f"ptxas serialised wgmma in csrc/{lib}"
@@ -203,30 +229,28 @@ def hopper_check(_build) -> dict:
     if tool is None:
         log("hopper kernels: no cuobjdump here, SASS not counted")
         return {"sass": "not measured (no cuobjdump)"}
-    for lib in HOPPER_LIBS:
-        sass = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-        fn = None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                fn = m.group(1) if "wgmma" in m.group(1) else None
-                if fn:
-                    out[fn] = {"lib": lib, "HGMMA": 0, "UTMALDG": 0}
-            elif fn:
-                for op in ("HGMMA", "UTMALDG"):
-                    out[fn][op] += op in line
-        found = [f for f, c in out.items() if c["lib"] == lib]
-        if not found or any(out[f][op] == 0 for f in found
-                            for op in ("HGMMA", "UTMALDG")):
-            raise AssertionError(f"csrc/{lib}.cu: Hopper kernels without "
-                                 f"wgmma or TMA loads in their SASS: "
-                                 f"{ {f: out[f] for f in found} }")
+    for lib in HOPPER_KERNELS:
+        found = _sass_counts(tool, _build, lib, "wgmma", ("HGMMA", "UTMALDG"))
+        out.update(found)
+        missing = [k for k in HOPPER_KERNELS[lib]
+                   if not any(k in f for f in found)]
+        if missing or any(c[op] == 0 for c in found.values()
+                          for op in ("HGMMA", "UTMALDG")):
+            raise AssertionError(f"csrc/{lib}.cu: Hopper kernels missing "
+                                 f"({missing}) or without wgmma or TMA "
+                                 f"loads in their SASS: {found}")
     for f, c in out.items():
         short = re.search(r"hk\d+(\w+?)ILi(\d+)E", f)
         name = f"{short.group(1)}<{short.group(2)}>" if short else f[:60]
         log(f"  SASS {name}: HGMMA {c['HGMMA']}  UTMALDG {c['UTMALDG']}")
+    lib, part = K13_KERNEL
+    k13 = _sass_counts(tool, _build, lib, part, ("UBLKCP",))
+    if not k13 or any(c["UBLKCP"] == 0 for c in k13.values()):
+        raise AssertionError(f"csrc/{lib}.cu: K13 without bulk copies "
+                             f"(UBLKCP) in its SASS: {k13}")
+    log(f"  SASS {part}: {len(k13)} instantiations, UBLKCP "
+        f"{sorted(c['UBLKCP'] for c in k13.values())}")
+    out.update(k13)
     return out
 
 
@@ -2734,10 +2758,11 @@ def _k13_inputs(torch, g, L, B, H, KVH, D, page, maxp, lens_list):
 
 
 def k13_err(got, want) -> dict:
-    """K13 against its plain version: both do the same f32 arithmetic
-    and round to q's dtype, so in bf16 they differ by at most one ulp of
-    the output, which is at most 2^-7 |out|; 1e-5 covers f32 sums in
-    other orders near 0.  ``over_limit`` > 1 fails."""
+    """K13 against its plain version: both reach the same f32 values up
+    to p, round p at the same points and the output to q's dtype, so in
+    bf16 they differ by at most one ulp of the output, which is at most
+    2^-7 |out|; 1e-5 covers f32 sums in other orders near 0.
+    ``over_limit`` > 1 fails."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     limit = 2 ** -7 * want.abs() + 1e-5
@@ -2747,29 +2772,38 @@ def k13_err(got, want) -> dict:
 
 def kernel_phase_k13(torch, F, tpa, report):
     """K13 against its plain version at LLAMA3_8B decode shapes (8 slots,
-    32/8 heads of 128, page 64, one layer's bf16 pages), with a zero-length
-    slot and OOB page ids, without and with a soft cap; timed beside the
-    plain version, SDPA on the gathered dense k/v and the bound (bytes)."""
-    B, H, KVH, D, page, maxp = 8, 32, 8, 128, 64, 16
+    32/8 heads of 128, page 64, bf16 pages of 32 layers), with a
+    zero-length slot and OOB page ids, without and with a soft cap, on
+    every layer; timed beside the plain version, SDPA on the gathered
+    dense k/v and the bound (bytes).  Each timed call reads the next
+    layer's pages, as a decode step would, so they come from HBM (one
+    layer's 8 MB of live pages would stay in the 50 MB L2); the one-layer
+    reading is kept as ``l2_hot_ms``."""
+    L, B, H, KVH, D, page, maxp = 32, 8, 32, 8, 128, 64, 16
     lens_list = [0, 1, 63, 64, 65, 1000, 517, 230]
     g = torch.Generator(device="cuda").manual_seed(13)
-    q, k, v, bt, lengths = _k13_inputs(torch, g, 1, B, H, KVH, D, page, maxp,
+    q, k, v, bt, lengths = _k13_inputs(torch, g, L, B, H, KVH, D, page, maxp,
                                        lens_list)
-    kp, vp = k[0], v[0]
     errs = {}
     for soft_cap in (None, 30.0):
-        got = tpa.paged_decode_attention(q, kp, vp, bt, lengths,
-                                         soft_cap=soft_cap)
-        want = tpa.paged_decode_attention_plain(q, kp, vp, bt, lengths,
-                                                soft_cap=soft_cap)
-        torch.cuda.synchronize()
-        if not (got[0] == 0).all():
-            raise AssertionError("K13: a slot with length 0 must give 0")
-        errs[str(soft_cap)] = k13_err(got, want)
+        worst = None
+        for layer in range(L):
+            got = tpa.paged_decode_attention(q, k[layer], v[layer], bt,
+                                             lengths, soft_cap=soft_cap)
+            want = tpa.paged_decode_attention_plain(
+                q, k[layer], v[layer], bt, lengths, soft_cap=soft_cap)
+            torch.cuda.synchronize()
+            if not (got[0] == 0).all():
+                raise AssertionError("K13: a slot with length 0 must give 0")
+            e = k13_err(got, want)
+            if worst is None or e["over_limit"] > worst["over_limit"]:
+                worst = dict(e, layer=layer)
+        errs[str(soft_cap)] = worst
     if any(e["over_limit"] > 1 for e in errs.values()):
         raise AssertionError(f"K13 disagrees with its plain version: {errs}")
     # The limit must see a wrong page: the plain version with one page id
     # of the 1000-token slot pointing at another slot's page fails it.
+    kp, vp = k[L - 1], v[L - 1]
     bad = bt.clone()
     bad[5, 3] = bt[6, 0]
     swapped = k13_err(got, tpa.paged_decode_attention_plain(
@@ -2778,26 +2812,30 @@ def kernel_phase_k13(torch, F, tpa, report):
         raise AssertionError(f"K13's limit passes a swapped page: {swapped}")
     errs["swapped_page"] = swapped
     ms = time_ms(torch, lambda i: tpa.paged_decode_attention(
+        q, k[i % L], v[i % L], bt, lengths))
+    l2_hot_ms = time_ms(torch, lambda i: tpa.paged_decode_attention(
         q, kp, vp, bt, lengths))
     plain_ms = time_ms(torch, lambda i: tpa.paged_decode_attention_plain(
-        q, kp, vp, bt, lengths), n=4, blocks=3)
+        q, k[i % L], v[i % L], bt, lengths), n=4, blocks=3)
     T = maxp * page
-    btc = bt.long().clamp(max=kp.shape[1] - 1)
-    kd = kp[:, btc].permute(1, 0, 2, 3, 4).reshape(B, KVH, T, D)
-    vd = vp[:, btc].permute(1, 0, 2, 3, 4).reshape(B, KVH, T, D)
+    btc = bt.long().clamp(max=k.shape[2] - 1)
+    kd = k[:, :, btc].permute(0, 2, 1, 3, 4, 5).reshape(L, B, KVH, T, D)
+    vd = v[:, :, btc].permute(0, 2, 1, 3, 4, 5).reshape(L, B, KVH, T, D)
     mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None])
     mask = mask[:, None, None, :]
     q4 = q[:, :, None, :]
     try:
-        F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
+        F.scaled_dot_product_attention(q4, kd[0], vd[0], attn_mask=mask,
                                        enable_gqa=True)
         lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
-            q4, kd, vd, attn_mask=mask, enable_gqa=True)
+            q4, kd[i], vd[i], attn_mask=mask, enable_gqa=True)
     except TypeError:
-        kx, vx = (t.repeat_interleave(H // KVH, dim=1) for t in (kd, vd))
         lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
-            q4, kx, vx, attn_mask=mask)
-    library_ms = time_ms(torch, lib)
+            q4, kd[i].repeat_interleave(H // KVH, dim=1),
+            vd[i].repeat_interleave(H // KVH, dim=1), attn_mask=mask)
+    library_ms = time_ms(torch, lambda i: lib(i % L))
+    library_l2_hot_ms = time_ms(torch, lambda i: lib(0))
+    del kd, vd
     tokens = sum(lens_list)
     nbytes = (2 * B * H * D * 2 + tokens * KVH * D * 2 * 2 + bt.numel() * 4
               + B * 4)
@@ -2809,13 +2847,17 @@ def kernel_phase_k13(torch, F, tpa, report):
         "max_abs_err": max(e["max_abs_err"] for k, e in errs.items()
                            if k != "swapped_page"),
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": b_ms, "bound_by": b_by, "l2_hot_ms": l2_hot_ms,
+        "library_l2_hot_ms": library_l2_hot_ms,
+        "vs_library": ms / library_ms,
         "shape": f"B={B} H={H} KVH={KVH} D={D} page={page} bf16, lengths "
-                 f"{lens_list}, OOB ids past the live pages",
+                 f"{lens_list}, OOB ids past the live pages, {L} layers "
+                 "cycled",
         "errors": errs, "bound_bytes": nbytes}
-    log(f"K13 paged_decode_attention: err {errs}  kernel {ms:.4f} ms  plain "
-        f"{plain_ms:.4f} ms  SDPA {library_ms:.4f} ms  bound {b_ms:.5f} ms "
-        f"({b_by})")
+    log(f"K13 paged_decode_attention: err {errs}  kernel {ms:.5f} ms (one "
+        f"layer, L2-hot: {l2_hot_ms:.5f})  plain {plain_ms:.4f} ms  SDPA "
+        f"{library_ms:.5f} ms (L2-hot {library_l2_hot_ms:.5f})  kernel / "
+        f"SDPA {ms / library_ms:.3f}  bound {b_ms:.5f} ms ({b_by})")
 
 
 def k13_path_phase(torch, tpa, kernels):

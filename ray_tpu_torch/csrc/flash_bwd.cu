@@ -21,22 +21,23 @@
 // multiply-adds.  Causal tiles strictly above the diagonal are skipped
 // by the position test of the TPU kernels (key tile start <= last query
 // row of the tile); masked scores are -1e30, so p = 0 there.
-//  K10: one CTA per (64-row q tile, head, batch); q and do staged once,
-//       the CTA walks the kv tiles 0 .. diagonal.
+//  K10: one CTA per (q tile, head, batch); q and do staged once, the
+//       CTA walks the kv tiles 0 .. diagonal.
 //  K11: one CTA per (64-row kv tile, kv head, batch); k and v staged
 //       once, the CTA walks the group's q heads and, for each, the q
 //       tiles from the diagonal down.  Each CTA owns its dk/dv rows
 //       outright: no atomics, a fixed summation order, deterministic.
 //
-// bf16 runs on the tensor cores.  K10, and K11 at D in {16, 32} (the
-// tiny test models): mma.sync m16n8k16 on bf16 fragments with f32
-// accumulators, 4 warps of 16 rows each; the score tiles stay in
+// bf16 runs on the tensor cores.  At D in {16, 32} (the tiny test
+// models): mma.sync m16n8k16 on bf16 fragments with f32 accumulators, 4
+// warps of 16 rows each over 64-row tiles; the score tiles stay in
 // registers, and p / ds, rounded to bf16 where the Pallas bodies round
 // them, become the A fragments of the next product directly (the
 // accumulator layout of two n-tiles is the A layout of one k-step).  B
 // fragments of a row-major [k][n] tile come through ldmatrix.trans;
-// tiles load synchronously.  K11 at D in {64, 128} (every real
-// configuration) is the Hopper design of flash_bwd_dkv_wgmma below.
+// tiles load synchronously.  At D in {64, 128} (every real
+// configuration) K10 and K11 are the Hopper designs of
+// flash_bwd_dq_wgmma and flash_bwd_dkv_wgmma below.
 // f32 runs on the CUDA cores, the design of K9f: 256 threads as a
 // 16 x 16 grid, each owning 4 rows x 4 columns of each score tile (rows
 // ty + 16i, columns tx + 16j: strided, so the 16-byte shared reads of
@@ -300,8 +301,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
 
 using namespace rtt::flash;
 
-// K10 (bf16): dq for one (q tile, head, batch); warp w owns q rows
-// 16w .. 16w + 15.
+// K10 (bf16, D in {16, 32}): dq for one (64-row q tile, head, batch);
+// warp w owns q rows 16w .. 16w + 15.
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -715,6 +716,249 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_wgmma(
   }
 }
 
+// K10 (bf16, D in {64, 128}): K11's Hopper design with the roles
+// swapped.  One CTA per (128-row q tile, head, batch), 3 warpgroups:
+// warpgroup 0 is the producer (one thread issues every load, on 24
+// registers), 1 and 2 the consumers (240 registers), each owning 64 q
+// rows.  Q and dO (128 x D) load once by TMA, lse and delta by bulk
+// copies; K and V tiles of 64 keys come through a 3-stage ring (161 KB
+// of shared memory at D = 128; 128-key tiles would not leave the
+// registers for S, dP and dQ together).  Per kv tile each consumer
+// computes S = Q.K^T and dP = dO.V^T (wgmma m64n64k16, both operands in
+// shared memory, K-major), p = 2^(S scale log2e - lse log2e) and
+// dS = p (dP - delta), rounded to bf16 into A fragments (the Pallas
+// rounding point), then dQ += dS.K (wgmma m64nDk16, A in registers, K
+// MN-major).  Tile j's S and dP are issued together with tile j - 1's dQ
+// product, and j's dS is formed while that product is in flight; dS
+// becomes A fragments only after it retires (the first tile is peeled,
+// so no wgmma sits in a branch).  dQ stays f32 in registers (64 a thread
+// at D = 128) and is scaled and stored once as bf16: each CTA owns its
+// rows, no atomics, deterministic.  Causal: each consumer walks kv tiles
+// 0 .. its diagonal and masks only the diagonal tile; the q tiles with
+// the most kv tiles launch first.  S % 128 == 64: the tensor maps fill
+// the last tile's rows past S with zeros and its second consumer, which
+// owns no live row, only keeps the barrier protocol.
+constexpr int BQD = 128, BKD = 64;
+
+template <int D>
+struct SmemDq {
+  static constexpr uint32_t Q_BYTES = BQD * D * 2, KV_BYTES = BKD * D * 2;
+  static constexpr uint32_t DO_OFF = Q_BYTES;
+  static constexpr uint32_t STAT_OFF = 2 * Q_BYTES;  // lse, then delta
+  static constexpr uint32_t K_OFF = STAT_OFF + 1024;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr uint32_t BYTES = V_OFF + STAGES * KV_BYTES;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, int S, int H,
+    int KVH, float scale, int causal) {
+  using L = SmemDq<D>;
+  constexpr int NB = D / 64;  // 64-column swizzle blocks of a row
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[N_BARS];
+  const uint32_t raw = hp::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint8_t* sbase = smem_raw + (base - raw);
+  const uint32_t q_full = hp::smem_u32(bars);
+  auto full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + STAGES + s); };
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // heaviest first
+  const int q0 = qt * BQD;
+  const int rows = min(BQD, S - q0);  // 64 or 128 live rows
+  const int kvh = h / (H / KVH);
+  const int n_kv = causal ? (q0 + rows) / BKD : S / BKD;
+  const int wg = threadIdx.x / hp::WG_THREADS;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hp::mbar_init(full(s), 1);
+      hp::mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hp::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      const size_t stat = ((size_t)b * H + h) * S + q0;
+      hp::mbar_expect_tx(q_full, 2 * L::Q_BYTES + 2 * rows * 4);
+      for (int c = 0; c < NB; ++c) {
+        hp::tma_load_4d(base + c * BQD * 128, &tm_q, q_full, c * 64, h, q0,
+                        b);
+        hp::tma_load_4d(base + L::DO_OFF + c * BQD * 128, &tm_do, q_full,
+                        c * 64, h, q0, b);
+      }
+      hp::bulk_load(base + L::STAT_OFF, lse + stat, rows * 4, q_full);
+      hp::bulk_load(base + L::STAT_OFF + 512, delta + stat, rows * 4,
+                    q_full);
+      for (int kt = 0; kt < n_kv; ++kt) {
+        const int s = kt % STAGES;
+        hp::mbar_wait(empty(s), ((kt / STAGES) & 1) ^ 1);
+        const uint32_t kd = base + L::K_OFF + s * L::KV_BYTES;
+        const uint32_t vd = base + L::V_OFF + s * L::KV_BYTES;
+        hp::mbar_expect_tx(full(s), 2 * L::KV_BYTES);
+        for (int c = 0; c < NB; ++c) {
+          hp::tma_load_4d(kd + c * BKD * 128, &tm_k, full(s), c * 64, kvh,
+                          kt * BKD, b);
+          hp::tma_load_4d(vd + c * BKD * 128, &tm_v, full(s), c * 64, kvh,
+                          kt * BKD, b);
+        }
+      }
+    }
+    return;
+  }
+
+  hp::setmaxnreg_inc<240>();
+  const int w = wg - 1;  // which 64 rows of the q tile
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  if (64 * w >= rows) {  // the last tile's second half: no live row
+    for (int kt = 0; kt < n_kv; ++kt) {
+      hp::mbar_wait(full(kt % STAGES), (kt / STAGES) & 1);
+      if (lane == 0) hp::mbar_arrive(empty(kt % STAGES));
+    }
+    return;
+  }
+  const int g = lane >> 2, tig = lane & 3;
+  const int r0 = 64 * w + 16 * warp + g;  // this thread's rows: + 0, 8
+  // Kv tiles 0 .. this warpgroup's diagonal; only the diagonal is masked.
+  const int n_w = causal ? 2 * qt + w + 1 : n_kv;
+  const float sl2 = scale * hp::LOG2E;
+  const uint32_t qa = base + w * 64 * 128;
+  const uint32_t doa = base + L::DO_OFF + w * 64 * 128;
+
+  hp::mbar_wait(q_full, 0);
+  const float* lse_s = reinterpret_cast<const float*>(sbase + L::STAT_OFF);
+  const float* delta_s = lse_s + BQD;
+  const float lse2[2] = {lse_s[r0] * hp::LOG2E, lse_s[r0 + 8] * hp::LOG2E};
+  const float dl[2] = {delta_s[r0], delta_s[r0 + 8]};
+
+  float acc[D / 2], st[BKD / 2], dpt[BKD / 2];
+  uint32_t ads[BKD / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  auto issue_sdp = [&](int kt) {
+    const int s = kt % STAGES;
+    const uint32_t kb = base + L::K_OFF + s * L::KV_BYTES;
+    const uint32_t vb = base + L::V_OFF + s * L::KV_BYTES;
+    hp::mbar_wait(full(s), (kt / STAGES) & 1);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // 16 columns a k-step
+      hp::wgmma_ss(st,
+                   hp::desc_sw128(qa + (kk / 4) * BQD * 128 + off, 16, 1024),
+                   hp::desc_sw128(kb + (kk / 4) * BKD * 128 + off, 16, 1024),
+                   kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      hp::wgmma_ss(dpt,
+                   hp::desc_sw128(doa + (kk / 4) * BQD * 128 + off, 16, 1024),
+                   hp::desc_sw128(vb + (kk / 4) * BKD * 128 + off, 16, 1024),
+                   kk > 0);
+    }
+    hp::wgmma_commit();
+  };
+  auto issue_dq = [&](int kt) {
+    const uint32_t kb = base + L::K_OFF + (kt % STAGES) * L::KV_BYTES;
+#pragma unroll
+    for (int j = 0; j < BKD / 16; ++j)
+      hp::wgmma_rs(acc, ads[j],
+                   hp::desc_sw128(kb + j * 16 * 128, BKD * 128, 1024), 1);
+    hp::wgmma_commit();
+  };
+  // dS of tile kt in place of its scores.  Element e of block j is row
+  // r0 + 8 (e / 2), key kt * 64 + 8j + 2 tig + e % 2; the diagonal tile
+  // starts at key q0 + 64 w.
+  auto form_ds = [&](int kt) {
+    const bool edge = causal && kt == n_w - 1;
+#pragma unroll
+    for (int j = 0; j < BKD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = st[4 * j + e] * sl2;
+        if (edge && 8 * j + 2 * tig + (e & 1) > 16 * warp + g + 8 * (e >> 1))
+          x = rtt::NEG_INF;
+        const float p = hp::ex2(x - lse2[e >> 1]);
+        st[4 * j + e] = p * (dpt[4 * j + e] - dl[e >> 1]);
+      }
+  };
+  auto pack_ds = [&] {
+#pragma unroll
+    for (int j = 0; j < BKD / 8; ++j) to_a(ads, j, st + 4 * j);
+  };
+
+  issue_sdp(0);
+  hp::wgmma_wait<0>();
+  hp::fence_operand(st);
+  hp::fence_operand(dpt);
+  form_ds(0);
+  pack_ds();
+  for (int kt = 1; kt < n_w; ++kt) {
+    issue_sdp(kt);
+    issue_dq(kt - 1);
+    hp::wgmma_wait<1>();
+    hp::fence_operand(st);
+    hp::fence_operand(dpt);
+    form_ds(kt);
+    // Tile kt - 1's dQ product has retired: free its stage and make
+    // tile kt's dS the A fragments.
+    hp::wgmma_wait<0>();
+    hp::fence_operand(acc);
+    if (lane == 0) hp::mbar_arrive(empty((kt - 1) % STAGES));
+    pack_ds();
+  }
+  hp::fence_operand(acc);
+  hp::wgmma_fence();
+  issue_dq(n_w - 1);
+  hp::wgmma_wait<0>();
+  hp::fence_operand(acc);
+  if (lane == 0) hp::mbar_arrive(empty((n_w - 1) % STAGES));
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t off = (((size_t)b * S + q0 + r0 + 8 * r) * H + h) * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dq + off + 8 * i + 2 * tig) =
+          __floats2bfloat162_rn(scale * acc[4 * i + 2 * r],
+                                scale * acc[4 * i + 2 * r + 1]);
+  }
+}
+
+template <int D>
+int launch_dq(const Args& a) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = hp::encode_bshd(&tq, a.q, a.B, a.S, a.H, D, BQD);
+  if (!err) err = hp::encode_bshd(&tdo, a.dout, a.B, a.S, a.H, D, BQD);
+  if (!err) err = hp::encode_bshd(&tk, a.k, a.B, a.S, a.KVH, D, BKD);
+  if (!err) err = hp::encode_bshd(&tv, a.v, a.B, a.S, a.KVH, D, BKD);
+  if (err) return err;
+  constexpr size_t smem = SmemDq<D>::BYTES + 1024;  // + alignment slack
+  err = (int)cudaFuncSetAttribute(flash_bwd_dq_wgmma<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem);
+  if (err) return err;
+  const dim3 grid(a.H, a.B, (a.S + BQD - 1) / BQD);
+  flash_bwd_dq_wgmma<D><<<grid, THREADS, smem, a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dq), a.S, a.H,
+      a.KVH, a.scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_dkv(const Args& a) {
   CUtensorMap tq, tk, tv, tdo;
@@ -800,15 +1044,14 @@ int launch_dkv(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// K11 by dtype and D: bf16 at D 64 and 128 takes the Hopper kernel, bf16
-// at D 16 and 32 the mma.sync tiles, f32 the FMA tiles.
+// K10 and K11 by dtype and D: bf16 at D 64 and 128 takes the Hopper
+// kernels, bf16 at D 16 and 32 the mma.sync tiles, f32 the FMA tiles.
 template <typename T, int D>
 int launch(int which, const Args& a) {
-  if (which == 0) return launch_dq<T, D>(a);
   if constexpr (std::is_same<T, bf16>::value && D >= 64)
-    return hk::launch_dkv<D>(a);
+    return which == 0 ? hk::launch_dq<D>(a) : hk::launch_dkv<D>(a);
   else
-    return launch_dkv<T, D>(a);
+    return which == 0 ? launch_dq<T, D>(a) : launch_dkv<T, D>(a);
 }
 
 template <typename T>

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the flash kernels' wgmma paths
 // (K9f in flash_fwd.cu, K11 in flash_bwd.cu), as inline PTX:
 //  - mbarriers: init, arrive, arrive with an expected transaction count,
-//    and a wait on a phase's parity;
+//    and a wait on a phase's parity; the cluster barrier;
 //  - the Tensor Memory Accelerator: a 4-d tiled load into shared memory
 //    and a plain bulk copy, both completing on an mbarrier;
 //  - warpgroup MMA (wgmma.mma_async, bf16 in, f32 accumulators):
@@ -115,6 +115,21 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// --- cluster barrier -------------------------------------------------------
+
+// Arrive on the cluster barrier without ordering memory (relaxed), or
+// releasing this thread's writes, distributed shared memory included;
+// wait (acquire) for every thread of the cluster that has not exited.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // --- registers -------------------------------------------------------------

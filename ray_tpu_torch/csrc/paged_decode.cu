@@ -43,13 +43,13 @@
 // (Pallas body _kernel, pallas_call at :157): q [B, H, D] against one
 // layer's bf16/f32 pages [KVH, P, page, D], lengths counting every token
 // (the current one included), out = sum_t p_t v_t / sum_t p_t in q's
-// dtype, 0 for a slot with no token.  It runs K1's page-split body on the
-// pages as a one-layer pool, always into per-split partials, then its own
-// epilogue (merge_normalise_kernel) merges the splits and divides, where
-// the TPU kernel divided at its last grid step.  Bytes bound it, as K1.
-// The Pallas body rounds p to bf16 before p.v on bf16 pages; K1's body
-// keeps p in f32, so in bf16 the two differ by about a bf16 ulp of p.
+// dtype, 0 for a slot with no token.  Its own kernel, in one launch:
+// see paged_decode_attention_hopper below.
+#include <cooperative_groups.h>
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -233,63 +233,9 @@ __global__ void merge_splits_kernel(const float* __restrict__ part_acc,
   }
 }
 
-// K13's epilogue: merge the splits of one (slot, head) row as
-// merge_splits_kernel does, then out = acc / l in q's dtype, with l = 0
-// (no live token) dividing by 1, so the row is 0.
-template <typename T>
-__global__ void merge_normalise_kernel(const float* __restrict__ part_acc,
-                                       const float* __restrict__ part_m,
-                                       const float* __restrict__ part_l,
-                                       T* __restrict__ out, int rows, int D,
-                                       int nsplit) {
-  const int row = blockIdx.x;
-  float mx = rtt::NEG_INF;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, part_m[s * rows + row]);
-  float l = 0.f;
-  for (int s = 0; s < nsplit; ++s)
-    l += part_l[s * rows + row] * expf(part_m[s * rows + row] - mx);
-  const float l_safe = l == 0.f ? 1.f : l;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float a = 0.f;
-    for (int s = 0; s < nsplit; ++s)
-      a += part_acc[((size_t)s * rows + row) * D + d] *
-           expf(part_m[s * rows + row] - mx);
-    out[(size_t)row * D + d] = rtt::from_float<T>(a / l_safe);
-  }
-}
-
 size_t partial_smem(int page, int D, int qpg) {
   return sizeof(float) * ((size_t)page * (D + 4) + (size_t)page * D +
                           (size_t)qpg * D + (size_t)qpg * page + 3 * qpg);
-}
-
-template <typename T>
-int launch_normalised(const void* q, const void* k_pages, const void* v_pages,
-                      const void* block_table, const void* lengths, void* out,
-                      float* part_acc, float* part_m, float* part_l, int B,
-                      int KVH, int P, int page, int D, int qpg, int maxp,
-                      int pages_per_split, float scale, float soft_cap,
-                      cudaStream_t stream) {
-  const int nsplit = (maxp + pages_per_split - 1) / pages_per_split;
-  const size_t smem = partial_smem(page, D, qpg);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_partial_kernel<T, T, false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  paged_decode_partial_kernel<T, T, false>
-      <<<dim3(B, KVH, nsplit), THREADS, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k_pages),
-          static_cast<const T*>(v_pages), nullptr, nullptr,
-          static_cast<const int*>(block_table),
-          static_cast<const int*>(lengths), part_acc, part_m, part_l, 0, KVH,
-          P, page, D, qpg, maxp, pages_per_split, scale, soft_cap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int rows = B * KVH * qpg;
-  const int threads = D < 32 ? 32 : (D > 256 ? 256 : D);
-  merge_normalise_kernel<T><<<rows, threads, 0, stream>>>(
-      part_acc, part_m, part_l, static_cast<T*>(out), rows, D, nsplit);
-  return (int)cudaGetLastError();
 }
 
 template <typename T, typename TK, bool QUANT>
@@ -360,25 +306,488 @@ extern "C" int rtt_paged_decode_partial(
 #undef RTT_K1_LAUNCH
 }
 
+
+// K13 on Hopper: normalised paged decode attention in one launch.
+//
+// What bounds it on the H100: bytes, as K1 (4 * tokens * H * D flops
+// against 4 * tokens * KVH * D bytes of bf16 k and v: 2 * qpg flops a
+// byte).  At decode sizes the pages are a few MB, so what the design
+// shortens is the chain of dependent steps of one call.
+//
+// The page axis of one (slot, kv head) splits over a thread-block
+// cluster of up to 8 CTAs (the portable size), ppc pages each.  A rank
+// whose pages all lie past the slot's live ones leaves at once (a
+// cluster barrier waits only for threads that have not exited, and no
+// rank touches its shared memory); rank 0 of a slot with no token
+// writes its zeros.  Each (kv head, page id) k or v page is one
+// contiguous [page, D] block, so a 1-D cp.async.bulk copies it whole
+// into shared memory, in the pages' dtype, completing on an mbarrier;
+// one thread a copy issues them, all at once.  The copies run through a
+// ring of n_stages page buffers: the CTA's k pages, then its v pages,
+// all in flight when they fit the wrapper's budget, else each stage
+// refilled as soon as its page is read.
+//
+// The rounding points are the Pallas body's (s, m, l and acc in f32; p
+// rounded to the pages' dtype before p.v), and every f32 value up to the
+// rounded p is one the plain version reproduces bit for bit:
+//  1. scores: warps split a page's tokens, lanes split D (EPL = 8
+//     columns a lane).  The q.k dot is summed in a fixed order: each
+//     lane's eight products left to right, then pairs of lanes l, l + n/2
+//     for n = D/8, D/16, .., 2 (halving exchanges: about one shuffle a
+//     result); products and sums rounded one at a time (__fmul_rn,
+//     __fadd_rn; in bf16 the products are exact, so an fma is the same).
+//     s = f32(dot) * scale, then the soft cap through tanh in f64 rounded
+//     once; kept in shared memory for the CTA's tokens;
+//  2. p against the power of two just above the rank's max: with
+//     y = s log2(e) in f64 and M = ceil(max y), p = f32(2^(y - M))
+//     (correctly rounded), l = sum p in f32, and p rounded to the pages'
+//     dtype in place.  Rounding commutes with the power of two
+//     2^(M - M_slot) that takes a rank's p to the slot's reference, so
+//     each rank rounds p exactly as the plain version does at the slot's
+//     M, with no barrier to agree on a max first;
+//  3. p.v with warps splitting tokens (two at a time), lanes D, f32
+//     accumulators reduced across lane groups by shuffles and across
+//     warps in shared memory;
+//  4. every live rank writes its (acc, l, M) into rank 0's shared memory
+//     (after a cluster barrier arrived on at the start, so rank 0 has
+//     started) and arrives on a second one; the others leave, and rank 0
+//     waits, scales each rank's sums by 2^(M_rank - M) (exact), adds them
+//     in rank order (deterministic), divides (l = 0 divides by 1) and
+//     writes out in q's dtype.
+// No global partials, no second kernel: the wrapper allocates only out.
+namespace {
+namespace k13 {
+
+namespace cg = cooperative_groups;
+namespace hp = rtt::hopper;
+constexpr int THREADS = 128, NW = THREADS / 32;
+constexpr int MAX_STAGES = 16, MAX_CLUSTER = 8;
+constexpr int V = 32;    // partial dots a lane holds before the reduction
+constexpr double LOG2E = 1.4426950408889634;
+constexpr int EPL = 8;   // columns a lane takes of a row
+
+// EPL consecutive elements as f32 (16-byte loads).
+__device__ __forceinline__ void load_row(const float* p, float (&f)[EPL]) {
+#pragma unroll
+  for (int c = 0; c < EPL; c += 4) {
+    const float4 v = rtt::load4(p + c);
+    f[c] = v.x; f[c + 1] = v.y; f[c + 2] = v.z; f[c + 3] = v.w;
+  }
+}
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p,
+                                         float (&f)[EPL]) {
+  static_assert(EPL % 8 == 0, "16-byte loads of bf16");
+#pragma unroll
+  for (int c = 0; c < EPL; c += 8) {
+    float t[8];
+    rtt::Vec<__nv_bfloat16>::load(p + c, t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[c + i] = t[i];
+  }
+}
+
+// (..(q0 k0 + q1 k1) + ..) + q_{EPL-1} k_{EPL-1}, each step rounded on
+// its own.  A product of two bf16 values is exact in f32, so there an
+// fma rounds the same sum.
+template <typename T>
+__device__ __forceinline__ float dot_row(const float (&a)[EPL],
+                                         const float (&b)[EPL]) {
+  float s = __fmul_rn(a[0], b[0]);
+#pragma unroll
+  for (int i = 1; i < EPL; ++i) {
+    if constexpr (std::is_same<T, float>::value)
+      s = __fadd_rn(s, __fmul_rn(a[i], b[i]));
+    else
+      s = __fmaf_rn(a[i], b[i], s);
+  }
+  return s;
+}
+
+// One halving exchange over lane offset O, then the next (template
+// recursion, so every index is a constant and v stays in registers): a
+// lane keeps one half of its values (by its lane bit O) and adds the
+// partner's copy of that half, sending the other.
+template <int HALF, int O>
+__device__ __forceinline__ void halve(float (&v)[V], int lane, int& base) {
+  if constexpr (O > 0) {
+    const bool up = (lane & O) != 0;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const float send = up ? v[i] : v[i + HALF];
+      const float keep = up ? v[i + HALF] : v[i];
+      v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, O));
+    }
+    if (up) base += HALF;
+    halve<HALF / 2, O / 2>(v, lane, base);
+  }
+}
+
+// Shared bytes: the ring (later the cross-warp sums [NW][qpg][D] f32),
+// the scores [qpg][ppc * page] f32 and the ranks' sums [csize][qpg][D]
+// f32 (read in rank 0).
+__host__ __device__ __forceinline__ size_t ring_bytes(size_t stage_bytes,
+                                                      int n_stages,
+                                                      int qpg_d) {
+  const size_t ring = stage_bytes * n_stages, red = 4 * (size_t)NW * qpg_d;
+  return ring > red ? ring : red;
+}
+size_t smem_bytes(int esize, int page, int D, int qpg, int ppc,
+                  int n_stages, int csize) {
+  return ring_bytes((size_t)page * D * esize, n_stages, qpg * D) +
+         4 * ((size_t)qpg * ppc * page + (size_t)csize * qpg * D);
+}
+
+template <typename T, int QPG, int D>
+__global__ void __launch_bounds__(THREADS) paged_decode_attention_hopper(
+    const T* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ block_table,
+    const int* __restrict__ lengths, T* __restrict__ out, int P, int page,
+    int maxp, int ppc, int n_stages, float scale, float soft_cap) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[MAX_STAGES];
+  __shared__ double m_loc[QPG], m_tot[QPG], m_all[MAX_CLUSTER][QPG];
+  __shared__ float l_loc[QPG], l_all[MAX_CLUSTER][QPG];
+  __shared__ float scl[MAX_CLUSTER][QPG];
+
+  const int rank = blockIdx.x;
+  const int g = blockIdx.y, b = blockIdx.z, KVH = gridDim.y;
+  const int H = KVH * QPG;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  constexpr int LPT = D / EPL;  // lanes a token's row is split over
+  constexpr int GPW = 32 / LPT;
+  const int grp = lane / LPT, li = lane % LPT;
+  constexpr int TB = V / QPG;  // tokens of one lane group a pass
+  static_assert(V >= LPT && LPT <= 32, "a lane keeps whole sums");
+
+  const int len = lengths[b];
+  const int n_live = min((len + page - 1) / page, maxp);
+  const int n_ranks = (n_live + ppc - 1) / ppc;  // ranks with live pages
+  T* orow = out + ((size_t)b * H + g * QPG) * D;
+  if (rank >= n_ranks) {
+    if (rank == 0)
+      for (int e = tid; e < QPG * D; e += THREADS)
+        orow[e] = rtt::from_float<T>(0.f);
+    return;
+  }
+  // Arrive on the barrier that rank 0 waits for before the other ranks
+  // write into its shared memory.
+  hp::cluster_arrive_relaxed();
+  const int j0 = rank * ppc;
+  const int n_my = min(ppc, n_live - j0);
+  const int n_tok = min(len - j0 * page, n_my * page);
+  const int n_load = 2 * n_my;
+
+  const size_t stage_elems = (size_t)page * D;
+  const uint32_t stage_bytes = (uint32_t)(stage_elems * sizeof(T));
+  const T* ring = reinterpret_cast<const T*>(smem_raw);
+  const int ctok = ppc * page;
+  float* sc = reinterpret_cast<float*>(
+      smem_raw + ring_bytes(stage_bytes, n_stages, QPG * D));
+  float* acc_all = sc + QPG * ctok;  // [csize][QPG][D], rank 0's read
+  const int* bt = block_table + (size_t)b * maxp + j0;
+  const size_t head_off = (size_t)g * P * stage_elems;
+  const uint32_t ring_u32 = hp::smem_u32(smem_raw);
+  const uint32_t bar0 = hp::smem_u32(bars);
+
+  // Load i: the CTA's k pages, then its v pages, into stage i % n_stages.
+  auto issue = [&](int i) {
+    const int j = i < n_my ? i : i - n_my;
+    const int pid = min(max(bt[j], 0), P - 1);
+    const T* src = (i < n_my ? k_pages : v_pages) + head_off +
+                   (size_t)pid * stage_elems;
+    const int s = i % n_stages;
+    hp::mbar_expect_tx(bar0 + 8 * s, stage_bytes);
+    hp::bulk_load(ring_u32 + s * stage_bytes, src, stage_bytes, bar0 + 8 * s);
+  };
+  auto wait = [&](int i) {
+    hp::mbar_wait(bar0 + 8 * (i % n_stages), (i / n_stages) & 1);
+  };
+  // Load i has been consumed: its stage takes load i + n_stages.
+  auto refill = [&](int i) {
+    if (i + n_stages < n_load) {
+      __syncthreads();
+      if (tid == 0) issue(i + n_stages);
+    }
+  };
+
+  if (tid < n_stages) {
+    hp::mbar_init(bar0 + 8 * tid, 1);
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid < min(n_load, n_stages)) issue(tid);
+  // This lane's EPL columns of the group's q rows.
+  float qf[QPG][EPL];
+#pragma unroll
+  for (int qi = 0; qi < QPG; ++qi)
+    load_row(q + ((size_t)b * H + g * QPG + qi) * D + EPL * li, qf[qi]);
+
+  // 1. Scores of the CTA's tokens.  A warp pass covers TB * GPW tokens:
+  // token t0 + GPW * tb + grp for lane group grp.
+  const int tpw = TB * GPW;
+  for (int j = 0; j < n_my; ++j) {
+    wait(j);
+    const T* kp = ring + (size_t)(j % n_stages) * stage_elems;
+    const int t_end = min(page, n_tok - j * page);
+    for (int t0 = warp * tpw; t0 < t_end; t0 += NW * tpw) {
+      // Every row first (rows past the page's valid tokens read stale
+      // data of the stage; their sums are never written), then the dots.
+      float f[TB][EPL], v[V];
+#pragma unroll
+      for (int tb = 0; tb < TB; ++tb) {
+        const int t = min(t0 + GPW * tb + grp, page - 1);
+        load_row(kp + (size_t)t * D + EPL * li, f[tb]);
+      }
+#pragma unroll
+      for (int tb = 0; tb < TB; ++tb)
+#pragma unroll
+        for (int qi = 0; qi < QPG; ++qi)
+          v[tb * QPG + qi] = dot_row<T>(qf[qi], f[tb]);
+      // After the log2(LPT) halving exchanges over the group's lanes,
+      // lane li holds the full sums of values base .. base + V/LPT - 1.
+      int base = 0;
+      halve<V / 2, LPT / 2>(v, lane, base);
+#pragma unroll
+      for (int i = 0; i < V / LPT; ++i) {
+        const int idx = base + i, tb = idx / QPG, qi = idx % QPG;
+        const int t = t0 + GPW * tb + grp;
+        if (t < t_end) {
+          float s = __fmul_rn(v[i], scale);
+          if (soft_cap > 0.f)
+            s = __fmul_rn(soft_cap, __double2float_rn(tanh(
+                                        (double)__fdiv_rn(s, soft_cap))));
+          sc[qi * ctok + j * page + t] = s;
+        }
+      }
+    }
+    refill(j);
+  }
+  // 2. This rank's reference M = ceil(max y), y = s log2(e) in f64; then
+  // p = f32(2^(y - M)) (correctly rounded), l = sum p in f32, and p
+  // rounded to the pages' dtype in place.  Rounding commutes with the
+  // power of two 2^(M - M_slot) that takes p to the slot's reference, so
+  // every rank rounds p as the plain version does at the slot's.
+  __syncthreads();
+  for (int qi = warp; qi < QPG; qi += NW) {
+    float mx = rtt::NEG_INF;
+    for (int t = lane; t < n_tok; t += 32) mx = fmaxf(mx, sc[qi * ctok + t]);
+    mx = rtt::group_max<32>(mx);
+    const double m_ref = ceil((double)mx * LOG2E);
+    float l = 0.f;
+    for (int t = lane; t < n_tok; t += 32) {
+      float* ps = sc + qi * ctok + t;
+      const float p = __double2float_rn(exp2((double)*ps * LOG2E - m_ref));
+      l += p;
+      *ps = rtt::to_float(rtt::from_float<T>(p));
+    }
+    l = rtt::group_sum<32>(l);
+    if (lane == 0) {
+      l_loc[qi] = l;
+      m_loc[qi] = m_ref;
+    }
+  }
+  __syncthreads();
+
+  float acc[QPG][EPL];
+#pragma unroll
+  for (int qi = 0; qi < QPG; ++qi)
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[qi][e] = 0.f;
+  const int step = NW * GPW;  // tokens between a lane group's turns
+  for (int j = 0; j < n_my; ++j) {
+    const int i = n_my + j;
+    wait(i);
+    const T* vp = ring + (size_t)(i % n_stages) * stage_elems;
+    const int t_end = min(page, n_tok - j * page);
+    const float* pj = sc + j * page;
+    int t = warp * GPW + grp;
+    for (; t + step < t_end; t += 2 * step) {
+      float f[2][EPL];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        load_row(vp + (size_t)(t + u * step) * D + EPL * li, f[u]);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int qi = 0; qi < QPG; ++qi) {
+          const float p = pj[qi * ctok + t + u * step];
+#pragma unroll
+          for (int e = 0; e < EPL; ++e)
+            acc[qi][e] = fmaf(p, f[u][e], acc[qi][e]);
+        }
+    }
+    if (t < t_end) {
+      float f[EPL];
+      load_row(vp + (size_t)t * D + EPL * li, f);
+#pragma unroll
+      for (int qi = 0; qi < QPG; ++qi) {
+        const float p = pj[qi * ctok + t];
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[qi][e] = fmaf(p, f[e], acc[qi][e]);
+      }
+    }
+    refill(i);
+  }
+  // Across the warp's lane groups, then across warps (in the ring, whose
+  // copies have all landed and been read).
+#pragma unroll
+  for (int qi = 0; qi < QPG; ++qi)
+#pragma unroll
+    for (int e = 0; e < EPL; ++e)
+      for (int o = LPT; o < 32; o <<= 1)
+        acc[qi][e] += __shfl_xor_sync(0xffffffffu, acc[qi][e], o);
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_raw);  // [NW][QPG][D]
+  if (grp == 0)
+#pragma unroll
+    for (int qi = 0; qi < QPG; ++qi)
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        red[(warp * QPG + qi) * D + EPL * li + e] = acc[qi][e];
+  __syncthreads();
+
+  // 3. Every live rank's (acc, l, M) into rank 0's shared memory, once
+  // every CTA of the cluster has started; then rank 0 merges.
+  const int n_el = QPG * D;
+  hp::cluster_wait();
+  float* acc0 = cluster.map_shared_rank(acc_all, 0) + rank * n_el;
+  for (int e = tid; e < n_el; e += THREADS) {
+    float a = red[e];
+    for (int w = 1; w < NW; ++w) a += red[w * n_el + e];
+    acc0[e] = a;
+  }
+  if (tid < QPG) {
+    cluster.map_shared_rank(&l_all[0][0], 0)[rank * QPG + tid] = l_loc[tid];
+    cluster.map_shared_rank(&m_all[0][0], 0)[rank * QPG + tid] = m_loc[tid];
+  }
+  hp::cluster_arrive();
+  if (rank != 0) return;
+  hp::cluster_wait();
+
+  // 4. acc / l at the slot's reference: each rank's sums scaled by
+  // 2^(M_rank - M), exactly (so an fma rounds as the sum of the scaled
+  // term), summed in rank order (deterministic).
+  if (tid < QPG) {
+    double m = m_all[0][tid];
+    for (int r = 1; r < n_ranks; ++r) m = fmax(m, m_all[r][tid]);
+    m_tot[tid] = m;
+  }
+  __syncthreads();
+  if (tid < n_ranks * QPG) {
+    // 2^(M_rank - M) as a float (0 below 2^-126, where the terms are far
+    // below an f32 ulp of the sum).
+    const int r = tid / QPG, qi = tid % QPG;
+    const double sh = m_all[r][qi] - m_tot[qi];
+    scl[r][qi] = sh < -126.0 ? 0.f : __int_as_float(((int)sh + 127) << 23);
+  }
+  __syncthreads();
+  for (int e = tid; e < n_el; e += THREADS) {
+    const int qi = e / D;
+    float a = 0.f, l = 0.f;
+    for (int r = 0; r < n_ranks; ++r) {
+      a = __fmaf_rn(acc_all[r * n_el + e], scl[r][qi], a);
+      l = __fmaf_rn(l_all[r][qi], scl[r][qi], l);
+    }
+    orow[e] = rtt::from_float<T>(__fdiv_rn(a, l == 0.f ? 1.f : l));
+  }
+}
+
+template <typename T, int QPG, int D>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const void* block_table, const void* lengths, void* out, int B,
+           int KVH, int P, int page, int qpg, int maxp, int csize, int ppc,
+           int n_stages, float scale, float soft_cap, cudaStream_t stream) {
+  auto kernel = paged_decode_attention_hopper<T, QPG, D>;
+  const size_t smem =
+      smem_bytes((int)sizeof(T), page, D, qpg, ppc, n_stages, csize);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(csize, KVH, B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), static_cast<const int*>(block_table),
+      static_cast<const int*>(lengths), static_cast<T*>(out), P, page, maxp,
+      ppc, n_stages, scale, soft_cap);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int QPG>
+int dispatch_d(const void* q, const void* k_pages, const void* v_pages,
+               const void* block_table, const void* lengths, void* out, int B,
+               int KVH, int P, int page, int D, int maxp, int csize, int ppc,
+               int n_stages, float scale, float soft_cap, cudaStream_t s) {
+#define RTT_K13_LAUNCH(DD)                                                  \
+  launch<T, QPG, DD>(q, k_pages, v_pages, block_table, lengths, out, B, KVH, \
+                     P, page, QPG, maxp, csize, ppc, n_stages, scale,       \
+                     soft_cap, s)
+  switch (D) {
+    case 16: return RTT_K13_LAUNCH(16);
+    case 64: return RTT_K13_LAUNCH(64);
+    case 128: return RTT_K13_LAUNCH(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RTT_K13_LAUNCH
+}
+
+template <typename T>
+int dispatch_qpg(const void* q, const void* k_pages, const void* v_pages,
+                 const void* block_table, const void* lengths, void* out,
+                 int B, int KVH, int P, int page, int D, int qpg, int maxp,
+                 int csize, int ppc, int n_stages, float scale,
+                 float soft_cap, cudaStream_t s) {
+#define RTT_K13_LAUNCH(QPG)                                                 \
+  dispatch_d<T, QPG>(q, k_pages, v_pages, block_table, lengths, out, B, KVH, \
+                     P, page, D, maxp, csize, ppc, n_stages, scale,         \
+                     soft_cap, s)
+  switch (qpg) {
+    case 1: return RTT_K13_LAUNCH(1);
+    case 2: return RTT_K13_LAUNCH(2);
+    case 4: return RTT_K13_LAUNCH(4);
+    case 8: return RTT_K13_LAUNCH(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RTT_K13_LAUNCH
+}
+
+}  // namespace k13
+
+}  // namespace
+
 // K13.  dtype (of q and the pages): 0 = float32, 1 = bfloat16.  The
-// pages are one layer's [KVH, P, page, D]; the partial buffers hold
-// [ceil(maxp / pages_per_split), B, H] rows (f32, times D for part_acc);
-// out is [B, H, D] in q's dtype.  soft_cap <= 0 means none.
+// pages are one layer's [KVH, P, page, D]; out is [B, H, D] in q's
+// dtype.  qpg in {1, 2, 4, 8}, D in {16, 64, 128}; the grid is csize
+// CTAs (one cluster, csize <= 8, csize * ppc >= maxp) per (kv head,
+// slot), ppc pages each, through a ring of n_stages (<= 16) page
+// buffers.  soft_cap <= 0 means none.
 extern "C" int rtt_paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* block_table, const void* lengths, void* out, void* part_acc,
-    void* part_m, void* part_l, int dtype, int B, int KVH, int P, int page,
-    int D, int qpg, int maxp, int pages_per_split, float scale,
-    float soft_cap, void* stream) {
+    const void* block_table, const void* lengths, void* out, int dtype,
+    int B, int KVH, int P, int page, int D, int qpg, int maxp, int csize,
+    int ppc, int n_stages, float scale, float soft_cap, void* stream) {
+  if (csize < 1 || csize > k13::MAX_CLUSTER || csize * ppc < maxp ||
+      n_stages < 1 || n_stages > k13::MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
   if (dtype == 0)
-    return launch_normalised<float>(q, k_pages, v_pages, block_table, lengths,
-                                    out, pa, pm, pl, B, KVH, P, page, D, qpg,
-                                    maxp, pages_per_split, scale, soft_cap, s);
-  return launch_normalised<__nv_bfloat16>(
-      q, k_pages, v_pages, block_table, lengths, out, pa, pm, pl, B, KVH, P,
-      page, D, qpg, maxp, pages_per_split, scale, soft_cap, s);
+    return k13::dispatch_qpg<float>(q, k_pages, v_pages, block_table,
+                                    lengths, out, B, KVH, P, page, D, qpg,
+                                    maxp, csize, ppc, n_stages, scale,
+                                    soft_cap, s);
+  return k13::dispatch_qpg<__nv_bfloat16>(
+      q, k_pages, v_pages, block_table, lengths, out, B, KVH, P, page, D,
+      qpg, maxp, csize, ppc, n_stages, scale, soft_cap, s);
 }

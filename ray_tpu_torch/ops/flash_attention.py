@@ -13,8 +13,8 @@ device memory.  ``flash_attention`` goes through ``_Flash``, a
 ``torch.autograd.Function`` pairing K9f with K10 + K11, as the JAX
 package pairs its kernels in a ``custom_vjp``.  Tensors on the CPU run
 the plain versions of all three.  In bf16 at D 64 and 128 (every real
-configuration) K9f and K11 are Hopper kernels (wgmma on TMA-fed shared
-memory, csrc/hopper.cuh); f32, D 16 or 32, and K10 run mma.sync (bf16)
+configuration) K9f, K10 and K11 are Hopper kernels (wgmma on TMA-fed
+shared memory, csrc/hopper.cuh); f32 and D 16 or 32 run mma.sync (bf16)
 or FMA (f32) tiles.
 """
 

@@ -104,9 +104,9 @@ def _pages_per_split(groups: int, maxp: int, device: torch.device) -> int:
 
 def _check_k1_body(name: str, D: int, qpg: int, page: int,
                    d_multiple: int) -> None:
-    """What K1's page-split body (K1 and K13) takes: D a multiple of one
-    16-byte load's elements, at most 1024 accumulators per CTA
-    (qpg · D), and a staged page within the H100's shared memory."""
+    """What K1's page-split body takes: D a multiple of one 16-byte
+    load's elements, at most 1024 accumulators per CTA (qpg · D), and a
+    staged page within the H100's shared memory."""
     if D % d_multiple or qpg * D > _K1_THREADS * _K1_MAX_E:
         raise ValueError(f"{name}: unsupported D={D} or qpg={qpg}")
     smem = 4 * (page * (2 * D + 4) + qpg * D + qpg * page + 3 * qpg)
@@ -448,19 +448,110 @@ paged_append_quantized.launches = 0
 # K13: normalised decode attention over one layer's pages
 # --------------------------------------------------------------------------
 
+_K13_EPL = 8  # columns of a row a lane of K13 sums (csrc: k13::EPL)
+_LOG2E = 1.4426950408889634  # csrc: k13::LOG2E
+
+
+def _k13_scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q·k [B, KVH, qpg, T] in f32 from qg [B, KVH, qpg, D] and k
+    [B, KVH, T, D], summed in K13's fixed order: the products of each
+    eight consecutive columns left to right, then pairs of those partial
+    sums l and l + n/2 for n = D/8, D/16, .., 2.  Every product and sum
+    is one rounded f32 operation, so the kernel reproduces this bit for
+    bit."""
+    D = qg.shape[-1]
+    prod = qg.float()[:, :, :, None, :] * k.float()[:, :, None, :, :]
+    x = prod.reshape(*prod.shape[:-1], D // _K13_EPL, _K13_EPL)
+    s = x[..., 0]
+    for i in range(1, _K13_EPL):
+        s = s + x[..., i]
+    n = D // _K13_EPL
+    while n > 1:
+        n //= 2
+        s = s[..., :n] + s[..., n:]
+    return s[..., 0]
+
+
 def paged_decode_attention_plain(
     q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     block_table: torch.Tensor, lengths: torch.Tensor, *,
     soft_cap: Optional[float] = None,
 ) -> torch.Tensor:
-    """Plain version of K13: K1's plain partials over the pages as a
-    one-layer pool, then acc / l in q's dtype (l = 0, a slot with no
-    token, divides by 1: the row is 0).  p stays f32 for p·v, as in K1;
-    the Pallas body rounds it to v's dtype first."""
-    acc, _, l = paged_decode_attention_partial_plain(
-        q, k_pages[None], v_pages[None], 0, block_table, lengths,
-        soft_cap=soft_cap)
-    return (acc / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype)
+    """Plain version of K13 at the Pallas body's rounding points: s, m, l
+    and acc in f32, p rounded to the pages' dtype before p·v, then acc / l
+    in q's dtype (l = 0, a slot with no token, divides by 1: the row is
+    0).  p is taken against the power of two just above the slot's max,
+    p = 2^(y - M) with y = s·log2(e) and M = ceil(max y), as K13 takes it
+    (rounding commutes with a power of two, so K13's page splits, each at
+    its own M, round p exactly as here); the Pallas body takes exp(s - m)
+    at its running max m.  Either way p is within a factor 2 of the
+    other, so the two round p to within one bf16 ulp of each other.
+
+    The q·k dot is summed in K13's order (``_k13_scores``); y, exp2 and
+    tanh are taken in f64 and rounded once to f32; the soft cap divides
+    by a tensor (a Python scalar divisor on a CUDA tensor becomes a
+    product with its reciprocal).  So every f32 value up to the rounded p
+    is the kernel's, and the two round p identically."""
+    B, H, D = q.shape
+    KVH, P, page, _ = k_pages.shape
+    maxp = block_table.shape[1]
+    bt = block_table.long().clamp(0, P - 1)
+    k = k_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KVH, maxp * page, D)
+    v = v_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KVH, maxp * page, D)
+    s = _k13_scores(q.reshape(B, KVH, H // KVH, D), k) * (D ** -0.5)
+    if soft_cap is not None:
+        s = torch.tanh((s / s.new_tensor(soft_cap)).double()).float() \
+            * soft_cap
+    pos = torch.arange(maxp * page, device=q.device)
+    valid = (pos[None, :] < lengths.to(q.device).long()[:, None])
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    y = s.double() * _LOG2E
+    m_ref = torch.ceil(y.amax(dim=-1, keepdim=True))
+    p = torch.where(valid, torch.exp2(y - m_ref).float(), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bgqk,bgkd->bgqd", p.to(v_pages.dtype).float(),
+                       v.float())
+    out = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+_K13_QPG = (1, 2, 4, 8)
+_K13_HEAD_DIMS = (16, 64, 128)
+_K13_MAX_CLUSTER = 8      # the portable cluster size
+_K13_MAX_STAGES = 16
+_K13_RING_BYTES = 32 * 1024
+_K13_WARPS = 4
+
+
+def _k13_plan(B: int, KVH: int, qpg: int, D: int, page: int, maxp: int,
+              esize: int, device: torch.device) -> Tuple[int, int, int]:
+    """K13's launch: (cluster size, pages per CTA, ring stages).  A
+    (slot, kv head) splits its page axis over a cluster of up to 8 CTAs,
+    enough for about four CTAs per SM; the ring holds all of a CTA's k and
+    v pages when they fit in 32 KB, else as many as fit (at least 2): a
+    small ring leaves room for more CTAs on an SM, which paid more than
+    having every page in flight at the 8B decode shape.
+    Raises on what the kernel does not take: qpg outside {1, 2, 4, 8}, D
+    outside {16, 64, 128}, or a CTA's pages and scores beyond the H100's
+    shared memory."""
+    if qpg not in _K13_QPG or D not in _K13_HEAD_DIMS:
+        raise ValueError(f"paged_decode_attention: unsupported D={D} or "
+                         f"qpg={qpg} (D in {_K13_HEAD_DIMS}, qpg in "
+                         f"{_K13_QPG})")
+    want = -(-4 * _sm_count(device.index or 0) // max(B * KVH, 1))
+    csize = max(1, min(_K13_MAX_CLUSTER, maxp, want))
+    ppc = -(-maxp // csize)
+    csize = -(-maxp // ppc)
+    stage = page * D * esize
+    stages = max(2, min(2 * ppc, _K13_MAX_STAGES, _K13_RING_BYTES // stage))
+    smem = (max(stages * stage, 4 * _K13_WARPS * qpg * D)
+            + 4 * (qpg * ppc * page + csize * qpg * D))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"paged_decode_attention: page {page} x D {D} with {ppc} pages "
+            f"a CTA needs {smem} B of shared memory, over the H100's 227 KB")
+    return csize, ppc, stages
 
 
 def paged_decode_attention(
@@ -473,9 +564,10 @@ def paged_decode_attention(
     token, the current one included) → out [B, H, D] in q's dtype.  Page
     ids clamp to P - 1; a slot with length 0 gives 0.
 
-    CUDA tensors launch kernel K13 (csrc/paged_decode.cu: K1's page-split
-    body, then a merge that normalises); CPU tensors run the plain
-    version."""
+    CUDA tensors launch kernel K13 (csrc/paged_decode.cu,
+    ``paged_decode_attention_hopper``: one launch, a cluster of CTAs per
+    (slot, kv head) over the pages, bulk copies into shared memory);
+    CPU tensors run the plain version."""
     if not q.is_cuda:
         return paged_decode_attention_plain(q, k_pages, v_pages, block_table,
                                             lengths, soft_cap=soft_cap)
@@ -498,27 +590,22 @@ def paged_decode_attention(
             f"{tuple(k_pages.shape)}, block_table "
             f"{tuple(block_table.shape)}, lengths {tuple(lengths.shape)}")
     qpg = H // KVH
-    _check_k1_body("paged_decode_attention", D, qpg, page, 8)
     out = torch.empty_like(q)
     if B == 0:
         return out
     if maxp == 0:
         return out.zero_()
-    pps = _pages_per_split(B * KVH, maxp, q.device)
-    n_part = -(-maxp // pps)
-    part_acc = torch.empty((n_part, B, H, D), dtype=torch.float32,
-                           device=q.device)
-    part_m = torch.empty((n_part, B, H), dtype=torch.float32, device=q.device)
-    part_l = torch.empty((n_part, B, H), dtype=torch.float32, device=q.device)
+    csize, ppc, stages = _k13_plan(B, KVH, qpg, D, page, maxp,
+                                   q.element_size(), q.device)
     fn = _build.library("paged_decode").rtt_paged_decode_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-             _DTYPE_CODE[q.dtype], B, KVH, P, page, D, qpg, maxp, pps,
-             D ** -0.5, float(soft_cap) if soft_cap is not None else 0.0,
+             _DTYPE_CODE[q.dtype], B, KVH, P, page, D, qpg, maxp, csize, ppc,
+             stages, D ** -0.5,
+             float(soft_cap) if soft_cap is not None else 0.0,
              _stream_ptr(q))
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1

@@ -185,6 +185,18 @@ def test_k11_is_deterministic(dev):
         assert torch.equal(a, b)
 
 
+def test_k10_is_deterministic(dev):
+    """K10 owns its dq rows in one CTA each, with no atomics: two launches
+    give the same bits."""
+    q, k, v, do = _bench_attention(_gen(23), dev)
+    o, lse = tfa.flash_forward(q, k, v, True)
+    delta = tfa.flash_backward_delta(o, do)
+    first = tfa.flash_backward_dq(q, k, v, do, lse, delta, True)
+    second = tfa.flash_backward_dq(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_flash_forward_and_backward_are_capturable(dev):
     """K9f, then K10 and K11, captured in one CUDA graph, replay to the
     eager results (the tensor maps travel as kernel parameters)."""
@@ -955,25 +967,36 @@ def test_k12_wrapper_rejects_what_the_kernel_does_not_take(dev):
         tssd.ssd_forward(x, log_a.cpu(), Bm, Cm, 64)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("qpg,D,page", [(1, 16, 16), (2, 64, 16),
-                                        (4, 128, 64), (8, 128, 32)])
-@pytest.mark.parametrize("soft_cap", [None, 30.0])
-def test_k13_matches_plain(dev, dtype, qpg, D, page, soft_cap):
-    g = _gen(qpg * D + page + 13)
-    B, KVH, maxp = 6, 2, 5
+def _k13_inputs(dev, dtype, qpg, D, page, maxp, seed, B=6, KVH=2):
+    """q, one layer's pages, a block table with OOB ids past each slot's
+    live pages (P + 3 clamps to P - 1) and lengths 0, 1, page - 1, page,
+    page + 1 and a slot of every page (its last page partial past 5)."""
+    g = _gen(seed)
     P = B * maxp + 1
     q = torch.randn((B, KVH * qpg, D), generator=g, device=dev, dtype=dtype)
     k = torch.randn((KVH, P, page, D), generator=g, device=dev, dtype=dtype)
     v = torch.randn_like(k)
-    lens = [0, 1, page - 1, page, page + 1, maxp * page]
+    lens = [0, 1, page - 1, page, page + 1,
+            maxp * page - (3 if maxp > 5 else 0)][:B]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     perm = torch.randperm(P - 1, device=dev, generator=g).to(torch.int32)
-    # OOB ids past each slot's live pages (P + 3 clamps to P - 1).
     bt = torch.full((B, maxp), P + 3, dtype=torch.int32, device=dev)
     for b, n in enumerate(lens):
         live = -(-n // page)
         bt[b, :live] = perm[b * maxp: b * maxp + live]
+    return q, k, v, bt, lengths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qpg,D,page,maxp", [
+    (1, 16, 16, 5), (2, 64, 16, 5), (4, 128, 64, 5), (8, 128, 32, 5),
+    # A 40-page slot: a whole 8-CTA cluster of 5 pages each, more pages
+    # than the ring holds at once, and a partial last page.
+    (4, 128, 64, 40), (2, 64, 16, 40)])
+@pytest.mark.parametrize("soft_cap", [None, 30.0])
+def test_k13_matches_plain(dev, dtype, qpg, D, page, maxp, soft_cap):
+    q, k, v, bt, lengths = _k13_inputs(dev, dtype, qpg, D, page, maxp,
+                                       seed=qpg * D + page + 13)
     before = tpa.paged_decode_attention.launches
     got = tpa.paged_decode_attention(q, k, v, bt, lengths, soft_cap=soft_cap)
     want = tpa.paged_decode_attention_plain(q, k, v, bt, lengths,
@@ -984,12 +1007,55 @@ def test_k13_matches_plain(dev, dtype, qpg, D, page, soft_cap):
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=K1_TOL, rtol=K1_TOL)
     else:
-        # The same f32 arithmetic rounded to bf16 on both sides: at most
-        # one ulp of the output apart, which is at most 2^-7 |out|; 1e-5
-        # covers f32 sums in other orders near 0.
+        # The same rounding points on both sides (every f32 value up to
+        # p the same, p rounded to bf16 against the same power of two),
+        # sums in other orders: at most one ulp of the output apart, which
+        # is at most 2^-7 |out|; 1e-5 covers f32 sums in other orders
+        # near 0.
         err = (got.float() - want.float()).abs()
         limit = 2 ** -7 * want.float().abs() + 1e-5
         assert (err <= limit).all(), (err / limit).max().item()
+
+
+def test_k13_is_one_launch_without_scratch(dev):
+    """K13 is one kernel per call (torch.profiler on the card counts its
+    device kernels), and the call allocates only its output."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, bt, lengths = _k13_inputs(dev, torch.bfloat16, 4, 128, 64, 16,
+                                       seed=31, B=6, KVH=8)
+    tpa.paged_decode_attention(q, k, v, bt, lengths)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = tpa.paged_decode_attention(q, k, v, bt, lengths)
+        torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - before
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, kernels
+    assert "paged_decode_attention_hopper" in kernels[0], kernels
+    assert grown <= -(-out.numel() * out.element_size() // 512) * 512, grown
+
+
+def test_k13_is_capturable(dev):
+    """K13 captured in a CUDA graph replays to the eager bits (a fixed
+    summation order: deterministic)."""
+    q, k, v, bt, lengths = _k13_inputs(dev, torch.bfloat16, 4, 128, 64, 40,
+                                       seed=32)
+    eager = tpa.paged_decode_attention(q, k, v, bt, lengths, soft_cap=30.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpa.paged_decode_attention(q, k, v, bt, lengths, soft_cap=30.0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpa.paged_decode_attention(q, k, v, bt, lengths, soft_cap=30.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 def test_k13_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -1004,3 +1070,10 @@ def test_k13_wrapper_rejects_what_the_kernel_does_not_take(dev):
         tpa.paged_decode_attention(q, pages, pages, bt.long(), lens)
     with pytest.raises(ValueError, match="bad shapes"):
         tpa.paged_decode_attention(q[:, :3], pages, pages, bt, lens)
+    # qpg 3 and D 32 are no instantiation of K13.
+    with pytest.raises(ValueError, match="unsupported"):
+        tpa.paged_decode_attention(q[:, :3], pages[:1], pages[:1], bt, lens)
+    with pytest.raises(ValueError, match="unsupported"):
+        tpa.paged_decode_attention(torch.zeros((1, 4, 32), device=dev),
+                                   pages.new_zeros((2, 3, 8, 32)),
+                                   pages.new_zeros((2, 3, 8, 32)), bt, lens)

@@ -148,3 +148,41 @@ def test_k13_normalised_matches_jax_kernel(qpg, soft_cap):
         *args, soft_cap=soft_cap), got)
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         tpa.paged_decode_attention_tp(*args, mesh=object())
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at |x| (8 significant bits): 2^(floor(log2|x|) - 7)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126)))
+                   - 7)
+
+
+@pytest.mark.parametrize("pages,soft_cap", [(1, None), (6, 20.0)])
+def test_k13_plain_matches_jax_kernel_bf16(pages, soft_cap):
+    """K13's plain version in bf16 against the JAX Pallas kernel in
+    interpret mode, on slots of up to one and of up to six pages.  Both
+    round p to bf16 before p·v: the port at 2^(y - M), M the power of two
+    just above the slot's max, the Pallas body at exp(s - m), m its
+    running max.  So p differs by up to one bf16 ulp a term, a sum far
+    below one ulp of the row's largest output, and both then round the
+    output to bf16.  The tolerance: one bf16 ulp of the largest |output|
+    of each (slot, head) row."""
+    page = 64 if pages == 1 else 16
+    q, k, v, bt, _ = _inputs(4, seed=40, L=1, page=page, maxp=6)
+    lengths = np.asarray([0, 1, 37, 64] if pages == 1 else [0, 1, 37, 90],
+                         np.int32)
+    kp, vp = k[0], v[0]
+    P = kp.shape[1]
+    for b, n in enumerate(lengths):
+        bt[b, -(-n // page):] = P  # sentinel: clamped to P - 1, never read
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, kp, vp)]
+    want = jpa.paged_decode_attention(
+        *[jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in bf],
+        jnp.asarray(bt), jnp.asarray(lengths), soft_cap=soft_cap)
+    want = np.asarray(want.astype(jnp.float32))
+    got = tpa.paged_decode_attention(*bf, torch.from_numpy(bt),
+                                     torch.from_numpy(lengths),
+                                     soft_cap=soft_cap)
+    assert got.dtype == torch.bfloat16 and (got[0] == 0).all()
+    err = np.abs(got.float().numpy() - want)
+    limit = _bf16_ulp(np.abs(want).max(axis=-1, keepdims=True))
+    assert (err <= limit).all(), (err / limit).max()
