@@ -8,10 +8,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 1. device: torch/CUDA versions, the card's name and power limit;
 2. build: every kernel of ``ray_tpu_torch/csrc`` through ``nvcc``
    (one process per source, all started together); the Hopper kernels
-   (K9f, K10 and K11 in bf16 at D 64 and 128) must show no ptxas report
-   of serialised wgmma and, where the toolkit has ``cuobjdump``, HGMMA
-   and UTMALDG instructions in their SASS, and K13 its bulk copies
-   (UBLKCP) (counts printed);
+   (K9f, K10 and K11 in bf16 at D 64 and 128, K7/K8's WGMMA projections
+   and K4/K8's ragged attention) must show no ptxas report of serialised
+   wgmma and, where the toolkit has ``cuobjdump``, HGMMA and UTMALDG
+   instructions in their SASS, and K13 its bulk copies (UBLKCP) (counts
+   printed);
 3. kernels at LLAMA3_8B shapes (bf16, H=32, KVH=8, D=128, page 64,
    L=32): K1 paged decode partials, K2 paged append, K9f flash forward
    (then K10 and K11, phase 9; K9f and K11 also with TFLOP/s and
@@ -21,7 +22,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    function (a yardstick the port never calls), and beside its bound;
    K4 ragged paged attention and K5 ragged append at the same shapes
    (seven decode rows with pasts of 300-1500 tokens beside one
-   256-token prompt chunk at position 512: T = 264); then the int8-KV
+   256-token prompt chunk at position 512: T = 264; K4 also with only
+   the decode rows and only the chunk row, each against its own bound);
+   then the int8-KV
    kernels at the same shapes and row mixes: K1 and K4 on int8 pools
    with page scales (library yardstick: dequantise, then SDPA), and the
    quantising appends K3 and K6, whose stored bytes and scales must
@@ -60,7 +63,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    8B serving configuration): K7 and K8 on one LLAMA3_8B layer of the
    fused int8 artifact, each on bf16 and on int8 pools, held against
    their plain versions and timed beside the bound and the port's
-   unfused layer (no single library call computes a layer); cuda-vs-cpu
+   unfused layer (no single library call computes a layer), K8's
+   projection phase beside
+   the same four products as ``torch.matmul`` on the dequantised bf16
+   weights (``proj_cublas_ms``); cuda-vs-cpu
    greedy streams of a tiny f32 model with ``fused_decode=True`` on both
    engines, with f32 weights and pools and with an int8 fused artifact
    on int8 pools; then LLAMA3_8B from ``init_quantized_llama`` +
@@ -174,10 +180,18 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-# The libraries holding the Hopper kernels (K9f, K10 and K11 in bf16 at D
-# 64 and 128), whose names carry "wgmma", and the kernels each must hold.
-HOPPER_KERNELS = {"flash_fwd": ("flash_fwd_wgmma",),
-                  "flash_bwd": ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")}
+# The libraries holding the Hopper kernels: the names that pick a
+# library's Hopper functions out of its SASS, and the kernels it must hold
+# (K9f, K10 and K11 in bf16 at D 64 and 128; K7/K8's WGMMA projections;
+# K4/K8's ragged attention).
+HOPPER_KERNELS = {
+    "flash_fwd": (("wgmma",), ("flash_fwd_wgmma",)),
+    "flash_bwd": (("wgmma",), ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")),
+    "fused_decode": (("proj_wgmma",), ("proj_wgmma",)),
+    "fused_ragged": (("proj_wgmma", "attention_hopper"),
+                     ("proj_wgmma", "attention_hopper")),
+    "ragged_attention": (("attention_hopper",), ("attention_hopper",)),
+}
 # K13's kernel, which copies its pages with cp.async.bulk (UBLKCP).
 K13_KERNEL = ("paged_decode", "paged_decode_attention_hopper")
 
@@ -194,9 +208,10 @@ def _cuobjdump(_build):
     return cand if os.path.exists(cand) else None
 
 
-def _sass_counts(tool, _build, lib, name_part, ops) -> dict:
-    """Per function of csrc/<lib>.cu whose name holds ``name_part``: the
-    number of SASS lines holding each opcode of ``ops``."""
+def _sass_counts(tool, _build, lib, name_parts, ops) -> dict:
+    """Per function of csrc/<lib>.cu whose name holds one of
+    ``name_parts``: the number of SASS lines holding each opcode of
+    ``ops``."""
     sass = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
@@ -204,7 +219,8 @@ def _sass_counts(tool, _build, lib, name_part, ops) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if name_part in m.group(1) else None
+            fn = m.group(1) if any(part in m.group(1)
+                                   for part in name_parts) else None
             if fn:
                 out[fn] = {"lib": lib, **{op: 0 for op in ops}}
         elif fn:
@@ -215,10 +231,11 @@ def _sass_counts(tool, _build, lib, name_part, ops) -> dict:
 
 def hopper_check(_build) -> dict:
     """The Hopper kernels run wgmma on TMA-fed shared memory: in the SASS
-    of each one (K9f, K10, K11), HGMMA (warpgroup MMA) and UTMALDG (TMA
-    tile load) counts above 0, and no ptxas report of serialised wgmma in
-    their builds; K13's kernel copies its pages with UBLKCP (bulk copies).
-    Fails otherwise; without cuobjdump the SASS counts are not taken."""
+    of each one (K9f, K10, K11, K7/K8's projections, K4/K8's ragged
+    attention), HGMMA (warpgroup MMA) and UTMALDG (TMA tile load) counts
+    above 0, and no ptxas report of serialised wgmma in their builds;
+    K13's kernel copies its pages with UBLKCP (bulk copies).  Fails
+    otherwise; without cuobjdump the SASS counts are not taken."""
     out = {}
     for lib in HOPPER_KERNELS:
         for line in _build.build_logs.get(lib, "").splitlines():
@@ -229,22 +246,23 @@ def hopper_check(_build) -> dict:
     if tool is None:
         log("hopper kernels: no cuobjdump here, SASS not counted")
         return {"sass": "not measured (no cuobjdump)"}
-    for lib in HOPPER_KERNELS:
-        found = _sass_counts(tool, _build, lib, "wgmma", ("HGMMA", "UTMALDG"))
-        out.update(found)
-        missing = [k for k in HOPPER_KERNELS[lib]
-                   if not any(k in f for f in found)]
+    for lib, (parts, required) in HOPPER_KERNELS.items():
+        found = _sass_counts(tool, _build, lib, parts, ("HGMMA", "UTMALDG"))
+        out.update({f"{lib}:{f}": c for f, c in found.items()})
+        missing = [k for k in required if not any(k in f for f in found)]
         if missing or any(c[op] == 0 for c in found.values()
                           for op in ("HGMMA", "UTMALDG")):
             raise AssertionError(f"csrc/{lib}.cu: Hopper kernels missing "
                                  f"({missing}) or without wgmma or TMA "
                                  f"loads in their SASS: {found}")
     for f, c in out.items():
-        short = re.search(r"hk\d+(\w+?)ILi(\d+)E", f)
+        short = re.search(r"hk\d+(\w+?)ILi(\d+)E", f) or re.search(
+            r"(proj_wgmma|attention_hopper)I(\w+?)EEv", f)
         name = f"{short.group(1)}<{short.group(2)}>" if short else f[:60]
-        log(f"  SASS {name}: HGMMA {c['HGMMA']}  UTMALDG {c['UTMALDG']}")
+        log(f"  SASS {c['lib']} {name}: HGMMA {c['HGMMA']}  "
+            f"UTMALDG {c['UTMALDG']}")
     lib, part = K13_KERNEL
-    k13 = _sass_counts(tool, _build, lib, part, ("UBLKCP",))
+    k13 = _sass_counts(tool, _build, lib, (part,), ("UBLKCP",))
     if not k13 or any(c["UBLKCP"] == 0 for c in k13.values()):
         raise AssertionError(f"csrc/{lib}.cu: K13 without bulk copies "
                              f"(UBLKCP) in its SASS: {k13}")
@@ -558,6 +576,22 @@ def ragged_inputs(torch, L=32, H=32, KVH=8, D=128, page=64, maxp=32,
     return k, v, q, kn, vn, rows, bt.to(dev)
 
 
+def k4_work(rows, H, KVH, D, page, int8, bt_elems):
+    """K4's bound terms for ``rows`` [(start, len)]: bytes of q, the
+    fresh k/v and the pooled past (with its pages' scales, for int8) read
+    once, the f32 output written once, the block table and the row
+    descriptors; operations of q.k and p.v over every attended key."""
+    n = sum(n for _, n in rows)
+    past = sum(s for s, _ in rows)
+    past_pages = sum(-(-s // page) for s, _ in rows)
+    attended = sum(n * s + n * (n + 1) // 2 for s, n in rows)
+    past_bytes = 2 * past * KVH * D * (1 if int8 else 2) \
+        + (2 * past_pages * KVH * 4 if int8 else 0)
+    nbytes = (n * H * D * 2 + 2 * n * KVH * D * 2 + past_bytes
+              + n * H * D * 4 + bt_elems * 4 + 4 * len(RAGGED_ROWS) * 4)
+    return nbytes, 4 * attended * H * D
+
+
 def kernel_phase_k4(torch, F, trpa, report, int8=False):
     L, H, KVH, D = 32, 32, 8, 128
     k, v, q, kn, vn, rows, bt = ragged_inputs(torch)
@@ -578,8 +612,9 @@ def kernel_phase_k4(torch, F, trpa, report, int8=False):
         err = max(err, (got - want).abs().max().item())
         if got[covered:].any():
             raise AssertionError(f"{tag}: tokens no row covers must be zero")
-    # f32 arithmetic on exactly converted bf16 (or int8) inputs in both
-    # versions: only the summation order differs (int8: the plain version
+    # The Hopper kernel: bf16 q and bf16 (or int8) pages are exact in
+    # bf16 and the products sum in f32; p goes to P.V split hi + lo (2^-17
+    # of p dropped); the plain version is f32 throughout (int8: it
     # dequantises first, the kernel scales the score).
     if err > 1e-3:
         raise AssertionError(f"{tag} disagrees with its plain version: "
@@ -640,18 +675,26 @@ def kernel_phase_k4(torch, F, trpa, report, int8=False):
             qd, *(t.repeat_interleave(rep, dim=1) for t in dense(i)),
             attn_mask=mask)
     library_ms = time_ms(torch, lib)
-    # Bytes: q, fresh k/v and the pooled past (with the scales of its
-    # pages, for int8) each read once, f32 out written once; operations:
-    # q.k and p.v over every attended key.
-    past = sum(s for s, _ in RAGGED_ROWS)
-    past_pages = sum(-(-s // page) for s, _ in RAGGED_ROWS)
-    attended = sum(n * s + n * (n + 1) // 2 for s, n in RAGGED_ROWS)
-    past_bytes = 2 * past * KVH * D * (1 if int8 else 2) \
-        + (2 * past_pages * KVH * 4 if int8 else 0)
-    nbytes = (T * H * D * 2 + 2 * T * KVH * D * 2 + past_bytes
-              + T * H * D * 4 + bt.numel() * 4 + 4 * R * 4)
-    flops = 4 * attended * H * D
+    nbytes, flops = k4_work(RAGGED_ROWS, H, KVH, D, page, int8,
+                            bt.numel())
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    # The mix's two kinds of rows alone (the others set to length 0):
+    # the decode rows' past walks, and the chunk row's tensor-core work.
+    parts = {}
+    for part, keep in (("decode_rows", lambda n: n == 1),
+                       ("chunk_row", lambda n: n > 1)):
+        sub = [(s_, n) for s_, n in RAGGED_ROWS if keep(n)]
+        lens = torch.tensor([n if keep(n) else 0 for _, n in RAGGED_ROWS],
+                            dtype=torch.int32, device=q.device)
+        sub_rows = [rows[0], rows[1], lens, rows[3]]
+        part_ms = time_ms(torch, lambda i: trpa.ragged_paged_attention(
+            q, kn, vn, k, v, i % L, *sub_rows, bt, **scales))
+        pb, pf = k4_work(sub, H, KVH, D, page, int8, bt.numel())
+        p_ms, p_by = bound(pb, pf, BF16_FLOPS)
+        parts[part] = {"ms": part_ms, "bound_ms": p_ms, "bound_by": p_by,
+                       "rows": sub}
+        log(f"  {tag} {part} alone: {part_ms:.4f} ms  bound {p_ms:.5f} ms "
+            f"({p_by})")
     report["K4i8" if int8 else "K4"] = {
         "name": "ragged_paged_attention"
                 + (" (int8 pools)" if int8 else ""), "route": "cuda",
@@ -662,7 +705,7 @@ def kernel_phase_k4(torch, F, trpa, report, int8=False):
         "shape": f"T={T} H={H} KVH={KVH} D={D} page={page} q bf16, pools "
                  f"{'int8 + f32 page scales' if int8 else 'bf16'}, rows "
                  f"(start, len) {RAGGED_ROWS}, layer cycling over L={L}",
-        "bound_bytes": nbytes, "bound_flops": flops,
+        "bound_bytes": nbytes, "bound_flops": flops, "parts": parts,
     }
     log(f"{tag} ragged_paged_attention: err {err:.3e}  kernel {ms:.4f} ms  "
         f"plain {plain_ms:.4f} ms  {'dequantise + ' if int8 else ''}SDPA "
@@ -1740,6 +1783,40 @@ def _layer_flops(T, D, H, KVH, hd, M):
     return 2 * T * (D * (H + 2 * KVH) * hd + H * hd * D + D * 2 * M + M * D)
 
 
+def projection_yardstick(torch, llama, layer, phases, T, cfg) -> dict:
+    """The fused layer's projection phase (its WGMMA launches, from the
+    profile ``phases``) beside a yardstick: the four projections as
+    ``torch.matmul`` on the same weights dequantised to bf16, on T random
+    bf16 rows (``proj_cublas_ms``, a cuBLAS call the port never makes),
+    each with its TFLOP/s."""
+    D, H, KVH, hd, M = (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                        cfg.mlp_dim)
+    lay = llama._deq_layer(layer, torch.bfloat16)
+    ws = [lay["attn"]["wqkv"].reshape(D, -1),
+          lay["attn"]["wo"].reshape(H * hd, D),
+          lay["mlp"]["w_gateup"].reshape(D, -1),
+          lay["mlp"]["w_down"].reshape(M, D)]
+    g = torch.Generator(device="cuda").manual_seed(28)
+    acts = [torch.randn((T, w.shape[0]), generator=g, device="cuda")
+            .to(torch.bfloat16) for w in ws]
+    cublas_ms = time_ms(torch, lambda i: [a @ w for a, w in zip(acts, ws)])
+    flops = _layer_flops(T, D, H, KVH, hd, M)
+    out = {"proj_cublas_ms": cublas_ms,
+           "proj_cublas_tflops": flops / cublas_ms / 1e9,
+           "proj_flops": flops}
+    if "error" not in phases:
+        proj_ms = sum(v for k_, v in phases.items() if "proj_wgmma" in k_)
+        out["proj_ms"] = proj_ms or None
+        out["proj_tflops"] = flops / proj_ms / 1e9 if proj_ms else None
+        out["attn_ms"] = sum(v for k_, v in phases.items()
+                             if "attention" in k_) or None
+    log(f"  projections: {out.get('proj_ms')} ms "
+        f"({out.get('proj_tflops')} TFLOP/s); torch.matmul on the "
+        f"dequantised bf16 weights {cublas_ms:.4f} ms "
+        f"({out['proj_cublas_tflops']:.1f} TFLOP/s)")
+    return out
+
+
 def kernel_phase_k7(torch, llama, quant, tfd, tpa, report, int8=False):
     """K7 at the bench's bucketed shape: 48 slots with 128-160 past
     tokens, page 64, one LLAMA3_8B layer of the fused int8 artifact."""
@@ -1851,6 +1928,7 @@ def kernel_phase_k8(torch, llama, quant, trpa, report, int8=False):
         n=5, blocks=3)
     phases = kernel_breakdown(torch, lambda: trpa.fused_ragged_layer(
         x, layer, k, v, 0, *rows, bt, sin, cos, **kw))
+    proj = projection_yardstick(torch, llama, layer, phases, T, cfg)
     past = sum(s for s, _ in RAGGED_ROWS)
     past_pages = sum(-(-s // page) for s, _ in RAGGED_ROWS)
     attended = sum(n * s + n * (n + 1) // 2 for s, n in RAGGED_ROWS)
@@ -1873,7 +1951,7 @@ def kernel_phase_k8(torch, llama, quant, trpa, report, int8=False):
                  f"pools {'int8 + f32 page scales' if int8 else 'bf16'}, "
                  f"rows (start, len) {RAGGED_ROWS}",
         "bound_bytes": nbytes, "bound_flops": flops,
-        "phase_ms": phases,
+        "phase_ms": phases, **proj,
     }
     log(f"{tag} fused_ragged_layer: err {err:.3e}  kernel {ms:.4f} ms  plain "
         f"{plain_ms:.4f} ms  no single library call (unfused layer, eager "

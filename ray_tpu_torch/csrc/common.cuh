@@ -106,6 +106,27 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return r;
 }
 
+// Eight int8 values (two words, low bytes first) as eight bf16, exact,
+// without the quarter-rate int-to-float conversions: each byte, its sign
+// bit flipped (x + 128), becomes the low byte of the f32 2^23 + x + 128,
+// minus 2^23 + 128; |x| <= 128 has at most 8 significant bits, so the
+// f32's high half is its bf16.
+__device__ __forceinline__ uint4 int8x8_to_bf16(uint32_t lo, uint32_t hi) {
+  const uint32_t w[2] = {lo ^ 0x80808080u, hi ^ 0x80808080u};
+  uint32_t out[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t x = w[i >> 1];
+    const float a = __uint_as_float(
+        __byte_perm(x, 0x4B000000u, 0x7440u | (2 * (i & 1)))) - 8388736.f;
+    const float b = __uint_as_float(
+        __byte_perm(x, 0x4B000000u, 0x7440u | (2 * (i & 1) + 1))) -
+                    8388736.f;
+    out[i] = __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632u);
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);

@@ -12,8 +12,10 @@
 //
 // What bounds it on the H100: at decode widths (B = 8 to 48) the weight
 // bytes of the layer (218 MB of int8 at LLAMA3_8B) plus the live pages.
-// The phases are the chain of fused_layer.cuh; this file holds the
-// attention phase and the C entry.
+// The phases are the chain of fused_layer.cuh (the projections on its
+// WGMMA route wherever the wrapper can take it); this file holds the
+// attention phase and the C entry.  The attention output ao is rounded to
+// the activation dtype as it is stored (the o-projection's operand).
 //
 // Attention: one CTA of 128 threads per (slot, kv head) walks the slot's
 // live pages (ceil(len / page), none for an empty slot), staging each
@@ -39,7 +41,7 @@ __global__ void __launch_bounds__(A_THREADS) decode_attn_kernel(
     const TA* __restrict__ v_new, const TP* __restrict__ k_pools,
     const TP* __restrict__ v_pools, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ bt,
-    const int* __restrict__ lengths, float* __restrict__ ao, int KVH,
+    const int* __restrict__ lengths, TA* __restrict__ ao, int KVH,
     int qpg, int hd, int P, int page, int maxp, int layer, float scale,
     float soft_cap) {
   extern __shared__ float4 smem4[];
@@ -173,11 +175,12 @@ __global__ void __launch_bounds__(A_THREADS) decode_attn_kernel(
     }
   }
   __syncthreads();
-  float* out = ao + (size_t)b * H * hd + (size_t)g * nq;
+  TA* out = ao + (size_t)b * H * hd + (size_t)g * nq;
   for (int i = tid; i < nq; i += A_THREADS) {
     const int qi = i / hd, d = i % hd;
-    out[i] = (acc_s[i] * o_s[qi] + o_s[qpg + qi] * rtt::to_float(vn[d])) /
-             o_s[2 * qpg + qi];
+    out[i] = rtt::from_float<TA>(
+        (acc_s[i] * o_s[qi] + o_s[qpg + qi] * rtt::to_float(vn[d])) /
+        o_s[2 * qpg + qi]);
   }
 }
 
@@ -196,7 +199,8 @@ int launch_attn(const LayerArgs& A, cudaStream_t st) {
           A.qkv_buf, (A.H + 2 * A.KVH) * A.hd,
           static_cast<const TA*>(A.k_new), static_cast<const TA*>(A.v_new),
           static_cast<const TP*>(A.k_pools), static_cast<const TP*>(A.v_pools),
-          A.k_scales, A.v_scales, A.block_tables, A.lengths, A.ao, A.KVH, qpg,
+          A.k_scales, A.v_scales, A.block_tables, A.lengths,
+          static_cast<TA*>(A.ao), A.KVH, qpg,
           A.hd, A.P, A.page, A.maxp, A.layer, A.scale, A.soft_cap);
   return (int)cudaGetLastError();
 }

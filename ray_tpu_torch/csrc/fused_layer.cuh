@@ -14,38 +14,60 @@
 //   4. RMSNorm, then the gate/up projection and SiLU(gate) * up;
 //   5. the down projection and the second residual add.
 //
-// Phase buffers are f32 (the Pallas kernels' VMEM scratch): xn [rows, D],
-// qkv [rows, Cq], ao [rows, H*hd], h [rows, D], act [rows, M], and the
-// split-K partial sums of the projections.
+// Phase buffers (the Pallas kernels' VMEM scratch): qkv [rows, Cq] and
+// h [rows, D] in f32; the projections' activations xn [rows, D], ao
+// [rows, H*hd] and act [rows, M] in the activation dtype, rounded once
+// where they are written (the Pallas kernels round them to the dot dtype
+// as each projection reads them: the same values); and the CUDA-core
+// route's f32 partial sums.
 //
 // Rounding follows the Pallas kernels, not the unfused path: the norm is
-// f32 to the end; a projection rounds its f32 activation and its weight
-// to the activation dtype (exact for int8 weights), accumulates in f32
-// and multiplies the RESULT by the per-column scale; qkv, ao and h stay
-// f32; only x_out, k_new and v_new are rounded.
+// f32 to the end; a projection takes its activation and its weight in the
+// activation dtype (exact for int8 weights), accumulates in f32 and
+// multiplies the RESULT by the per-column scale; qkv and h stay f32; only
+// the activations, x_out, k_new and v_new are rounded.
 //
 // Projections (what bounds them: at decode widths the weight bytes, at
 // the ragged step's 264 rows the operations): weights are read in place,
 // row-major [K, cols], int8, bf16 or f32, one f32 scale per output column
 // (or per column of one head, tiled across heads).  Separate q/k/v or
 // gate/up leaves are up to three column segments of one projection, never
-// concatenated.  With bf16 activations (the serving dtype) a CTA of 8
-// warps owns a 64-row x 128-column output tile on the tensor cores
-// (mma.sync m16n8k16, bf16 operands, f32 accumulators), its K steps of
-// 32 landing raw in a cp.async ring of shared memory and converted to
-// bf16 in the fragments (exact for int8 weights).  With f32
-// activations (exact f32 products, as the reference's f32 dots) a CTA of
-// 128 threads owns 512 consecutive output columns (4 per thread, so a
-// warp's weight loads are consecutive addresses) and 16 activation rows
-// held in registers, on the CUDA cores.  Either way the K axis is split
-// across CTAs until about two CTAs per SM are in flight, and the partial
-// sums go to an f32 buffer that the epilogue kernel sums in a fixed order
-// (deterministic) before the scale, the residual or SiLU.
+// concatenated.  Two routes (Proj::route, chosen by the wrapper):
+//
+//  - WGMMA (bf16 activations, int8 or bf16 weights, segments of 64-column
+//    multiples; the serving path): the product is swapped, out^T = W^T .
+//    x^T, so 64 output columns are wgmma's M and the tokens its N (up to
+//    2 x 136), and every token of the call shares each weight byte: each
+//    weight byte leaves HBM once per call (once per 272 tokens past
+//    that).  A CTA of 3 warpgroups owns 128 output columns (SwiGLU: 64
+//    gate columns and the same 64 up columns) of every token: one thread
+//    of the first issues TMA loads of 64-row K steps (the tokens' bf16
+//    activations and the weight tiles) into a ring, and each of the two
+//    consumer warpgroups converts its int8 weight tile to bf16 in the
+//    128-byte swizzle (bf16 weights land there directly) while its
+//    previous step's products run, then issues wgmma with A MN-major (the
+//    weight tile) and B K-major (the activations).  K splits across a
+//    cluster of up to 8 CTAs: each CTA puts its f32 sums in its own shared
+//    memory, and after a cluster barrier each CTA sums its share of the
+//    tile over the ranks in rank order (distributed shared memory;
+//    deterministic) and runs the epilogue there: scale, residual, SwiGLU,
+//    rounding.
+//  - CUDA_CORES (f32 activations: exact f32 products, as the reference's
+//    f32 dots; and bf16 activations with f32 weights or segments off 64
+//    columns, as tiny test models have): a CTA of 128 threads owns 512
+//    consecutive output columns (4 per thread) and 16 activation rows in
+//    registers, rounding its operands to the activation dtype.  K splits
+//    across CTAs until about two CTAs per SM are in flight, and the
+//    partial sums go to an f32 buffer that the epilogue kernel sums in a
+//    fixed order (deterministic) before the scale, the residual or SiLU.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace rtt {
 namespace fused {
@@ -65,13 +87,20 @@ struct Seg {
   int period;
 };
 
+// How a projection runs (Proj::route).
+enum Route { CUDA_CORES = 0, WGMMA = 1 };
+
 struct Proj {
   Seg seg[MAX_SEGS];
   int nseg;
   int wtype;   // TypeCode of every segment's weight
   int cols;    // sum of the segments' cols
-  int splits;  // K splits asked for (the plan may take fewer)
-  int mma;     // bf16 activations: tensor-core tiles (16-byte aligned rows)
+  int splits;  // K splits (WGMMA: the cluster size; CUDA_CORES: asked
+               // for, the plan may take fewer)
+  int route;   // Route
+  int nw, nc;  // WGMMA: tokens of one wgmma (its N) and wgmmas per tile
+  int kps;     // WGMMA: K per split, a multiple of 64
+  int stages;  // WGMMA: ring stages
 };
 
 // Everything one fused layer call needs (mirrored by a ctypes Structure
@@ -80,6 +109,7 @@ struct LayerArgs {
   int rows, D, H, KVH, hd, M;
   int act_type, ln_type, pool_type;
   int L, P, page, maxp, layer, R, tq;
+  int attn_cluster, attn_slots;  // K8, bf16: the Hopper attention's plan
   float scale, soft_cap, eps;
   const void* x;
   const void* ln_a;
@@ -97,12 +127,12 @@ struct LayerArgs {
   const int* row_start;
   const int* row_len;
   const int* row_off;
-  float* xn;
+  void* xn;  // activations in the activation dtype: xn, ao, act
   float* part;
   float* qkv_buf;
-  float* ao;
+  void* ao;
   float* h;
-  float* act;
+  void* act;
   void* x_out;
   void* k_new;
   void* v_new;
@@ -167,14 +197,16 @@ __device__ __forceinline__ float capped(float s, float soft_cap) {
 }
 
 // ---------------------------------------------------------------------------
-// RMSNorm: out = (x * 1/sqrt(mean(x^2) + eps)) * ln, all f32; one CTA/row
+// RMSNorm: out = (x * 1/sqrt(mean(x^2) + eps)) * ln, in f32, rounded to
+// the activation dtype TA on the store; one CTA a row
 // ---------------------------------------------------------------------------
 
 constexpr int NORM_THREADS = 256;
 
+template <typename TA>
 __global__ void __launch_bounds__(NORM_THREADS) rmsnorm_kernel(
     const void* __restrict__ x, int x_type, const void* __restrict__ ln,
-    int ln_type, int D, float eps, float* __restrict__ out) {
+    int ln_type, int D, float eps, TA* __restrict__ out) {
   __shared__ float red[32];
   const size_t row = blockIdx.x;
   float ss = 0.f;
@@ -185,9 +217,9 @@ __global__ void __launch_bounds__(NORM_THREADS) rmsnorm_kernel(
   ss = block_sum(ss, red);
   const float r = 1.f / sqrtf(ss / (float)D + eps);
   for (int i = threadIdx.x; i < D; i += NORM_THREADS)
-    out[row * D + i] =
+    out[row * D + i] = from_float<TA>(
         __fmul_rn(__fmul_rn(load_any(x, x_type, row * D + i), r),
-                  load_any(ln, ln_type, i));
+                  load_any(ln, ln_type, i)));
 }
 
 // ---------------------------------------------------------------------------
@@ -212,7 +244,7 @@ __host__ __device__ __forceinline__ int split_count(int K, int want) {
 
 template <typename TA, typename TW>
 __global__ void __launch_bounds__(G_THREADS) gemv_part_kernel(
-    const float* __restrict__ a, int rows, int K, Proj pj, int kps,
+    const TA* __restrict__ a, int rows, int K, Proj pj, int kps,
     float* __restrict__ part) {
   __shared__ __align__(16) float a_s[G_KC][G_RT];
   const int r0 = blockIdx.x * G_RT;
@@ -241,8 +273,8 @@ __global__ void __launch_bounds__(G_THREADS) gemv_part_kernel(
     for (int i = threadIdx.x; i < G_KC * G_RT; i += G_THREADS) {
       const int r = i / G_KC, kk = i % G_KC;
       const int row = r0 + r, k = kc + kk;
-      const float v = (row < rows && k < k1) ? a[(size_t)row * K + k] : 0.f;
-      a_s[kk][r] = round_to<TA>(v);
+      a_s[kk][r] = (row < rows && k < k1) ? to_float(a[(size_t)row * K + k])
+                                          : 0.f;
     }
     __syncthreads();
     if (w != nullptr) {
@@ -281,188 +313,6 @@ __global__ void __launch_bounds__(G_THREADS) gemv_part_kernel(
   }
 }
 
-// Tensor-core tiles for bf16 activations.
-constexpr int M_THREADS = 256;   // 8 warps: 2 (rows) x 4 (columns)
-constexpr int M_ROWS = 64;
-constexpr int M_COLS = 128;
-constexpr int M_KC = 32;
-constexpr int M_STAGES = 3;      // cp.async ring: two K steps in flight
-constexpr int M_LDA = M_KC + 8;  // f32 activation row, padded (floats)
-
-// Bytes of one weight row of a stage, padded by 16 so that the B-fragment
-// loads of a warp fall in distinct banks or share a word.
-template <typename TW>
-__host__ __device__ constexpr int m_ldw_bytes() {
-  return M_COLS * (int)sizeof(TW) + 16;
-}
-
-template <typename TW>
-__host__ __device__ constexpr int mma_smem_bytes() {
-  return M_STAGES * (M_ROWS * M_LDA * 4 + M_KC * m_ldw_bytes<TW>());
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes 0 fills zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float w_to_float(float x) { return x; }
-__device__ __forceinline__ float w_to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float w_to_float(int8_t x) { return (float)x; }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo: low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A 64-row x 128-column output tile on the tensor cores.  Each K step of
-// 32 lands raw (f32 activations, int8/bf16/f32 weights) in a 3-stage ring
-// of shared memory through cp.async, so two steps' loads are in flight
-// while one is multiplied; the fragments convert to bf16 on their way to
-// the mma (round to nearest even: the activation's and an f32 weight's
-// rounding to the dot dtype; exact for int8 and bf16 weights).
-template <typename TW>
-__global__ void __launch_bounds__(M_THREADS) mma_part_kernel(
-    const float* __restrict__ a, int rows, int K, Proj pj, int kps,
-    float* __restrict__ part) {
-  extern __shared__ float4 mma_smem4[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(mma_smem4);
-  constexpr int LDW = m_ldw_bytes<TW>();
-  constexpr int A_BYTES = M_ROWS * M_LDA * 4;
-  constexpr int STAGE = A_BYTES + M_KC * LDW;
-  constexpr int N = 16 / (int)sizeof(TW);   // weights per 16-byte copy
-  constexpr int CPR = M_COLS / N;           // copies per weight row
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = warp >> 2, wc = warp & 3;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int r0 = blockIdx.x * M_ROWS, c0 = blockIdx.y * M_COLS;
-  const int k0 = blockIdx.z * kps;
-  const int k1 = min(K, k0 + kps);
-  const int nsteps = (k1 - k0 + M_KC - 1) / M_KC;
-
-  auto load_stage = [&](int slot, int kc) {
-    float* a_st = reinterpret_cast<float*>(smem + slot * STAGE);
-    unsigned char* w_st = smem + slot * STAGE + A_BYTES;
-    for (int i = tid; i < M_ROWS * (M_KC / 4); i += M_THREADS) {
-      const int r = i / (M_KC / 4), c4 = (i % (M_KC / 4)) * 4;
-      const int row = r0 + r, k = kc + c4;
-      const bool ok = row < rows && k < k1;
-      cp_async16(a_st + r * M_LDA + c4, ok ? a + (size_t)row * K + k : a,
-                 ok ? 16 : 0);
-    }
-    for (int i = tid; i < M_KC * CPR; i += M_THREADS) {
-      const int kk = i / CPR, cc = (i % CPR) * N;
-      const int k = kc + kk, c = c0 + cc;
-      const TW* src = nullptr;
-      if (k < k1) {
-        for (int s = 0, base = 0; s < pj.nseg; ++s) {
-          if (c >= base && c < base + pj.seg[s].cols)
-            src = static_cast<const TW*>(pj.seg[s].w) +
-                  (size_t)k * pj.seg[s].cols + (c - base);
-          base += pj.seg[s].cols;
-        }
-      }
-      cp_async16(w_st + kk * LDW + cc * (int)sizeof(TW),
-                 src != nullptr ? (const void*)src : (const void*)a,
-                 src != nullptr ? 16 : 0);
-    }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-
-#pragma unroll
-  for (int st = 0; st < M_STAGES - 1; ++st) {
-    if (st < nsteps) load_stage(st, k0 + st * M_KC);
-    cp_async_commit();
-  }
-  for (int step = 0; step < nsteps; ++step) {
-    cp_async_wait<M_STAGES - 2>();  // this step's stage has landed
-    __syncthreads();                // and every warp is done with the last
-    const int nxt = step + M_STAGES - 1;
-    if (nxt < nsteps) load_stage(nxt % M_STAGES, k0 + nxt * M_KC);
-    cp_async_commit();
-    const int slot = step % M_STAGES;
-    const float* a_st = reinterpret_cast<const float*>(smem + slot * STAGE);
-    const TW* w_st = reinterpret_cast<const TW*>(smem + slot * STAGE +
-                                                 A_BYTES);
-    constexpr int LDWE = LDW / (int)sizeof(TW);  // weight row in elements
-#pragma unroll
-    for (int ks = 0; ks < M_KC; ks += 16) {
-      const int kf = ks + tig * 2;
-      uint32_t af[2][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* ar = a_st + (wr * 32 + mi * 16 + gid) * M_LDA + kf;
-        const float2 x0 = *reinterpret_cast<const float2*>(ar);
-        const float2 x1 = *reinterpret_cast<const float2*>(ar + 8 * M_LDA);
-        const float2 x2 = *reinterpret_cast<const float2*>(ar + 8);
-        const float2 x3 =
-            *reinterpret_cast<const float2*>(ar + 8 * M_LDA + 8);
-        af[mi][0] = pack_bf16(x0.x, x0.y);
-        af[mi][1] = pack_bf16(x1.x, x1.y);
-        af[mi][2] = pack_bf16(x2.x, x2.y);
-        af[mi][3] = pack_bf16(x3.x, x3.y);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        // B fragment: rows k = kf, kf + 1 (and + 8) of column col.
-        const TW* wcol = w_st + kf * LDWE + wc * 32 + ni * 8 + gid;
-        bf[ni][0] = pack_bf16(w_to_float(wcol[0]), w_to_float(wcol[LDWE]));
-        bf[ni][1] = pack_bf16(w_to_float(wcol[8 * LDWE]),
-                              w_to_float(wcol[9 * LDWE]));
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni]);
-    }
-  }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int row = r0 + wr * 32 + mi * 16 + gid;
-      const int col = c0 + wc * 32 + ni * 8 + tig * 2;
-      if (col >= pj.cols) continue;
-      float* dst = part + ((size_t)blockIdx.z * rows + row) * pj.cols + col;
-      if (row < rows)
-        *reinterpret_cast<float2*>(dst) =
-            make_float2(acc[mi][ni][0], acc[mi][ni][1]);
-      if (row + 8 < rows)
-        *reinterpret_cast<float2*>(dst + 8 * (size_t)pj.cols) =
-            make_float2(acc[mi][ni][2], acc[mi][ni][3]);
-    }
-  }
-}
-
 __device__ __forceinline__ float seg_scale(const Proj& pj, int c) {
   for (int s = 0, base = 0; s < pj.nseg; ++s) {
     if (c < base + pj.seg[s].cols) {
@@ -474,9 +324,45 @@ __device__ __forceinline__ float seg_scale(const Proj& pj, int c) {
   return 1.f;
 }
 
-// Sum the splits, then: STORE out = y * scale; RESID out = x + y * scale
-// (x in TA); OUT out_t = round(h + y * scale) (h f32); SWIGLU (columns
-// [gate | up]) out = silu(g * sg) * (u * su).
+// The residual an epilogue adds at idx: x (TA) for RESID, h (f32) for
+// OUT, none otherwise.
+template <typename TA>
+__device__ __forceinline__ float resid_at(int mode, const void* resid,
+                                          size_t idx) {
+  if (mode == EPI_RESID) return to_float(static_cast<const TA*>(resid)[idx]);
+  if (mode == EPI_OUT) return static_cast<const float*>(resid)[idx];
+  return 0.f;
+}
+
+// One output element of a projection from its summed column y (and, for
+// SWIGLU, u), their column scales sy, su and the residual r: STORE out_f
+// = y * sy; RESID out_f = x + y * sy; OUT out_t = round(h + y * sy);
+// SWIGLU (columns [gate | up]) out_t = round(silu(g * sg) * (u * su)).
+// idx indexes the output row-major.  FAST takes the sigmoid from the
+// special-function unit's exp and a fast reciprocal (within a few f32
+// ulp; the WGMMA route, whose product rounds to bf16), else from expf and
+// an IEEE division (the f32 route, held to the CPU's streams).
+template <typename TA, bool FAST = false>
+__device__ __forceinline__ void epilogue_one(int mode, size_t idx, float y,
+                                             float u, float sy, float su,
+                                             float r, float* out_f,
+                                             TA* out_t) {
+  y = __fmul_rn(y, sy);
+  if (mode == EPI_STORE) {
+    out_f[idx] = y;
+  } else if (mode == EPI_RESID) {
+    out_f[idx] = r + y;
+  } else if (mode == EPI_OUT) {
+    out_t[idx] = from_float<TA>(r + y);
+  } else {
+    u = __fmul_rn(u, su);
+    const float sig = FAST ? __fdividef(1.f, 1.f + __expf(-y))
+                           : 1.f / (1.f + expf(-y));
+    out_t[idx] = from_float<TA>(__fmul_rn(__fmul_rn(y, sig), u));
+  }
+}
+
+// Sum the splits in order, then epilogue_one.
 template <typename TA>
 __global__ void epilogue_kernel(const float* __restrict__ part, int rows,
                                 Proj pj, int splits, int mode,
@@ -491,55 +377,365 @@ __global__ void epilogue_kernel(const float* __restrict__ part, int rows,
     const size_t r = idx / ocols;
     const int c = (int)(idx % ocols);
     const float* p = part + r * pj.cols + c;
-    float y = 0.f;
+    float y = 0.f, u = 0.f;
     for (int s = 0; s < splits; ++s) y += p[s * plane];
-    y = __fmul_rn(y, seg_scale(pj, c));
-    if (mode == EPI_STORE) {
-      out_f[idx] = y;
-    } else if (mode == EPI_RESID) {
-      out_f[idx] = to_float(static_cast<const TA*>(resid)[idx]) + y;
-    } else if (mode == EPI_OUT) {
-      out_t[idx] = from_float<TA>(static_cast<const float*>(resid)[idx] + y);
-    } else {
-      float u = 0.f;
+    if (mode == EPI_SWIGLU)
       for (int s = 0; s < splits; ++s) u += p[s * plane + ocols];
-      u = __fmul_rn(u, seg_scale(pj, c + ocols));
-      const float sig = 1.f / (1.f + expf(-y));
-      out_f[idx] = __fmul_rn(__fmul_rn(y, sig), u);
-    }
+    epilogue_one<TA>(mode, idx, y, u, seg_scale(pj, c),
+                     mode == EPI_SWIGLU ? seg_scale(pj, c + ocols) : 1.f,
+                     resid_at<TA>(mode, resid, idx), out_f, out_t);
   }
 }
 
 template <typename TA, typename TW>
-int launch_gemv(const float* a, int rows, int K, const Proj& pj, float* part,
+int launch_gemv(const TA* a, int rows, int K, const Proj& pj, float* part,
                 cudaStream_t st) {
   const int kps = split_k(K, pj.splits);
-  if (std::is_same<TA, __nv_bfloat16>::value && pj.mma) {
-    constexpr int smem = mma_smem_bytes<TW>();
-    const cudaError_t err = cudaFuncSetAttribute(
-        mma_part_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((rows + M_ROWS - 1) / M_ROWS,
-                    (pj.cols + M_COLS - 1) / M_COLS,
-                    split_count(K, pj.splits));
-    mma_part_kernel<TW><<<grid, M_THREADS, smem, st>>>(a, rows, K, pj, kps,
+  const dim3 grid((rows + G_RT - 1) / G_RT, (pj.cols + G_COLS - 1) / G_COLS,
+                  split_count(K, pj.splits));
+  gemv_part_kernel<TA, TW><<<grid, G_THREADS, 0, st>>>(a, rows, K, pj, kps,
                                                        part);
-  } else {
-    const dim3 grid((rows + G_RT - 1) / G_RT,
-                    (pj.cols + G_COLS - 1) / G_COLS,
-                    split_count(K, pj.splits));
-    gemv_part_kernel<TA, TW><<<grid, G_THREADS, 0, st>>>(a, rows, K, pj, kps,
-                                                         part);
-  }
   return (int)cudaGetLastError();
 }
 
-// a [rows, K] f32 -> the projection's epilogue.
+// ---------------------------------------------------------------------------
+// WGMMA route: bf16 activations, int8 or bf16 weights
+// ---------------------------------------------------------------------------
+
+namespace hp = rtt::hopper;
+
+constexpr int W_THREADS = 3 * hp::WG_THREADS;  // producer + 2 consumers
+constexpr int W_SUB = 64 * 64 * 2;    // a 64 x 64 bf16 weight sub-tile
+constexpr int W_RAW = 64 * 64;        // its int8 bytes
+constexpr int W_LDD = 128 + 4;        // row of the f32 result tile (floats)
+constexpr int W_MAX_STAGES = 8;
+constexpr int W_MAX_SPLIT = 8;        // the largest portable cluster
+
+// Shared memory of one ring stage for NT = NW * NC tokens: the tokens'
+// activations [NT][64] bf16, two weight sub-tiles [64 K][64 columns] bf16
+// (both in the 128-byte swizzle), and for int8 weights their raw bytes.
+// Every part is a multiple of 1024 bytes.  The f32 result tile [NT][W_LDD]
+// reuses the ring once the products are done.
+template <int NW, int NC, bool I8W>
+struct WLayout {
+  static constexpr int NT = NW * NC;
+  static constexpr uint32_t X = NT * 128;
+  static constexpr uint32_t W = 2 * W_SUB;
+  static constexpr uint32_t RAW = I8W ? 2 * W_RAW : 0;
+  static constexpr uint32_t STAGE = X + W + RAW;
+  static constexpr uint32_t DUMP = NT * W_LDD * 4;
+};
+
+struct WArgs {
+  Proj pj;
+  int rows, K, mode;
+  int ocols;  // columns of an output row (SWIGLU: M)
+  const void* resid;
+  float* out_f;
+  __nv_bfloat16* out_t;
+};
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// CTA (split, j, t): K split `split` (its rank in the cluster) of column
+// tile j for tokens [t * NT, t * NT + NT).  Consumer warpgroup w (1, 2)
+// owns sub-tile w - 1: columns 128 j + 64 (w - 1), or for SWIGLU gate
+// columns 64 j (w = 1) and the up columns M + 64 j (w = 2).
+template <int NW, int NC, bool I8W>
+__global__ void __launch_bounds__(W_THREADS, 1) proj_wgmma(
+    const __grid_constant__ CUtensorMap tm_x,
+    const __grid_constant__ CUtensorMap tm_w0,
+    const __grid_constant__ CUtensorMap tm_w1,
+    const __grid_constant__ CUtensorMap tm_w2, const WArgs a) {
+  using L = WLayout<NW, NC, I8W>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * W_MAX_STAGES];
+  __shared__ float col_scale[128];
+  const uint32_t sbase = hp::smem_u32(smem_raw);
+  const uint32_t base = (sbase + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (base - sbase);
+  float* dump = reinterpret_cast<float*>(sm);
+  const int tid = threadIdx.x, wg = tid / hp::WG_THREADS;
+  const int warp = (tid / 32) & 3, lane = tid & 31;
+  const int split = blockIdx.x, S = gridDim.x, j = blockIdx.y;
+  const int r0 = blockIdx.z * L::NT;
+  const int k0 = split * a.pj.kps;
+  const int nsteps = (min(a.K, k0 + a.pj.kps) - k0 + 63) / 64;
+  const int ST = a.pj.stages;
+  const uint32_t bar0 = hp::smem_u32(bars);
+  auto full = [&](int s) { return bar0 + 8u * s; };
+  auto empty = [&](int s) { return bar0 + 8u * (W_MAX_STAGES + s); };
+  auto xs = [&](int s) { return base + s * L::STAGE; };
+  auto ws = [&](int s) { return base + s * L::STAGE + L::X; };
+  auto rs = [&](int s) { return base + s * L::STAGE + L::X + L::W; };
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      hp::mbar_init(full(s), 1);
+      hp::mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hp::setmaxnreg_dec<40>();
+    if (warp == 0) {
+      if (lane == 0) {
+        const CUtensorMap* wm[2];
+        int wc[2];
+        for (int w = 0; w < 2; ++w) {
+          int c = a.mode == EPI_SWIGLU ? w * a.ocols + 64 * j
+                                       : 128 * j + 64 * w;
+          int seg = 0;
+          while (seg + 1 < a.pj.nseg && c >= a.pj.seg[seg].cols)
+            c -= a.pj.seg[seg++].cols;
+          wm[w] = seg == 0 ? &tm_w0 : seg == 1 ? &tm_w1 : &tm_w2;
+          wc[w] = c;
+        }
+        for (int i = 0; i < nsteps; ++i) {
+          const int s = i % ST, k = k0 + 64 * i;
+          hp::mbar_wait(empty(s), ((i / ST) & 1) ^ 1);
+          hp::mbar_expect_tx(full(s), L::X + (I8W ? L::RAW : L::W));
+          for (int c = 0; c < NC; ++c)
+            hp::tma_load_2d(xs(s) + c * NW * 128, &tm_x, full(s), k,
+                            r0 + c * NW);
+          for (int w = 0; w < 2; ++w)
+            hp::tma_load_2d(I8W ? rs(s) + w * W_RAW : ws(s) + w * W_SUB,
+                            wm[w], full(s), wc[w], k);
+        }
+      }
+    }
+    if (S > 1) {  // the two cluster barriers of the reduction below
+      hp::cluster_arrive();
+      hp::cluster_wait();
+      hp::cluster_arrive();
+      hp::cluster_wait();
+    }
+    return;
+  }
+
+  hp::setmaxnreg_inc<232>();
+  const int w = wg - 1;
+  float acc[NC][NW / 2];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[c][i] = 0.f;
+  for (int i = 0; i < nsteps; ++i) {
+    const int s = i % ST;
+    const uint32_t par = (i / ST) & 1;
+    hp::mbar_wait(full(s), par);
+    if (I8W) {
+      // This warpgroup's raw [64][64] int8 sub-tile to bf16 in the
+      // swizzle (4 chunks of 8 a thread), while the previous step's
+      // products are still in flight.
+      const uint8_t* raw = sm + (rs(s) - base) + w * W_RAW;
+      uint8_t* dst = sm + (ws(s) - base) + w * W_SUB;
+#pragma unroll
+      for (int e = tid % hp::WG_THREADS; e < 64 * 8; e += hp::WG_THREADS) {
+        const int r = e >> 3, ch = e & 7;
+        const uint2 v = *reinterpret_cast<const uint2*>(raw + r * 64 + ch * 8);
+        *reinterpret_cast<uint4*>(dst + r * 128 + ((ch ^ (r & 7)) << 4)) =
+            rtt::int8x8_to_bf16(v.x, v.y);
+      }
+      hp::fence_proxy_async();
+      named_sync(2 + w, hp::WG_THREADS);
+    }
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // A: 16 K rows of the weight sub-tile (MN-major); B: 16 K columns
+      // of the tokens' activations (K-major).
+      const uint64_t da =
+          hp::desc_sw128(ws(s) + w * W_SUB + kk * 2048, 64 * 128, 1024);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        hp::wgmma_ta(acc[c], da,
+                     hp::desc_sw128(xs(s) + c * NW * 128 + kk * 32, 16, 1024),
+                     1);
+    }
+    hp::wgmma_commit();
+    // Step i - 1's products have retired: its stage goes back to warp 0.
+    hp::wgmma_wait<1>();
+    if (i > 0 && lane == 0) hp::mbar_arrive(empty((i - 1) % ST));
+  }
+  hp::wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < NC; ++c) hp::fence_operand(acc[c]);
+
+  // The f32 sums into this CTA's result tile [token][128 columns] (the
+  // ring, which every product of both consumers is done with), and the
+  // scales of the tile's columns.
+  named_sync(1, 2 * hp::WG_THREADS);
+  const int ct = tid - hp::WG_THREADS;  // 0 .. 255
+  const bool swiglu = a.mode == EPI_SWIGLU;
+  if (ct < 128)
+    col_scale[ct] = seg_scale(
+        a.pj, swiglu ? (ct >> 6) * a.ocols + 64 * j + (ct & 63) : 128 * j + ct);
+  const int gq = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < NW / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 64 * w + 16 * warp + gq + 8 * (e >> 1);
+        const int n = c * NW + 8 * i + 2 * tig + (e & 1);
+        dump[n * W_LDD + m] = acc[c][4 * i + e];
+      }
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  if (S > 1) {
+    hp::cluster_arrive();
+    hp::cluster_wait();
+  } else {
+    named_sync(1, 2 * hp::WG_THREADS);
+  }
+
+  // This rank's share of the tile's token rows: the ranks' sums in rank
+  // order, then the epilogue.  A thread keeps four consecutive columns
+  // and reads them from every rank (float4) before it adds any, so the
+  // ranks' latencies overlap.
+  const int ntok = min(L::NT, a.rows - r0);
+  const int oc = swiglu ? 64 : 128;
+  const int c = 4 * (ct % (oc / 4)), step = 256 / (oc / 4);
+  const int col = oc * j + c;
+  float sy[4], su[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    sy[i] = col_scale[c + i];
+    su[i] = swiglu ? col_scale[64 + c + i] : 1.f;
+  }
+  const int t1 = ntok * (split + 1) / S;
+  for (int t = ntok * split / S + ct / (oc / 4); t < t1; t += step) {
+    float4 ys[W_MAX_SPLIT], us[W_MAX_SPLIT];
+#pragma unroll
+    for (int q = 0; q < W_MAX_SPLIT; ++q)
+      if (q < S) {
+        const float* dq = S > 1 ? cluster.map_shared_rank(dump, q) : dump;
+        ys[q] = *reinterpret_cast<const float4*>(dq + t * W_LDD + c);
+        if (swiglu)
+          us[q] = *reinterpret_cast<const float4*>(dq + t * W_LDD + 64 + c);
+      }
+    float y[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int q = 0; q < W_MAX_SPLIT; ++q)
+      if (q < S) {
+        y[0] += ys[q].x; y[1] += ys[q].y; y[2] += ys[q].z; y[3] += ys[q].w;
+        if (swiglu) {
+          u[0] += us[q].x; u[1] += us[q].y; u[2] += us[q].z; u[3] += us[q].w;
+        }
+      }
+    const size_t idx = (size_t)(r0 + t) * a.ocols + col;
+    float r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      r[i] = resid_at<__nv_bfloat16>(a.mode, a.resid, idx + i);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      epilogue_one<__nv_bfloat16, true>(a.mode, idx + i, y[i], u[i], sy[i],
+                                        su[i], r[i], a.out_f, a.out_t);
+  }
+  if (S > 1) {  // no CTA leaves while another reads its tile
+    hp::cluster_arrive();
+    hp::cluster_wait();
+  }
+}
+
+// Tensor maps for the WGMMA route: the activations [rows, K] bf16 in
+// boxes of 64 K columns x nw tokens, and each weight segment [K, cols] in
+// boxes of 64 columns x 64 K rows (bf16 in the 128-byte swizzle; int8 raw).
+inline int wgmma_maps(const __nv_bfloat16* a, int rows, int K,
+                      const Proj& pj, CUtensorMap* tx, CUtensorMap* tw) {
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+    const cuuint32_t box[2] = {64, (cuuint32_t)pj.nw};
+    const int err = hp::encode_map(tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                   a, dims, strides, box,
+                                   CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err) return err;
+  }
+  const bool i8 = pj.wtype == I8;
+  for (int s = 0; s < pj.nseg; ++s) {
+    const cuuint64_t dims[2] = {(cuuint64_t)pj.seg[s].cols, (cuuint64_t)K};
+    const cuuint64_t strides[1] = {(cuuint64_t)pj.seg[s].cols * (i8 ? 1 : 2)};
+    const cuuint32_t box[2] = {64, 64};
+    const int err = hp::encode_map(
+        tw + s,
+        i8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+        2, pj.seg[s].w, dims, strides, box,
+        i8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err) return err;
+  }
+  return 0;
+}
+
+template <int NW, int NC, bool I8W>
+int launch_wgmma_t(const CUtensorMap& tx, const CUtensorMap* tw,
+                   const WArgs& w, int ctiles, cudaStream_t st) {
+  using L = WLayout<NW, NC, I8W>;
+  auto kernel = proj_wgmma<NW, NC, I8W>;
+  const uint32_t ring = w.pj.stages * L::STAGE;
+  const size_t smem = (ring > L::DUMP ? ring : L::DUMP) + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(w.pj.splits, ctiles, (w.rows + L::NT - 1) / L::NT);
+  cfg.blockDim = dim3(W_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = w.pj.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tx, tw[0], tw[1], tw[2], w);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// a [rows, K] bf16 -> the projection with its epilogue, in one launch.
+inline int launch_wgmma(const __nv_bfloat16* a, int rows, int K,
+                        const Proj& pj, int mode, const void* resid,
+                        float* out_f, __nv_bfloat16* out_t,
+                        cudaStream_t st) {
+  if (pj.splits < 1 || pj.splits > W_MAX_SPLIT || pj.stages < 2 ||
+      pj.stages > W_MAX_STAGES || pj.kps % 64)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw[MAX_SEGS] = {};
+  int err = wgmma_maps(a, rows, K, pj, &tx, tw);
+  if (err) return err;
+  const bool swiglu = mode == EPI_SWIGLU;
+  const WArgs w{pj, rows, K, mode, swiglu ? pj.cols / 2 : pj.cols, resid,
+                out_f, out_t};
+  const int ctiles = pj.cols / 128;  // SwiGLU: M / 64 gate/up pairs
+  const bool i8 = pj.wtype == I8;
+#define RTT_WGMMA(NW, NC)                                                  \
+  (i8 ? launch_wgmma_t<NW, NC, true>(tx, tw, w, ctiles, st)                \
+      : launch_wgmma_t<NW, NC, false>(tx, tw, w, ctiles, st))
+  if (pj.nw == 64 && pj.nc == 1) return RTT_WGMMA(64, 1);
+  if (pj.nw == 136 && pj.nc == 1) return RTT_WGMMA(136, 1);
+  if (pj.nw == 136 && pj.nc == 2) return RTT_WGMMA(136, 2);
+#undef RTT_WGMMA
+  return (int)cudaErrorInvalidValue;
+}
+
+// a [rows, K] in TA -> the projection's epilogue.
 template <typename TA>
-int project(const float* a, int rows, int K, const Proj& pj, float* part,
+int project(const TA* a, int rows, int K, const Proj& pj, float* part,
             int mode, const void* resid, float* out_f, TA* out_t,
             cudaStream_t st) {
+  if constexpr (std::is_same<TA, __nv_bfloat16>::value) {
+    if (pj.route == WGMMA)
+      return launch_wgmma(a, rows, K, pj, mode, resid, out_f, out_t, st);
+  }
   int err;
   if (pj.wtype == F32)
     err = launch_gemv<TA, float>(a, rows, K, pj, part, st);
@@ -603,11 +799,12 @@ inline int grid_for(size_t n) {
 // Phase 1 and the RoPE of phase 2.
 template <typename TA>
 int run_qkv(const LayerArgs& A, cudaStream_t st) {
-  rmsnorm_kernel<<<A.rows, NORM_THREADS, 0, st>>>(A.x, A.act_type, A.ln_a,
-                                                  A.ln_type, A.D, A.eps, A.xn);
+  TA* xn = static_cast<TA*>(A.xn);
+  rmsnorm_kernel<TA><<<A.rows, NORM_THREADS, 0, st>>>(
+      A.x, A.act_type, A.ln_a, A.ln_type, A.D, A.eps, xn);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  err = project<TA>(A.xn, A.rows, A.D, A.qkv, A.part, EPI_STORE, nullptr,
+  err = project<TA>(xn, A.rows, A.D, A.qkv, A.part, EPI_STORE, nullptr,
                     A.qkv_buf, nullptr, st);
   if (err) return err;
   const size_t n = (size_t)A.rows * (A.H + 2 * A.KVH) * (A.hd / 2);
@@ -620,17 +817,19 @@ int run_qkv(const LayerArgs& A, cudaStream_t st) {
 // Phases 3-5: o-proj + residual, RMSNorm, gate/up + SiLU, down + residual.
 template <typename TA>
 int run_mlp(const LayerArgs& A, cudaStream_t st) {
-  int err = project<TA>(A.ao, A.rows, A.H * A.hd, A.wo, A.part, EPI_RESID,
-                        A.x, A.h, nullptr, st);
+  TA* xn = static_cast<TA*>(A.xn);
+  TA* act = static_cast<TA*>(A.act);
+  int err = project<TA>(static_cast<const TA*>(A.ao), A.rows, A.H * A.hd,
+                        A.wo, A.part, EPI_RESID, A.x, A.h, nullptr, st);
   if (err) return err;
-  rmsnorm_kernel<<<A.rows, NORM_THREADS, 0, st>>>(A.h, F32, A.ln_m, A.ln_type,
-                                                  A.D, A.eps, A.xn);
+  rmsnorm_kernel<TA><<<A.rows, NORM_THREADS, 0, st>>>(
+      A.h, F32, A.ln_m, A.ln_type, A.D, A.eps, xn);
   err = (int)cudaGetLastError();
   if (err) return err;
-  err = project<TA>(A.xn, A.rows, A.D, A.gateup, A.part, EPI_SWIGLU, nullptr,
-                    A.act, nullptr, st);
+  err = project<TA>(xn, A.rows, A.D, A.gateup, A.part, EPI_SWIGLU, nullptr,
+                    nullptr, act, st);
   if (err) return err;
-  return project<TA>(A.act, A.rows, A.M, A.down, A.part, EPI_OUT, A.h,
+  return project<TA>(act, A.rows, A.M, A.down, A.part, EPI_OUT, A.h,
                      nullptr, static_cast<TA*>(A.x_out), st);
 }
 

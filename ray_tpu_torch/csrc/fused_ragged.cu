@@ -14,10 +14,16 @@
 //
 // What bounds it on the H100: the operations.  At the 8B ragged mix
 // (T = 264) the projections are 115 GFLOP per layer, about 0.12 ms of
-// bf16 tensor-core time (fused_layer.cuh's tensor-core tiles); the
-// attention's f32 FMAs are 2.9 GFLOP more.
+// bf16 tensor-core time (fused_layer.cuh's WGMMA route: every weight byte
+// read once per call); the attention is 2.9 GFLOP more.
 //
-// Attention follows K4's structure with K8's numbers: one CTA of 128
+// Attention, bf16 activations at head_dim 64 or 128: K4's Hopper kernel
+// (ragged_attention.cuh) on K8's operands: q is the f32 q of qkv (split
+// hi + lo on its way to wgmma), the fresh k/v are the rounded k_new /
+// v_new, and the output is ao in bf16 (the o-projection's operand).
+//
+// Otherwise (f32 activations: the exact f32 path) attention follows the
+// CUDA-core K4's structure with K8's numbers: one CTA of 128
 // threads per (row, kv head, tile of up to 32 query rows = tokens x the
 // qpg heads of the group); tiles past the row's length exit.  It walks the
 // pooled past page by page (keys at positions < start, in blocks of up to
@@ -31,6 +37,7 @@
 // sum; the output is acc / max(l, 1e-30).  Pages resolve through
 // min(block_table[slot, page], P - 1), as K4's do.
 #include "fused_layer.cuh"
+#include "ragged_attention.cuh"
 
 namespace {
 
@@ -197,7 +204,7 @@ __global__ void __launch_bounds__(A_THREADS) ragged_attn_kernel(
     const float* __restrict__ v_scales, const int* __restrict__ row_slot,
     const int* __restrict__ row_start, const int* __restrict__ row_len,
     const int* __restrict__ row_off, const int* __restrict__ bt,
-    float* __restrict__ ao, int KVH, int qpg, int P, int page, int maxp,
+    TA* __restrict__ ao, int KVH, int qpg, int P, int page, int maxp,
     int layer, int tq, float scale, float soft_cap) {
   constexpr int ST = HD + 4;
   extern __shared__ float4 smem4[];
@@ -284,11 +291,11 @@ __global__ void __launch_bounds__(A_THREADS) ragged_attn_kernel(
     if (qr >= nqr) continue;
     const int ti = qr / qpg, qi = qr % qpg;
     const float den = fmaxf(l_s[qr], 1e-30f);
-    float* out = ao + (size_t)(off + i0 + ti) * H * HD +
-                 (size_t)(g * qpg + qi) * HD;
+    TA* out = ao + (size_t)(off + i0 + ti) * H * HD +
+              (size_t)(g * qpg + qi) * HD;
 #pragma unroll
     for (int e = 0; e < Tile<HD>::DPT; ++e)
-      out[dim_of<HD>(kg, e)] = tl.acc[i][e] / den;
+      out[dim_of<HD>(kg, e)] = rtt::from_float<TA>(tl.acc[i][e] / den);
   }
 }
 
@@ -307,13 +314,31 @@ int launch_attn_hd(const LayerArgs& A, cudaStream_t st) {
       A.qkv_buf, (A.H + 2 * A.KVH) * HD, static_cast<const TA*>(A.k_new),
       static_cast<const TA*>(A.v_new), static_cast<const TP*>(A.k_pools),
       static_cast<const TP*>(A.v_pools), A.k_scales, A.v_scales, A.row_slot,
-      A.row_start, A.row_len, A.row_off, A.block_tables, A.ao, A.KVH, qpg,
+      A.row_start, A.row_len, A.row_off, A.block_tables,
+      static_cast<TA*>(A.ao), A.KVH, qpg,
       A.P, A.page, A.maxp, A.layer, A.tq, A.scale, A.soft_cap);
   return (int)cudaGetLastError();
 }
 
+// K4's Hopper kernel on K8's operands (bf16, head_dim 64 or 128).
+template <bool QUANT, int HD>
+int launch_attn_hopper(const LayerArgs& A, cudaStream_t st) {
+  const rtt::ragged::Params p{
+      A.qkv_buf, (long long)(A.H + 2 * A.KVH) * HD, A.k_pools, A.v_pools,
+      A.k_scales, A.v_scales, A.row_slot, A.row_start, A.row_len, A.row_off,
+      A.block_tables, A.ao, (long long)A.H * HD, A.rows, A.R, A.H, A.KVH,
+      A.L, A.P, A.page, A.maxp, A.layer, A.scale, A.soft_cap};
+  return rtt::ragged::launch_hopper<float, __nv_bfloat16, QUANT, HD>(
+      p, A.k_new, A.v_new, A.attn_cluster, A.attn_slots, st);
+}
+
 template <typename TA, typename TP, bool QUANT>
 int launch_attn(const LayerArgs& A, cudaStream_t st) {
+  if constexpr (std::is_same<TA, __nv_bfloat16>::value) {
+    if (A.attn_cluster > 0)
+      return A.hd == 64 ? launch_attn_hopper<QUANT, 64>(A, st)
+                        : launch_attn_hopper<QUANT, 128>(A, st);
+  }
   switch (A.hd) {
     case 16: return launch_attn_hd<TA, TP, QUANT, 16>(A, st);
     case 32: return launch_attn_hd<TA, TP, QUANT, 32>(A, st);
@@ -329,7 +354,7 @@ int run(const LayerArgs& A) {
   if (err) return err;
   // Tokens no row covers keep a zero attention output.
   err = (int)cudaMemsetAsync(A.ao, 0,
-                             sizeof(float) * (size_t)A.rows * A.H * A.hd, st);
+                             sizeof(TA) * (size_t)A.rows * A.H * A.hd, st);
   if (err) return err;
   if (A.R > 0) {
     if (A.pool_type == I8)

@@ -1,5 +1,7 @@
-// Hopper (sm_90a) building blocks of the flash kernels' wgmma paths
-// (K9f in flash_fwd.cu, K11 in flash_bwd.cu), as inline PTX:
+// Hopper (sm_90a) building blocks of the wgmma paths (K9f in
+// flash_fwd.cu, K10/K11 in flash_bwd.cu, the projections of K7/K8 in
+// fused_layer.cuh, K4/K8's attention in ragged_attention.cuh), as inline
+// PTX:
 //  - mbarriers: init, arrive, arrive with an expected transaction count,
 //    and a wait on a phase's parity; the cluster barrier;
 //  - the Tensor Memory Accelerator: a 4-d tiled load into shared memory
@@ -7,13 +9,16 @@
 //  - warpgroup MMA (wgmma.mma_async, bf16 in, f32 accumulators):
 //    m64n64k16 and m64n128k16 with both operands in shared memory
 //    (K-major) or A in registers and B MN-major (the transpose bit);
-//    fence, commit and wait; the shared-memory matrix descriptor for the
-//    128-byte swizzle that the TMA loads write;
+//    m64n64k16 and m64n136k16 with A MN-major and B K-major, both in
+//    shared memory; fence, commit and wait; the shared-memory matrix
+//    descriptor for the 128-byte swizzle that the TMA loads write; the
+//    proxy fence that orders ordinary shared-memory stores before wgmma
+//    reads them;
 //  - setmaxnreg, which moves registers from the producer warpgroup to
 //    the consumers;
-//  - on the host, the tensor map of a [B, S, heads, D] bf16 tensor,
-//    encoded with cuTensorMapEncodeTiled reached through the runtime's
-//    driver entry point (no -lcuda).
+//  - on the host, tensor maps (a [B, S, heads, D] bf16 tensor, or any
+//    tiled box of up to 4 dimensions), encoded with cuTensorMapEncodeTiled
+//    reached through the runtime's driver entry point (no -lcuda).
 //
 // Shared tiles: a tile of R rows and D bf16 columns is D / 64 blocks of
 // [R][64] (128 bytes a row), each 1024-byte aligned, in the 128-byte
@@ -106,6 +111,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// The box of a 2-d `map` at (c0, c1), innermost first.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16, 16-byte aligned at both ends) from global
 // memory to shared memory, completing on `bar`.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
@@ -145,6 +161,13 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // --- wgmma -----------------------------------------------------------------
+
+// Orders this thread's ordinary shared-memory stores before later reads
+// of the async proxy (wgmma operands, bulk copies); issue it before the
+// barrier that hands the data to the threads issuing wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // 128-byte-swizzled shared-memory matrix descriptor (offsets in bytes).
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
@@ -288,6 +311,58 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "r"(accumulate));
 }
 
+// d[32] (+)= A . B, m64n64k16: A MN-major in shared memory (the
+// transpose bit), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ta(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[68] (+)= A . B, m64n136k16: A MN-major in shared memory (the
+// transpose bit), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ta(float (&d)[68], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67"
+      "}, %68, %69, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // --- host: tensor maps -----------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -317,27 +392,37 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// A map of `rank` (1-4) dimensions, innermost first: sizes `dims`, byte
+// strides of dimensions 1.. in `strides`, box `box`, no interleave, zero
+// fill past the edges.  Returns a cudaError_t.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                      const void* ptr, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, type, (cuuint32_t)rank, const_cast<void*>(ptr), dims, strides,
+      box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // Map of a contiguous bf16 tensor [B, S, heads, D] as 4-d (D, heads, S,
 // B), boxes of 64 columns x 1 head x `rows` positions x 1 batch in the
 // 128-byte swizzle.  S is a dimension of its own, so rows past S load as
 // zeros, never as the next batch's.  Returns a cudaError_t.
 inline int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S,
                        int heads, int D, int rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
                                  (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)S * heads * D * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

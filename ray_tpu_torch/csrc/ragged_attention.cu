@@ -16,10 +16,16 @@
 // What bounds it on the H100: bytes for decode rows (each pooled k/v
 // row read once per kv head, used by qpg query heads), operations for
 // prefill chunks (a 256-token chunk row reuses each key 256 x qpg
-// times).  This first version computes in f32 on the CUDA cores, with no
-// tensor cores.
+// times).
 //
-// Design: one CTA per (row, kv head, q tile).  The TPU kernel's 8-aligned
+// Two kernels.  bf16 q at D 64 and 128 (every real configuration) takes
+// the Hopper kernel of ragged_attention.cuh: q tiles of 64 query rows on
+// wgmma, pages by TMA (bf16) or converted from int8 in shared memory, a
+// decode row's past split over a cluster and merged in rank order.  f32,
+// and bf16 at D 16 and 32 or pages it cannot box, take the CUDA-core
+// kernel below, in f32 on exactly converted inputs.
+//
+// CUDA-core design: one CTA per (row, kv head, q tile).  The TPU kernel's 8-aligned
 // q window, its masked flash update (the window overlapped neighbour
 // rows) and its sequential (R, maxp + 1) grid with state in VMEM have no
 // counterpart: a CTA reads its own row's descriptor, takes a tile of the
@@ -44,7 +50,7 @@
 // the probability on its way to the P.V product, while the row sum l
 // takes the unscaled one.  Fresh keys (the self phase) are f32/bf16 and
 // carry no scale.
-#include "common.cuh"
+#include "ragged_attention.cuh"
 
 namespace {
 
@@ -354,19 +360,44 @@ int dispatch_d(int D, const Ptrs& p, const Args& a, int R, int n_tiles,
 // dtype (of q and the fresh k/v): 0 = float32, 1 = bfloat16.  The pools
 // have that dtype when k_scales is null, and are int8 with f32 scales
 // [L, P, KVH, 1] when it is not.  soft_cap <= 0 means none.  out is f32
-// [T, H, D], zeroed by the caller.  n_tiles = ceil(T / (64 / qpg)).
+// [T, H, D], zeroed by the caller.  cluster > 0 takes the Hopper kernel
+// (bf16, D 64 or 128) with that cluster size and n_tiles q-tile slots;
+// cluster 0 the CUDA-core kernel with n_tiles = ceil(T / (64 / qpg)).
 extern "C" int rtt_ragged_attention(
     const void* q, const void* k_new, const void* v_new, const void* k_pools,
     const void* v_pools, const void* k_scales, const void* v_scales,
     const void* row_slot, const void* row_start, const void* row_len,
     const void* row_off, const void* block_tables, void* out, int dtype,
     int H, int KVH, int P, int page, int D, int maxp, int R, int n_tiles,
-    int layer, float scale, float soft_cap, void* stream) {
+    int layer, float scale, float soft_cap, int L, int T, int cluster,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cluster > 0) {
+    if (dtype != 1 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+    const rtt::ragged::Params p{
+        q, (long long)H * D, k_pools, v_pools,
+        static_cast<const float*>(k_scales),
+        static_cast<const float*>(v_scales),
+        static_cast<const int*>(row_slot), static_cast<const int*>(row_start),
+        static_cast<const int*>(row_len), static_cast<const int*>(row_off),
+        static_cast<const int*>(block_tables), out, (long long)H * D, T, R, H,
+        KVH, L, P, page, maxp, layer, scale, soft_cap};
+    using bf = __nv_bfloat16;
+    namespace rg = rtt::ragged;
+    if (k_scales != nullptr)
+      return D == 64 ? rg::launch_hopper<bf, float, true, 64>(
+                           p, k_new, v_new, cluster, n_tiles, s)
+                     : rg::launch_hopper<bf, float, true, 128>(
+                           p, k_new, v_new, cluster, n_tiles, s);
+    return D == 64 ? rg::launch_hopper<bf, float, false, 64>(
+                         p, k_new, v_new, cluster, n_tiles, s)
+                   : rg::launch_hopper<bf, float, false, 128>(
+                         p, k_new, v_new, cluster, n_tiles, s);
+  }
   const Args a{H, KVH, P, page, maxp, layer, scale, soft_cap};
   const Ptrs p{q,        k_new,   v_new,     k_pools, v_pools,
                k_scales, v_scales, row_slot, row_start, row_len,
                row_off,  block_tables, static_cast<float*>(out)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k_scales != nullptr)
     return dtype == 0
                ? dispatch_d<float, int8_t, true>(D, p, a, R, n_tiles, s)

@@ -26,8 +26,11 @@ For CUDA tensors ``fused_decode_layer`` launches K7
 (``csrc/fused_decode.cu`` with the phase kernels of
 ``csrc/fused_layer.cuh``): weights are read in place, separate q/k/v or
 gate/up leaves as column segments of one projection, never concatenated
-per call.  CPU tensors run the plain version,
-``fused_decode_layer_reference``, which may concatenate.
+per call.  With bf16 activations and int8 or bf16 weights whose segments
+are multiples of 64 columns, each projection is one Hopper launch
+(``wgmma_plan``: every token of the call shares each weight tile, and K
+splits over a cluster that sums in rank order).  CPU tensors run the
+plain version, ``fused_decode_layer_reference``, which may concatenate.
 """
 
 from __future__ import annotations
@@ -48,12 +51,42 @@ from ray_tpu_torch.ops.paged_attention import (
 )
 
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# Projection tiles of csrc/fused_layer.cuh, (rows, columns) per CTA: the
-# tensor-core tile for bf16 activations, the CUDA-core tile for f32 (the
-# wrapper sizes the split-K plan and the partial buffer by them).
-_MMA_TILE = (64, 128)
+# Projection routes of csrc/fused_layer.cuh (Proj::route).
+_CUDA_CORES, _WGMMA = 0, 1
+# The CUDA-core route's tile, (rows, columns) per CTA (the wrapper sizes
+# its split-K plan and partial buffer by it).
 _FMA_TILE = (16, 512)
 _MIN_K_PER_SPLIT = 256
+# WGMMA route: (tokens of one wgmma, wgmmas a tile), smallest first; a
+# call of more tokens than the last takes several token tiles.
+_WGMMA_TILES = ((64, 1), (136, 1), (136, 2))
+_WGMMA_SMEM = 225 * 1024   # dynamic shared memory a CTA may take
+_WGMMA_MAX_STAGES = 8
+
+
+def wgmma_plan(rows: int, K: int, cols: int, weight_bytes: int,
+               sms: int) -> dict:
+    """The WGMMA route's plan for one projection: ``nw`` tokens a wgmma
+    and ``nc`` wgmmas a token tile (``token_tiles`` of them), ``col_tiles``
+    tiles of 128 output columns (SwiGLU: 64 gate/up pairs), K split into
+    ``splits`` runs of ``kps`` (a multiple of 64; the cluster size, at
+    most 8, enough for about one CTA per SM), and ``stages`` ring stages
+    of ``stage_bytes``."""
+    nw, nc = next((t for t in _WGMMA_TILES if t[0] * t[1] >= rows),
+                  _WGMMA_TILES[-1])
+    nt = nw * nc
+    token_tiles = -(-rows // nt)
+    col_tiles = cols // 128
+    want = max(1, min(8, sms // (col_tiles * token_tiles)))
+    per = -(-K // want)
+    kps = -(-per // 64) * 64
+    stage = nt * 128 + 2 * 64 * 64 * 2 + (2 * 64 * 64 if weight_bytes == 1
+                                          else 0)
+    stages = min(_WGMMA_MAX_STAGES, _WGMMA_SMEM // stage)
+    assert stages >= 2 and stages * stage >= nt * 132 * 4
+    return {"nw": nw, "nc": nc, "token_tiles": token_tiles,
+            "col_tiles": col_tiles, "splits": -(-K // kps), "kps": kps,
+            "stages": stages, "stage_bytes": stage}
 
 
 def _qdict(node) -> bool:
@@ -274,13 +307,14 @@ class _Seg(ctypes.Structure):
 
 
 class _Proj(ctypes.Structure):
-    _fields_ = [("seg", _Seg * 3), ("nseg", ctypes.c_int),
-                ("wtype", ctypes.c_int), ("cols", ctypes.c_int),
-                ("splits", ctypes.c_int), ("mma", ctypes.c_int)]
+    _fields_ = [("seg", _Seg * 3)] + [(n, ctypes.c_int) for n in (
+        "nseg", "wtype", "cols", "splits", "route", "nw", "nc", "kps",
+        "stages")]
 
 
 _INTS = ("rows", "D", "H", "KVH", "hd", "M", "act_type", "ln_type",
-         "pool_type", "L", "P", "page", "maxp", "layer", "R", "tq")
+         "pool_type", "L", "P", "page", "maxp", "layer", "R", "tq",
+         "attn_cluster", "attn_slots")
 _PTRS = ("x", "ln_a", "ln_m", "sin", "cos")
 _PTRS2 = ("k_pools", "v_pools", "k_scales", "v_scales", "block_tables",
           "lengths", "row_slot", "row_start", "row_len", "row_off", "xn",
@@ -326,8 +360,8 @@ def _segment(name: str, leaf, K: int, rows_fold: Optional[int] = None):
 
 def _proj(name: str, leaves, K: int, rows: int, dt: torch.dtype, device,
           rows_fold: Optional[int] = None) -> Tuple[_Proj, int]:
-    """One projection's segments, and the floats its split-K partial
-    sums need."""
+    """One projection's segments and route, and the floats its split-K
+    partial sums need (none on the WGMMA route)."""
     segs = [_segment(name, leaf, K, rows_fold) for leaf in leaves]
     if any(t is not None and t.device != device
            for w, s, *_ in segs for t in (w, s)):
@@ -346,15 +380,24 @@ def _proj(name: str, leaves, K: int, rows: int, dt: torch.dtype, device,
     pj.nseg = len(segs)
     pj.wtype = _TYPE_CODE[segs[0][0].dtype]
     pj.cols = sum(seg[2] for seg in segs)
-    # bf16 activations take the tensor-core tile, which copies 16 bytes of
-    # an activation or weight row at a time.
-    pj.mma = int(dt == torch.bfloat16 and K % 4 == 0 and all(
-        w.data_ptr() % 16 == 0 and cols * w.element_size() % 16 == 0
-        for w, _s, cols, _p in segs))
-    tile_rows, tile_cols = _MMA_TILE if pj.mma else _FMA_TILE
+    sms = _sm_count(device.index or 0)
+    # bf16 activations and int8 or bf16 weights take wgmma over TMA tiles:
+    # 64-column weight boxes that never straddle a segment, 16-byte
+    # aligned rows.
+    if dt == torch.bfloat16 and K % 8 == 0 and pj.cols % 128 == 0 \
+            and segs[0][0].dtype in (torch.bfloat16, torch.int8) \
+            and all(w.data_ptr() % 16 == 0 and cols % 64 == 0
+                    for w, _s, cols, _p in segs):
+        plan = wgmma_plan(rows, K, pj.cols, segs[0][0].element_size(), sms)
+        pj.route = _WGMMA
+        for key in ("nw", "nc", "splits", "kps", "stages"):
+            setattr(pj, key, plan[key])
+        return pj, 0
+    pj.route = _CUDA_CORES
+    tile_rows, tile_cols = _FMA_TILE
     # Split K until about two CTAs per SM are in flight.
     ctas = -(-rows // tile_rows) * -(-pj.cols // tile_cols)
-    want = -(-2 * _sm_count(device.index or 0) // ctas)
+    want = -(-2 * sms // ctas)
     pj.splits = max(1, min(want, K // _MIN_K_PER_SPLIT))
     return pj, pj.splits * rows * pj.cols
 
@@ -370,11 +413,14 @@ def launch_fused_layer(name: str, entry: str, x: torch.Tensor, layer,
                        lengths: Optional[torch.Tensor] = None,
                        rows_desc: Optional[Tuple[torch.Tensor, ...]] = None,
                        tq: int = 0,
-                       attn_smem: int = 0
+                       attn_smem: int = 0,
+                       attn_plan: Tuple[int, int] = (0, 0)
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Check the operands of K7 or K8, lay out one f32 workspace, and
-    call the C entry ``entry`` of ``csrc/<name>.cu`` once on the current
-    stream (no host sync, no host-made tensor: capturable)."""
+    """Check the operands of K7 or K8, lay out one workspace, and call
+    the C entry ``entry`` of ``csrc/<name>.cu`` once on the current stream
+    (no host sync, no host-made tensor: capturable).  ``attn_plan`` is
+    K8's Hopper attention (cluster size, q-tile slots; 0: the CUDA-core
+    kernel)."""
     rows, D = x.shape
     H, KVH = n_heads, n_kv_heads
     L, KVH_p, P, page, hd = k_pools.shape
@@ -433,18 +479,22 @@ def launch_fused_layer(name: str, entry: str, x: torch.Tensor, layer,
     k_new = torch.empty((rows, KVH, hd), dtype=dt, device=dev)
     v_new = torch.empty((rows, KVH, hd), dtype=dt, device=dev)
 
-    def pad4(n):
-        return -(-n // 4) * 4
+    def pad(nbytes):  # 256-byte aligned buffers (TMA wants 16)
+        return -(-nbytes // 256) * 256
 
-    sizes = {"xn": rows * D, "qkv_buf": rows * Cq, "ao": rows * H * hd,
-             "h": rows * D, "act": rows * M, "part": max(n1, n2, n3, n4)}
-    ws = torch.empty(sum(pad4(n) for n in sizes.values()),
-                     dtype=torch.float32, device=dev)
+    # The projections' activations in the activation dtype; qkv, h and
+    # the CUDA-core route's partial sums in f32.
+    es = x.element_size()
+    sizes = {"xn": rows * D * es, "qkv_buf": rows * Cq * 4,
+             "ao": rows * H * hd * es, "h": rows * D * 4,
+             "act": rows * M * es, "part": 4 * max(n1, n2, n3, n4)}
+    ws = torch.empty(sum(pad(n) for n in sizes.values()), dtype=torch.uint8,
+                     device=dev)
     a = LayerArgs()
     at = ws.data_ptr()
     for key, n in sizes.items():
         setattr(a, key, at)
-        at += 4 * pad4(n)
+        at += pad(n)
     a.rows, a.D, a.H, a.KVH, a.hd, a.M = rows, D, H, KVH, hd, M
     a.act_type = _TYPE_CODE[dt]
     a.ln_type = _TYPE_CODE[ln_a.dtype]
@@ -452,6 +502,7 @@ def launch_fused_layer(name: str, entry: str, x: torch.Tensor, layer,
     a.L, a.P, a.page, a.maxp = L, P, page, block_tables.shape[1]
     a.layer = int(layer_idx)
     a.tq = tq
+    a.attn_cluster, a.attn_slots = attn_plan
     a.scale = hd ** -0.5
     a.soft_cap = float(soft_cap) if soft_cap is not None else 0.0
     a.eps = float(eps)

@@ -37,7 +37,7 @@ the JAX package's.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +66,13 @@ _K4_ROWS = 64
 _K4_KEYS = 64
 # K5: tokens of one row per CTA.
 _K5_TOKENS = 16
+# The Hopper attention of K4 and K8 (csrc/ragged_attention.cuh): q tiles
+# of 64 query rows, keys in blocks of 64, a cluster of up to 8 CTAs
+# splitting a tile's blocks; the wrapper sizes the cluster so that a rank
+# walks at most this many blocks of the longest tile.
+_HOPPER_ROWS = 64
+_HOPPER_KEYS = 64
+HOPPER_BLOCKS_PER_RANK = 24
 
 
 def _round8(n: int) -> int:
@@ -231,6 +238,36 @@ def ragged_append_reference(k_pages, v_pages, k_new, v_new, row_slot,
 # K4: ragged paged attention, one layer
 # --------------------------------------------------------------------------
 
+def hopper_attention_plan(T: int, R: int, qpg: int, maxp: int,
+                          page: int) -> Tuple[int, int]:
+    """(cluster size, q-tile slots) of the Hopper attention for a call
+    of T tokens in R rows, from static bounds only (the row lengths stay
+    on the card): the slots bound every row's tiles, sum of ceil(len *
+    qpg / 64) <= ceil(T * qpg / 64) + R; the cluster is the smallest
+    power of two, at most 8, that leaves a rank at most
+    ``HOPPER_BLOCKS_PER_RANK`` key blocks of the longest tile (its pooled
+    past of up to maxp pages, then its fresh keys)."""
+    slots = max(1, -(-T * qpg // _HOPPER_ROWS) + R)
+    blocks = -(-maxp * page // _HOPPER_KEYS) + -(-T // _HOPPER_KEYS)
+    cluster = 1
+    while cluster < 8 and -(-blocks // cluster) > HOPPER_BLOCKS_PER_RANK:
+        cluster *= 2
+    return cluster, slots
+
+
+def _hopper_attention_ok(D: int, page: int, qpg: int, R: int, *tensors
+                         ) -> bool:
+    """Whether the Hopper kernel takes these shapes (bf16 is the
+    caller's check): D 64 or 128, TMA boxes of whole 8-row groups that
+    tile 64 keys, whole query heads in a 64-row tile, 16-byte aligned
+    operands, and the rows' tile counts fit its scratch."""
+    return (D in (64, 128) and page % 8 == 0
+            and (page % _HOPPER_KEYS == 0 or _HOPPER_KEYS % page == 0)
+            and _HOPPER_ROWS % qpg == 0 and R * 4 <= 4 * 64 * D * 2
+            and all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                    for t in tensors))
+
+
 def ragged_paged_attention_plain(
     q, k_new, v_new, k_pools, v_pools, layer: int, row_slot, row_start,
     row_len, row_off, block_tables, *, soft_cap: Optional[float] = None,
@@ -271,9 +308,11 @@ def ragged_paged_attention(
     int8 pools: pass ``k_scales``/``v_scales`` [L, P, KVH, 1] f32; q and
     the fresh k/v stay f32 or bf16 and carry no scale.
 
-    CUDA tensors launch kernel K4 (csrc/ragged_attention.cu; its int8
-    instantiation when scales are given, counted in ``launches_int8``
-    too); CPU tensors run the plain version."""
+    CUDA tensors launch kernel K4 (csrc/ragged_attention.cu: in bf16 at
+    D 64 and 128 the Hopper kernel of csrc/ragged_attention.cuh, planned
+    by ``hopper_attention_plan``; its int8 instantiation when scales are
+    given, counted in ``launches_int8`` too); CPU tensors run the plain
+    version."""
     quantized = _check_scales("ragged_paged_attention", k_pools, v_pools,
                               k_scales, v_scales)
     if not q.is_cuda:
@@ -325,14 +364,19 @@ def ragged_paged_attention(
     out = torch.zeros((T, H, D), dtype=torch.float32, device=q.device)
     if T == 0 or R == 0:
         return out
-    # One CTA per (row, kv head, q tile of 64 // qpg tokens); tiles past
-    # a row's length exit at once.
-    n_tiles = -(-T // (_K4_ROWS // qpg))
+    if dt == torch.bfloat16 and _hopper_attention_ok(
+            D, page, qpg, R, q, k_new, v_new, k_pools, v_pools):
+        cluster, n_tiles = hopper_attention_plan(T, R, qpg, maxp, page)
+    else:
+        # The CUDA-core kernel: one CTA per (row, kv head, q tile of
+        # 64 // qpg tokens); tiles past a row's length exit at once.
+        cluster, n_tiles = 0, -(-T // (_K4_ROWS // qpg))
     lib = _build.library("ragged_attention")
     fn = lib.rtt_ragged_attention
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
              k_pools.data_ptr(), v_pools.data_ptr(),
              k_scales.data_ptr() if quantized else None,
@@ -341,8 +385,8 @@ def ragged_paged_attention(
              row_start.data_ptr(), row_len.data_ptr(), row_off.data_ptr(),
              block_tables.data_ptr(), out.data_ptr(), _DTYPE_CODE[dt], H,
              KVH, P, page, D, maxp, R, n_tiles, int(layer), D ** -0.5,
-             float(soft_cap) if soft_cap is not None else 0.0,
-             _stream_ptr(q))
+             float(soft_cap) if soft_cap is not None else 0.0, L, T,
+             cluster, _stream_ptr(q))
     _build.check(err, "ragged_paged_attention")
     ragged_paged_attention.launches += 1
     if quantized:
@@ -667,13 +711,20 @@ def fused_ragged_layer(
     tq = _K8_QROWS // qpg
     smem = 4 * ((_K8_QROWS + 2 * _K8_KEYS) * (hd + 4)
                 + _K8_QROWS * (_K8_KEYS + 4) + 3 * _K8_QROWS)
+    attn_plan = (0, 0)
+    if x.dtype == torch.bfloat16 and _hopper_attention_ok(
+            hd, page, qpg, R, k_pools, v_pools):
+        attn_plan = hopper_attention_plan(x.shape[0], R, qpg,
+                                          block_tables.shape[1], page)
+        smem = 0
     out = launch_fused_layer(
         "fused_ragged", "rtt_fused_ragged_layer", x, layer, k_pools, v_pools,
         int(layer_idx), sin, cos, eps=eps, n_heads=n_heads,
         n_kv_heads=n_kv_heads, soft_cap=soft_cap,
         k_scales=k_scales if quantized else None,
         v_scales=v_scales if quantized else None,
-        block_tables=block_tables, rows_desc=rows, tq=tq, attn_smem=smem)
+        block_tables=block_tables, rows_desc=rows, tq=tq, attn_smem=smem,
+        attn_plan=attn_plan)
     fused_ragged_layer.launches += 1
     if quantized:
         fused_ragged_layer.launches_int8 += 1

@@ -808,6 +808,171 @@ def test_k8_matches_plain_8b_layer(dev, pool):
     _assert_fused_close(got, want, torch.bfloat16)
 
 
+# ---------------------------------------------------------------------------
+# The Hopper K4 (csrc/ragged_attention.cuh) and K8 on the WGMMA route
+# ---------------------------------------------------------------------------
+
+# (start, len) rows per case, at LLAMA3_8B head shapes (H 32, KVH 8, D
+# 128, page 64): past 0; pasts off the page (1, 65); chunks at start 0 of
+# 256 and 257 tokens (the second crosses a q tile); padding rows.
+_HOPPER_CASES = {
+    "past0": [(0, 1), (0, 5), (700, 1)],
+    "past_off_page": [(1, 1), (65, 1), (65, 40), (1, 3)],
+    "chunk256": [(0, 256), (300, 1)],
+    "chunk257": [(0, 257), (64, 1), (129, 1)],
+    "padding": [(100, 1), (0, 0), (40, 20), (0, 0), (1500, 1)],
+}
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(_HOPPER_CASES))
+@pytest.mark.parametrize("soft_cap", [None, 30.0])
+def test_k4_hopper_matches_plain(dev, pool, case, soft_cap):
+    g = _gen(len(case) + (pool == "int8"))
+    k, v, q, kn, vn, meta, bt, covered = _ragged_case(
+        dev, g, torch.bfloat16, 2, 32, 8, 128, 64, _HOPPER_CASES[case])
+    scales = {}
+    if pool == "int8":
+        k, v, ks, vs = _quantise(g, k, k.shape[2], 8)
+        scales = {"k_scales": ks, "v_scales": vs}
+    before = (trpa.ragged_paged_attention.launches,
+              trpa.ragged_paged_attention.launches_int8)
+    got = trpa.ragged_paged_attention(q, kn, vn, k, v, 1, *meta, bt,
+                                      soft_cap=soft_cap, **scales)
+    want = trpa.ragged_paged_attention_plain(q, kn, vn, k, v, 1, *meta, bt,
+                                             soft_cap=soft_cap, **scales)
+    torch.cuda.synchronize()
+    # bf16 q and pages are exact in bf16; p is split hi + lo (2^-17).
+    torch.testing.assert_close(got[covered], want[covered], atol=1e-3,
+                               rtol=1e-3)
+    assert not got[~covered].any()
+    assert trpa.ragged_paged_attention.launches == before[0] + 1
+    assert trpa.ragged_paged_attention.launches_int8 == before[1] + (
+        pool == "int8")
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("per_rank", [1, 12])
+def test_k4_hopper_past_over_every_page(dev, pool, per_rank, monkeypatch):
+    """Pasts longer than maxp pages attend to the first maxp pages only;
+    one or twelve key blocks a rank (clusters of 8 and of 1 to 4)."""
+    monkeypatch.setattr(trpa, "HOPPER_BLOCKS_PER_RANK", per_rank)
+    g = _gen(31 + per_rank)
+    rows = [(900, 1), (700, 1), (300, 30)]
+    k, v, q, kn, vn, meta, bt, covered = _ragged_case(
+        dev, g, torch.bfloat16, 1, 32, 8, 128, 64, rows)
+    bt = bt[:, :8].contiguous()   # 512 past positions: the rows' pasts
+    scales = {}
+    if pool == "int8":
+        k, v, ks, vs = _quantise(g, k, k.shape[2], 8)
+        scales = {"k_scales": ks, "v_scales": vs}
+    got = trpa.ragged_paged_attention(q, kn, vn, k, v, 0, *meta, bt,
+                                      **scales)
+    want = trpa.ragged_paged_attention_plain(q, kn, vn, k, v, 0, *meta, bt,
+                                             **scales)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[covered], want[covered], atol=1e-3,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_k4_hopper_is_deterministic(dev, pool):
+    g = _gen(41)
+    rows = [(300, 1), (1500, 1), (512, 256)]
+    k, v, q, kn, vn, meta, bt, _ = _ragged_case(
+        dev, g, torch.bfloat16, 1, 32, 8, 128, 64, rows)
+    scales = {}
+    if pool == "int8":
+        k, v, ks, vs = _quantise(g, k, k.shape[2], 8)
+        scales = {"k_scales": ks, "v_scales": vs}
+    a = trpa.ragged_paged_attention(q, kn, vn, k, v, 0, *meta, bt, **scales)
+    b = trpa.ragged_paged_attention(q, kn, vn, k, v, 0, *meta, bt, **scales)
+    assert torch.equal(a, b)
+
+
+# A layer on the WGMMA route: every projection's segments are multiples
+# of 64 columns (and its columns of 128), head_dim 128.
+_WIDE = (1024, 8, 2, 2048)
+
+
+@pytest.mark.parametrize("form", ["plain", "fused"])   # bf16 or int8 weights
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("T", [1, 264, 300])
+def test_k8_wgmma_matches_plain(dev, form, pool, T):
+    D, H, KVH, M = _WIDE
+    hd = D // H
+    layer = _fused_layer(51, _WIDE, form, torch.bfloat16)
+    g = _gen(52 + T)
+    page, maxp = 64, 24
+    if T == 1:
+        spec = [(0, 700, 1)]
+    else:  # decode rows beside a chunk that fills the rest of the buffer
+        spec = [(0, 300, 1), (1, 1500, 1), (2, 65, 1), (3, 0, 0),
+                (4, 512, T - 3)]
+    rows, pos = _ragged_rows(spec, T)
+    P = len(spec) * maxp + 1
+    k, v, scales = _fused_pools(g, pool, 1, KVH, P, page, hd, torch.bfloat16)
+    bt = _ragged_bt(g, spec, maxp, page, P)
+    x = torch.randn((T, D), generator=g, device=dev).to(torch.bfloat16)
+    sin, cos = _rope_rows(pos, hd)
+    kw = dict(eps=1e-5, n_heads=H, n_kv_heads=KVH, **scales)
+    before = trpa.fused_ragged_layer.launches
+    got = trpa.fused_ragged_layer(x, layer, k, v, 0, *rows, bt, sin, cos,
+                                  **kw)
+    again = trpa.fused_ragged_layer(x, layer, k, v, 0, *rows, bt, sin, cos,
+                                    **kw)
+    want = trpa.fused_ragged_layer_reference(x, layer, k, v, 0, *rows, bt,
+                                             sin, cos, **kw)
+    torch.cuda.synchronize()
+    covered = sum(n for *_, n in spec)
+    _assert_fused_close([t[:covered] for t in got],
+                        [t[:covered] for t in want], torch.bfloat16)
+    for a, b in zip(got, again):   # bit-identical over two launches
+        assert torch.equal(a, b)
+    assert trpa.fused_ragged_layer.launches == before + 2
+
+
+# A layer off the WGMMA route: head_dim 16, so the k/v segments are 32
+# columns; its bf16 projections run on the CUDA cores, its attention on
+# K4's CUDA-core design.
+_NARROW = (64, 4, 2, 128)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_fused_cuda_core_route_bf16(dev, pool):
+    from ray_tpu_torch.ops import fused_decode as tfd
+
+    D, H, KVH, M = _NARROW
+    hd = D // H
+    layer = _fused_layer(61, _NARROW, "int8", torch.bfloat16)
+    g = _gen(62)
+    page, maxp, T = 16, 8, 40
+    spec = [(0, 40, 30), (1, 33, 1), (2, 0, 9)]
+    rows, pos = _ragged_rows(spec, T)
+    P = len(spec) * maxp + 1
+    k, v, scales = _fused_pools(g, pool, 1, KVH, P, page, hd, torch.bfloat16)
+    bt = _ragged_bt(g, spec, maxp, page, P)
+    x = torch.randn((T, D), generator=g, device=dev).to(torch.bfloat16)
+    sin, cos = _rope_rows(pos, hd)
+    kw = dict(eps=1e-5, n_heads=H, n_kv_heads=KVH, **scales)
+    got = trpa.fused_ragged_layer(x, layer, k, v, 0, *rows, bt, sin, cos,
+                                  **kw)
+    want = trpa.fused_ragged_layer_reference(x, layer, k, v, 0, *rows, bt,
+                                             sin, cos, **kw)
+    torch.cuda.synchronize()
+    _assert_fused_close(got, want, torch.bfloat16)
+    lengths = torch.tensor([40, 0, 17, 5], dtype=torch.int32, device=dev)
+    bt4 = bt[:1].repeat(4, 1)
+    sin, cos = _rope_rows(lengths, hd)
+    xb = x[:4]
+    got = tfd.fused_decode_layer(xb, layer, k, v, 0, bt4, lengths, sin, cos,
+                                 **kw)
+    want = tfd.fused_decode_layer_reference(xb, layer, k, v, 0, bt4, lengths,
+                                            sin, cos, **kw)
+    torch.cuda.synchronize()
+    _assert_fused_close(got, want, torch.bfloat16)
+
+
 def test_k7_is_capturable(dev):
     """One K7 call captured in a CUDA graph replays to the eager result
     (no host sync, no host-made tensor inside the call)."""
