@@ -11,8 +11,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    (K9f, K10 and K11 in bf16 at D 64 and 128, K7/K8's WGMMA projections
    and K4/K8's ragged attention) must show no ptxas report of serialised
    wgmma and, where the toolkit has ``cuobjdump``, HGMMA and UTMALDG
-   instructions in their SASS, and K13 its bulk copies (UBLKCP) (counts
-   printed);
+   instructions in their SASS, and K13 its bulk copies (UBLKCP); K12's
+   scan must hold HMMA (mma.sync) and LDGSTS (cp.async), K7/K8's DECODE
+   projection HGMMA and UTMALDG, K7's tensor-core attention HMMA and
+   UTMALDG, and none of the three may spill (counts printed);
 3. kernels at LLAMA3_8B shapes (bf16, H=32, KVH=8, D=128, page 64,
    L=32): K1 paged decode partials, K2 paged append, K9f flash forward
    (then K10 and K11, phase 9; K9f and K11 also with TFLOP/s and
@@ -63,7 +65,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    8B serving configuration): K7 and K8 on one LLAMA3_8B layer of the
    fused int8 artifact, each on bf16 and on int8 pools, held against
    their plain versions and timed beside the bound and the port's
-   unfused layer (no single library call computes a layer), K8's
+   unfused layer (no single library call computes a layer), K7's device
+   time split into projections, attention and the rest, K8's
    projection phase beside
    the same four products as ``torch.matmul`` on the dequantised bf16
    weights (``proj_cublas_ms``); cuda-vs-cpu
@@ -95,9 +98,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 10. Mamba-2 training and K13: K12 (the SSD chunk scan) against its plain
    version at bench.py's ``_measure_ssd`` shape (B 4, S 4096, H 8, P 64,
    N 128, chunk 128), at one 2.7B layer's (B 2, S 2048, H 80, P 64, N
-   128, chunk 64, bf16 B/C) and with the chunk kept (S 1984), timed
-   beside the plain version, the port's ``ssd_chunked`` and the bound,
-   and the ``ssd_pallas`` Function's gradients card vs CPU; K13 (normalised
+   128, chunk 64, bf16 B/C) and with the chunk kept (S 1984), each
+   bit-identical over two launches, timed beside the plain version, the
+   port's ``ssd_chunked``, its kernels' device times and the bound on
+   its route (the TF32 products it issues, or bytes), and the
+   ``ssd_pallas`` Function's gradients card vs CPU; K13 (normalised
    paged decode attention) against its plain version at LLAMA3_8B decode
    shapes on each of 32 layers' pages, an empty slot, OOB page ids and a
    soft-capped case, timed beside SDPA with each call on the next
@@ -134,6 +139,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+TF32_FLOPS = 495e12              # H100 SXM dense TF32 tensor-core peak
 F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
 
 
@@ -194,6 +200,31 @@ HOPPER_KERNELS = {
 }
 # K13's kernel, which copies its pages with cp.async.bulk (UBLKCP).
 K13_KERNEL = ("paged_decode", "paged_decode_attention_hopper")
+# The mma.sync and DECODE kernels and the SASS opcodes each must hold:
+# K12's scan (mma.sync on TF32, HMMA; cp.async, LDGSTS), K7/K8's DECODE
+# projection (HGMMA, UTMALDG) and K7's tensor-core attention (HMMA,
+# UTMALDG).  None may spill.
+TC_KERNELS = (("mamba_ssd", "ssd_kernel", ("HMMA", "LDGSTS")),
+              ("fused_decode", "proj_decode", ("HGMMA", "UTMALDG")),
+              ("fused_decode", "decode_attn_tc", ("HMMA", "UTMALDG")),
+              ("fused_ragged", "proj_decode", ("HGMMA", "UTMALDG")))
+
+
+def ptxas_spills(log_text: str, name_part: str) -> dict:
+    """Spill stores and loads ptxas reported (-v) for each function whose
+    name holds ``name_part``."""
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1) if name_part in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn] = int(m.group(1)) + int(m.group(2))
+            fn = None
+    return out
 
 
 def _cuobjdump(_build):
@@ -234,8 +265,10 @@ def hopper_check(_build) -> dict:
     of each one (K9f, K10, K11, K7/K8's projections, K4/K8's ragged
     attention), HGMMA (warpgroup MMA) and UTMALDG (TMA tile load) counts
     above 0, and no ptxas report of serialised wgmma in their builds;
-    K13's kernel copies its pages with UBLKCP (bulk copies).  Fails
-    otherwise; without cuobjdump the SASS counts are not taken."""
+    K12's scan, K7/K8's DECODE projection and K7's attention hold the
+    opcodes of ``TC_KERNELS`` and spill nothing; K13's kernel copies its
+    pages with UBLKCP (bulk copies).  Fails otherwise; without cuobjdump
+    the SASS counts are not taken."""
     out = {}
     for lib in HOPPER_KERNELS:
         for line in _build.build_logs.get(lib, "").splitlines():
@@ -261,6 +294,19 @@ def hopper_check(_build) -> dict:
         name = f"{short.group(1)}<{short.group(2)}>" if short else f[:60]
         log(f"  SASS {c['lib']} {name}: HGMMA {c['HGMMA']}  "
             f"UTMALDG {c['UTMALDG']}")
+    for lib, part, ops in TC_KERNELS:
+        spills = ptxas_spills(_build.build_logs.get(lib, ""), part)
+        if any(spills.values()):
+            raise AssertionError(f"csrc/{lib}.cu: {part} spills: {spills}")
+        found = _sass_counts(tool, _build, lib, (part,), ops)
+        if not found or any(c[op] == 0 for c in found.values() for op in ops):
+            raise AssertionError(f"csrc/{lib}.cu: {part} missing or without "
+                                 f"{ops} in its SASS: {found}")
+        log(f"  SASS {lib} {part}: {len(found)} instantiations, "
+            + ", ".join(f"{op} {sorted(c[op] for c in found.values())}"
+                        for op in ops)
+            + f"; ptxas spills {sorted(set(spills.values())) or 'not read'}")
+        out.update({f"{lib}:{f}": c for f, c in found.items()})
     lib, part = K13_KERNEL
     k13 = _sass_counts(tool, _build, lib, (part,), ("UBLKCP",))
     if not k13 or any(c["UBLKCP"] == 0 for c in k13.values()):
@@ -1779,6 +1825,21 @@ def _fmt_breakdown(bd: dict) -> str:
                      sorted(bd.items(), key=lambda kv: -kv[1]))
 
 
+def phase_groups(phases: dict) -> dict:
+    """A fused layer's device ms per call by part: the projections (the
+    WGMMA, DECODE and CUDA-core projection kernels with their epilogue),
+    the attention, and the rest (norms, RoPE)."""
+    if "error" in phases:
+        return phases
+    out = {"projections": 0.0, "attention": 0.0, "rest": 0.0}
+    for name, ms in phases.items():
+        key = ("projections" if any(p in name for p in (
+            "proj_", "gemv", "epilogue")) else "attention"
+            if "attn" in name or "attention" in name else "rest")
+        out[key] += ms
+    return out
+
+
 def _layer_flops(T, D, H, KVH, hd, M):
     return 2 * T * (D * (H + 2 * KVH) * hd + H * hd * D + D * 2 * M + M * D)
 
@@ -1817,7 +1878,43 @@ def projection_yardstick(torch, llama, layer, phases, T, cfg) -> dict:
     return out
 
 
-def kernel_phase_k7(torch, llama, quant, tfd, tpa, report, int8=False):
+def k7_attention_on_k4(torch, tfd, trpa, k, v, bt, lengths, H, scales):
+    """K7's attention as K4's Hopper route (ragged_attention.cuh's decode
+    rows) would compute it over the same slots and pools: each slot a row
+    of one token at its past, q rounded to bf16 as K7's page dot takes
+    it.  Its time (``k4_ms``, beside K7's attention phase), and its
+    largest distance from K7's rounding (the plain version's page walk:
+    p rounded to bf16 for p.v, the self term from the f32 q) and from its
+    own inputs' attention in f32 throughout."""
+    B, hd = bt.shape[0], k.shape[-1]
+    KVH = k.shape[1]
+    g = torch.Generator(device="cuda").manual_seed(24)
+    q = torch.randn((B, H, hd), generator=g, device="cuda")
+    kn = torch.randn((B, KVH, hd), generator=g, device="cuda").to(
+        torch.bfloat16)
+    vn = torch.randn_like(kn)
+    ar = torch.arange(B, dtype=torch.int32, device="cuda")
+    rows = (ar, lengths, torch.ones_like(lengths), ar)
+    qb = q.to(torch.bfloat16)
+
+    def k4(i):
+        return trpa.ragged_paged_attention(qb, kn, vn, k, v, 0, *rows, bt,
+                                           **scales)
+
+    ks, vs = scales.get("k_scales"), scales.get("v_scales")
+    want = tfd._decode_attention_reference(q, kn, vn, k, v, 0, bt, lengths,
+                                           torch.bfloat16, None, ks, vs)
+    f32 = tfd._decode_attention_reference(qb.float(), kn, vn, k, v, 0, bt,
+                                          lengths, torch.float32, None, ks,
+                                          vs)
+    got = k4(0)
+    return {"k4_ms": time_ms(torch, k4),
+            "k4_from_k7_rounding": (got - want).abs().max().item(),
+            "k4_from_f32": (got - f32).abs().max().item()}
+
+
+def kernel_phase_k7(torch, llama, quant, tfd, tpa, trpa, report,
+                    int8=False):
     """K7 at the bench's bucketed shape: 48 slots with 128-160 past
     tokens, page 64, one LLAMA3_8B layer of the fused int8 artifact."""
     cfg = llama.LLAMA3_8B
@@ -1859,6 +1956,8 @@ def kernel_phase_k7(torch, llama, quant, tfd, tpa, report, int8=False):
         n=5, blocks=3)
     phases = kernel_breakdown(torch, lambda: tfd.fused_decode_layer(
         x, layer, k, v, 0, bt, lengths, sin, cos, **kw))
+    groups = phase_groups(phases)
+    alt = k7_attention_on_k4(torch, tfd, trpa, k, v, bt, lengths, H, scales)
     tokens = int(lengths.sum())
     pages = int(((lengths + page - 1) // page).sum())
     kv_bytes = 2 * tokens * KVH * hd * (1 if int8 else 2) \
@@ -1880,12 +1979,20 @@ def kernel_phase_k7(torch, llama, quant, tfd, tpa, report, int8=False):
                  f"{'int8 + f32 page scales' if int8 else 'bf16'}, "
                  f"{tokens} past tokens (128-160 per slot)",
         "bound_bytes": nbytes, "bound_flops": flops,
-        "phase_ms": phases,
+        "phase_ms": phases, "phase_groups_ms": groups,
+        "weight_bytes": w_bytes, "attention_on_k4": alt,
     }
+    if "error" not in groups:
+        report["K7i8" if int8 else "K7"]["proj_weight_rate_tb_s"] = (
+            w_bytes / groups["projections"] / 1e9)
     log(f"{tag} fused_decode_layer: err {err:.3e}  kernel {ms:.4f} ms  plain "
         f"{plain_ms:.4f} ms  no single library call (unfused layer, eager "
         f"ATen + K1: {unfused_ms:.4f} ms)  bound {b_ms:.4f} ms ({b_by})")
     log(f"  {tag} phases (device ms per call): {_fmt_breakdown(phases)}")
+    log(f"  {tag} by part: {_fmt_breakdown(groups)}")
+    log(f"  {tag} attention on K4's decode rows instead: {alt['k4_ms']:.4f} "
+        f"ms, {alt['k4_from_k7_rounding']:.3e} from K7's rounding "
+        f"(K4's own tolerance {alt['k4_from_f32']:.3e} from f32)")
 
 
 def kernel_phase_k8(torch, llama, quant, trpa, report, int8=False):
@@ -2696,9 +2803,10 @@ def train_1b_phase(torch, llama, train, kernels):
 # --------------------------------------------------------------------------
 
 K12, K13 = "ssd_forward", "paged_decode_attention"
-# K12 against ssd_pallas_plain, relative to 1 + |y|: the same f32
-# recurrence, walked in 64-position blocks by the kernel and at the
-# resolved chunk (up to 256) by the plain version, sums in other orders.
+# K12 against ssd_pallas_plain, relative to 1 + |y|: the same recurrence,
+# walked in 32-position blocks by the kernel (products in 3xTF32 split
+# precision) and at the resolved chunk (up to 256) in f32 by the plain
+# version, sums in other orders.
 K12_TOL = 2e-4
 MAMBA_B, MAMBA_S = 2, 2048       # the 2.7B phase's fixed batch
 
@@ -2714,17 +2822,42 @@ def _ssd_case(torch, g, B, S, H, P, N, bc_dtype):
     return x, log_a, Bm, Cm
 
 
-def k12_flops(tssd, B: int, S: int, H: int, P: int, N: int) -> int:
-    """Operations of K12 as it does its work, two a multiply-add: C·Bᵀ
-    over the whole T × T square once per batch and block of
-    ``BLOCK_T`` positions, then per head and column the masked decay
-    product over each block's lower triangle, C·state and the state
-    update."""
+def k12_flops(tssd, B: int, S: int, H: int, P: int, N: int,
+              bc_bytes: int) -> dict:
+    """Tensor operations of K12's route (csrc/mamba_ssd.cu) that the
+    function needs, two a multiply-add, every split-precision pass
+    counted, by the peak they run at.  C.B^T is counted once per (batch,
+    block of ``BLOCK_T`` positions), its six 16 x 8 tiles j <= i: on bf16
+    mma.sync in one pass for bf16 B/C (``bf16``), three TF32 passes for
+    f32 ones.  Every CTA of the kernel builds it again (twice per head at
+    the 2.7B layer); those repeats are work of the route, not of the
+    function, and are not counted.  Per head, block and 8 state columns
+    (two warps of the kernel, N rounded up to 8): (G o L).x over the tiles
+    each 16 rows need, three passes; C.state and the state update, two
+    passes (bf16 B/C exact) or three (f32)."""
     T = tssd.BLOCK_T
-    nblk = -(-S // T)
-    scores = 2 * B * nblk * T * T * N
-    scan = 2 * B * H * P * (nblk * T * (T + 1) // 2 + 2 * nblk * T * N)
-    return scores + scan
+    blocks = -(-S // T)
+    n8 = -(-N // 8) * 8
+    exact = bc_bytes == 2
+    p_cs = 2 if exact else 3
+    mma = 2 * 16 * 8 * 8                     # one m16n8k8 tile step
+    cb = B * blocks * 6 * (n8 // 8) * mma    # C.B^T, one pass
+    col8 = B * H * (P // 8) * blocks         # (batch, head, 8 columns, block)
+    rest = col8 * mma * ((2 + 4) * 3              # (G o L).x, rows 0-15, 16-31
+                         + 2 * (n8 // 8) * p_cs   # C.state, 32 rows
+                         + (n8 // 16) * (T // 8) * p_cs)  # update, N rows
+    return {"bf16": cb if exact else 0,
+            "tf32": rest + (0 if exact else 3 * cb)}
+
+
+def k12_useful_flops(B: int, S: int, H: int, P: int, N: int) -> int:
+    """The recurrence's own f32 work at 64-position blocks (the count of
+    the f32 CUDA-core route: C.B^T once per batch and block, the decay
+    product over each block's lower triangle, C.state and the update),
+    two a multiply-add."""
+    T, nblk = 64, -(-S // 64)
+    return (2 * B * nblk * T * T * N
+            + 2 * B * H * P * (nblk * T * (T + 1) // 2 + 2 * nblk * T * N))
 
 
 def _k12_err(got, want) -> float:
@@ -2740,6 +2873,7 @@ def kernel_phase_k12(torch, tssd, tm, report):
     (the JAX benchmark's own comparison) and the bound; then the
     ``ssd_pallas`` Function's gradients on the card against the CPU's."""
     g = torch.Generator(device="cuda").manual_seed(12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = {"measure_ssd": (4, 4096, 8, 64, 128, 128, torch.float32),
              "mamba2_2.7b_layer": (2, 2048, 80, 64, 128, 64, torch.bfloat16),
              "chunk_kept": (2, 1984, 80, 64, 128, 64, torch.bfloat16)}
@@ -2755,10 +2889,17 @@ def kernel_phase_k12(torch, tssd, tm, report):
                         f"{str(bc).split('.')[-1]}",
                "max_rel_err": err,
                "max_abs_err": (got - want).abs().max().item(),
-               "p_tile": tssd.p_tile_for(P)}
+               "plan": {k: v for k, v in tssd.ssd_plan(
+                   B, H, P, N, Bm.element_size(), sms).items()
+                   if k in ("p_tile", "np", "ctas", "smem", "per_sm",
+                            "waves")}}
         if not err <= K12_TOL:
             raise AssertionError(f"K12 disagrees with its plain version "
                                  f"({tag}): {err} > {K12_TOL}")
+        again = tssd.ssd_forward(x, la, Bm, Cm, chunk)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K12 ({tag}): two launches differ")
         if tag != "chunk_kept":
             row["ms"] = time_ms(torch, lambda i: tssd.ssd_forward(
                 x, la, Bm, Cm, chunk), n=5, blocks=3)
@@ -2766,20 +2907,38 @@ def kernel_phase_k12(torch, tssd, tm, report):
                 x, la, Bm, Cm, chunk), n=2, blocks=3)
             row["ssd_chunked_ms"] = time_ms(torch, lambda i: tm.ssd_chunked(
                 x, la, Bm, Cm, chunk), n=2, blocks=3)
+            # Device time of each kernel the call launches (one: the scan).
+            row["by_kernel_ms"] = kernel_breakdown(
+                torch, lambda: tssd.ssd_forward(x, la, Bm, Cm, chunk))
             nbytes = (2 * B * S * H * P * 4 + B * S * H * 4
                       + 2 * B * S * N * Bm.element_size())
-            row["flops"] = k12_flops(tssd, B, S, H, P, N)
-            row["bound_ms"], row["bound_by"] = bound(nbytes, row["flops"],
-                                                     F32_FLOPS)
+            fl = k12_flops(tssd, B, S, H, P, N, Bm.element_size())
+            row["flops"] = fl["tf32"] + fl["bf16"]
+            row["flops_by_type"] = fl
+            row["useful_f32_flops"] = k12_useful_flops(B, S, H, P, N)
+            # TF32 work at 495 TFLOP/s plus bf16 work at 989, as TF32 time.
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes, fl["tf32"] + fl["bf16"] * TF32_FLOPS / BF16_FLOPS,
+                TF32_FLOPS)
+            row["bound_route"] = ("tensor cores, every split-precision "
+                                  "pass: TF32 at 495 TFLOP/s, C.B^T of bf16 "
+                                  "B/C at 989, once per (batch, block); or "
+                                  "bytes at 3.35 TB/s")
+            row["f32_cuda_core_bound_ms"] = bound(
+                nbytes, row["useful_f32_flops"], F32_FLOPS)[0]
             log(f"K12 ssd_forward {tag} ({row['shape']}): err {err:.2e} "
-                f"kernel {row['ms']:.4f} ms (p_tile {row['p_tile']})  plain "
+                f"kernel {row['ms']:.4f} ms (plan {row['plan']})  plain "
                 f"{row['plain_ms']:.4f} ms  ssd_chunked "
                 f"{row['ssd_chunked_ms']:.4f} ms  bound {row['bound_ms']:.4f}"
-                f" ms ({row['bound_by']}, {row['flops'] / 1e9:.2f} GFLOP)")
+                f" ms ({row['bound_by']}, {fl['tf32'] / 1e9:.2f} GFLOP "
+                f"TF32 + {fl['bf16'] / 1e9:.2f} bf16; f32 CUDA-core bound "
+                f"{row['f32_cuda_core_bound_ms']:.4f} ms)")
+            log(f"  K12 kernels (device ms per call): "
+                f"{_fmt_breakdown(row['by_kernel_ms'])}")
         else:
             log(f"K12 ssd_forward {tag} ({row['shape']}): err {err:.2e}")
         rows[tag] = row
-        del x, la, Bm, Cm, want, got
+        del x, la, Bm, Cm, want, got, again
 
     # The Function's gradients: card (K12 forward, ssd_chunked backward on
     # the card) against the CPU (plain forward, ssd_chunked on the CPU).
@@ -2814,6 +2973,9 @@ def kernel_phase_k12(torch, tssd, tm, report):
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "library_ms": None,
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "bound_route": main["bound_route"],
+        "f32_cuda_core_bound_ms": main["f32_cuda_core_bound_ms"],
+        "by_kernel_ms": main["by_kernel_ms"],
         "shape": main["shape"], "cases": rows, "function_grad_err": grad_err}
     torch.cuda.empty_cache()
 
@@ -3282,7 +3444,8 @@ def main() -> int:
     kernel_phase_k6(torch, trpa, report)
     torch.cuda.empty_cache()
     for int8 in (False, True):
-        kernel_phase_k7(torch, llama, quant, tfd, tpa, report, int8=int8)
+        kernel_phase_k7(torch, llama, quant, tfd, tpa, trpa, report,
+                        int8=int8)
         kernel_phase_k8(torch, llama, quant, trpa, report, int8=int8)
         torch.cuda.empty_cache()
     kernel_phase_k12(torch, tssd, tm, report)

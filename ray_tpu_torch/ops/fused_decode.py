@@ -29,13 +29,18 @@ gate/up leaves as column segments of one projection, never concatenated
 per call.  With bf16 activations and int8 or bf16 weights whose segments
 are multiples of 64 columns, each projection is one Hopper launch
 (``wgmma_plan``: every token of the call shares each weight tile, and K
-splits over a cluster that sums in rank order).  CPU tensors run the
+splits over a cluster that sums in rank order); a call of at most 64
+tokens over int8 weights takes the DECODE route instead (``decode_plan``:
+one CTA an SM streaming equal shares of the weights, partial tiles
+summed in a fixed order), and with bf16 activations at head_dim 128 the
+attention runs on the tensor cores.  CPU tensors run the
 plain version, ``fused_decode_layer_reference``, which may concatenate.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -52,7 +57,7 @@ from ray_tpu_torch.ops.paged_attention import (
 
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # Projection routes of csrc/fused_layer.cuh (Proj::route).
-_CUDA_CORES, _WGMMA = 0, 1
+_CUDA_CORES, _WGMMA, _DECODE = 0, 1, 2
 # The CUDA-core route's tile, (rows, columns) per CTA (the wrapper sizes
 # its split-K plan and partial buffer by it).
 _FMA_TILE = (16, 512)
@@ -62,6 +67,12 @@ _MIN_K_PER_SPLIT = 256
 _WGMMA_TILES = ((64, 1), (136, 1), (136, 2))
 _WGMMA_SMEM = 225 * 1024   # dynamic shared memory a CTA may take
 _WGMMA_MAX_STAGES = 8
+# DECODE route (csrc/fused_layer.cuh proj_decode): calls of at most this
+# many tokens, int8 weights; 256 output columns a tile (SwiGLU: 128 gate
+# and 128 up), 64 K a step; ring stages of two [64][128] int8 boxes and
+# the step's activations.
+DECODE_MAX_ROWS = 64
+_DECODE_MAX_STAGES = 12
 
 
 def wgmma_plan(rows: int, K: int, cols: int, weight_bytes: int,
@@ -87,6 +98,33 @@ def wgmma_plan(rows: int, K: int, cols: int, weight_bytes: int,
     return {"nw": nw, "nc": nc, "token_tiles": token_tiles,
             "col_tiles": col_tiles, "splits": -(-K // kps), "kps": kps,
             "stages": stages, "stage_bytes": stage}
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(rows: int, K: int, cols: int, sms: int) -> dict:
+    """The DECODE route's plan for one projection (cached: the wrapper
+    asks for it on every call; treat it as read-only): ``nt`` tokens of
+    one wgmma (rows rounded up to 8), ``tiles`` column tiles of 256
+    columns (SwiGLU: 128 gate/up pairs; the tile count is cols / 256
+    either way), ``ksteps`` 64-K steps a tile, ``units`` = tiles x ksteps
+    cut into ``grid`` equal contiguous shares (one CTA an SM; csrc:
+    unit_start), ``stages`` ring stages of ``stage_bytes`` and the
+    kernel's dynamic shared memory ``smem``, and ``part_floats``, the f32
+    slots of the tiles that CTAs share."""
+    if not 0 < rows <= DECODE_MAX_ROWS or K % 64 or cols % 256:
+        raise ValueError(f"decode_plan: rows {rows}, K {K}, cols {cols}")
+    nt = -(-rows // 8) * 8
+    tiles, ksteps = cols // 256, K // 64
+    units = tiles * ksteps
+    grid = min(sms, units)
+    stage = 2 * 64 * 128 + nt * 128
+    xch = nt * 128 * 4                     # the SwiGLU exchange
+    stages = min(_DECODE_MAX_STAGES, (_WGMMA_SMEM - 1024 - xch) // stage)
+    assert stages >= 2
+    return {"nt": nt, "tiles": tiles, "ksteps": ksteps, "units": units,
+            "grid": grid, "stages": stages,
+            "stage_bytes": stage, "smem": stages * stage + xch + 1024,
+            "part_floats": grid * 2 * 256 * nt}
 
 
 def _qdict(node) -> bool:
@@ -319,7 +357,7 @@ _PTRS = ("x", "ln_a", "ln_m", "sin", "cos")
 _PTRS2 = ("k_pools", "v_pools", "k_scales", "v_scales", "block_tables",
           "lengths", "row_slot", "row_start", "row_len", "row_off", "xn",
           "part", "qkv_buf", "ao", "h", "act", "x_out", "k_new", "v_new",
-          "stream")
+          "counters", "stream")
 
 
 class LayerArgs(ctypes.Structure):
@@ -360,8 +398,9 @@ def _segment(name: str, leaf, K: int, rows_fold: Optional[int] = None):
 
 def _proj(name: str, leaves, K: int, rows: int, dt: torch.dtype, device,
           rows_fold: Optional[int] = None) -> Tuple[_Proj, int]:
-    """One projection's segments and route, and the floats its split-K
-    partial sums need (none on the WGMMA route)."""
+    """One projection's segments and route, and the floats its partial
+    sums need (split-K on the CUDA cores, shared tiles on the DECODE
+    route; none on the WGMMA route)."""
     segs = [_segment(name, leaf, K, rows_fold) for leaf in leaves]
     if any(t is not None and t.device != device
            for w, s, *_ in segs for t in (w, s)):
@@ -381,6 +420,18 @@ def _proj(name: str, leaves, K: int, rows: int, dt: torch.dtype, device,
     pj.wtype = _TYPE_CODE[segs[0][0].dtype]
     pj.cols = sum(seg[2] for seg in segs)
     sms = _sm_count(device.index or 0)
+    # A decode-width call over int8 weights streams them through the
+    # persistent DECODE route: 128-column int8 boxes that never straddle a
+    # segment, 16-byte aligned rows.
+    if dt == torch.bfloat16 and rows <= DECODE_MAX_ROWS and K % 64 == 0 \
+            and pj.cols % 256 == 0 and segs[0][0].dtype == torch.int8 \
+            and all(w.data_ptr() % 16 == 0 and cols % 128 == 0
+                    for w, _s, cols, _p in segs):
+        plan = decode_plan(rows, K, pj.cols, sms)
+        pj.route = _DECODE
+        pj.nw, pj.nc = plan["nt"], 1
+        pj.splits, pj.stages = plan["grid"], plan["stages"]
+        return pj, plan["part_floats"]
     # bf16 activations and int8 or bf16 weights take wgmma over TMA tiles:
     # 64-column weight boxes that never straddle a segment, 16-byte
     # aligned rows.
@@ -483,11 +534,16 @@ def launch_fused_layer(name: str, entry: str, x: torch.Tensor, layer,
         return -(-nbytes // 256) * 256
 
     # The projections' activations in the activation dtype; qkv, h and
-    # the CUDA-core route's partial sums in f32.
+    # the partial sums in f32; the DECODE route's arrival count of each
+    # column tile (csrc: decode_tiles; the chain's first norm zeroes them,
+    # the last CTA to arrive at a tile resets its count).
     es = x.element_size()
+    tiles = max((p.cols // 256 for p in (p_qkv, p_wo, p_gu, p_dn)
+                 if p.route == _DECODE), default=0)
     sizes = {"xn": rows * D * es, "qkv_buf": rows * Cq * 4,
              "ao": rows * H * hd * es, "h": rows * D * 4,
-             "act": rows * M * es, "part": 4 * max(n1, n2, n3, n4)}
+             "act": rows * M * es, "part": 4 * max(n1, n2, n3, n4),
+             "counters": 4 * tiles}
     ws = torch.empty(sum(pad(n) for n in sizes.values()), dtype=torch.uint8,
                      device=dev)
     a = LayerArgs()

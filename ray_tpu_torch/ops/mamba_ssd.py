@@ -6,10 +6,11 @@ log_a [B, S, H] <= 0, Bm/Cm [B, S, N] shared by the heads → y
 [B, S, H, P] float32, with h[t] = exp(log_a[t]) h[t-1] + B[t] x[t] and
 y[t] = C[t] · h[t], in f32 state math.
 
-On CUDA tensors the forward is kernel K12 (csrc/mamba_ssd.cu): a
-scores pass (C·Bᵀ once per batch and 64-position block) and one CTA per
-(batch, head, slice of P) walking the sequence with its [N, P_tile]
-state in shared memory.  ``ssd_pallas_plain`` is the Pallas kernel's own
+On CUDA tensors the forward is kernel K12 (csrc/mamba_ssd.cu): one CTA
+per (batch, head, slice of P) walks the sequence in 32-position blocks
+with its [N, P_tile] state in registers, the block's products on the
+tensor cores in split precision (3xTF32; ``ssd_plan`` sizes the grid).
+``ssd_pallas_plain`` is the Pallas kernel's own
 recurrence in plain PyTorch; CPU tensors run it.  ``ssd_pallas`` is the
 differentiable entry, a ``torch.autograd.Function`` whose backward
 recomputes through the port's ``ssd_chunked`` at the given chunk, as
@@ -19,13 +20,19 @@ the JAX ``custom_vjp`` does: no backward kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+
 import torch
 
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops.paged_attention import _sm_count
 
 _BC_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Positions per block of K12's sequence walk (csrc/mamba_ssd.cu: T).
-BLOCK_T = 64
+BLOCK_T = 32
+# State rows a CTA can hold: N padded to one of these (csrc: NP = 32 MT).
+# A larger N is walked in slices of the last (``ssd_forward``).
+_STATE_ROWS = (32, 64, 128, 256)
 _SMEM_LIMIT = 227 * 1024
 
 
@@ -80,20 +87,40 @@ def ssd_pallas_plain(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
     return out
 
 
-def _smem_bytes(N: int, p_tile: int) -> int:
-    """Dynamic shared memory of K12's scan kernel (csrc/mamba_ssd.cu)."""
+def _smem_bytes(np_: int, p_tile: int, bc_bytes: int) -> int:
+    """Dynamic shared memory of K12's CTA (csrc/mamba_ssd.cu smem_bytes):
+    x, B and C of two blocks, log_a of two blocks, the state copy and
+    the block's decay matrix."""
     T = BLOCK_T
-    return 4 * (T * p_tile + T * (N + 4) + T * (T + 4) + N * p_tile + 3 * T
-                + 4)
+    return (4 * 2 * T * (p_tile + 4) + 2 * 2 * T * (np_ + 8) * bc_bytes
+            + 4 * 2 * T + 4 * p_tile * (np_ + 8) + 4 * T * (T + 8))
 
 
-def p_tile_for(P: int) -> int:
-    """Columns of the state per CTA: 32 where P allows it, else 16 (see
-    PERF.md for the H100 sweep that chose 32 over 64 and 16)."""
-    return 32 if P % 32 == 0 else 16
+@functools.lru_cache(maxsize=None)
+def ssd_plan(B: int, H: int, P: int, N: int, bc_bytes: int,
+             sms: int) -> dict:
+    """K12's launch for N of at most 256 state rows (``ssd_forward``
+    slices a larger N): ``p_tile`` state columns a CTA (32 where P allows it
+    and the grid still fills the card, else 16), ``np`` state rows (N
+    padded), the grid (P / p_tile, H, B), threads, shared memory, and how
+    many CTAs fit on an SM by shared memory and by threads (``per_sm``)
+    and so how many waves the grid takes (cached; read-only)."""
+    np_ = next((n for n in _STATE_ROWS if n >= N), None)
+    if np_ is None or N % 8 or P % 16:
+        raise ValueError(f"ssd_forward: unsupported P={P} (a multiple of "
+                         f"16) or N={N} (a multiple of 8; a launch takes "
+                         f"at most {_STATE_ROWS[-1]})")
+    p_tile = 32 if P % 32 == 0 and B * H * (P // 32) >= sms else 16
+    smem = _smem_bytes(np_, p_tile, bc_bytes)
+    threads = 8 * p_tile
+    per_sm = min((_SMEM_LIMIT + 1024) // (smem + 1024), 2048 // threads, 32)
+    ctas = (P // p_tile) * H * B
+    return {"p_tile": p_tile, "np": np_, "grid": (P // p_tile, H, B),
+            "ctas": ctas, "threads": threads, "smem": smem,
+            "per_sm": per_sm, "waves": -(-ctas // (per_sm * sms))}
 
 
-def _check_cuda(x, log_a, Bm, Cm, p_tile):
+def _check_cuda(x, log_a, Bm, Cm):
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     for name, t in (("x", x), ("log_a", log_a), ("Bm", Bm), ("Cm", Cm)):
@@ -114,13 +141,6 @@ def _check_cuda(x, log_a, Bm, Cm, p_tile):
             f"ssd_forward: bad shapes x {tuple(x.shape)}, log_a "
             f"{tuple(log_a.shape)}, Bm {tuple(Bm.shape)}, Cm "
             f"{tuple(Cm.shape)}")
-    if P % 16 or N % 8:
-        raise ValueError(f"ssd_forward: unsupported P={P} (a multiple of "
-                         f"16) or N={N} (a multiple of 8)")
-    if _smem_bytes(N, p_tile) > _SMEM_LIMIT:
-        raise ValueError(f"ssd_forward: d_state {N} needs "
-                         f"{_smem_bytes(N, p_tile)} B of shared memory, "
-                         "over the H100's 227 KB")
 
 
 def ssd_forward(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
@@ -131,29 +151,38 @@ def ssd_forward(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor,
     tensors run ``ssd_pallas_plain``.  ``chunk`` is checked (S % chunk
     == 0) and resolved as the Pallas kernel resolves it; K12 walks the
     sequence in blocks of ``BLOCK_T`` positions whatever it is, which
-    changes only the rounding."""
+    changes only the rounding.  N above 256 (more state rows than a CTA
+    holds) takes one launch per slice of 256 rows, the slices' y summed
+    in order: y is linear in the state rows (C·Bᵀ and C·state both sum
+    over them)."""
     if not x.is_cuda:
         return ssd_pallas_plain(x, log_a, Bm, Cm, chunk)
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     resolve_chunk(S, chunk)
+    rows = _STATE_ROWS[-1]
+    if N > rows and N % 8 == 0:
+        y = ssd_forward(x, log_a, Bm[..., :rows], Cm[..., :rows], chunk)
+        for n0 in range(rows, N, rows):
+            y += ssd_forward(x, log_a, Bm[..., n0:n0 + rows],
+                             Cm[..., n0:n0 + rows], chunk)
+        return y
     x, log_a = x.contiguous(), log_a.contiguous()
     Bm, Cm = Bm.contiguous(), Cm.contiguous()
-    p_tile = p_tile_for(P)
-    _check_cuda(x, log_a, Bm, Cm, p_tile)
+    _check_cuda(x, log_a, Bm, Cm)
+    plan = ssd_plan(B, H, P, N, Bm.element_size(),
+                    _sm_count(x.device.index or 0))
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
     if B == 0 or S == 0 or H == 0:
         return y
-    nblk = -(-S // BLOCK_T)
-    scores = torch.empty((B, nblk, BLOCK_T, BLOCK_T), dtype=torch.float32,
-                         device=x.device)
     fn = _build.library("mamba_ssd").rtt_ssd_scan
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     err = fn(x.data_ptr(), log_a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-             scores.data_ptr(), y.data_ptr(), _BC_CODE[Bm.dtype], B, S, H, P,
-             N, p_tile, torch.cuda.current_stream(x.device).cuda_stream)
+             y.data_ptr(), _BC_CODE[Bm.dtype], B, S, H, P, N,
+             plan["p_tile"], plan["np"],
+             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssd_forward")
     ssd_forward.launches += 1
     return y

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (K1, K2, K3, K9f, K10, K11, K4, K5, K6, K7,
-K8, K12, K13; K1 and K4 on bf16/f32 and on int8 pools) against their
+K8, K12, K13; K1, K4, K7 and K8 on bf16/f32 and on int8 pools) against their
 plain PyTorch versions on the card, in f32 and bf16, across head dims,
 page sizes and GQA groups.  CUDA kernels have no CPU mode: without a card every
 test here skips.  On a machine with one (no jax needed):
@@ -1012,6 +1012,131 @@ def test_k7_is_capturable(dev):
         assert torch.equal(a, b)
 
 
+def _decode_case(dev, rows, form, pool, seed):
+    """A _WIDE layer (head_dim 128), ``rows`` slots with 0-200 past
+    tokens on pages of 64, bf16 activations."""
+    D, H, KVH, M = _WIDE
+    hd = D // H
+    layer = _fused_layer(seed, _WIDE, form, torch.bfloat16)
+    g = _gen(seed + 1)
+    page, maxp = 64, 4
+    P = rows * maxp + 1
+    k, v, scales = _fused_pools(g, pool, 2, KVH, P, page, hd, torch.bfloat16)
+    x = torch.randn((rows, D), generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.randint(0, 201, (rows,), generator=g, device=dev,
+                            dtype=torch.int32)
+    lengths[0] = 200
+    bt = torch.randperm(P - 1, generator=g, device=dev)[: rows * maxp] \
+        .to(torch.int32).reshape(rows, maxp)
+    sin, cos = _rope_rows(lengths, hd)
+    kw = dict(eps=1e-5, n_heads=H, n_kv_heads=KVH, soft_cap=None, **scales)
+    return (x, layer, k, v, 1, bt, lengths, sin, cos), kw
+
+
+@pytest.mark.parametrize("form", ["fused", "plain"])   # int8 or bf16 weights
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("rows", [1, 8, 48, 64])
+def test_k7_decode_route_matches_plain(dev, form, pool, rows):
+    """K7 at decode widths: int8 weights take the DECODE projections
+    (bf16 weights the WGMMA route), head_dim 128 the tensor-core
+    attention; within the fused tolerance of the plain version,
+    bit-identical over two launches."""
+    from ray_tpu_torch.ops import fused_decode as tfd
+
+    args, kw = _decode_case(dev, rows, form, pool, 70 + rows)
+    before = tfd.fused_decode_layer.launches
+    got = tfd.fused_decode_layer(*args, **kw)
+    again = tfd.fused_decode_layer(*args, **kw)
+    want = tfd.fused_decode_layer_reference(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_fused_close(got, want, torch.bfloat16)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert tfd.fused_decode_layer.launches == before + 2
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_k8_one_token_takes_the_decode_route(dev, pool):
+    """A K8 call of one token over int8 weights runs the DECODE
+    projections (the route is chosen by the call's token count): within
+    the fused tolerance of the plain version, bit-identical twice."""
+    from ray_tpu_torch.ops import fused_decode as tfd
+
+    D, H, KVH, M = _WIDE
+    hd = D // H
+    layer = _fused_layer(81, _WIDE, "fused", torch.bfloat16)
+    wqkv = layer["attn"]["wqkv"]
+    pj, _ = tfd._proj("t", [wqkv], D, 1, torch.bfloat16, wqkv["q"].device)
+    assert pj.route == tfd._DECODE
+    g = _gen(82)
+    page, maxp = 64, 24
+    spec = [(0, 700, 1)]
+    rows, pos = _ragged_rows(spec, 1)
+    P = maxp + 1
+    k, v, scales = _fused_pools(g, pool, 1, KVH, P, page, hd, torch.bfloat16)
+    bt = _ragged_bt(g, spec, maxp, page, P)
+    x = torch.randn((1, D), generator=g, device=dev).to(torch.bfloat16)
+    sin, cos = _rope_rows(pos, hd)
+    kw = dict(eps=1e-5, n_heads=H, n_kv_heads=KVH, **scales)
+    got = trpa.fused_ragged_layer(x, layer, k, v, 0, *rows, bt, sin, cos,
+                                  **kw)
+    again = trpa.fused_ragged_layer(x, layer, k, v, 0, *rows, bt, sin, cos,
+                                    **kw)
+    want = trpa.fused_ragged_layer_reference(x, layer, k, v, 0, *rows, bt,
+                                             sin, cos, **kw)
+    torch.cuda.synchronize()
+    _assert_fused_close(got, want, torch.bfloat16)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_k7_decode_route_is_capturable(dev):
+    """The DECODE chain (per-tile arrival counts in the call's workspace)
+    captured in a CUDA graph replays to the eager result, twice."""
+    from ray_tpu_torch.ops import fused_decode as tfd
+
+    args, kw = _decode_case(dev, 48, "fused", "int8", 90)
+
+    def call():
+        return tfd.fused_decode_layer(*args, **kw)
+
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
+
+
+def test_k7_decode_route_on_two_streams_at_once(dev):
+    """Two DECODE chains running at once on two streams keep their own
+    arrival counts: each gives the eager result, every time."""
+    from ray_tpu_torch.ops import fused_decode as tfd
+
+    args, kw = _decode_case(dev, 48, "fused", "int8", 91)
+    eager = tfd.fused_decode_layer(*args, **kw)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(8):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(tfd.fused_decode_layer(*args, **kw))
+    torch.cuda.synchronize()
+    for got in outs[0] + outs[1]:
+        for a, b in zip(got, eager):
+            assert torch.equal(a, b)
+
+
 def test_fused_wrappers_reject_what_the_kernels_do_not_take(dev):
     from ray_tpu_torch.ops import fused_decode as tfd
 
@@ -1038,9 +1163,10 @@ def test_fused_wrappers_reject_what_the_kernels_do_not_take(dev):
 # K12 SSD chunk scan and K13 normalised paged decode attention
 # ---------------------------------------------------------------------------
 
-# K12 against ssd_pallas_plain: the same f32 recurrence, but the kernel
-# walks 64-position blocks where the plain version walks the resolved
-# chunk (up to 256) and sums in other orders.  Relative to 1 + |y|.
+# K12 against ssd_pallas_plain: the same recurrence, but the kernel walks
+# 32-position blocks (products in 3xTF32 split precision) where the plain
+# version walks the resolved chunk (up to 256) in f32, and sums in other
+# orders.  Relative to 1 + |y|.
 K12_TOL = 2e-4
 
 
@@ -1066,6 +1192,8 @@ def _assert_k12_close(got, want):
     (1, 192, 3, 32, 16, 64),    # S % 256 != 0: chunk 64 kept
     (2, 100, 2, 16, 8, 20),     # a partial last block of 64
     (1, 256, 2, 16, 128, 256),  # two CTAs: a grid far below the SM count
+    (1, 128, 2, 32, 64, 64),    # 64 state rows
+    (1, 128, 2, 32, 256, 64),   # 256 state rows, the most a CTA holds
 ])
 def test_k12_matches_plain(dev, bc_dtype, B, S, H, P, N, chunk):
     from ray_tpu_torch.ops import mamba_ssd as tssd
@@ -1073,7 +1201,8 @@ def test_k12_matches_plain(dev, bc_dtype, B, S, H, P, N, chunk):
     g = _gen(S + N)
     x, log_a, Bm, Cm = _ssd_inputs(g, B, S, H, P, N, bc_dtype)
     want = tssd.ssd_pallas_plain(x, log_a, Bm, Cm, chunk)
-    # P 16 runs the 16-column tile, P 32 and 64 the 32-column one.
+    # Grids this small take the 16-column tile (ssd_plan); the 2.7B
+    # layer's test below takes the 32-column one.
     before = tssd.ssd_forward.launches
     got = tssd.ssd_forward(x, log_a, Bm, Cm, chunk)
     torch.cuda.synchronize()
@@ -1086,6 +1215,25 @@ def test_k12_matches_plain(dev, bc_dtype, B, S, H, P, N, chunk):
                            chunk)
     torch.cuda.synchronize()
     _assert_k12_close(got, want)
+
+
+@pytest.mark.parametrize("N", [264, 512])
+def test_k12_more_state_rows_than_a_cta_holds(dev, N):
+    """N above 256: one launch per slice of 256 state rows, the slices'
+    y summed in order; close to the plain version, bit-identical over
+    two calls."""
+    from ray_tpu_torch.ops import mamba_ssd as tssd
+
+    g = _gen(N)
+    x, log_a, Bm, Cm = _ssd_inputs(g, 1, 192, 2, 32, N, torch.bfloat16)
+    want = tssd.ssd_pallas_plain(x, log_a, Bm, Cm, 64)
+    before = tssd.ssd_forward.launches
+    got = tssd.ssd_forward(x, log_a, Bm, Cm, 64)
+    again = tssd.ssd_forward(x, log_a, Bm, Cm, 64)
+    torch.cuda.synchronize()
+    assert tssd.ssd_forward.launches == before + 2 * -(-N // 256)
+    _assert_k12_close(got, want)
+    assert torch.equal(got, again)
 
 
 def test_k12_function_backward_on_the_card(dev):
@@ -1130,6 +1278,29 @@ def test_k12_wrapper_rejects_what_the_kernel_does_not_take(dev):
         tssd.ssd_forward(x, log_a, Bm, Cm, 48)
     with pytest.raises(ValueError, match="is on cpu"):
         tssd.ssd_forward(x, log_a.cpu(), Bm, Cm, 64)
+
+
+@pytest.mark.parametrize("S", [2048, 1984, 1000])
+def test_k12_tensor_core_route_at_the_27b_layer(dev, S):
+    """One MAMBA2_2_7B layer's shape (B 2, H 80, P 64, N 128, bf16 B/C):
+    the 32-column plan, S = 2048, 1984 (31 blocks of 64) and 1000 (a
+    partial last block); bit-identical over two launches."""
+    from ray_tpu_torch.ops import mamba_ssd as tssd
+
+    g = _gen(S)
+    x, log_a, Bm, Cm = _ssd_inputs(g, 2, S, 80, 64, 128, torch.bfloat16)
+    chunk = 64 if S % 64 == 0 else 8 if S % 8 == 0 else 1
+    plan = tssd.ssd_plan(2, 80, 64, 128, 2, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert plan["p_tile"] == 32 and plan["waves"] == 1
+    before = tssd.ssd_forward.launches
+    got = tssd.ssd_forward(x, log_a, Bm, Cm, chunk)
+    again = tssd.ssd_forward(x, log_a, Bm, Cm, chunk)
+    want = tssd.ssd_pallas_plain(x, log_a, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert tssd.ssd_forward.launches == before + 2
+    _assert_k12_close(got, want)
+    assert torch.equal(got, again)
 
 
 def _k13_inputs(dev, dtype, qpg, D, page, maxp, seed, B=6, KVH=2):

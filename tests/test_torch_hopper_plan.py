@@ -301,3 +301,245 @@ def test_hopper_attention_arithmetic_matches_plain(q_dtype, pool, cluster):
     err = (got - want).abs().max().item()
     assert err <= 1e-4, err
     assert not got[at:].any()
+
+
+# ---------------------------------------------------------------------------
+# K7/K8's DECODE projections and K12's split-precision scan
+# ---------------------------------------------------------------------------
+
+# (K, columns, SwiGLU) of the four projections of one layer: LLAMA3_8B,
+# and a narrow layer with head_dim 128 (the on-card tests' _WIDE).
+_DECODE_SHAPES = {
+    "8b": [(4096, 6144, False), (4096, 4096, False), (4096, 28672, True),
+           (14336, 4096, False)],
+    "wide": [(1024, 1536, False), (1024, 1024, False), (1024, 4096, True),
+             (2048, 1024, False)],
+}
+
+
+def _decode_shares(plan):
+    """The [start, end) units of each CTA of a DECODE plan, as the kernel
+    cuts them (csrc/fused_layer.cuh unit_start), in CTA order."""
+    U, G = plan["units"], plan["grid"]
+    return [(i * U // G, (i + 1) * U // G) for i in range(G)]
+
+
+@pytest.mark.parametrize("shape", sorted(_DECODE_SHAPES))
+def test_decode_plan_covers_every_tile_and_k_step_once(shape):
+    """For every token count the route takes (1-64): the CTAs' shares
+    partition the (column tile, 64-K step) units in order, their sizes
+    differ by at most one unit (the balance across SMs), the two
+    warpgroups' 128-column boxes cover every output column of the tiles
+    once, and the ring fits beside the SwiGLU exchange."""
+    for K, cols, swiglu in _DECODE_SHAPES[shape]:
+        for rows in range(1, tfd.DECODE_MAX_ROWS + 1):
+            plan = tfd.decode_plan(rows, K, cols, 132)
+            assert plan["nt"] % 8 == 0 and rows <= plan["nt"] < rows + 8
+            assert plan["grid"] == min(132, plan["units"])
+            seen = np.zeros(plan["units"], dtype=np.int64)
+            sizes = []
+            shares = _decode_shares(plan)
+            for lo, hi in shares:
+                seen[lo:hi] += 1
+                sizes.append(hi - lo)
+            assert (seen == 1).all()
+            assert shares[0][0] == 0
+            assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+            assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+            assert plan["units"] == plan["tiles"] * plan["ksteps"] \
+                and plan["ksteps"] * 64 == K
+            assert 2 <= plan["stages"] and plan["smem"] <= tfd._WGMMA_SMEM
+        # The boxes of the two warpgroups over the tiles: every column once.
+        cover = np.zeros(cols, dtype=np.int64)
+        M = cols // 2
+        for t in range(plan["tiles"]):
+            for w in range(2):
+                c = w * M + 128 * t if swiglu else 256 * t + 128 * w
+                cover[c:c + 128] += 1
+        assert (cover == 1).all()
+
+
+def test_decode_route_is_taken_by_decode_widths(monkeypatch):
+    monkeypatch.setattr(tfd, "_sm_count", lambda _i: 132)
+    dev = torch.device("cpu")
+    q8 = {"q": torch.zeros((256, 512), dtype=torch.int8),
+          "scale": torch.ones((1, 512))}
+    for rows in (1, 48, 64):
+        pj, n = tfd._proj("t", [q8], 256, rows, torch.bfloat16, dev)
+        plan = tfd.decode_plan(rows, 256, 512, 132)
+        assert (pj.route, pj.nw, pj.splits, pj.stages) == (
+            tfd._DECODE, plan["nt"], plan["grid"], plan["stages"])
+        assert n == plan["part_floats"]
+    # 65 tokens, bf16 weights, or a 128-column projection: the WGMMA route.
+    assert tfd._proj("t", [q8], 256, 65, torch.bfloat16, dev)[0].route \
+        == tfd._WGMMA
+    wb = torch.zeros((256, 512), dtype=torch.bfloat16)
+    assert tfd._proj("t", [wb], 256, 8, torch.bfloat16, dev)[0].route \
+        == tfd._WGMMA
+    q128 = {"q": torch.zeros((256, 128), dtype=torch.int8),
+            "scale": torch.ones((1, 128))}
+    assert tfd._proj("t", [q128], 256, 8, torch.bfloat16, dev)[0].route \
+        == tfd._WGMMA
+
+
+# (B, S, H, P, N, B/C bytes): one MAMBA2_2_7B layer, bench.py's
+# _measure_ssd, and tiny shapes (a partial block, N padded, P 16).
+_K12_SHAPES = [(2, 2048, 80, 64, 128, 2), (4, 4096, 8, 64, 128, 4),
+               (2, 100, 3, 16, 8, 4), (1, 192, 2, 32, 24, 2),
+               (1, 64, 1, 16, 256, 2)]
+
+
+@pytest.mark.parametrize("shape", _K12_SHAPES)
+def test_k12_plan_covers_every_output_once(shape):
+    """K12's grid and warps, mirrored: CTA (slice, head, batch) owns
+    columns [slice * p_tile, + p_tile) of its head, its warp w the y rows
+    16 (w & 1) + 0..15 of every 32-position block and columns 8 (w >> 1)
+    + 0..7 of the slice, and the state rows 16 MT (w & 1) + 0..16 MT - 1;
+    every (batch, head, column, position) and every state entry is owned
+    once.  Shared memory within the H100's 227 KB; the 2.7B layer's 320
+    CTAs run in one wave."""
+    from ray_tpu_torch.ops import mamba_ssd as tssd
+
+    B, S, H, P, N, bc = shape
+    plan = tssd.ssd_plan(B, H, P, N, bc, 132)
+    pt, np_ = plan["p_tile"], plan["np"]
+    gx, gy, gz = plan["grid"]
+    assert (gx, gy, gz) == (P // pt, H, B) and plan["ctas"] == gx * gy * gz
+    assert plan["threads"] == 8 * pt and plan["smem"] <= 227 * 1024
+    assert np_ >= N and np_ % 32 == 0
+    warps = pt // 4
+    cols = np.zeros((B, H, P), dtype=np.int64)
+    state = np.zeros((B, H, np_, P), dtype=np.int64)
+    rows = np.zeros(tssd.BLOCK_T, dtype=np.int64)
+    for b in range(gz):
+        for h in range(gy):
+            for sx in range(gx):
+                for w in range(warps):
+                    c0 = sx * pt + 8 * (w >> 1)
+                    cols[b, h, c0:c0 + 8] += 1
+                    n0 = np_ // 2 * (w & 1)
+                    state[b, h, n0:n0 + np_ // 2, c0:c0 + 8] += 1
+    for w in range(2):  # one column pair of warps covers the block's rows
+        rows[16 * w:16 * w + 16] += 1
+    assert (cols == 2).all()    # two warps (rows 0-15, 16-31) a column
+    assert (rows == 1).all() and (state == 1).all()
+    nblk = -(-S // tssd.BLOCK_T)
+    assert nblk * tssd.BLOCK_T >= S > (nblk - 1) * tssd.BLOCK_T
+    if shape[:5] == (2, 2048, 80, 64, 128):
+        assert (pt, plan["ctas"], plan["per_sm"], plan["waves"]) \
+            == (32, 320, 3, 1)
+
+
+def _tf32(x):
+    """Round to TF32 as cvt.rna does (nearest, ties away from zero)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """TF32 as the mma reads an f32 register: the low 13 bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a, b, a_exact, b_exact, passes=3):
+    """a @ b on the tensor cores in split precision: hi.hi + hi.lo +
+    lo.hi (an exact operand has no lo), products exact, summed in f64
+    and rounded to f32; passes=1 is one plain TF32 product."""
+    ah = a if a_exact else _tf32(a)
+    bh = b if b_exact else _tf32(b)
+    out = ah.double() @ bh.double()
+    if passes == 3:
+        if not a_exact:
+            out += _tf32_trunc(a - ah).double() @ bh.double()
+        if not b_exact:
+            out += ah.double() @ _tf32_trunc(b - bh).double()
+    return out.float()
+
+
+def _k12_emulate(x, log_a, Bm, Cm, passes=3):
+    """K12's block walk (csrc/mamba_ssd.cu) in plain PyTorch: blocks of
+    32 positions (zeros past S), C.B^T masked and scaled into the decay
+    matrix, (G o L).x and C.state and the state update in split
+    precision; B and C exact when they are bf16."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    T = 32
+    ex = Bm.dtype == torch.bfloat16
+    Sp = -(-S // T) * T
+    pad = (0, 0, 0, 0, 0, Sp - S)
+    xf = torch.nn.functional.pad(x.float(), pad)
+    la = torch.nn.functional.pad(log_a.float(), (0, 0, 0, Sp - S))
+    Bf = torch.nn.functional.pad(Bm.float(), (0, 0, 0, Sp - S))
+    Cf = torch.nn.functional.pad(Cm.float(), (0, 0, 0, Sp - S))
+    lower = torch.tril(torch.ones(T, T, dtype=torch.bool))
+    y = torch.zeros((B, Sp, H, P))
+    state = torch.zeros((B, H, N, P))
+    for t0 in range(0, Sp, T):
+        sl = slice(t0, t0 + T)
+        cum = torch.cumsum(la[:, sl], dim=1)                  # [B, T, H]
+        total = cum[:, -1]
+        G = _mm(Cf[:, sl], Bf[:, sl].transpose(1, 2), ex, ex, passes)
+        for h in range(H):
+            c = cum[:, :, h]
+            L = torch.exp(torch.where(lower, c[:, :, None] - c[:, None, :],
+                                      torch.full_like(G, -torch.inf)))
+            W = torch.where(lower, G * L, torch.zeros_like(G))
+            xh = xf[:, sl, h]                                  # [B, T, P]
+            yi = _mm(W, xh, False, False, passes)
+            ys = _mm(Cf[:, sl], state[:, h], ex, False, passes)
+            y[:, sl, h] = yi + torch.exp(c)[..., None] * ys
+            dte = torch.exp(total[:, h, None] - c)            # [B, T]
+            state[:, h] = torch.exp(total[:, h])[:, None, None] \
+                * state[:, h] + _mm(Bf[:, sl].transpose(1, 2),
+                                    dte[..., None] * xh, ex, False, passes)
+    return y[:, :S]
+
+
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+def test_k12_split_precision_matches_plain(bc_dtype):
+    """The kernel's arithmetic (3xTF32 products, TF32 by mantissa masking)
+    within K12_TOL = 2e-4 of ssd_pallas_plain relative to 1 + |y|, and
+    far closer than one TF32 pass, which keeps about three digits."""
+    from ray_tpu_torch.ops import mamba_ssd as tssd
+
+    rng = np.random.default_rng(12)
+    B, S, H, P, N = 1, 100, 2, 16, 32
+    x = torch.from_numpy(rng.standard_normal((B, S, H, P)).astype(np.float32))
+    log_a = -torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, S, H)).astype(np.float32)))
+    Bm = (torch.from_numpy(rng.standard_normal((B, S, N)).astype(np.float32))
+          * 0.3).to(bc_dtype)
+    Cm = (torch.from_numpy(rng.standard_normal((B, S, N)).astype(np.float32))
+          * 0.3).to(bc_dtype)
+    want = tssd.ssd_pallas_plain(x, log_a, Bm, Cm, 20)
+
+    def err(got):
+        return ((got - want).abs() / (1 + want.abs())).max().item()
+
+    split = err(_k12_emulate(x, log_a, Bm, Cm))
+    one_pass = err(_k12_emulate(x, log_a, Bm, Cm, passes=1))
+    assert split <= 2e-4
+    assert one_pass > 10 * split
+
+
+def test_k12_state_rows_above_a_cta_sum_by_slice():
+    """N above 256 is more than a CTA holds: ssd_forward launches K12 once
+    per slice of 256 state rows and sums the slices' y in order.  The
+    kernel's arithmetic over the slices of N = 264 (256 + 8) is within
+    K12_TOL = 2e-4 of ssd_pallas_plain over all of N, relative to 1 +
+    |y|; no single launch is planned for it."""
+    from ray_tpu_torch.ops import mamba_ssd as tssd
+
+    rng = np.random.default_rng(264)
+    B, S, H, P, N = 1, 64, 1, 16, 264
+    x = torch.from_numpy(rng.standard_normal((B, S, H, P)).astype(np.float32))
+    log_a = -torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, S, H)).astype(np.float32)))
+    Bm, Cm = (torch.from_numpy(rng.standard_normal((B, S, N)).astype(
+        np.float32) * 0.1).to(torch.bfloat16) for _ in range(2))
+    want = tssd.ssd_pallas_plain(x, log_a, Bm, Cm, 64)
+    got = _k12_emulate(x, log_a, Bm[..., :256], Cm[..., :256]) \
+        + _k12_emulate(x, log_a, Bm[..., 256:], Cm[..., 256:])
+    assert ((got - want).abs() / (1 + want.abs())).max().item() <= 2e-4
+    with pytest.raises(ValueError, match="at most 256"):
+        tssd.ssd_plan(B, H, P, N, 2, 132)
