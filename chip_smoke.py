@@ -11,12 +11,15 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    (K9f, K10 and K11 in bf16 at D 64 and 128, K7/K8's WGMMA projections
    and K4/K8's ragged attention) must show no ptxas report of serialised
    wgmma and, where the toolkit has ``cuobjdump``, HGMMA and UTMALDG
-   instructions in their SASS, and K13 its bulk copies (UBLKCP); K12's
+   instructions in their SASS, and every instantiation of K1's and K13's
+   Hopper kernel its bulk copies (UBLKCP); K12's
    scan must hold HMMA (mma.sync) and LDGSTS (cp.async), K7/K8's DECODE
    projection HGMMA and UTMALDG, K7's tensor-core attention HMMA and
    UTMALDG, and none of the three may spill (counts printed);
 3. kernels at LLAMA3_8B shapes (bf16, H=32, KVH=8, D=128, page 64,
-   L=32): K1 paged decode partials, K2 paged append, K9f flash forward
+   L=32): K1 paged decode partials (also timed on its page-walk route,
+   the route of shapes its Hopper route does not take, on the same
+   inputs), K2 paged append, K9f flash forward
    (then K10 and K11, phase 9; K9f and K11 also with TFLOP/s and
    kernel / SDPA),
    each held against its plain PyTorch version on the same inputs and
@@ -105,8 +108,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ``ssd_pallas`` Function's gradients card vs CPU; K13 (normalised
    paged decode attention) against its plain version at LLAMA3_8B decode
    shapes on each of 32 layers' pages, an empty slot, OOB page ids and a
-   soft-capped case, timed beside SDPA with each call on the next
-   layer's pages (and on one layer's, L2-hot); MAMBA2_TINY (f32,
+   soft-capped case, plus a group of 5 query heads and head_dim 32 on
+   one layer, timed beside SDPA with each call on the next layer's pages
+   (and on one layer's, L2-hot); MAMBA2_TINY (f32,
    ``use_pallas_ssd=True``) trained 3
    steps on the card and on the CPU (losses agree); JAMBA_TINY at S 512
    for 2 steps (K12 and K9f/K10/K11 once a step); MAMBA2_2_7B with
@@ -198,8 +202,9 @@ HOPPER_KERNELS = {
                      ("proj_wgmma", "attention_hopper")),
     "ragged_attention": (("attention_hopper",), ("attention_hopper",)),
 }
-# K13's kernel, which copies its pages with cp.async.bulk (UBLKCP).
-K13_KERNEL = ("paged_decode", "paged_decode_attention_hopper")
+# K1's and K13's Hopper kernel (one template; K1's instantiations carry
+# PARTIAL = true), which copies its pages with cp.async.bulk (UBLKCP).
+PAGED_DECODE_KERNEL = ("paged_decode", "paged_decode_hopper")
 # The mma.sync and DECODE kernels and the SASS opcodes each must hold:
 # K12's scan (mma.sync on TF32, HMMA; cp.async, LDGSTS), K7/K8's DECODE
 # projection (HGMMA, UTMALDG) and K7's tensor-core attention (HMMA,
@@ -266,8 +271,9 @@ def hopper_check(_build) -> dict:
     attention), HGMMA (warpgroup MMA) and UTMALDG (TMA tile load) counts
     above 0, and no ptxas report of serialised wgmma in their builds;
     K12's scan, K7/K8's DECODE projection and K7's attention hold the
-    opcodes of ``TC_KERNELS`` and spill nothing; K13's kernel copies its
-    pages with UBLKCP (bulk copies).  Fails otherwise; without cuobjdump
+    opcodes of ``TC_KERNELS`` and spill nothing; every instantiation of
+    K1's and K13's Hopper kernel copies its pages with UBLKCP (bulk
+    copies).  Fails otherwise; without cuobjdump
     the SASS counts are not taken."""
     out = {}
     for lib in HOPPER_KERNELS:
@@ -307,14 +313,17 @@ def hopper_check(_build) -> dict:
                         for op in ops)
             + f"; ptxas spills {sorted(set(spills.values())) or 'not read'}")
         out.update({f"{lib}:{f}": c for f, c in found.items()})
-    lib, part = K13_KERNEL
-    k13 = _sass_counts(tool, _build, lib, (part,), ("UBLKCP",))
-    if not k13 or any(c["UBLKCP"] == 0 for c in k13.values()):
-        raise AssertionError(f"csrc/{lib}.cu: K13 without bulk copies "
-                             f"(UBLKCP) in its SASS: {k13}")
-    log(f"  SASS {part}: {len(k13)} instantiations, UBLKCP "
-        f"{sorted(c['UBLKCP'] for c in k13.values())}")
-    out.update(k13)
+    lib, part = PAGED_DECODE_KERNEL
+    found = _sass_counts(tool, _build, lib, (part,), ("UBLKCP",))
+    k1 = {f: c for f, c in found.items() if "Lb1E" in f}
+    if not k1 or len(k1) == len(found) \
+            or any(c["UBLKCP"] == 0 for c in found.values()):
+        raise AssertionError(f"csrc/{lib}.cu: K1 or K13 missing, or without "
+                             f"bulk copies (UBLKCP) in its SASS: {found}")
+    log(f"  SASS {part}: {len(k1)} K1 and {len(found) - len(k1)} K13 "
+        f"instantiations, UBLKCP "
+        f"{sorted(set(c['UBLKCP'] for c in found.values()))}")
+    out.update(found)
     return out
 
 
@@ -329,6 +338,13 @@ def int8_pools(torch, g, shape):
     ks = torch.rand((L, P, KVH, 1), generator=g, device="cuda") * 0.02 + 0.005
     vs = torch.rand((L, P, KVH, 1), generator=g, device="cuda") * 0.02 + 0.005
     return k, v, ks, vs
+
+
+# Times of the kernels' previous designs (K1's page-split kernel with
+# its merge pass, K6's CTA per row, page slot and kv head), measured by
+# this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel
+# table), printed beside this run's.
+PREVIOUS_MS = {"K1": 0.02851, "K1 int8": 0.033, "K6": 0.05769}
 
 
 def kernel_phase_k1(torch, F, tpa, report, int8=False):
@@ -356,25 +372,31 @@ def kernel_phase_k1(torch, F, tpa, report, int8=False):
         bt[b, :live] = perm[b * maxp: b * maxp + live].to(torch.int32)
     bt = bt.to(dev)
 
-    worst = {"out": 0.0, "m": 0.0, "l_rel": 0.0}
-    for layer in range(L):
-        acc, m, l = tpa.paged_decode_attention_partial(q, k, v, layer, bt,
-                                                       lengths, **scales)
-        acc_p, m_p, l_p = tpa.paged_decode_attention_partial_plain(
-            q, k, v, layer, bt, lengths, **scales)
-        live = lengths > 0
+    live = lengths > 0
+
+    def errors(got, want):
+        (acc, m, l), (acc_p, m_p, l_p) = got, want
         out = (acc / l.clamp(min=1e-30))[live]
         out_p = (acc_p / l_p.clamp(min=1e-30))[live]
-        worst["out"] = max(worst["out"], (out - out_p).abs().max().item())
-        worst["m"] = max(worst["m"], (m - m_p).abs().max().item())
-        worst["l_rel"] = max(worst["l_rel"],
-                             ((l - l_p).abs() / l_p.clamp(min=1)).max().item())
+        return {"out": (out - out_p).abs().max().item(),
+                "m": (m - m_p).abs().max().item(),
+                "l_rel": ((l - l_p).abs() / l_p.clamp(min=1)).max().item()}
+
+    worst = {"out": 0.0, "m": 0.0, "l_rel": 0.0}
+    for layer in range(L):
+        got = tpa.paged_decode_attention_partial(q, k, v, layer, bt, lengths,
+                                                 **scales)
+        e = errors(got, tpa.paged_decode_attention_partial_plain(
+            q, k, v, layer, bt, lengths, **scales))
+        worst = {key: max(worst[key], e[key]) for key in worst}
+        acc, m, l = got
         if (m[~live] != -1e30).any() or (l[~live] != 0).any() \
                 or (acc[~live] != 0).any():
             raise AssertionError(f"{tag}: an empty slot must give acc=0, "
                                  "m=-1e30, l=0")
-    # Same f32 arithmetic on exactly converted bf16 (or int8) inputs:
-    # only the summation order differs.
+    # The same f32 values up to p on both sides (q.k in one fixed order,
+    # exp in f64), p rounded to bf16 at the same running max: only the
+    # order of the sums differs.
     tol = {"out": 1e-3, "m": 1e-3, "l_rel": 1e-4}
     if any(worst[key] > tol[key] for key in tol):
         raise AssertionError(f"{tag} disagrees with its plain version: "
@@ -382,6 +404,22 @@ def kernel_phase_k1(torch, F, tpa, report, int8=False):
 
     ms = time_ms(torch, lambda i: tpa.paged_decode_attention_partial(
         q, k, v, i % L, bt, lengths, **scales))
+    # The page-walk route (shapes the Hopper route does not take) on the
+    # same inputs, its plan patched away for the call.
+    plan = tpa.hopper_decode_plan
+    tpa.hopper_decode_plan = lambda *a, **kw: None
+    try:
+        walk = tpa.paged_decode_attention_partial(q, k, v, L - 1, bt, lengths,
+                                                  **scales)
+        walk_ms = time_ms(torch, lambda i: tpa.paged_decode_attention_partial(
+            q, k, v, i % L, bt, lengths, **scales))
+    finally:
+        tpa.hopper_decode_plan = plan
+    walk_err = errors(walk, tpa.paged_decode_attention_partial(
+        q, k, v, L - 1, bt, lengths, **scales))
+    if any(walk_err[key] > tol[key] for key in tol):
+        raise AssertionError(f"{tag}: the page-walk route is {walk_err} off "
+                             f"the Hopper route (tolerance {tol})")
     plain_ms = time_ms(torch, lambda i: tpa.paged_decode_attention_partial_plain(
         q, k, v, i % L, bt, lengths, **scales), n=4, blocks=3)
     # Library yardstick: SDPA over the gathered dense k/v of each layer
@@ -431,12 +469,14 @@ def kernel_phase_k1(torch, F, tpa, report, int8=False):
         "shape": f"B={B} H={H} KVH={KVH} D={D} page={page} q bf16, pools "
                  f"{'int8 + f32 page scales' if int8 else 'bf16'}, lengths "
                  f"{lens_list}, layer cycling over L={L}",
-        "errors": worst, "bound_bytes": nbytes,
+        "errors": worst, "bound_bytes": nbytes, "walk_ms": walk_ms,
+        "walk_err": walk_err,
     }
     log(f"{tag} paged_decode_attention_partial: err {worst}  kernel "
-        f"{ms:.4f} ms  plain {plain_ms:.4f} ms  "
-        f"{'dequantise + ' if int8 else ''}SDPA {library_ms:.4f} ms  bound "
-        f"{b_ms:.4f} ms ({b_by})")
+        f"{ms:.5f} ms (previous design: {PREVIOUS_MS[tag]} ms; the "
+        f"page-walk route here: {walk_ms:.5f} ms, {walk_err} off)  plain "
+        f"{plain_ms:.4f} ms  {'dequantise + ' if int8 else ''}SDPA "
+        f"{library_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})")
 
 
 def kernel_phase_k2(torch, tpa, report):
@@ -1028,7 +1068,9 @@ def kernel_phase_k6(torch, trpa, report):
                  "decode rows' pages, rewrite_ms = those pages requantised",
     }
     log(f"K6 ragged_paged_append_quantized: bytes and scales equal the "
-        f"plain version's  common case {ms:.4f} ms (bound {b_ms:.4f} ms, "
+        f"plain version's  common case {ms:.5f} ms (previous design: "
+        f"{PREVIOUS_MS['K6']} "
+        f"ms; bound {b_ms:.4f} ms, "
         f"{b_by})  extended pages rewritten {rewrite_ms:.4f} ms (bound "
         f"{rb_ms:.4f} ms)  plain {plain_ms:.4f} ms  no single library call")
 
@@ -3051,6 +3093,18 @@ def kernel_phase_k13(torch, F, tpa, report):
     if swapped["over_limit"] <= 1:
         raise AssertionError(f"K13's limit passes a swapped page: {swapped}")
     errs["swapped_page"] = swapped
+    # Shapes the kernel took only from this version on: a group of 5 query
+    # heads (padded to 8 rows) and head_dim 32, one layer each.
+    for key, (H_, D_) in {"qpg5": (40, 128), "d32": (32, 32)}.items():
+        q_, k_, v_, bt_, len_ = _k13_inputs(torch, g, 1, B, H_, KVH, D_, page,
+                                            maxp, lens_list)
+        got_ = tpa.paged_decode_attention(q_, k_[0], v_[0], bt_, len_,
+                                          soft_cap=30.0)
+        errs[key] = k13_err(got_, tpa.paged_decode_attention_plain(
+            q_, k_[0], v_[0], bt_, len_, soft_cap=30.0))
+        if errs[key]["over_limit"] > 1 or not (got_[0] == 0).all():
+            raise AssertionError(f"K13 at {key} disagrees with its plain "
+                                 f"version: {errs[key]}")
     ms = time_ms(torch, lambda i: tpa.paged_decode_attention(
         q, k[i % L], v[i % L], bt, lengths))
     l2_hot_ms = time_ms(torch, lambda i: tpa.paged_decode_attention(

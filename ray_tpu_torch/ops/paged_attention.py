@@ -42,6 +42,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _K1_THREADS = 256
 _K1_MAX_E = 4
 _SMEM_LIMIT = 227 * 1024
+_EPL = 8  # columns of one partial sum of q·k (csrc: EPL)
 
 
 def _stream_ptr(t: torch.Tensor) -> int:
@@ -85,6 +86,31 @@ def _check_scales(name: str, k_pools: torch.Tensor, v_pools: torch.Tensor,
     return quantized
 
 
+def _fixed_order_dot(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q·k [B, KVH, qpg, T] in f32 from qg [B, KVH, qpg, D] and k
+    [B, KVH, T, D], summed in the fixed order of K1's and K13's kernels:
+    the products of each eight consecutive columns left to right, then
+    pairs of those n = ceil(D/8) partial sums, i and i + h for
+    h = floor(n/2), an odd one out carried to the next round, until one
+    is left (for D/8 a power of two: halving exchanges over lanes).
+    Every product and sum is one rounded f32 operation, so the kernels
+    reproduce this bit for bit."""
+    D = qg.shape[-1]
+    prod = qg.float()[:, :, :, None, :] * k.float()[:, :, None, :, :]
+    n = -(-D // _EPL)
+    if n * _EPL != D:  # zero columns add nothing
+        prod = torch.nn.functional.pad(prod, (0, n * _EPL - D))
+    x = prod.reshape(*prod.shape[:-1], n, _EPL)
+    s = x[..., 0]
+    for i in range(1, _EPL):
+        s = s + x[..., i]
+    while n > 1:
+        h = n // 2
+        s = torch.cat([s[..., :h] + s[..., h:2 * h], s[..., 2 * h:]], dim=-1)
+        n -= h
+    return s[..., 0]
+
+
 # --------------------------------------------------------------------------
 # K1: layered decode partials
 # --------------------------------------------------------------------------
@@ -94,19 +120,53 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _pages_per_split(groups: int, maxp: int, device: torch.device) -> int:
-    """Pages per CTA of K1: split the page axis so that about four CTAs
-    per SM are in flight (``groups`` = slots x kv heads CTAs alone
-    under-fill the card at decode batch sizes)."""
-    want = -(-4 * _sm_count(device.index or 0) // max(groups, 1))
-    return -(-maxp // max(1, min(maxp, want)))
+# The Hopper route of K1 and K13 (csrc/paged_decode.cu, paged_decode_hopper).
+_HOPPER_QPG = (1, 2, 4, 8)            # query rows a group is padded to
+_HOPPER_HEAD_DIMS = (16, 32, 64, 128)
+_HOPPER_MAX_CLUSTER = 8               # the portable cluster size
+_HOPPER_MAX_STAGES = 16
+_HOPPER_RING_BYTES = 32 * 1024
+_HOPPER_WARPS = 4
+_HOPPER_STATIC_SMEM = 4096            # barriers and per-rank sums, rounded up
 
 
-def _check_k1_body(name: str, D: int, qpg: int, page: int,
+def hopper_decode_plan(B: int, KVH: int, qpg: int, D: int, page: int,
+                       maxp: int, esize: int, partial: bool,
+                       device: torch.device) -> Optional[Tuple[int, int, int]]:
+    """The launch of ``paged_decode_hopper`` (K1 when ``partial``, else
+    K13): (cluster size, pages per CTA, ring stages), or None for a shape
+    it does not take (qpg above 8, D outside {16, 32, 64, 128}, or a CTA's
+    pages and scores beyond the H100's shared memory even in a cluster of
+    8).  A (slot, kv head) splits its page axis over a cluster of up to 8
+    CTAs, enough for about four CTAs per SM; the ring holds all of a CTA's
+    k and v pages when they fit in 32 KB, else as many as fit (at least
+    2): a small ring leaves room for more CTAs on an SM.  ``esize`` is the
+    pages' element size (1 for int8 pools); the group's qpg rows are padded
+    to the next of 1, 2, 4, 8 inside the kernel."""
+    if qpg > _HOPPER_QPG[-1] or D not in _HOPPER_HEAD_DIMS:
+        return None
+    qpg_p = next(n for n in _HOPPER_QPG if n >= qpg)
+    want = -(-4 * _sm_count(device.index or 0) // max(B * KVH, 1))
+    top = max(1, min(_HOPPER_MAX_CLUSTER, maxp))
+    stage = page * D * esize
+    for csize in range(max(1, min(top, want)), top + 1):
+        ppc = -(-maxp // csize)
+        csize = -(-maxp // ppc)
+        stages = max(2, min(2 * ppc, _HOPPER_MAX_STAGES,
+                            _HOPPER_RING_BYTES // stage))
+        smem = (max(stages * stage, 4 * _HOPPER_WARPS * qpg_p * D)
+                + 4 * (qpg_p * ppc * page + csize * qpg_p * D
+                       + (2 * ppc * qpg_p if partial else 0)))
+        if smem + _HOPPER_STATIC_SMEM <= _SMEM_LIMIT:
+            return csize, ppc, stages
+    return None
+
+
+def _check_k1_walk(name: str, D: int, qpg: int, page: int,
                    d_multiple: int) -> None:
-    """What K1's page-split body takes: D a multiple of one 16-byte
-    load's elements, at most 1024 accumulators per CTA (qpg · D), and a
-    staged page within the H100's shared memory."""
+    """What K1's page-walk route takes: D a multiple of one 16-byte load's
+    elements, at most 1024 accumulators per CTA (qpg · D), and a staged
+    page within the H100's shared memory."""
     if D % d_multiple or qpg * D > _K1_THREADS * _K1_MAX_E:
         raise ValueError(f"{name}: unsupported D={D} or qpg={qpg}")
     smem = 4 * (page * (2 * D + 4) + qpg * D + qpg * page + 3 * qpg)
@@ -122,39 +182,54 @@ def paged_decode_attention_partial_plain(
     k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of K1: gather the slot's pages, masked scores in
-    f32, unnormalised (acc, m, l).  A slot with length 0 returns
-    acc = 0, m = -1e30, l = 0, as the kernel does.  With int8 pools the
-    page scale multiplies the scores after the q.k dot (before the soft
-    cap and the mask) and the probabilities before the p.v product."""
+    """Plain version of K1: the Pallas body's walk over a slot's pages in
+    order, every slot and head at once, with the online softmax in f32.
+    Per page: s = q·k · D^-0.5 (times the page's k scale on int8 pools,
+    then the soft cap and the mask), m_new = max(m, page max),
+    p = exp(s - m_new), corr = exp(m - m_new), l = corr·l + Σp with p
+    unrounded, then p rounded to q's dtype and acc = acc·corr + p·v
+    (p·v times the page's v scale on int8 pools).  A slot with length 0
+    returns acc = 0, m = -1e30, l = 0, as the kernel does.
+
+    The q·k dot is summed in the kernels' fixed order (``_fixed_order_dot``);
+    the exponentials and the soft cap's tanh are taken in f64 and rounded
+    once to f32.  So every f32 value up to p is the kernel's, and the
+    two round p identically."""
     B, H, D = q.shape
     _, KVH, P, page, _ = k_pools.shape
     maxp = block_table.shape[1]
+    qpg = H // KVH
     bt = block_table.long().clamp(0, P - 1)
-    k = k_pools[layer][:, bt]  # [KVH, B, maxp, page, D]
-    v = v_pools[layer][:, bt]
-    k = k.permute(1, 0, 2, 3, 4).reshape(B, KVH, maxp * page, D).float()
-    v = v.permute(1, 0, 2, 3, 4).reshape(B, KVH, maxp * page, D).float()
-    qg = q.float().reshape(B, KVH, H // KVH, D)
-    s = torch.einsum("bgqd,bgkd->bgqk", qg, k) * (D ** -0.5)
-    if k_scales is not None:
-        # [B, maxp, KVH] -> one scale per key position [B, KVH, 1, ctx].
-        ks, vs = (sc[layer][bt][..., 0].permute(0, 2, 1)
-                  .repeat_interleave(page, dim=2)[:, :, None, :]
-                  for sc in (k_scales, v_scales))
-        s = s * ks
-    if soft_cap is not None:
-        s = soft_cap * torch.tanh(s / soft_cap)
-    pos = torch.arange(maxp * page, device=q.device)
-    valid = (pos[None, :] < lengths.to(q.device).long()[:, None])
-    valid = valid[:, None, None, :]
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
-    l = p.sum(dim=-1, keepdim=True)
-    if k_scales is not None:
-        p = p * vs
-    acc = torch.einsum("bgqk,bgkd->bgqd", p, v)
+    lens = lengths.to(q.device).long()
+    qg = q.reshape(B, KVH, qpg, D)
+    dev = q.device
+    acc = torch.zeros((B, KVH, qpg, D), dtype=torch.float32, device=dev)
+    m = torch.full((B, KVH, qpg, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KVH, qpg, 1), dtype=torch.float32, device=dev)
+    pos = torch.arange(page, device=dev)
+    for j in range(maxp):
+        pid = bt[:, j]
+        k = k_pools[layer][:, pid].transpose(0, 1)  # [B, KVH, page, D]
+        v = v_pools[layer][:, pid].transpose(0, 1)
+        s = _fixed_order_dot(qg, k) * (D ** -0.5)
+        if k_scales is not None:
+            s = s * k_scales[layer, pid, :, 0][:, :, None, None]
+        if soft_cap is not None:
+            s = torch.tanh((s / s.new_tensor(soft_cap)).double()).float() \
+                * soft_cap
+        valid = (j * page + pos)[None, :] < lens[:, None]      # [B, page]
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s.double() - m_new.double()).float()
+        corr = torch.exp(m.double() - m_new.double()).float()
+        pv = torch.einsum("bgqk,bgkd->bgqd", p.to(q.dtype).float(),
+                          v.float())
+        if v_scales is not None:
+            pv = pv * v_scales[layer, pid, :, 0][:, :, None, None]
+        live = (j * page < lens)[:, None, None, None]
+        l = torch.where(live, corr * l + p.sum(dim=-1, keepdim=True), l)
+        acc = torch.where(live, acc * corr + pv, acc)
+        m = torch.where(live, m_new, m)
     return (acc.reshape(B, H, D), m.reshape(B, H, 1), l.reshape(B, H, 1))
 
 
@@ -176,7 +251,13 @@ def paged_decode_attention_partial(
 
     CUDA tensors launch kernel K1 (csrc/paged_decode.cu; its int8
     instantiation when scales are given, counted in ``launches_int8``
-    too); CPU tensors run the plain version."""
+    too) on one of two routes, chosen by shape: ``paged_decode_hopper``
+    (D in {16, 32, 64, 128}, qpg up to 8, pages within shared memory: one
+    launch, a cluster of CTAs per (slot, kv head) over the pages, bulk
+    copies into shared memory), else ``page_walk_kernel`` (D a multiple
+    of 8, of 16 on int8 pools, qpg · D up to 1024: one CTA per (slot, kv
+    head) walking the pages in order); any other shape raises.  CPU
+    tensors run the plain version."""
     quantized = _check_scales("paged_decode_attention_partial", k_pools,
                               v_pools, k_scales, v_scales)
     if not q.is_cuda:
@@ -210,37 +291,38 @@ def paged_decode_attention_partial(
     if not 0 <= layer < L:
         raise ValueError(f"paged_decode_attention_partial: layer {layer} "
                          f"out of [0, {L})")
-    _check_k1_body("paged_decode_attention_partial", D, qpg, page,
-                   16 if quantized else 8)
     acc = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
-    if B == 0 or maxp == 0:
+    if B == 0:
         return acc, m, l
-    pps = _pages_per_split(B * KVH, maxp, q.device)
-    # Per-split partials for the kernel's merge pass; one split covering
-    # every page writes acc, m, l directly and needs none.
-    n_part = -(-maxp // pps) if pps < maxp else 0
-    part_acc = torch.empty((n_part, B, H, D), dtype=torch.float32,
-                           device=q.device)
-    part_m = torch.empty((n_part, B, H), dtype=torch.float32, device=q.device)
-    part_l = torch.empty((n_part, B, H), dtype=torch.float32, device=q.device)
+    if maxp == 0:
+        return acc.zero_(), m.fill_(NEG_INF), l.zero_()
+    plan = hopper_decode_plan(B, KVH, qpg, D, page, maxp,
+                              k_pools.element_size(), True, q.device)
     lib = _build.library("paged_decode")
-    fn = lib.rtt_paged_decode_partial
+    common = (q.data_ptr(), k_pools.data_ptr(), v_pools.data_ptr(),
+              k_scales.data_ptr() if quantized else None,
+              v_scales.data_ptr() if quantized else None,
+              block_table.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
+              m.data_ptr(), l.data_ptr(), _DTYPE_CODE[q.dtype], B, KVH, P,
+              page, D, qpg, maxp)
+    tail = (D ** -0.5, float(soft_cap) if soft_cap is not None else 0.0,
+            _stream_ptr(q))
+    if plan is not None:
+        fn = lib.rtt_paged_decode_partial
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        args = common + (*plan, int(layer)) + tail
+    else:
+        _check_k1_walk("paged_decode_attention_partial", D, qpg, page,
+                       16 if quantized else 8)
+        fn = lib.rtt_paged_decode_partial_walk
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        args = common + (int(layer),) + tail
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k_pools.data_ptr(), v_pools.data_ptr(),
-             k_scales.data_ptr() if quantized else None,
-             v_scales.data_ptr() if quantized else None,
-             block_table.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
-             m.data_ptr(), l.data_ptr(), part_acc.data_ptr(),
-             part_m.data_ptr(), part_l.data_ptr(),
-             _DTYPE_CODE[q.dtype], B, KVH, P, page, D, qpg, maxp, pps,
-             int(layer), D ** -0.5,
-             float(soft_cap) if soft_cap is not None else 0.0,
-             _stream_ptr(q))
-    _build.check(err, "paged_decode_attention_partial")
+    _build.check(fn(*args), "paged_decode_attention_partial")
     paged_decode_attention_partial.launches += 1
     if quantized:
         paged_decode_attention_partial.launches_int8 += 1
@@ -448,28 +530,7 @@ paged_append_quantized.launches = 0
 # K13: normalised decode attention over one layer's pages
 # --------------------------------------------------------------------------
 
-_K13_EPL = 8  # columns of a row a lane of K13 sums (csrc: k13::EPL)
-_LOG2E = 1.4426950408889634  # csrc: k13::LOG2E
-
-
-def _k13_scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q·k [B, KVH, qpg, T] in f32 from qg [B, KVH, qpg, D] and k
-    [B, KVH, T, D], summed in K13's fixed order: the products of each
-    eight consecutive columns left to right, then pairs of those partial
-    sums l and l + n/2 for n = D/8, D/16, .., 2.  Every product and sum
-    is one rounded f32 operation, so the kernel reproduces this bit for
-    bit."""
-    D = qg.shape[-1]
-    prod = qg.float()[:, :, :, None, :] * k.float()[:, :, None, :, :]
-    x = prod.reshape(*prod.shape[:-1], D // _K13_EPL, _K13_EPL)
-    s = x[..., 0]
-    for i in range(1, _K13_EPL):
-        s = s + x[..., i]
-    n = D // _K13_EPL
-    while n > 1:
-        n //= 2
-        s = s[..., :n] + s[..., n:]
-    return s[..., 0]
+_LOG2E = 1.4426950408889634  # csrc: pdh::LOG2E
 
 
 def paged_decode_attention_plain(
@@ -487,7 +548,7 @@ def paged_decode_attention_plain(
     at its running max m.  Either way p is within a factor 2 of the
     other, so the two round p to within one bf16 ulp of each other.
 
-    The q·k dot is summed in K13's order (``_k13_scores``); y, exp2 and
+    The q·k dot is summed in the kernels' order (``_fixed_order_dot``); y, exp2 and
     tanh are taken in f64 and rounded once to f32; the soft cap divides
     by a tensor (a Python scalar divisor on a CUDA tensor becomes a
     product with its reciprocal).  So every f32 value up to the rounded p
@@ -498,7 +559,7 @@ def paged_decode_attention_plain(
     bt = block_table.long().clamp(0, P - 1)
     k = k_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KVH, maxp * page, D)
     v = v_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KVH, maxp * page, D)
-    s = _k13_scores(q.reshape(B, KVH, H // KVH, D), k) * (D ** -0.5)
+    s = _fixed_order_dot(q.reshape(B, KVH, H // KVH, D), k) * (D ** -0.5)
     if soft_cap is not None:
         s = torch.tanh((s / s.new_tensor(soft_cap)).double()).float() \
             * soft_cap
@@ -516,44 +577,6 @@ def paged_decode_attention_plain(
     return out.reshape(B, H, D).to(q.dtype)
 
 
-_K13_QPG = (1, 2, 4, 8)
-_K13_HEAD_DIMS = (16, 64, 128)
-_K13_MAX_CLUSTER = 8      # the portable cluster size
-_K13_MAX_STAGES = 16
-_K13_RING_BYTES = 32 * 1024
-_K13_WARPS = 4
-
-
-def _k13_plan(B: int, KVH: int, qpg: int, D: int, page: int, maxp: int,
-              esize: int, device: torch.device) -> Tuple[int, int, int]:
-    """K13's launch: (cluster size, pages per CTA, ring stages).  A
-    (slot, kv head) splits its page axis over a cluster of up to 8 CTAs,
-    enough for about four CTAs per SM; the ring holds all of a CTA's k and
-    v pages when they fit in 32 KB, else as many as fit (at least 2): a
-    small ring leaves room for more CTAs on an SM, which paid more than
-    having every page in flight at the 8B decode shape.
-    Raises on what the kernel does not take: qpg outside {1, 2, 4, 8}, D
-    outside {16, 64, 128}, or a CTA's pages and scores beyond the H100's
-    shared memory."""
-    if qpg not in _K13_QPG or D not in _K13_HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention: unsupported D={D} or "
-                         f"qpg={qpg} (D in {_K13_HEAD_DIMS}, qpg in "
-                         f"{_K13_QPG})")
-    want = -(-4 * _sm_count(device.index or 0) // max(B * KVH, 1))
-    csize = max(1, min(_K13_MAX_CLUSTER, maxp, want))
-    ppc = -(-maxp // csize)
-    csize = -(-maxp // ppc)
-    stage = page * D * esize
-    stages = max(2, min(2 * ppc, _K13_MAX_STAGES, _K13_RING_BYTES // stage))
-    smem = (max(stages * stage, 4 * _K13_WARPS * qpg * D)
-            + 4 * (qpg * ppc * page + csize * qpg * D))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"paged_decode_attention: page {page} x D {D} with {ppc} pages "
-            f"a CTA needs {smem} B of shared memory, over the H100's 227 KB")
-    return csize, ppc, stages
-
-
 def paged_decode_attention(
     q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     block_table: torch.Tensor, lengths: torch.Tensor, *,
@@ -565,9 +588,12 @@ def paged_decode_attention(
     ids clamp to P - 1; a slot with length 0 gives 0.
 
     CUDA tensors launch kernel K13 (csrc/paged_decode.cu,
-    ``paged_decode_attention_hopper``: one launch, a cluster of CTAs per
-    (slot, kv head) over the pages, bulk copies into shared memory);
-    CPU tensors run the plain version."""
+    ``paged_decode_hopper``: one launch, a cluster of CTAs per (slot, kv
+    head) over the pages, bulk copies into shared memory; a group of qpg
+    up to 8 rows is padded to 1, 2, 4 or 8 with zero rows whose results
+    are dropped, as the Pallas kernel pads to 8); a shape it does not
+    take (qpg above 8, D outside {16, 32, 64, 128}) raises.  CPU tensors
+    run the plain version."""
     if not q.is_cuda:
         return paged_decode_attention_plain(q, k_pages, v_pages, block_table,
                                             lengths, soft_cap=soft_cap)
@@ -595,16 +621,21 @@ def paged_decode_attention(
         return out
     if maxp == 0:
         return out.zero_()
-    csize, ppc, stages = _k13_plan(B, KVH, qpg, D, page, maxp,
-                                   q.element_size(), q.device)
+    plan = hopper_decode_plan(B, KVH, qpg, D, page, maxp, q.element_size(),
+                              False, q.device)
+    if plan is None:
+        raise ValueError(
+            f"paged_decode_attention: unsupported qpg={qpg}, D={D}, page "
+            f"{page}, {maxp} pages (qpg up to {_HOPPER_QPG[-1]}, D in "
+            f"{_HOPPER_HEAD_DIMS}, pages within the H100's shared memory)")
     fn = _build.library("paged_decode").rtt_paged_decode_attention
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             _DTYPE_CODE[q.dtype], B, KVH, P, page, D, qpg, maxp, csize, ppc,
-             stages, D ** -0.5,
+             _DTYPE_CODE[q.dtype], B, KVH, P, page, D, qpg, maxp, *plan,
+             D ** -0.5,
              float(soft_cap) if soft_cap is not None else 0.0,
              _stream_ptr(q))
     _build.check(err, "paged_decode_attention")

@@ -572,8 +572,10 @@ def ragged_paged_append_quantized(
     start) keeps bytes and scale.  ``max_row_tokens`` is accepted for
     the JAX signature and ignored.  Nothing is returned.
 
-    CUDA tensors launch kernel K6 (csrc/ragged_append_quantized.cu); CPU
-    tensors run the plain version."""
+    CUDA tensors launch kernel K6 (csrc/ragged_append_quantized.cu: one
+    warp a (layer, row, page, kv head, k or v) page the rows' tokens touch,
+    found on the card without a host sync); CPU tensors run the plain
+    version."""
     _check_scales("ragged_paged_append_quantized", k_pools, v_pools,
                   k_scales, v_scales)
     if not k_pools.is_cuda:
@@ -610,22 +612,34 @@ def ragged_paged_append_quantized(
                          f"{D} B is not a multiple of 16")
     if T == 0 or R == 0:
         return
+    # The grid's bound on the live (row, page) pairs (a row of n tokens
+    # touches at most n / page + 2 pages), and the landing tokens a warp
+    # keeps in shared memory (32 bf16 rows of head_dim 128: seven CTAs an
+    # SM; the rest of a fuller page is read again in the last pass).
+    pairs = 2 * R + -(-T // page)
+    cap = min(page, _K6_SMEM // (_K6_WARPS * D * k_new.element_size()))
     lib = _build.library("ragged_append_quantized")
     fn = lib.rtt_ragged_append_quantized
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 \
         + [ctypes.c_void_p]
     err = fn(k_pools.data_ptr(), v_pools.data_ptr(), k_scales.data_ptr(),
              v_scales.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
              row_slot.data_ptr(), row_start.data_ptr(), row_len.data_ptr(),
              row_off.data_ptr(), block_tables.data_ptr(),
              _DTYPE_CODE[k_new.dtype], L, T, R, KVH, P, page, D, maxp,
-             pages_per_row(T, page), _stream_ptr(k_pools))
+             pairs, cap, _stream_ptr(k_pools))
     _build.check(err, "ragged_paged_append_quantized")
     ragged_paged_append_quantized.launches += 1
 
 
 ragged_paged_append_quantized.launches = 0
+
+
+# K6's warps a CTA (csrc: WARPS) and the shared memory a CTA keeps
+# landing rows in.
+_K6_WARPS = 4
+_K6_SMEM = 32 * 1024
 
 
 # --------------------------------------------------------------------------

@@ -30,33 +30,52 @@ def _gen(seed):
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
-# f32: same arithmetic, other summation order.  bf16 inputs convert
-# exactly to f32 in both versions, so K1 keeps the f32 tolerance; K9f
+# f32: same arithmetic, other summation order.  K1 in bf16 rounds p to
+# bf16 before p.v at the running max, as its plain version does, and both
+# reach the same f32 p (q.k summed in one fixed order, exp in f64 rounded
+# once), so p rounds identically and K1 keeps the f32 tolerance; K9f
 # rounds p to bf16 before p.v (at its running max; the plain version at
 # the final lse) and its f32 result to bf16 (one ulp = 2^-8 relative).
 K1_TOL = 1e-4
 K9_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("qpg,D,page", [(1, 16, 16), (2, 64, 16),
-                                        (4, 128, 64), (8, 128, 32)])
-@pytest.mark.parametrize("soft_cap", [None, 30.0])
-def test_k1_matches_plain(dev, dtype, qpg, D, page, soft_cap):
-    g = _gen(qpg * D + page)
-    L, B, KVH, maxp = 3, 6, 2, 5
+def _k1_case(dev, dtype, qpg, D, page, maxp, seed, L=3, B=6, KVH=2):
+    """q, pools of L layers, lengths 0, 1, page - 1, page, page + 1, a
+    slot of every page (at most 1,000 tokens) and, past six slots, fractions
+    of it, a block table of shuffled pages with the scratch page past each
+    slot's live ones."""
+    g = _gen(seed)
     P = B * maxp + 1
     q = torch.randn((B, KVH * qpg, D), generator=g, device=dev, dtype=dtype)
     k = torch.randn((L, KVH, P, page, D), generator=g, device=dev,
                     dtype=dtype)
     v = torch.randn_like(k)
-    lens = [0, 1, page - 1, page, page + 1, maxp * page]
+    full = min(maxp * page, 1000)
+    lens = [0, 1, page - 1, page, page + 1, full][:B]
+    lens += [full // (i + 2) for i in range(B - len(lens))]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     perm = torch.randperm(P - 1, device=dev, generator=g).to(torch.int32)
     bt = torch.full((B, maxp), P - 1, dtype=torch.int32, device=dev)
     for b, n in enumerate(lens):
         live = -(-n // page)
         bt[b, :live] = perm[b * maxp: b * maxp + live]
+    return q, k, v, bt, lengths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qpg,D,page,maxp", [
+    (1, 16, 16, 5), (2, 64, 16, 5), (4, 128, 64, 5), (8, 128, 32, 5),
+    # A 1,000-token slot over an 8-CTA cluster of 2 pages each.
+    (4, 128, 64, 16),
+    # qpg 5 (padded to 8) and D 32 on the Hopper route; D 48 on the
+    # page-walk route.
+    (5, 32, 16, 5), (2, 48, 16, 5)])
+@pytest.mark.parametrize("soft_cap", [None, 30.0])
+def test_k1_matches_plain(dev, dtype, qpg, D, page, maxp, soft_cap):
+    L = 3
+    q, k, v, bt, lengths = _k1_case(dev, dtype, qpg, D, page, maxp,
+                                    seed=qpg * D + page + maxp - 5, L=L)
     for layer in range(L):
         got = tpa.paged_decode_attention_partial(q, k, v, layer, bt, lengths,
                                                  soft_cap=soft_cap)
@@ -65,6 +84,103 @@ def test_k1_matches_plain(dev, dtype, qpg, D, page, soft_cap):
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, atol=K1_TOL, rtol=K1_TOL)
+
+
+@pytest.fixture(scope="module")
+def one_launch_runs():
+    """K1 at the 8B decode shape, then K13, each called once inside ONE
+    torch.profiler session (a second session in a process can come back
+    without device events): the device kernels of the session, and per
+    call its result and the bytes it allocated."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    q1, k1, v1, bt1, len1 = _k1_case(dev, torch.bfloat16, 4, 128, 64, 16,
+                                     seed=41, L=2, B=8, KVH=8)
+    q13, k13, v13, bt13, len13 = _k13_inputs(dev, torch.bfloat16, 4, 128,
+                                             64, 16, seed=31, B=6, KVH=8)
+    calls = {"K1": lambda: tpa.paged_decode_attention_partial(
+                 q1, k1, v1, 1, bt1, len1),
+             "K13": lambda: tpa.paged_decode_attention(q13, k13, v13, bt13,
+                                                       len13)}
+    for f in calls.values():
+        f()
+    torch.cuda.synchronize()
+    runs = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for name, f in calls.items():
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = f()
+            torch.cuda.synchronize()
+            runs[name] = (out, torch.cuda.max_memory_allocated() - before)
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return kernels, runs
+
+
+def test_k1_is_one_launch_without_scratch(dev, one_launch_runs):
+    """K1 at the 8B decode shape is one kernel per call on the Hopper route
+    (torch.profiler on the card counts its device kernels: K1's
+    instantiation of paged_decode_hopper has PARTIAL = true, K13's false),
+    and the call allocates only acc, m and l."""
+    kernels, runs = one_launch_runs
+    assert len(kernels) == 2, kernels
+    mine = [name for name in kernels if "true>" in name]
+    assert len(mine) == 1 and "paged_decode_hopper" in mine[0], kernels
+    (acc, m, l), grown = runs["K1"]
+    outs = sum(-(-t.numel() * 4 // 512) * 512 for t in (acc, m, l))
+    assert grown <= outs, (grown, outs)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_k1_is_deterministic(dev, int8):
+    """Two launches of K1 on the Hopper route give the same bits (the
+    ranks of a cluster merge in rank order)."""
+    q, k, v, bt, lengths = _k1_case(dev, torch.bfloat16, 4, 128, 64, 16,
+                                    seed=42)
+    scales = {}
+    if int8:
+        k, v, ks, vs = _quantise(_gen(43), k, k.shape[2], k.shape[1])
+        scales = {"k_scales": ks, "v_scales": vs}
+    first = tpa.paged_decode_attention_partial(q, k, v, 2, bt, lengths,
+                                               soft_cap=30.0, **scales)
+    again = tpa.paged_decode_attention_partial(q, k, v, 2, bt, lengths,
+                                               soft_cap=30.0, **scales)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_k1_is_capturable(dev):
+    """K1 captured in a CUDA graph replays to the eager bits, on both
+    routes and on int8 pools."""
+    q, k, v, bt, lengths = _k1_case(dev, torch.bfloat16, 4, 128, 64, 16,
+                                    seed=44)
+    k8, v8, ks, vs = _quantise(_gen(45), k, k.shape[2], k.shape[1])
+    qw, kw, vw, btw, lw = _k1_case(dev, torch.bfloat16, 2, 48, 16, 5,
+                                   seed=46)
+    calls = [lambda: tpa.paged_decode_attention_partial(
+                 q, k, v, 1, bt, lengths, soft_cap=30.0),
+             lambda: tpa.paged_decode_attention_partial(
+                 q, k8, v8, 1, bt, lengths, k_scales=ks, v_scales=vs),
+             lambda: tpa.paged_decode_attention_partial(
+                 qw, kw, vw, 1, btw, lw)]
+    eager = [f() for f in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in calls:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in calls]
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(outs, eager):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -388,15 +504,19 @@ def _quantise(g, pools_like, P, KVH):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,page", _INT8_DIMS)
+@pytest.mark.parametrize("D,page,maxp", [(D, page, 5)
+                                         for D, page in _INT8_DIMS] + [
+    # A 1,000-token slot over an 8-CTA cluster; D 48 on the page-walk
+    # route.
+    (128, 64, 16), (48, 16, 5)])
 @pytest.mark.parametrize("qpg,soft_cap", [(1, None), (4, 30.0)])
-def test_k1_int8_matches_plain(dev, dtype, D, page, qpg, soft_cap):
+def test_k1_int8_matches_plain(dev, dtype, D, page, maxp, qpg, soft_cap):
     g = _gen(qpg * D + page + 1)
-    L, B, KVH, maxp = 3, 6, 2, 5
+    L, B, KVH = 3, 6, 2
     P = B * maxp + 1
     q = torch.randn((B, KVH * qpg, D), generator=g, device=dev, dtype=dtype)
     k, v, ks, vs = _quantise(g, torch.empty((L, KVH, P, page, D)), P, KVH)
-    lens = [0, 1, page - 1, page, page + 1, maxp * page]
+    lens = [0, 1, page - 1, page, page + 1, min(maxp * page, 1000)]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     perm = torch.randperm(P - 1, device=dev, generator=g).to(torch.int32)
     bt = torch.full((B, maxp), P - 1, dtype=torch.int32, device=dev)
@@ -552,6 +672,53 @@ def test_k6_matches_plain_bytes(dev, dtype, D, page):
         if n and st % page and p in stable:
             assert torch.equal(got[1][:, :, p, : st % page],
                                v[:, :, p, : st % page])
+
+
+def test_k6_is_capturable(dev):
+    """K6 captured in a CUDA graph writes what the eager call writes: the
+    live (row, page) pairs are found on the card, so a replay with new
+    rows, row lengths and starts lands them where an eager call does."""
+    g = _gen(61)
+    L, KVH, D, page = 2, 2, 64, 16
+    kf, _vf, _q, _kn, _vn, meta, bt, _cov = _ragged_case(
+        dev, g, torch.bfloat16, L, KVH, KVH, D, page, _MIX)
+    P = kf.shape[2]
+    T = _kn.shape[0]
+    state0 = _quantise(g, kf, P, KVH)
+    k_new = torch.randn((L, T, KVH, D), generator=g, device=dev).to(
+        torch.bfloat16)
+    v_new = torch.randn_like(k_new)
+    meta_in = [t.clone() for t in meta]
+    rows_in = [k_new.clone(), v_new.clone()]
+    graph_state = [t.clone() for t in state0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        trpa.ragged_paged_append_quantized(
+            *[t.clone() for t in state0], *rows_in, *meta_in, bt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        trpa.ragged_paged_append_quantized(*graph_state, *rows_in, *meta_in,
+                                           bt)
+    # New inputs in the captured buffers: the rows shifted by one token
+    # and the second row one token shorter.
+    slot, start, ln, off = (t.clone() for t in meta)
+    start += 1
+    ln[1] = max(int(ln[1]) - 1, 0)
+    for buf, new in zip(meta_in, (slot, start, ln, off)):
+        buf.copy_(new)
+    rows_in[0].mul_(3.0)
+    for t, t0 in zip(graph_state, state0):
+        t.copy_(t0)
+    graph.replay()
+    eager = [t.clone() for t in state0]
+    trpa.ragged_paged_append_quantized(*eager, *rows_in, slot, start, ln,
+                                       off, bt)
+    torch.cuda.synchronize()
+    for a, b in zip(graph_state, eager):
+        assert torch.equal(a, b)
+    assert not torch.equal(graph_state[0], state0[0])
 
 
 def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -1328,7 +1495,9 @@ def _k13_inputs(dev, dtype, qpg, D, page, maxp, seed, B=6, KVH=2):
     (1, 16, 16, 5), (2, 64, 16, 5), (4, 128, 64, 5), (8, 128, 32, 5),
     # A 40-page slot: a whole 8-CTA cluster of 5 pages each, more pages
     # than the ring holds at once, and a partial last page.
-    (4, 128, 64, 40), (2, 64, 16, 40)])
+    (4, 128, 64, 40), (2, 64, 16, 40),
+    # Groups of 3 and 5 (padded to 4 and 8 rows) and D 32.
+    (3, 64, 16, 5), (5, 128, 64, 40), (2, 32, 16, 5)])
 @pytest.mark.parametrize("soft_cap", [None, 30.0])
 def test_k13_matches_plain(dev, dtype, qpg, D, page, maxp, soft_cap):
     q, k, v, bt, lengths = _k13_inputs(dev, dtype, qpg, D, page, maxp,
@@ -1353,25 +1522,15 @@ def test_k13_matches_plain(dev, dtype, qpg, D, page, maxp, soft_cap):
         assert (err <= limit).all(), (err / limit).max().item()
 
 
-def test_k13_is_one_launch_without_scratch(dev):
+def test_k13_is_one_launch_without_scratch(dev, one_launch_runs):
     """K13 is one kernel per call (torch.profiler on the card counts its
-    device kernels), and the call allocates only its output."""
-    from torch.profiler import ProfilerActivity, profile
-
-    q, k, v, bt, lengths = _k13_inputs(dev, torch.bfloat16, 4, 128, 64, 16,
-                                       seed=31, B=6, KVH=8)
-    tpa.paged_decode_attention(q, k, v, bt, lengths)
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = tpa.paged_decode_attention(q, k, v, bt, lengths)
-        torch.cuda.synchronize()
-    grown = torch.cuda.max_memory_allocated() - before
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(kernels) == 1, kernels
-    assert "paged_decode_attention_hopper" in kernels[0], kernels
+    device kernels, in the session it shares with K1), and the call
+    allocates only its output."""
+    kernels, runs = one_launch_runs
+    assert len(kernels) == 2, kernels
+    mine = [name for name in kernels if "false>" in name]
+    assert len(mine) == 1 and "paged_decode_hopper" in mine[0], kernels
+    out, grown = runs["K13"]
     assert grown <= -(-out.numel() * out.element_size() // 512) * 512, grown
 
 
@@ -1406,10 +1565,11 @@ def test_k13_wrapper_rejects_what_the_kernel_does_not_take(dev):
         tpa.paged_decode_attention(q, pages, pages, bt.long(), lens)
     with pytest.raises(ValueError, match="bad shapes"):
         tpa.paged_decode_attention(q[:, :3], pages, pages, bt, lens)
-    # qpg 3 and D 32 are no instantiation of K13.
-    with pytest.raises(ValueError, match="unsupported"):
-        tpa.paged_decode_attention(q[:, :3], pages[:1], pages[:1], bt, lens)
-    with pytest.raises(ValueError, match="unsupported"):
-        tpa.paged_decode_attention(torch.zeros((1, 4, 32), device=dev),
-                                   pages.new_zeros((2, 3, 8, 32)),
-                                   pages.new_zeros((2, 3, 8, 32)), bt, lens)
+    # A group above 8 rows and D 48 are no instantiation of K13.
+    with pytest.raises(ValueError, match="unsupported qpg=9"):
+        tpa.paged_decode_attention(torch.zeros((1, 9, 16), device=dev),
+                                   pages[:1], pages[:1], bt, lens)
+    with pytest.raises(ValueError, match="unsupported qpg=2, D=48"):
+        tpa.paged_decode_attention(torch.zeros((1, 4, 48), device=dev),
+                                   pages.new_zeros((2, 3, 8, 48)),
+                                   pages.new_zeros((2, 3, 8, 48)), bt, lens)

@@ -543,3 +543,81 @@ def test_k12_state_rows_above_a_cta_sum_by_slice():
     assert ((got - want).abs() / (1 + want.abs())).max().item() <= 2e-4
     with pytest.raises(ValueError, match="at most 256"):
         tssd.ssd_plan(B, H, P, N, 2, 132)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K13 (csrc/paged_decode.cu): the Hopper route's plan and the fixed
+# order of the q·k dot that both routes share with the plain versions
+# ---------------------------------------------------------------------------
+
+from ray_tpu_torch.ops import paged_attention as tpa  # noqa: E402
+
+
+@pytest.mark.parametrize("B,KVH,qpg,D,page,maxp,esize,partial,takes", [
+    (8, 8, 4, 128, 64, 16, 2, True, True),     # K1 at the 8B decode shape
+    (8, 8, 4, 128, 64, 16, 1, True, True),     # its int8 pools
+    (8, 8, 4, 128, 64, 16, 2, False, True),    # K13
+    (6, 2, 3, 64, 16, 5, 4, False, True),      # groups of 3, 5, 7 are padded
+    (6, 2, 5, 128, 64, 40, 2, False, True),
+    (1, 1, 7, 32, 16, 1, 4, True, True),       # head_dim 32
+    (6, 2, 9, 64, 16, 5, 2, True, False),      # a group above 8 rows
+    (6, 2, 2, 48, 16, 5, 2, True, False),      # head_dim 48, 256: page walk
+    (6, 2, 1, 256, 16, 5, 2, True, False),
+    (2, 2, 8, 128, 64, 512, 4, True, False),   # scores past shared memory
+    (2, 2, 8, 128, 16, 512, 2, True, True),
+])
+def test_paged_decode_plan(monkeypatch, B, KVH, qpg, D, page, maxp, esize,
+                           partial, takes):
+    """The plan covers every page with at most 8 CTAs a cluster and a ring
+    of 2 to 16 stages within the H100's shared memory, or is None exactly
+    for the shapes the Hopper route does not take."""
+    monkeypatch.setattr(tpa, "_sm_count", lambda _i: 132)
+    plan = tpa.hopper_decode_plan(B, KVH, qpg, D, page, maxp, esize, partial,
+                                  torch.device("cpu"))
+    assert (plan is not None) == takes
+    if plan is None:
+        return
+    csize, ppc, stages = plan
+    assert 1 <= csize <= 8 and csize * ppc >= maxp > (csize - 1) * ppc
+    assert 2 <= stages <= 16
+    qpg_p = next(n for n in (1, 2, 4, 8) if n >= qpg)
+    smem = (max(stages * page * D * esize, 16 * qpg_p * D)
+            + 4 * (qpg_p * ppc * page + csize * qpg_p * D
+                   + (2 * ppc * qpg_p if partial else 0)))
+    assert smem + 4096 <= 227 * 1024
+
+
+def _dot_serial(a: np.ndarray, b: np.ndarray) -> np.float32:
+    """csrc/paged_decode.cu's dot_fixed, one f32 operation at a time."""
+    n = len(a) // 8
+    part = []
+    for c in range(n):
+        s = np.float32(a[8 * c] * b[8 * c])
+        for i in range(1, 8):
+            s = np.float32(s + np.float32(a[8 * c + i] * b[8 * c + i]))
+        part.append(s)
+    while n > 1:
+        h = n // 2
+        for i in range(h):
+            part[i] = np.float32(part[i] + part[i + h])
+        if n % 2:
+            part[h] = part[2 * h]
+        n -= h
+    return part[0]
+
+
+@pytest.mark.parametrize("D", [8, 16, 24, 48, 64, 72, 128, 256])
+def test_fixed_order_dot_is_the_kernels_order(D):
+    """The plain versions' q·k (``_fixed_order_dot``) equals, bit for bit,
+    the kernels' fixed order: eight products left to right, then pairs of
+    partial sums i, i + n/2 with an odd one carried (the halving exchanges
+    of the Hopper route where D/8 is a power of two)."""
+    rng = np.random.default_rng(D)
+    q = rng.standard_normal((2, 3, D)).astype(np.float32)
+    k = rng.standard_normal((2, 5, D)).astype(np.float32)
+    got = tpa._fixed_order_dot(torch.from_numpy(q)[None, :, :, :],
+                               torch.from_numpy(k)[None]).numpy()[0]
+    for g in range(2):
+        for i in range(3):
+            for t in range(5):
+                assert got[g, i, t] == _dot_serial(q[g, i], k[g, t])

@@ -83,6 +83,37 @@ def test_k1_int8_plain_matches_jax_kernel(qpg, soft_cap):
             and (acc[0] == 0).all()
 
 
+@pytest.mark.parametrize("soft_cap", [None, 20.0])
+def test_k1_int8_plain_matches_jax_kernel_bf16_q(soft_cap):
+    """K1's plain version on int8 pools with bf16 q against the JAX Pallas
+    kernel in interpret mode, layer 1.  Both round p to q's dtype (bf16)
+    at the running max before p·v, l summed from the unrounded p.  q lies
+    on a coarse grid (k/8, |k| <= 16), so its dot with the int8 rows is
+    exact in any summation order and the test holds the rounding point.
+    Tolerance TOL (f32 sums of the same terms in another order); p
+    rounded at the final max instead (the parent's plain version) is
+    about 1e-2 off."""
+    rng = np.random.default_rng(11)
+    L, KVH, D, page, maxp, B, qpg = 2, 2, 32, 16, 4, 4, 4
+    P = B * maxp + 1
+    k, v, ks, vs = _int8_pools(rng, L, KVH, P, page, D)
+    q = (rng.integers(-16, 17, (B, KVH * qpg, D)) / 8).astype(np.float32)
+    bt = rng.permutation(P - 1)[: B * maxp].reshape(B, maxp).astype(np.int32)
+    lengths = np.asarray([0, page - 1, page + 1, maxp * page], np.int32)
+    want = jpa.paged_decode_attention_partial(
+        jnp.asarray(q, jnp.bfloat16), *_j(k, v), jnp.int32(1),
+        *_j(bt, lengths), soft_cap=soft_cap, k_scales=jnp.asarray(ks),
+        v_scales=jnp.asarray(vs))
+    got = tpa.paged_decode_attention_partial(
+        torch.from_numpy(q).to(torch.bfloat16), *_t(k, v), 1,
+        *_t(bt, lengths), soft_cap=soft_cap, k_scales=torch.from_numpy(ks),
+        v_scales=torch.from_numpy(vs))
+    for w, g in zip(want, got):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
+                                   rtol=TOL)
+
+
 def test_int8_pools_and_scales_come_together():
     q = torch.zeros((1, 2, 16))
     pools = torch.zeros((1, 1, 3, 16, 16), dtype=torch.int8)

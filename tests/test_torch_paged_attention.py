@@ -65,6 +65,40 @@ def test_partial_and_combine_match_jax(qpg, soft_cap):
                                atol=ATOL, rtol=RTOL)
 
 
+def _grid(rng, shape):
+    """Values k/8 for integers |k| <= 16: exact in bf16, and a dot of up
+    to 256 of their products is exact in f32 in any summation order."""
+    return rng.integers(-16, 17, shape).astype(np.float32) / 8
+
+
+@pytest.mark.parametrize("soft_cap", [None, 20.0])
+def test_k1_plain_matches_jax_kernel_bf16(soft_cap):
+    """K1's plain version on bf16 pools and bf16 q against the JAX Pallas
+    kernel in interpret mode, layer 1.  Both walk the pages in order and
+    round p to bf16 at the running max before p·v, with l summed from the
+    unrounded p.  q and k lie on a coarse grid, so the q·k dot is exact in
+    XLA's order and in the port's, and the test holds the rounding point,
+    not the summation order.  Tolerance: the f32 one (ATOL, RTOL), for
+    sums of the same rounded terms in another order; p rounded at the
+    final max instead (the parent's plain version) is about 1e-2 off."""
+    q, k, v, bt, lengths = _inputs(4, seed=5)
+    rng = np.random.default_rng(6)
+    q, k = _grid(rng, q.shape), _grid(rng, k.shape)
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    want = jpa.paged_decode_attention_partial(
+        *[jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in bf],
+        jnp.int32(1), jnp.asarray(bt), jnp.asarray(lengths),
+        soft_cap=soft_cap)
+    got = tpa.paged_decode_attention_partial(
+        *bf, 1, torch.from_numpy(bt), torch.from_numpy(lengths),
+        soft_cap=soft_cap)
+    for w, g in zip(want, got):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
+                                   rtol=RTOL)
+    assert (got[1][0] == -1e30).all() and (got[2][0] == 0).all()
+
+
 def test_partial_normalised_matches_dense_reference():
     q, k, v, bt, lengths = _inputs(2, seed=7)
     layer = 1
