@@ -17,9 +17,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    projection HGMMA and UTMALDG, K7's tensor-core attention HMMA and
    UTMALDG, and none of the three may spill (counts printed);
 3. kernels at LLAMA3_8B shapes (bf16, H=32, KVH=8, D=128, page 64,
-   L=32): K1 paged decode partials (also timed on its page-walk route,
-   the route of shapes its Hopper route does not take, on the same
-   inputs), K2 paged append, K9f flash forward
+   L=32), after a launch floor (an empty launch, ``torch.cuda._sleep(0)``,
+   timed as the kernels are): K1 paged decode partials on its Hopper
+   route (also timed on its page-walk route, the route of shapes its
+   Hopper route does not take, on the same inputs), K2 paged append at 8
+   and at 48 slots, K9f flash forward
    (then K10 and K11, phase 9; K9f and K11 also with TFLOP/s and
    kernel / SDPA),
    each held against its plain PyTorch version on the same inputs and
@@ -32,10 +34,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    then the int8-KV
    kernels at the same shapes and row mixes: K1 and K4 on int8 pools
    with page scales (library yardstick: dequantise, then SDPA), and the
-   quantising appends K3 and K6, whose stored bytes and scales must
-   equal the plain versions' bit for bit, each timed in its common case
-   (stable page scales) and with every extended page rewritten (grown
-   scales);
+   quantising appends K3 (at 8 and at 48 slots) and K6, whose stored
+   bytes and scales must equal the plain versions' bit for bit, each timed
+   in its common case (stable page scales) and with every extended page
+   rewritten (grown scales);
 4. path parity: a tiny f32 Llama through the port's LLMEngine on the
    card (kernels) and on the CPU (plain versions) — identical greedy
    streams, with a prompt long enough for a flash-attention bucket;
@@ -46,8 +48,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 5. the bucketed path at full width: LLAMA3_8B in bf16 (random weights
    from a seeded generator on the card, made once for phases 5 and 6)
    served by the port's LLMEngine, four concurrent requests; every
-   launch counter is set to 0 just before, and K1, K2 and K9f must all
-   have risen just after;
+   launch counter is set to 0 just before, and K1 (on its Hopper route:
+   no launch on the page walk), K2 and K9f must all have risen just
+   after;
 6. the ragged path at full width: the same weights served by the ragged
    engine (prefill_chunk 256, token budget 264), prompts of 17, 300, 700
    and 1500 tokens and a fifth of 1000 submitted after the first stream's
@@ -110,7 +113,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    shapes on each of 32 layers' pages, an empty slot, OOB page ids and a
    soft-capped case, plus a group of 5 query heads and head_dim 32 on
    one layer, timed beside SDPA with each call on the next layer's pages
-   (and on one layer's, L2-hot); MAMBA2_TINY (f32,
+   (and on one layer's, L2-hot); K1 and K13 on their page-walk route at
+   shapes the Hopper route refuses (a group of 16 query heads at D 128,
+   and D 48; 8 slots, 4 layers), every launch counted on the walk, each
+   held against its plain version and timed; MAMBA2_TINY (f32,
    ``use_pallas_ssd=True``) trained 3
    steps on the card and on the CPU (losses agree); JAMBA_TINY at S 512
    for 2 steps (K12 and K9f/K10/K11 once a step); MAMBA2_2_7B with
@@ -124,13 +130,16 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 The last three lines of standard output are the kernel table (K1, K2,
 K9f, K10, K11, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8
 int8, K12, K13) as one JSON object, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  Details go to ``--out``.
+``{"ok": true, "device": {...}}``.  Details go to ``--out`` (with
+``launch_floor_ms``, K2's and K3's 48-slot runs under ``slots48`` and the
+page-walk phases under ``kernels.walk``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -341,10 +350,29 @@ def int8_pools(torch, g, shape):
 
 
 # Times of the kernels' previous designs (K1's page-split kernel with
-# its merge pass, K6's CTA per row, page slot and kv head), measured by
-# this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel
-# table), printed beside this run's.
-PREVIOUS_MS = {"K1": 0.02851, "K1 int8": 0.033, "K6": 0.05769}
+# its merge pass, K6's CTA per row, page slot and kv head, K2's CTA per
+# (slot, layer), K3's CTA per row), measured by this script on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md's kernel table), printed beside this
+# run's.
+PREVIOUS_MS = {"K1": 0.02851, "K1 int8": 0.033, "K6": 0.05769,
+               "K2": 0.002694, "K3": 0.006182}
+
+
+# K1 against its plain version: the same f32 values up to p on both sides
+# (q.k in one fixed order, exp in f64), p rounded to bf16 at the same
+# running max: only the order of the sums differs.
+K1_SMOKE_TOL = {"out": 1e-3, "m": 1e-3, "l_rel": 1e-4}
+
+
+def k1_err(got, want, live) -> dict:
+    """K1's (acc, m, l) against the plain version's on the ``live`` slots:
+    the normalised output, m, and l relative to max(l, 1)."""
+    (acc, m, l), (acc_p, m_p, l_p) = got, want
+    out = (acc / l.clamp(min=1e-30))[live]
+    out_p = (acc_p / l_p.clamp(min=1e-30))[live]
+    return {"out": (out - out_p).abs().max().item(),
+            "m": (m - m_p).abs().max().item(),
+            "l_rel": ((l - l_p).abs() / l_p.clamp(min=1)).max().item()}
 
 
 def kernel_phase_k1(torch, F, tpa, report, int8=False):
@@ -373,16 +401,10 @@ def kernel_phase_k1(torch, F, tpa, report, int8=False):
     bt = bt.to(dev)
 
     live = lengths > 0
-
-    def errors(got, want):
-        (acc, m, l), (acc_p, m_p, l_p) = got, want
-        out = (acc / l.clamp(min=1e-30))[live]
-        out_p = (acc_p / l_p.clamp(min=1e-30))[live]
-        return {"out": (out - out_p).abs().max().item(),
-                "m": (m - m_p).abs().max().item(),
-                "l_rel": ((l - l_p).abs() / l_p.clamp(min=1)).max().item()}
-
+    errors = functools.partial(k1_err, live=live)
+    tol = K1_SMOKE_TOL
     worst = {"out": 0.0, "m": 0.0, "l_rel": 0.0}
+    walk0 = tpa.paged_decode_attention_partial.launches_walk
     for layer in range(L):
         got = tpa.paged_decode_attention_partial(q, k, v, layer, bt, lengths,
                                                  **scales)
@@ -394,10 +416,8 @@ def kernel_phase_k1(torch, F, tpa, report, int8=False):
                 or (acc[~live] != 0).any():
             raise AssertionError(f"{tag}: an empty slot must give acc=0, "
                                  "m=-1e30, l=0")
-    # The same f32 values up to p on both sides (q.k in one fixed order,
-    # exp in f64), p rounded to bf16 at the same running max: only the
-    # order of the sums differs.
-    tol = {"out": 1e-3, "m": 1e-3, "l_rel": 1e-4}
+    if tpa.paged_decode_attention_partial.launches_walk != walk0:
+        raise AssertionError(f"{tag} left its Hopper route at the 8B shape")
     if any(worst[key] > tol[key] for key in tol):
         raise AssertionError(f"{tag} disagrees with its plain version: "
                              f"{worst} (tolerance {tol})")
@@ -479,22 +499,33 @@ def kernel_phase_k1(torch, F, tpa, report, int8=False):
         f"{library_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})")
 
 
-def kernel_phase_k2(torch, tpa, report):
-    L, B, KVH, D, page = 32, 8, 8, 128, 64
+def launch_floor_ms(torch) -> float:
+    """An empty launch (``torch.cuda._sleep(0)``) timed as the kernels are:
+    the least a kernel of one launch can take here."""
+    return time_ms(torch, lambda i: torch.cuda._sleep(0))
+
+
+K2_SLOTS = (8, 48)  # the bucketed bf16 step's slots; the fused int8 step's
+
+
+def _k2_case(torch, tpa, B):
+    """K2 at LLAMA3_8B widths and B slots (one inactive, on the scratch
+    page): exact against its plain version, then timed beside the plain
+    version, two ``index_copy_`` calls and the bound (bytes)."""
+    L, KVH, D, page = 32, 8, 128, 64
     P = 8 * 16 + 1
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(3)
+    g = torch.Generator(device=dev).manual_seed(3 + B)
     k = torch.randn((L, KVH, P, page, D), generator=g, device=dev,
                     dtype=torch.bfloat16)
     v = torch.randn_like(k)
     k_new = torch.randn((L, B, KVH, D), generator=g, device=dev,
                         dtype=torch.bfloat16)
     v_new = torch.randn_like(k_new)
-    # Slot 3 is inactive: its row goes to the scratch page P - 1.
-    pids = torch.tensor([5, 17, 40, P - 1, 77, 2, 128 - 1, 64],
-                        dtype=torch.int32, device=dev)
-    offs = torch.tensor([0, 1, 63, 9, 32, 17, 5, 62], dtype=torch.int32,
-                        device=dev)
+    pids = torch.randperm(P - 1, generator=g, device=dev)[:B].to(torch.int32)
+    pids[3] = P - 1  # slot 3 is inactive: its row goes to the scratch page
+    offs = torch.randint(0, page, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
     k1, v1 = k.clone(), v.clone()
     tpa.paged_append(k1, v1, k_new, v_new, pids, offs)
     k2, v2 = k.clone(), v.clone()
@@ -502,7 +533,8 @@ def kernel_phase_k2(torch, tpa, report):
     err = max((k1.float() - k2.float()).abs().max().item(),
               (v1.float() - v2.float()).abs().max().item())
     if err != 0.0:  # a copy: exact
-        raise AssertionError(f"K2 disagrees with its plain version: {err}")
+        raise AssertionError(f"K2 at {B} slots disagrees with its plain "
+                             f"version: {err}")
     changed = (k1 != k).any(dim=-1).nonzero()
     if changed.shape[0] != L * KVH * B:
         raise AssertionError(f"K2 wrote {changed.shape[0]} rows, want "
@@ -526,18 +558,28 @@ def kernel_phase_k2(torch, tpa, report):
     library_ms = time_ms(torch, lib)
     nbytes = 2 * (2 * L * B * KVH * D * 2) + 2 * B * 4
     b_ms, b_by = bound(nbytes, 0, BF16_FLOPS)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_bytes": nbytes,
+            "shape": f"L={L} B={B} KVH={KVH} D={D} page={page} bf16, one "
+                     "inactive slot"}
+
+
+def kernel_phase_k2(torch, tpa, report, floor_ms):
+    runs = {B: _k2_case(torch, tpa, B) for B in K2_SLOTS}
     report["K2"] = {
         "name": "paged_append", "route": "cuda",
         "source": "ray_tpu_torch/csrc/paged_append.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:515",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"L={L} B={B} KVH={KVH} D={D} page={page} bf16, one "
-                 "inactive slot",
-    }
-    log(f"K2 paged_append: err {err}  kernel {ms:.4f} ms  plain "
-        f"{plain_ms:.4f} ms  index_copy_ {library_ms:.4f} ms  bound "
-        f"{b_ms:.5f} ms ({b_by})")
+        **runs[8], "launch_floor_ms": floor_ms,
+        "slots48": runs[48]}
+    for B, r in runs.items():
+        log(f"K2 paged_append at {B} slots: err {r['max_abs_err']}  kernel "
+            f"{r['ms']:.5f} ms (previous design at 8 slots: "
+            f"{PREVIOUS_MS['K2']} ms; launch floor {floor_ms:.5f} ms)  "
+            f"plain {r['plain_ms']:.4f} ms  index_copy_ "
+            f"{r['library_ms']:.5f} ms  bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it)")
 
 
 # K9f against its plain version, |o - o_plain| / (1 + |o_plain|) and
@@ -887,24 +929,35 @@ def torch_equal(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
 
-def kernel_phase_k3(torch, tpa, report):
-    """K3 at the 8B decode shapes.  Checked from one random int8 state
-    with a fresh page, stable and grown scales, an all-zero row and an
-    inactive slot; timed with every scale stable (the common case: D
-    bytes written per slot, layer and kv head) and with every page
-    requantised (inputs growing call by call)."""
-    L, B, KVH, D, page = 32, 8, 8, 128, 64
+def _k3_cases(torch, tpa, g, B):
+    """K3 against its plain version at LLAMA3_8B widths and B slots, one
+    page each: stored bytes and scales equal bit for bit, through fresh
+    pages, stable and grown scales, all-zero rows and inactive slots.  At
+    8 slots each slot is one named case (the fresh page, the stable ones
+    and the zero row in one row, the grown ones whole, checked); at 48 the
+    cases cycle over the slots."""
+    L, KVH, D, page = 32, 8, 128, 64
     P = 8 * 16 + 1
-    g = torch.Generator(device="cuda").manual_seed(21)
     k, v, ks, vs = int8_pools(torch, g, (L, KVH, P, page, D))
-    # Slot 0 opens a fresh page, 1 and 2 fit their page's scale, 3 is
-    # inactive (scratch page), 4-6 outgrow the scale, 7 is all zeros.
-    pids = torch.tensor([5, 17, 40, P - 1, 77, 2, 127, 64],
-                        dtype=torch.int32, device="cuda")
-    offs = torch.tensor([0, 1, 63, 9, 32, 17, 5, 62], dtype=torch.int32,
-                        device="cuda")
-    mag = torch.tensor([1.0, 0.01, 0.02, 1.0, 30.0, 60.0, 9.0, 0.0],
-                       device="cuda")[None, :, None, None]
+    if B == 8:
+        # Slot 0 opens a fresh page, 1 and 2 fit their page's scale, 3 is
+        # inactive (scratch page), 4-6 outgrow the scale, 7 is all zeros.
+        pids = torch.tensor([5, 17, 40, P - 1, 77, 2, 127, 64],
+                            dtype=torch.int32, device="cuda")
+        offs = torch.tensor([0, 1, 63, 9, 32, 17, 5, 62], dtype=torch.int32,
+                            device="cuda")
+        mag = torch.tensor([1.0, 0.01, 0.02, 1.0, 30.0, 60.0, 9.0, 0.0],
+                           device="cuda")
+    else:
+        pids = torch.randperm(P - 1, generator=g, device="cuda")[:B].to(
+            torch.int32)
+        pids[3::11] = P - 1
+        offs = torch.randint(1, page, (B,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        offs[::7] = 0
+        mag = torch.tensor([0.0, 0.01, 0.3, 1.0, 5.0, 40.0],
+                           device="cuda")[torch.arange(B, device="cuda") % 6]
+    mag = mag[None, :, None, None]
     k_new = (torch.randn((L, B, KVH, D), generator=g, device="cuda")
              * mag).to(torch.bfloat16)
     v_new = (torch.randn((L, B, KVH, D), generator=g, device="cuda")
@@ -914,23 +967,30 @@ def kernel_phase_k3(torch, tpa, report):
     tpa.paged_append_quantized(*got, k_new, v_new, pids, offs)
     tpa.paged_append_quantized_plain(*want, k_new, v_new, pids, offs)
     torch.cuda.synchronize()
-    compare_quantised("K3", got, want, P - 1)
-    pages_changed = int((got[0][:, :, : P - 1] != k[:, :, : P - 1])
-                        .any(dim=-1).any(dim=-1).sum())
-    # Seven live slots, one page each: the fresh page and the three grown
-    # ones change whole, the stable ones (the zero row's too) in one row.
-    if pages_changed != L * KVH * 7:
-        raise AssertionError(f"K3 changed {pages_changed} pages, want "
-                             f"{L * KVH * 7}")
-    if not torch_equal(got[2][:, 17], ks[:, 17]) \
-            or not (got[2][:, 77] > ks[:, 77]).all():
-        raise AssertionError("K3: a stable scale moved or a grown one did "
-                             "not")
-    err = 0.0
-    del got, want
+    compare_quantised(f"K3 at {B} slots", got, want, P - 1)
+    if B == 8:
+        pages_changed = int((got[0][:, :, : P - 1] != k[:, :, : P - 1])
+                            .any(dim=-1).any(dim=-1).sum())
+        # Seven live slots, one page each: the fresh page and the three
+        # grown ones change whole, the stable ones (the zero row's too) in
+        # one row.
+        if pages_changed != L * KVH * 7:
+            raise AssertionError(f"K3 changed {pages_changed} pages, want "
+                                 f"{L * KVH * 7}")
+        if not torch_equal(got[2][:, 17], ks[:, 17]) \
+                or not (got[2][:, 77] > ks[:, 77]).all():
+            raise AssertionError("K3: a stable scale moved or a grown one "
+                                 "did not")
+    return k, v, ks, vs, k_new, v_new, pids, offs
 
-    # Common case: scales that hold any row of this magnitude.
-    ks.fill_(100.0)
+
+def _k3_times(torch, tpa, g, B, state):
+    """K3 timed with every scale stable (the common case: D bytes written
+    per slot, layer and kv head) and with every page requantised (inputs
+    growing call by call), beside the plain version and the bounds."""
+    k, v, ks, vs, k_new, v_new, pids, offs = state
+    L, KVH, P, page, D = k.shape
+    ks.fill_(100.0)  # scales that hold any row of this magnitude
     vs.fill_(100.0)
     offs_c = offs.clamp(min=1)
     ms = time_ms(torch, lambda i: tpa.paged_append_quantized(
@@ -958,22 +1018,35 @@ def kernel_phase_k3(torch, tpa, report):
     rewrite_bytes = common_bytes + 2 * (2 * L * B * KVH * (page - 1) * D)
     b_ms, b_by = bound(common_bytes, 0, F32_FLOPS)
     rb_ms, _ = bound(rewrite_bytes, 0, F32_FLOPS)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "rewrite_ms": rewrite_ms, "rewrite_bound_ms": rb_ms,
+            "bound_bytes": common_bytes, "rewrite_bound_bytes": rewrite_bytes,
+            "shape": f"L={L} B={B} KVH={KVH} D={D} page={page}, rows bf16, "
+                     "pools int8; ms = stable scales (rows only), "
+                     "rewrite_ms = every page requantised"}
+
+
+def kernel_phase_k3(torch, tpa, report, floor_ms):
+    runs = {}
+    for B in K2_SLOTS:
+        g = torch.Generator(device="cuda").manual_seed(21 + B)
+        runs[B] = _k3_times(torch, tpa, g, B, _k3_cases(torch, tpa, g, B))
+        torch.cuda.empty_cache()
     report["K3"] = {
         "name": "paged_append_quantized", "route": "cuda",
         "source": "ray_tpu_torch/csrc/paged_append_quantized.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:456",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "rewrite_ms": rewrite_ms, "rewrite_bound_ms": rb_ms,
-        "bound_bytes": common_bytes, "rewrite_bound_bytes": rewrite_bytes,
-        "shape": f"L={L} B={B} KVH={KVH} D={D} page={page}, rows bf16, "
-                 "pools int8; ms = stable scales (rows only), rewrite_ms = "
-                 "every page requantised",
-    }
-    log(f"K3 paged_append_quantized: bytes and scales equal the plain "
-        f"version's  common case {ms:.4f} ms (bound {b_ms:.5f} ms, {b_by})  "
-        f"every page rewritten {rewrite_ms:.4f} ms (bound {rb_ms:.4f} ms)  "
-        f"plain {plain_ms:.4f} ms  no single library call")
+        **runs[8], "launch_floor_ms": floor_ms, "slots48": runs[48]}
+    for B, r in runs.items():
+        log(f"K3 paged_append_quantized at {B} slots: bytes and scales equal "
+            f"the plain version's  common case {r['ms']:.5f} ms (previous "
+            f"design at 8 slots: {PREVIOUS_MS['K3']} ms; bound "
+            f"{r['bound_ms']:.5f} ms, {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.1%} of it; launch floor "
+            f"{floor_ms:.5f} ms)  every page rewritten "
+            f"{r['rewrite_ms']:.4f} ms (bound {r['rewrite_bound_ms']:.4f} "
+            f"ms)  plain {r['plain_ms']:.4f} ms  no single library call")
 
 
 def k6_page_counts(rows, page):
@@ -1171,21 +1244,27 @@ K1, K3 = "paged_decode_attention_partial", "paged_append_quantized"
 K4, K6 = "ragged_paged_attention", "ragged_paged_append_quantized"
 
 
+WALK = " (page walk)"
+_SUB_COUNTS = (("launches_int8", INT8), ("launches_walk", WALK))
+
+
 def reset_counts(kernels) -> None:
     for fn in kernels.values():
         fn.launches = 0
-        if hasattr(fn, "launches_int8"):
-            fn.launches_int8 = 0
+        for attr, _ in _SUB_COUNTS:
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def read_counts(kernels) -> dict:
     """Launches of every kernel since ``reset_counts``; K1 and K4 also
-    under ``name + INT8`` for their int8 instantiations (a part of the
-    name's own count)."""
+    under ``name + INT8`` for their int8 instantiations, K1 and K13 under
+    ``name + WALK`` for their page-walk route (each a part of the name's
+    own count)."""
     out = {name: fn.launches for name, fn in kernels.items()}
-    out.update({name + INT8: fn.launches_int8
-                for name, fn in kernels.items()
-                if hasattr(fn, "launches_int8")})
+    for attr, suffix in _SUB_COUNTS:
+        out.update({name + suffix: getattr(fn, attr)
+                    for name, fn in kernels.items() if hasattr(fn, attr)})
     return out
 
 
@@ -1406,11 +1485,12 @@ def int8_serving_phase(torch, llama, eng_mod, kernels, card, params):
     if b_launches[K3] == 0 \
             or b_launches[K1 + INT8] != cfg.n_layers * b_launches[K3] \
             or b_launches[K1] != b_launches[K1 + INT8] \
+            or b_launches[K1 + WALK] \
             or b_launches["paged_append"] or b_launches[K6] \
             or b_launches["flash_forward"] == 0:
         raise AssertionError(f"8B int8 bucketed: launches {b_launches}, want "
-                             f"K1 int8 = {cfg.n_layers} x K3 > 0, K9f > 0 "
-                             "and no K2")
+                             f"K1 int8 = {cfg.n_layers} x K3 > 0 on the "
+                             "Hopper route, K9f > 0 and no K2")
     check_first_token(torch, llama, params, cfg, short[0], b_outs[0][0],
                       "8B int8 bucketed serving")
     bucketed = {"prompt_lens": [len(p) for p in short],
@@ -1593,9 +1673,11 @@ def serving_phase(torch, llama, eng_mod, kernels, card, params, init_s):
     if launches["paged_decode_attention_partial"] \
             != cfg.n_layers * launches["paged_append"] \
             or launches["paged_decode_attention_partial" + INT8] \
+            or launches["paged_decode_attention_partial" + WALK] \
             or launches["paged_append_quantized"]:
-        raise AssertionError(f"K1 launches {launches} != L x K2 launches, or "
-                             "an int8 kernel ran on bf16 pools")
+        raise AssertionError(f"K1 launches {launches} != L x K2 launches, an "
+                             "int8 kernel ran on bf16 pools, or K1 left its "
+                             "Hopper route")
     check_first_token(torch, llama, params, cfg, prompts[0], outs[0][0],
                       "8B serving")
     first = min(r.first_token_at for r in reqs)
@@ -3067,6 +3149,7 @@ def kernel_phase_k13(torch, F, tpa, report):
     q, k, v, bt, lengths = _k13_inputs(torch, g, L, B, H, KVH, D, page, maxp,
                                        lens_list)
     errs = {}
+    walk0 = tpa.paged_decode_attention.launches_walk
     for soft_cap in (None, 30.0):
         worst = None
         for layer in range(L):
@@ -3083,6 +3166,8 @@ def kernel_phase_k13(torch, F, tpa, report):
         errs[str(soft_cap)] = worst
     if any(e["over_limit"] > 1 for e in errs.values()):
         raise AssertionError(f"K13 disagrees with its plain version: {errs}")
+    if tpa.paged_decode_attention.launches_walk != walk0:
+        raise AssertionError("K13 left its Hopper route at the 8B shape")
     # The limit must see a wrong page: the plain version with one page id
     # of the 1000-token slot pointing at another slot's page fails it.
     kp, vp = k[L - 1], v[L - 1]
@@ -3169,14 +3254,99 @@ def k13_path_phase(torch, tpa, kernels):
             for layer in range(L)]
     torch.cuda.synchronize()
     counts = read_counts(kernels)
-    if counts[K13] != L or counts[K1] != 0:
-        raise AssertionError(f"K13 path: launches {counts}")
+    if counts[K13] != L or counts[K13 + WALK] or counts[K1] != 0:
+        raise AssertionError(f"K13 path: launches {counts} (want K13 {L} on "
+                             "its Hopper route, no K1)")
     if not all(torch.isfinite(o).all() and (o[0] == 0).all() for o in outs):
         raise AssertionError("K13 path: outputs not finite, or an empty "
                              "slot not 0")
     log(f"K13 path (paged_decode_attention_tp, no mesh, {L} layers): "
         f"launches {K13} {counts[K13]}")
     return {"launches": counts, "layers": L}
+
+
+# Shapes of K1's and K13's page-walk route, which the Hopper route
+# refuses: (qpg, D) at 8 kv heads.
+WALK_SHAPES = {"qpg16_d128": (16, 128), "qpg4_d48": (4, 48)}
+
+
+def kernel_phase_walk(torch, tpa, kernels, report):
+    """K1 and K13 on their page-walk route at the shapes of WALK_SHAPES,
+    8 slots of the 8B decode mix, page 64, bf16, 4 layers: counters at 0
+    before each kernel's layers and read after (every launch on the page
+    walk), each held against its plain version (K1 with
+    ``K1_SMOKE_TOL``, K13 with a soft cap within one ulp of the output),
+    and timed beside the plain version and the bound (bytes)."""
+    L, B, KVH, page, maxp = 4, 8, 8, 64, 16
+    lens_list = [0, 1, 63, 64, 65, 1000, 517, 230]
+    tokens = sum(lens_list)
+    out = {}
+    for key, (qpg, D) in WALK_SHAPES.items():
+        H = KVH * qpg
+        g = torch.Generator(device="cuda").manual_seed(qpg + D)
+        q, k, v, bt, lengths = _k13_inputs(torch, g, L, B, H, KVH, D, page,
+                                           maxp, lens_list)
+        live = lengths > 0
+        reset_counts(kernels)
+        got = [tpa.paged_decode_attention_partial(q, k, v, layer, bt,
+                                                  lengths)
+               for layer in range(L)]
+        got13 = [tpa.paged_decode_attention(q, k[layer], v[layer], bt,
+                                            lengths, soft_cap=30.0)
+                 for layer in range(L)]
+        torch.cuda.synchronize()
+        counts = read_counts(kernels)
+        if not (counts[K1] == counts[K1 + WALK] == L
+                and counts[K13] == counts[K13 + WALK] == L):
+            raise AssertionError(f"walk {key}: launches {counts}, want K1 "
+                                 f"and K13 {L} each on the page walk")
+        e1 = {"out": 0.0, "m": 0.0, "l_rel": 0.0}
+        e13 = {"max_abs_err": 0.0, "over_limit": 0.0}
+        for layer in range(L):
+            e = k1_err(got[layer], tpa.paged_decode_attention_partial_plain(
+                q, k, v, layer, bt, lengths), live)
+            e1 = {n: max(e1[n], e[n]) for n in e1}
+            if not (got13[layer][0] == 0).all():
+                raise AssertionError(f"K13 walk {key}: a slot with length 0 "
+                                     "must give 0")
+            e = k13_err(got13[layer], tpa.paged_decode_attention_plain(
+                q, k[layer], v[layer], bt, lengths, soft_cap=30.0))
+            e13 = {n: max(e13[n], e[n]) for n in e13}
+        if any(e1[n] > K1_SMOKE_TOL[n] for n in e1) or e13["over_limit"] > 1:
+            raise AssertionError(f"walk {key} disagrees with the plain "
+                                 f"versions: K1 {e1}, K13 {e13}")
+        del got, got13
+        nbytes = (B * H * D * 2 + tokens * KVH * D * 2 * 2 + bt.numel() * 4
+                  + B * 4)
+        b_ms, b_by = bound(nbytes + B * H * (D + 2) * 4,
+                           4 * tokens * H * D, BF16_FLOPS)
+        b13_ms, _ = bound(nbytes + B * H * D * 2, 4 * tokens * H * D,
+                          BF16_FLOPS)
+        out[key] = {
+            "shape": f"B={B} H={H} KVH={KVH} D={D} page={page} bf16, "
+                     f"lengths {lens_list}, {L} layers cycled",
+            "K1": {"errors": e1, "bound_ms": b_ms, "bound_by": b_by,
+                   "ms": time_ms(torch, lambda i: (
+                       tpa.paged_decode_attention_partial(
+                           q, k, v, i % L, bt, lengths))),
+                   "plain_ms": time_ms(torch, lambda i: (
+                       tpa.paged_decode_attention_partial_plain(
+                           q, k, v, i % L, bt, lengths)), n=4, blocks=3)},
+            "K13": {"errors": e13, "bound_ms": b13_ms,
+                    "ms": time_ms(torch, lambda i: tpa.paged_decode_attention(
+                        q, k[i % L], v[i % L], bt, lengths)),
+                    "plain_ms": time_ms(torch, lambda i: (
+                        tpa.paged_decode_attention_plain(
+                            q, k[i % L], v[i % L], bt, lengths)),
+                        n=4, blocks=3)}}
+        for name in ("K1", "K13"):
+            r = out[key][name]
+            log(f"{name} page walk at qpg {qpg}, D {D}: err {r['errors']}  "
+                f"kernel {r['ms']:.5f} ms  plain {r['plain_ms']:.4f} ms  "
+                f"bound {r['bound_ms']:.5f} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
+    report["walk"] = out
 
 
 def mamba_parity_phase(torch, tm, train, kernels):
@@ -3484,15 +3654,18 @@ def main() -> int:
                K10: tfa.flash_backward_dq, K11: tfa.flash_backward_dkv,
                K12: tssd.ssd_forward, K13: tpa.paged_decode_attention}
     report = {}
+    floor_ms = launch_floor_ms(torch)
+    log(f"launch floor (an empty launch, timed as the kernels): "
+        f"{floor_ms:.5f} ms")
     kernel_phase_k1(torch, F, tpa, report)
-    kernel_phase_k2(torch, tpa, report)
+    kernel_phase_k2(torch, tpa, report, floor_ms)
     kernel_phase_k9(torch, F, tfa, report)
     kernel_phase_k10_k11(torch, F, tfa, report)
     kernel_phase_k4(torch, F, trpa, report)
     kernel_phase_k5(torch, trpa, report)
     torch.cuda.empty_cache()
     kernel_phase_k1(torch, F, tpa, report, int8=True)
-    kernel_phase_k3(torch, tpa, report)
+    kernel_phase_k3(torch, tpa, report, floor_ms)
     kernel_phase_k4(torch, F, trpa, report, int8=True)
     torch.cuda.empty_cache()
     kernel_phase_k6(torch, trpa, report)
@@ -3504,6 +3677,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     kernel_phase_k12(torch, tssd, tm, report)
     kernel_phase_k13(torch, F, tpa, report)
+    kernel_phase_walk(torch, tpa, kernels, report)
     parity = parity_phase(torch, llama, eng_mod)
     ragged_parity = ragged_parity_phase(torch, llama, eng_mod, trpa)
     int8_parity = int8_parity_phase(torch, llama, eng_mod, kernels)
@@ -3569,7 +3743,8 @@ def main() -> int:
     with open(args.out, "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": build_s,
-                   "total_s": total_s, "kernels": report,
+                   "total_s": total_s, "launch_floor_ms": floor_ms,
+                   "kernels": report,
                    "hopper_sass": hopper, "parity": parity,
                    "ragged_parity": ragged_parity,
                    "int8_parity": int8_parity, "serving": serving,

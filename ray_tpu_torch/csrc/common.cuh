@@ -60,8 +60,8 @@ struct Vec<int8_t> {
   }
 };
 
-// Four consecutive elements as float32 (the quantising appends read
-// their fresh rows this way and write one packed 32-bit word of int8).
+// Four consecutive elements as float32 (K3 reads its fresh rows this way
+// and writes one packed 32-bit word of int8).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -70,40 +70,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
   const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
   return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// clip(round-half-even(x), -127, 127) as one int8: jnp.round and
-// torch.round round half to even, which is rintf, not roundf.
-__device__ __forceinline__ int quant1(float x) {
-  return (int)fminf(fmaxf(rintf(x), -127.f), 127.f);
-}
-__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
-  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) |
-         ((uint32_t)(c & 0xff) << 16) | ((uint32_t)(d & 0xff) << 24);
-}
-
-// Requantise four stored int8 values by `factor`; the product is rounded
-// on its own (__fmul_rn), so no contraction with a neighbour changes it.
-__device__ __forceinline__ uint32_t requant4(uint32_t w, float factor) {
-  const char4 c = *reinterpret_cast<const char4*>(&w);
-  return pack4(quant1(__fmul_rn((float)c.x, factor)),
-               quant1(__fmul_rn((float)c.y, factor)),
-               quant1(__fmul_rn((float)c.z, factor)),
-               quant1(__fmul_rn((float)c.w, factor)));
-}
-
-// Block-wide max of non-negative values (blockDim.x a multiple of 32, at
-// most 1024); every thread gets the result.  `red` holds 32 floats.
-__device__ __forceinline__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();  // a previous call's readers are done with red
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float r = 0.f;
-  for (int w = 0; w < (int)(blockDim.x / 32); ++w) r = fmaxf(r, red[w]);
-  return r;
 }
 
 // Eight int8 values (two words, low bytes first) as eight bf16, exact,
@@ -125,6 +91,42 @@ __device__ __forceinline__ uint4 int8x8_to_bf16(uint32_t lo, uint32_t hi) {
     out[i] = __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632u);
   }
   return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// clip(round-half-even(q), -127, 127) + 1.5 * 2^23: the add rounds q to
+// an integer (ulp 1 in [2^23, 2^24), ties to even, as rintf), and the
+// float's low byte is then the int8 value, two's complement.
+constexpr float QB = 12582912.f;
+__device__ __forceinline__ float quant_biased(float q) {
+  return fminf(fmaxf(__fadd_rn(q, QB), QB - 127.f), QB + 127.f);
+}
+
+// The low bytes of four biased values, in order, as one word.
+__device__ __forceinline__ uint32_t pack_biased(const float* b) {
+  const uint32_t lo =
+      __byte_perm(__float_as_uint(b[0]), __float_as_uint(b[1]), 0x0040);
+  const uint32_t hi =
+      __byte_perm(__float_as_uint(b[2]), __float_as_uint(b[3]), 0x0040);
+  return __byte_perm(lo, hi, 0x5410);
+}
+
+__device__ __forceinline__ uint4 pack16(const float (&b)[16]) {
+  return make_uint4(pack_biased(b), pack_biased(b + 4), pack_biased(b + 8),
+                    pack_biased(b + 12));
+}
+
+// Sixteen stored int8 values times `factor`, each product rounded on its
+// own (__fmul_rn), then rounded and clipped.
+__device__ __forceinline__ uint4 requant16(uint4 w, float factor) {
+  const uint4 lo = int8x8_to_bf16(w.x, w.y);
+  const uint4 hi = int8x8_to_bf16(w.z, w.w);
+  float c[16], b[16];
+  Vec<__nv_bfloat16>::load(reinterpret_cast<const __nv_bfloat16*>(&lo), c);
+  Vec<__nv_bfloat16>::load(reinterpret_cast<const __nv_bfloat16*>(&hi),
+                           c + 8);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) b[e] = quant_biased(__fmul_rn(c[e], factor));
+  return pack16(b);
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }

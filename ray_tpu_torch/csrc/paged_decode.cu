@@ -31,10 +31,10 @@
 //  - paged_decode_hopper (K1 and K13): D in {16, 32, 64, 128}, qpg <= 8,
 //    one launch, a thread-block cluster per (slot, kv head), whole pages by
 //    bulk copy (below);
-//  - page_walk_kernel (K1 on the shapes the Hopper route does not take: D
-//    a multiple of 8, of 16 on int8 pools, qpg * D <= 1024): one CTA per
-//    (slot, kv head) walking the slot's pages in order, each staged in f32
-//    shared memory with 16-byte loads.
+//  - page_walk_kernel (K1 and K13 on every shape the Hopper route does not
+//    take: any qpg, any D up to 256, pages beyond the Hopper plan's shared
+//    memory): one CTA per (slot, kv head, block of query rows) walking the
+//    slot's pages in order, each staged in f32 shared memory (below).
 // Both sum q.k in one fixed order and take exp and the soft cap's tanh in
 // f64, rounded once to f32, as the plain versions do (_fixed_order_dot): so
 // every f32 value up to p is the plain version's, and p rounds the same.
@@ -57,19 +57,37 @@ __device__ __forceinline__ float exp_f(float a, float b) {  // f32(e^(a-b))
 }
 
 // ---------------------------------------------------------------------------
-// K1's page-walk route
+// The page-walk route: K1 and K13 on every shape the Hopper route refuses
 // ---------------------------------------------------------------------------
-
+//
+// One CTA per (slot, kv head, block of the group's query rows) walks the
+// slot's pages in order, as the Pallas body's grid does.  A block holds
+// `rows` <= floor(1024 / D) rows (the wrapper's walk_plan), so a group of
+// any size splits over the grid's third dimension and each block walks the
+// pages itself.  Per page: k and v are staged in f32 shared memory (16-byte
+// loads where a row's bytes are a multiple of 16, element loads otherwise:
+// the rows are then not 16-byte aligned), q and k zero-padded to Dp, a
+// multiple of EPL, so that dot_fixed sums in _fixed_order_dot's order; where
+// k and v of a page do not fit together, k is staged, read, and v staged
+// into the same buffer after it.  Then the page's scores, its max and p
+// (one warp a row), and p.v (each thread up to MAX_E (row, column)
+// accumulators).  K1 (PARTIAL) takes the Pallas body's running max m and
+// writes (acc, m, l).  K13 takes p against a running power of two M, the
+// ceiling of the walk's max of y = s log2(e), raised page by page: the
+// sums so far are scaled by 2^(M_old - M_new), exactly, so p rounds as the
+// plain version's p at the slot's final M; out = acc / l in q's dtype.
 constexpr int THREADS = 256;
-constexpr int MAX_E = 4;  // accumulators per thread: qpg*D <= 1024
-constexpr int MAX_PARTS = THREADS * MAX_E / EPL;
+constexpr int MAX_E = 4;    // accumulators per thread: rows * D <= 1024
+constexpr int MAX_D = 256;  // the walk's widest head
+constexpr int MAX_PARTS = MAX_D / EPL;
+constexpr double LOG2E = 1.4426950408889634;
 
-// q.k over D (a multiple of EPL) in the fixed order: each EPL columns left
+// q.k over Dp (a multiple of EPL) in the fixed order: each EPL columns left
 // to right, then pairs i, i + h of the n partial sums, h = n / 2, an odd
 // one carried, until one is left.
-__device__ float dot_fixed(const float* a, const float* b, int D) {
+__device__ float dot_fixed(const float* a, const float* b, int Dp) {
   float part[MAX_PARTS];
-  int n = D / EPL;
+  int n = Dp / EPL;
   for (int c = 0; c < n; ++c) {
     const float* x = a + c * EPL;
     const float* y = b + c * EPL;
@@ -87,32 +105,94 @@ __device__ float dot_fixed(const float* a, const float* b, int D) {
   return part[0];
 }
 
-template <typename T, typename TK, bool QUANT>
+// 2^sh for an integer sh <= 0 as a float, exact; 0 below 2^-126, where a
+// term is far below an f32 ulp of the sums it joins.
+__device__ __forceinline__ float pow2_le0(float sh) {
+  return sh < -126.f ? 0.f : __int_as_float(((int)sh + 127) << 23);
+}
+
+__device__ __forceinline__ float elem_f(float x) { return x; }
+__device__ __forceinline__ float elem_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float elem_f(int8_t x) { return (float)x; }
+
+struct WalkParams {
+  const void* q;
+  const void* k;  // K1: pools [L, KVH, P, page, D]; K13: [KVH, P, page, D]
+  const void* v;
+  const float* k_scales;  // int8 pools: [L, P, KVH, 1]
+  const float* v_scales;
+  const int* block_table;
+  const int* lengths;
+  void* out;   // K13: [B, H, D] in q's dtype
+  float* acc;  // K1: [B, H, D], m and l [B, H]
+  float* m;
+  float* l;
+  int P, page, D, qpg, maxp, layer, rows, split, vec;
+  float scale, soft_cap;
+};
+
+__host__ __device__ __forceinline__ int padded_d(int D) {
+  return (D + EPL - 1) / EPL * EPL;
+}
+
+// Shared floats: k [page][Dp + 4] (v [page][D] beside it unless split),
+// q [rows][Dp], scores [rows][page], running max, denominator, correction.
+size_t page_walk_smem(int page, int D, int rows, bool split) {
+  const int Dp = padded_d(D);
+  return sizeof(float) *
+         ((size_t)page * (Dp + 4) + (split ? 0 : (size_t)page * D) +
+          (size_t)rows * Dp + (size_t)rows * page + 3 * (size_t)rows);
+}
+
+// n rows of a page, D elements each, into dst at row stride `stride`.
+template <typename TK>
+__device__ __forceinline__ void stage(float* dst, int stride, const TK* src,
+                                      int n, int D, bool vec) {
+  if (vec) {
+    constexpr int N = rtt::Vec<TK>::N;
+    const int chunks = D / N;
+    for (int i = threadIdx.x; i < n * chunks; i += THREADS) {
+      const int t = i / chunks, c = (i % chunks) * N;
+      float tmp[N];
+      rtt::Vec<TK>::load(src + (size_t)t * D + c, tmp);
+#pragma unroll
+      for (int j = 0; j < N; ++j) dst[t * stride + c + j] = tmp[j];
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * D; i += THREADS)
+      dst[(i / D) * stride + i % D] = elem_f(src[i]);
+  }
+}
+
+template <typename T, typename TK, bool QUANT, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS) page_walk_kernel(
-    const T* __restrict__ q, const TK* __restrict__ k_pools,
-    const TK* __restrict__ v_pools, const float* __restrict__ k_scales,
-    const float* __restrict__ v_scales, const int* __restrict__ block_table,
-    const int* __restrict__ lengths, float* __restrict__ acc_out,
-    float* __restrict__ m_out, float* __restrict__ l_out, int layer,
-    int KVH, int P, int page, int D, int qpg, int maxp, float scale,
-    float soft_cap) {
+    const WalkParams pr) {
+  static_assert(PARTIAL || !QUANT, "K13 takes no int8 pages");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int b = blockIdx.x, g = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int H = KVH * qpg;
-  const int kst = D + 4;  // padded f32 row stride of the staged k page
-  float* k_s = smem;                  // [page][D + 4]
-  float* v_s = k_s + page * kst;      // [page][D]
-  float* q_s = v_s + page * D;        // [qpg][D]
-  float* p_s = q_s + qpg * D;         // [qpg][page] scores, then probs
-  float* m_s = p_s + qpg * page;      // [qpg] running max
-  float* l_s = m_s + qpg;             // [qpg] running denominator
-  float* c_s = l_s + qpg;             // [qpg] this page's correction
+  const int b = blockIdx.x, g = blockIdx.y, KVH = gridDim.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int D = pr.D, Dp = padded_d(D), page = pr.page, rows = pr.rows;
+  const int r0 = blockIdx.z * rows;  // this block's first row of the group
+  const int nr = min(rows, pr.qpg - r0);
+  const int kst = Dp + 4;  // padded row stride of the staged k page
+  float* k_s = smem;
+  float* v_s = pr.split ? k_s : k_s + page * kst;
+  float* q_s = k_s + page * kst + (pr.split ? 0 : page * D);
+  float* p_s = q_s + rows * Dp;  // scores, then probs
+  float* m_s = p_s + rows * page;  // K1: running max; K13: running M
+  float* l_s = m_s + rows;         // running denominator
+  float* c_s = l_s + rows;         // this page's correction
 
-  const T* qg = q + ((size_t)b * H + (size_t)g * qpg) * D;
-  for (int i = tid; i < qpg * D; i += THREADS) q_s[i] = rtt::to_float(qg[i]);
-  if (tid < qpg) {
+  const size_t row0 = (size_t)b * KVH * pr.qpg + (size_t)g * pr.qpg + r0;
+  const T* qg = static_cast<const T*>(pr.q) + row0 * D;
+  for (int i = tid; i < nr * Dp; i += THREADS) {
+    const int qi = i / Dp, d = i % Dp;
+    q_s[i] = d < D ? rtt::to_float(qg[qi * D + d]) : 0.f;
+  }
+  if (tid < nr) {
     m_s[tid] = rtt::NEG_INF;
     l_s[tid] = 0.f;
   }
@@ -120,80 +200,85 @@ __global__ void __launch_bounds__(THREADS) page_walk_kernel(
 #pragma unroll
   for (int e = 0; e < MAX_E; ++e) acc[e] = 0.f;
 
-  const int len = lengths[b];
-  const int p_end = min((len + page - 1) / page, maxp);
+  const int len = pr.lengths[b];
+  const int p_end = min((len + page - 1) / page, pr.maxp);
   const size_t page_elems = (size_t)page * D;
-  const size_t head_off = ((size_t)layer * KVH + g) * (size_t)P * page_elems;
-  const TK* k_head = k_pools + head_off;
-  const TK* v_head = v_pools + head_off;
-  constexpr int N = rtt::Vec<TK>::N;
-  const int chunks = D / N;
-  const int warp = tid / 32, lane = tid % 32;
+  const size_t head_off =
+      ((size_t)pr.layer * KVH + g) * (size_t)pr.P * page_elems;
+  const TK* k_head = static_cast<const TK*>(pr.k) + head_off;
+  const TK* v_head = static_cast<const TK*>(pr.v) + head_off;
   __syncthreads();
 
   for (int p = 0; p < p_end; ++p) {
-    int pid = block_table[(size_t)b * maxp + p];
-    pid = min(max(pid, 0), P - 1);
+    int pid = pr.block_table[(size_t)b * pr.maxp + p];
+    pid = min(max(pid, 0), pr.P - 1);
     const TK* kp = k_head + (size_t)pid * page_elems;
     const TK* vp = v_head + (size_t)pid * page_elems;
     const int n_valid = min(page, len - p * page);
     float ks = 1.f, vs = 1.f;
     if (QUANT) {
-      const size_t so = ((size_t)layer * P + pid) * KVH + g;
-      ks = k_scales[so];
-      vs = v_scales[so];
+      const size_t so = ((size_t)pr.layer * pr.P + pid) * KVH + g;
+      ks = pr.k_scales[so];
+      vs = pr.v_scales[so];
     }
 
-    for (int i = tid; i < n_valid * chunks; i += THREADS) {
-      const int t = i / chunks, c = (i % chunks) * N;
-      float tmp[N];
-      rtt::Vec<TK>::load(kp + (size_t)t * D + c, tmp);
-#pragma unroll
-      for (int j = 0; j < N; ++j) k_s[t * kst + c + j] = tmp[j];
-      rtt::Vec<TK>::load(vp + (size_t)t * D + c, tmp);
-#pragma unroll
-      for (int j = 0; j < N; ++j) v_s[t * D + c + j] = tmp[j];
-    }
+    stage(k_s, kst, kp, n_valid, D, pr.vec);
+    for (int i = tid; i < n_valid * (Dp - D); i += THREADS)
+      k_s[(i / (Dp - D)) * kst + D + i % (Dp - D)] = 0.f;
+    if (!pr.split) stage(v_s, D, vp, n_valid, D, pr.vec);
     __syncthreads();
 
-    for (int i = tid; i < qpg * n_valid; i += THREADS) {
+    for (int i = tid; i < nr * n_valid; i += THREADS) {
       const int qi = i / n_valid, t = i % n_valid;
-      float s = __fmul_rn(dot_fixed(q_s + qi * D, k_s + t * kst, D), scale);
+      float s = __fmul_rn(dot_fixed(q_s + qi * Dp, k_s + t * kst, Dp),
+                          pr.scale);
       if (QUANT) s = __fmul_rn(s, ks);
-      if (soft_cap > 0.f) s = soft_cap_f(s, soft_cap);
+      if (pr.soft_cap > 0.f) s = soft_cap_f(s, pr.soft_cap);
       p_s[qi * page + t] = s;
     }
     __syncthreads();
 
-    // m_new, p at m_new (l sums p unrounded; p.v takes p rounded to q's
-    // dtype) and this page's correction.
-    for (int qi = warp; qi < qpg; qi += THREADS / 32) {
+    // The page's max, p at the new reference (l sums p unrounded; p.v
+    // takes p rounded to q's dtype) and this page's correction.
+    for (int qi = warp; qi < nr; qi += THREADS / 32) {
       float* row = p_s + qi * page;
       float mx = rtt::NEG_INF;
       for (int t = lane; t < n_valid; t += 32) mx = fmaxf(mx, row[t]);
       mx = rtt::group_max<32>(mx);
       const float m_prev = m_s[qi];
-      const float m_new = fmaxf(m_prev, mx);
+      float m_new, corr;
+      if constexpr (PARTIAL) {
+        m_new = fmaxf(m_prev, mx);
+        corr = exp_f(m_prev, m_new);
+      } else {
+        m_new = fmaxf(m_prev, (float)ceil((double)mx * LOG2E));
+        corr = pow2_le0(m_prev - m_new);
+      }
       float sum = 0.f;
       for (int t = lane; t < n_valid; t += 32) {
-        const float e = exp_f(row[t], m_new);
+        const float e =
+            PARTIAL ? exp_f(row[t], m_new)
+                    : __double2float_rn(exp2((double)row[t] * LOG2E - m_new));
         row[t] = rtt::to_float(rtt::from_float<T>(e));
         sum += e;
       }
       sum = rtt::group_sum<32>(sum);
       if (lane == 0) {
-        const float corr = exp_f(m_prev, m_new);
         c_s[qi] = corr;
         l_s[qi] = __fadd_rn(__fmul_rn(corr, l_s[qi]), sum);
         m_s[qi] = m_new;
       }
     }
     __syncthreads();
+    if (pr.split) {  // v into the buffer k has left
+      stage(v_s, D, vp, n_valid, D, pr.vec);
+      __syncthreads();
+    }
 
 #pragma unroll
     for (int e = 0; e < MAX_E; ++e) {
       const int idx = tid + e * THREADS;
-      if (idx < qpg * D) {
+      if (idx < nr * D) {
         const int qi = idx / D, d = idx % D;
         const float* prow = p_s + qi * page;
         float pv = 0.f;
@@ -205,42 +290,43 @@ __global__ void __launch_bounds__(THREADS) page_walk_kernel(
     __syncthreads();  // the next page overwrites k_s, v_s, p_s, c_s
   }
 
-  const size_t row0 = (size_t)b * H + (size_t)g * qpg;
 #pragma unroll
   for (int e = 0; e < MAX_E; ++e) {
     const int idx = tid + e * THREADS;
-    if (idx < qpg * D) acc_out[row0 * D + idx] = acc[e];
+    if (idx < nr * D) {
+      if constexpr (PARTIAL) {
+        pr.acc[row0 * D + idx] = acc[e];
+      } else {
+        const float l = l_s[idx / D];
+        static_cast<T*>(pr.out)[row0 * D + idx] =
+            rtt::from_float<T>(__fdiv_rn(acc[e], l == 0.f ? 1.f : l));
+      }
+    }
   }
-  if (tid < qpg) {
-    m_out[row0 + tid] = m_s[tid];
-    l_out[row0 + tid] = l_s[tid];
+  if constexpr (PARTIAL) {
+    if (tid < nr) {
+      pr.m[row0 + tid] = m_s[tid];
+      pr.l[row0 + tid] = l_s[tid];
+    }
   }
 }
 
-size_t page_walk_smem(int page, int D, int qpg) {
-  return sizeof(float) * ((size_t)page * (D + 4) + (size_t)page * D +
-                          (size_t)qpg * D + (size_t)qpg * page + 3 * qpg);
-}
-
-template <typename T, typename TK, bool QUANT>
-int launch_page_walk(const void* q, const void* k_pools, const void* v_pools,
-                     const void* k_scales, const void* v_scales,
-                     const void* block_table, const void* lengths, float* acc,
-                     float* m, float* l, int B, int KVH, int P, int page,
-                     int D, int qpg, int maxp, int layer, float scale,
-                     float soft_cap, cudaStream_t stream) {
-  const size_t smem = page_walk_smem(page, D, qpg);
+template <typename T, typename TK, bool QUANT, bool PARTIAL>
+int launch_page_walk(const WalkParams& pr, int B, int KVH,
+                     cudaStream_t stream) {
+  auto kernel = page_walk_kernel<T, TK, QUANT, PARTIAL>;
+  const size_t smem = page_walk_smem(pr.page, pr.D, pr.rows, pr.split);
   cudaError_t err = cudaFuncSetAttribute(
-      page_walk_kernel<T, TK, QUANT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  page_walk_kernel<T, TK, QUANT><<<dim3(B, KVH), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const TK*>(k_pools),
-      static_cast<const TK*>(v_pools), static_cast<const float*>(k_scales),
-      static_cast<const float*>(v_scales),
-      static_cast<const int*>(block_table), static_cast<const int*>(lengths),
-      acc, m, l, layer, KVH, P, page, D, qpg, maxp, scale, soft_cap);
+  const dim3 grid(B, KVH, (pr.qpg + pr.rows - 1) / pr.rows);
+  kernel<<<grid, THREADS, smem, stream>>>(pr);
   return (int)cudaGetLastError();
+}
+
+bool walk_ok(const WalkParams& pr) {
+  return pr.D >= 1 && pr.D <= MAX_D && pr.rows >= 1 &&
+         pr.rows * pr.D <= THREADS * MAX_E && pr.qpg >= 1 && pr.page >= 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -302,7 +388,6 @@ namespace hp = rtt::hopper;
 constexpr int THREADS = 128, NW = THREADS / 32;
 constexpr int MAX_STAGES = 16, MAX_CLUSTER = 8;
 constexpr int V = 32;    // partial dots a lane holds before the reduction
-constexpr double LOG2E = 1.4426950408889634;
 
 struct Params {
   const void* q;
@@ -847,30 +932,38 @@ extern "C" int rtt_paged_decode_partial(
                                                                  D, csize, s);
 }
 
-// K1 on the page-walk route (any D a multiple of 8, of 16 on int8 pools,
-// qpg * D <= 1024): the same arguments without the cluster plan; acc,
-// m, l as above.
+// K1 on the page-walk route (any qpg, D up to 256; the wrapper's
+// walk_plan gives `rows`, the query rows a CTA holds, at most 1024 / D, and
+// `split`, k and v staged one after the other): the same arguments as the
+// Hopper route's without the cluster plan; acc, m, l as above.
 extern "C" int rtt_paged_decode_partial_walk(
     const void* q, const void* k_pools, const void* v_pools,
     const void* k_scales, const void* v_scales, const void* block_table,
     const void* lengths, void* acc, void* m, void* l, int dtype, int B,
-    int KVH, int P, int page, int D, int qpg, int maxp, int layer,
-    float scale, float soft_cap, void* stream) {
+    int KVH, int P, int page, int D, int qpg, int maxp, int rows, int split,
+    int layer, float scale, float soft_cap, void* stream) {
+  const bool quant = k_scales != nullptr;
+  const size_t esize = quant ? 1 : (dtype == 0 ? 4 : 2);
+  const WalkParams pr{q, k_pools, v_pools,
+                      static_cast<const float*>(k_scales),
+                      static_cast<const float*>(v_scales),
+                      static_cast<const int*>(block_table),
+                      static_cast<const int*>(lengths), nullptr,
+                      static_cast<float*>(acc), static_cast<float*>(m),
+                      static_cast<float*>(l), P, page, D, qpg, maxp, layer,
+                      rows, split, (int)((D * esize) % 16 == 0), scale,
+                      soft_cap};
+  if (!walk_ok(pr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* a = static_cast<float*>(acc);
-  float* mm = static_cast<float*>(m);
-  float* ll = static_cast<float*>(l);
-#define RTT_K1_WALK(T, TK, QUANT)                                           \
-  launch_page_walk<T, TK, QUANT>(q, k_pools, v_pools, k_scales, v_scales,  \
-                                 block_table, lengths, a, mm, ll, B, KVH,  \
-                                 P, page, D, qpg, maxp, layer, scale,      \
-                                 soft_cap, s)
-  if (k_scales != nullptr)
-    return dtype == 0 ? RTT_K1_WALK(float, int8_t, true)
-                      : RTT_K1_WALK(__nv_bfloat16, int8_t, true);
-  return dtype == 0 ? RTT_K1_WALK(float, float, false)
-                    : RTT_K1_WALK(__nv_bfloat16, __nv_bfloat16, false);
-#undef RTT_K1_WALK
+  if (quant)
+    return dtype == 0
+               ? launch_page_walk<float, int8_t, true, true>(pr, B, KVH, s)
+               : launch_page_walk<__nv_bfloat16, int8_t, true, true>(pr, B,
+                                                                     KVH, s);
+  return dtype == 0
+             ? launch_page_walk<float, float, false, true>(pr, B, KVH, s)
+             : launch_page_walk<__nv_bfloat16, __nv_bfloat16, false, true>(
+                   pr, B, KVH, s);
 }
 
 // K13.  dtype (of q and the pages): 0 = float32, 1 = bfloat16.  The pages
@@ -893,4 +986,26 @@ extern "C" int rtt_paged_decode_attention(
              ? pdh::dispatch<float, float, false>(pr, B, KVH, D, csize, s)
              : pdh::dispatch<__nv_bfloat16, __nv_bfloat16, false>(pr, B, KVH,
                                                                   D, csize, s);
+}
+
+// K13 on the page-walk route (any qpg, D up to 256; rows and split as
+// K1's walk): the arguments of rtt_paged_decode_attention without the
+// cluster plan.
+extern "C" int rtt_paged_decode_attention_walk(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* block_table, const void* lengths, void* out, int dtype,
+    int B, int KVH, int P, int page, int D, int qpg, int maxp, int rows,
+    int split, float scale, float soft_cap, void* stream) {
+  const size_t esize = dtype == 0 ? 4 : 2;
+  const WalkParams pr{q, k_pages, v_pages, nullptr, nullptr,
+                      static_cast<const int*>(block_table),
+                      static_cast<const int*>(lengths), out, nullptr,
+                      nullptr, nullptr, P, page, D, qpg, maxp, 0, rows,
+                      split, (int)((D * esize) % 16 == 0), scale, soft_cap};
+  if (!walk_ok(pr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0
+             ? launch_page_walk<float, float, false, false>(pr, B, KVH, s)
+             : launch_page_walk<__nv_bfloat16, __nv_bfloat16, false, false>(
+                   pr, B, KVH, s);
 }

@@ -98,43 +98,6 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p,
   rtt::Vec<__nv_bfloat16>::load(p + 8, f + 8);
 }
 
-// clip(round-half-even(q), -127, 127) + 1.5 * 2^23: the add rounds q to
-// an integer (ulp 1 in [2^23, 2^24), ties to even, as rintf), and the
-// float's low byte is then the int8 value, two's complement.
-constexpr float QB = 12582912.f;
-__device__ __forceinline__ float quant_biased(float q) {
-  return fminf(fmaxf(__fadd_rn(q, QB), QB - 127.f), QB + 127.f);
-}
-
-// The low bytes of four biased values, in order, as one word.
-__device__ __forceinline__ uint32_t pack_biased(const float* b) {
-  const uint32_t lo =
-      __byte_perm(__float_as_uint(b[0]), __float_as_uint(b[1]), 0x0040);
-  const uint32_t hi =
-      __byte_perm(__float_as_uint(b[2]), __float_as_uint(b[3]), 0x0040);
-  return __byte_perm(lo, hi, 0x5410);
-}
-
-__device__ __forceinline__ uint4 pack16(const float (&b)[16]) {
-  return make_uint4(pack_biased(b), pack_biased(b + 4), pack_biased(b + 8),
-                    pack_biased(b + 12));
-}
-
-// Sixteen stored int8 values times `factor`, each product rounded on its
-// own (__fmul_rn), then rounded and clipped.
-__device__ __forceinline__ uint4 requant16(uint4 w, float factor) {
-  const uint4 lo = rtt::int8x8_to_bf16(w.x, w.y);
-  const uint4 hi = rtt::int8x8_to_bf16(w.z, w.w);
-  float c[16], b[16];
-  rtt::Vec<__nv_bfloat16>::load(reinterpret_cast<const __nv_bfloat16*>(&lo),
-                                c);
-  rtt::Vec<__nv_bfloat16>::load(reinterpret_cast<const __nv_bfloat16*>(&hi),
-                                c + 8);
-#pragma unroll
-  for (int e = 0; e < 16; ++e) b[e] = quant_biased(__fmul_rn(c[e], factor));
-  return pack16(b);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS) ragged_append_quantized_kernel(
     int8_t* __restrict__ k_pools, int8_t* __restrict__ v_pools,
@@ -282,7 +245,7 @@ __global__ void __launch_bounds__(THREADS) ragged_append_quantized_kernel(
         for (int k = 0; k < U; ++k)
           if (mine[k])
             pg_w[i0 + 32 * k] = fresh ? make_uint4(0u, 0u, 0u, 0u)
-                                      : requant16(old[k], factor);
+                                      : rtt::requant16(old[k], factor);
       }
     }
     __syncwarp();
@@ -296,8 +259,9 @@ __global__ void __launch_bounds__(THREADS) ragged_append_quantized_kernel(
                  : src + t * tok_stride + c16,
              x);
 #pragma unroll
-      for (int e = 0; e < 16; ++e) x[e] = quant_biased(__fdiv_rn(x[e], s_new));
-      pg_w[(size_t)cell0 * row_words + i] = pack16(x);
+      for (int e = 0; e < 16; ++e)
+        x[e] = rtt::quant_biased(__fdiv_rn(x[e], s_new));
+      pg_w[(size_t)cell0 * row_words + i] = rtt::pack16(x);
     }
     if (lane == 0) *scale = s_new;
     // The tile is rewritten by the next pair's bulk copies (async proxy)

@@ -39,8 +39,6 @@ from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_K1_THREADS = 256
-_K1_MAX_E = 4
 _SMEM_LIMIT = 227 * 1024
 _EPL = 8  # columns of one partial sum of q·k (csrc: EPL)
 
@@ -162,17 +160,36 @@ def hopper_decode_plan(B: int, KVH: int, qpg: int, D: int, page: int,
     return None
 
 
-def _check_k1_walk(name: str, D: int, qpg: int, page: int,
-                   d_multiple: int) -> None:
-    """What K1's page-walk route takes: D a multiple of one 16-byte load's
-    elements, at most 1024 accumulators per CTA (qpg · D), and a staged
-    page within the H100's shared memory."""
-    if D % d_multiple or qpg * D > _K1_THREADS * _K1_MAX_E:
-        raise ValueError(f"{name}: unsupported D={D} or qpg={qpg}")
-    smem = 4 * (page * (2 * D + 4) + qpg * D + qpg * page + 3 * qpg)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"page {page} x D {D} needs {smem} B of shared "
-                         "memory, over the H100's 227 KB")
+# The page-walk route of K1 and K13 (csrc/paged_decode.cu,
+# page_walk_kernel): every shape the Hopper route does not take.
+_WALK_ACCUMULATORS = 256 * 4          # THREADS * MAX_E: rows · D per CTA
+_WALK_MAX_D = 256
+
+
+def walk_plan(name: str, qpg: int, D: int, page: int) -> Tuple[int, int]:
+    """The launch of ``page_walk_kernel``: (query rows a CTA holds, whether
+    k and v are staged one after the other).  A CTA holds at most
+    ⌊1024 / D⌋ of the group's rows (its accumulators), so a group of any
+    size splits over CTAs that each walk the slot's pages; a page's k and
+    v are staged together in f32 shared memory when they fit, else k and
+    then v in one buffer, else fewer rows.  Raises for D above 256 or a
+    page beyond the H100's shared memory even so."""
+    if not 1 <= D <= _WALK_MAX_D:
+        raise ValueError(f"{name}: unsupported D={D} (the page-walk route "
+                         f"takes head dims 1 to {_WALK_MAX_D})")
+    Dp = -(-D // _EPL) * _EPL
+    rows = min(qpg, _WALK_ACCUMULATORS // D)
+    while True:
+        for split in (0, 1):
+            smem = 4 * (page * (Dp + 4) + (0 if split else page * D)
+                        + rows * Dp + rows * page + 3 * rows)
+            if smem <= _SMEM_LIMIT:
+                return rows, split
+        if rows == 1:
+            raise ValueError(f"{name}: a page of {page} x D {D} needs "
+                             f"{smem} B of shared memory on the page-walk "
+                             "route, over the H100's 227 KB")
+        rows = -(-rows // 2)
 
 
 def paged_decode_attention_partial_plain(
@@ -254,10 +271,10 @@ def paged_decode_attention_partial(
     too) on one of two routes, chosen by shape: ``paged_decode_hopper``
     (D in {16, 32, 64, 128}, qpg up to 8, pages within shared memory: one
     launch, a cluster of CTAs per (slot, kv head) over the pages, bulk
-    copies into shared memory), else ``page_walk_kernel`` (D a multiple
-    of 8, of 16 on int8 pools, qpg · D up to 1024: one CTA per (slot, kv
-    head) walking the pages in order); any other shape raises.  CPU
-    tensors run the plain version."""
+    copies into shared memory), else ``page_walk_kernel`` (any qpg, D up
+    to 256: one CTA per (slot, kv head, block of query rows) walking the
+    pages in order, ``walk_plan``; counted in ``launches_walk`` too); D
+    above 256 raises.  CPU tensors run the plain version."""
     quantized = _check_scales("paged_decode_attention_partial", k_pools,
                               v_pools, k_scales, v_scales)
     if not q.is_cuda:
@@ -315,22 +332,24 @@ def paged_decode_attention_partial(
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         args = common + (*plan, int(layer)) + tail
     else:
-        _check_k1_walk("paged_decode_attention_partial", D, qpg, page,
-                       16 if quantized else 8)
         fn = lib.rtt_paged_decode_partial_walk
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-        args = common + (int(layer),) + tail
+        args = common + (*walk_plan("paged_decode_attention_partial", qpg,
+                                    D, page), int(layer)) + tail
     fn.restype = ctypes.c_int
     _build.check(fn(*args), "paged_decode_attention_partial")
     paged_decode_attention_partial.launches += 1
     if quantized:
         paged_decode_attention_partial.launches_int8 += 1
+    if plan is None:
+        paged_decode_attention_partial.launches_walk += 1
     return acc, m, l
 
 
 paged_decode_attention_partial.launches = 0
 paged_decode_attention_partial.launches_int8 = 0
+paged_decode_attention_partial.launches_walk = 0  # of them on the walk
 
 
 def combine_with_self(q, k_new, v_new, acc, m, l, *,
@@ -402,9 +421,9 @@ def paged_append(k_pools: torch.Tensor, v_pools: torch.Tensor,
             f"{tuple(k_new.shape)}, pids {tuple(pids.shape)}, offs "
             f"{tuple(offs.shape)}")
     row_bytes = D * k_pools.element_size()
-    if row_bytes % 16:
+    if row_bytes % 16 or row_bytes > 16 * 1024:
         raise ValueError(f"paged_append: a row of {row_bytes} B is not a "
-                         "multiple of 16")
+                         "multiple of 16 up to 16 KB")
     if B == 0:
         return
     lib = _build.library("paged_append")
@@ -505,9 +524,9 @@ def paged_append_quantized(k_pools: torch.Tensor, v_pools: torch.Tensor,
             f"paged_append_quantized: bad shapes pools "
             f"{tuple(k_pools.shape)}, new {tuple(k_new.shape)}, pids "
             f"{tuple(pids.shape)}, offs {tuple(offs.shape)}")
-    if D % 16:
+    if D % 16 or D > 1024:
         raise ValueError(f"paged_append_quantized: an int8 row of {D} B is "
-                         "not a multiple of 16")
+                         "not a multiple of 16 up to 1024")
     if B == 0:
         return
     lib = _build.library("paged_append_quantized")
@@ -587,13 +606,14 @@ def paged_decode_attention(
     token, the current one included) → out [B, H, D] in q's dtype.  Page
     ids clamp to P - 1; a slot with length 0 gives 0.
 
-    CUDA tensors launch kernel K13 (csrc/paged_decode.cu,
-    ``paged_decode_hopper``: one launch, a cluster of CTAs per (slot, kv
-    head) over the pages, bulk copies into shared memory; a group of qpg
-    up to 8 rows is padded to 1, 2, 4 or 8 with zero rows whose results
-    are dropped, as the Pallas kernel pads to 8); a shape it does not
-    take (qpg above 8, D outside {16, 32, 64, 128}) raises.  CPU tensors
-    run the plain version."""
+    CUDA tensors launch kernel K13 (csrc/paged_decode.cu) on one of two
+    routes, chosen by shape as K1's: ``paged_decode_hopper`` (one launch,
+    a cluster of CTAs per (slot, kv head) over the pages, bulk copies into
+    shared memory; a group of qpg up to 8 rows is padded to 1, 2, 4 or 8
+    with zero rows whose results are dropped, as the Pallas kernel pads to
+    8; D in {16, 32, 64, 128}), else ``page_walk_kernel`` (any qpg, D up
+    to 256, ``walk_plan``; counted in ``launches_walk`` too); D above 256
+    raises.  CPU tensors run the plain version."""
     if not q.is_cuda:
         return paged_decode_attention_plain(q, k_pages, v_pages, block_table,
                                             lengths, soft_cap=soft_cap)
@@ -623,14 +643,14 @@ def paged_decode_attention(
         return out.zero_()
     plan = hopper_decode_plan(B, KVH, qpg, D, page, maxp, q.element_size(),
                               False, q.device)
-    if plan is None:
-        raise ValueError(
-            f"paged_decode_attention: unsupported qpg={qpg}, D={D}, page "
-            f"{page}, {maxp} pages (qpg up to {_HOPPER_QPG[-1]}, D in "
-            f"{_HOPPER_HEAD_DIMS}, pages within the H100's shared memory)")
-    fn = _build.library("paged_decode").rtt_paged_decode_attention
+    walk = plan is None
+    if walk:
+        plan = walk_plan("paged_decode_attention", qpg, D, page)
+    lib = _build.library("paged_decode")
+    fn = (lib.rtt_paged_decode_attention_walk if walk
+          else lib.rtt_paged_decode_attention)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * (8 + len(plan))
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
@@ -640,10 +660,13 @@ def paged_decode_attention(
              _stream_ptr(q))
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
+    if walk:
+        paged_decode_attention.launches_walk += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_walk = 0  # of them on the page walk
 
 
 def paged_decode_attention_tp(

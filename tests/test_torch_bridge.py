@@ -70,6 +70,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import chip_pair\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'ray_tpu', 'optax', 'orbax')]\n"
         "assert not bad, bad\n"

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1, K2, K3, K9f, K10, K11, K4, K5, K6, K7,
-K8, K12, K13; K1, K4, K7 and K8 on bf16/f32 and on int8 pools) against their
-plain PyTorch versions on the card, in f32 and bf16, across head dims,
-page sizes and GQA groups.  CUDA kernels have no CPU mode: without a card every
+K8, K12, K13; K1, K4, K7 and K8 on bf16/f32 and on int8 pools; K1 and K13
+on both their routes) against their plain PyTorch versions on the card, in
+f32 and bf16, across head dims, page sizes and GQA groups.  CUDA kernels have no CPU mode: without a card every
 test here skips.  On a machine with one (no jax needed):
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
@@ -488,6 +488,8 @@ def test_k5_matches_plain(dev, dtype, D, page):
 # ---------------------------------------------------------------------------
 
 _INT8_DIMS = [(16, 16), (64, 16), (64, 64), (128, 16), (128, 64)]
+# K3 also at D 256 (two words of the row a lane); K4 takes no D 256.
+_K3_DIMS = _INT8_DIMS + [(256, 16)]
 
 
 def _quantise(g, pools_like, P, KVH):
@@ -546,7 +548,7 @@ def test_k1_int8_matches_plain(dev, dtype, D, page, maxp, qpg, soft_cap):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,page", _INT8_DIMS)
+@pytest.mark.parametrize("D,page", _K3_DIMS)
 def test_k3_matches_plain_bytes(dev, dtype, D, page):
     """Stored bytes and scales equal the plain version's bit for bit on
     live pages, through a first write (offset 0 on a stale page), stable
@@ -587,6 +589,118 @@ def test_k3_matches_plain_bytes(dev, dtype, D, page):
     assert not got[2][:, 6].any() and not got[0][:, :, 6].any()
     for p in (1, 2, 4, 7):
         assert torch.equal(got[0][:, :, p], k[:, :, p])
+
+
+def _k3_state_48(g, dev, dtype, L=4, KVH=8, D=128, page=64, B=48):
+    """int8 pools and scales for 48 slots, one page each plus the scratch
+    page, and new rows whose magnitudes, offsets and page ids mix every
+    case: fresh pages (offset 0), stable and grown scales, all-zero rows
+    and inactive slots on the scratch page."""
+    P = B + 1
+    state = _quantise(g, torch.empty((L, KVH, P, page, D)), P, KVH)
+    pids = torch.randperm(B, generator=g, device=dev).to(torch.int32)
+    pids[5::11] = P - 1                      # inactive: the scratch page
+    offs = torch.randint(0, page, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    offs[::7] = 0                            # fresh pages
+    mag = torch.tensor([0.0, 0.01, 0.3, 1.0, 5.0, 40.0], device=dev)
+    mag = mag[torch.arange(B, device=dev) % 6]
+    k_new = (torch.randn((L, B, KVH, D), generator=g, device=dev)
+             * mag[None, :, None, None]).to(dtype)
+    v_new = (torch.randn((L, B, KVH, D), generator=g, device=dev)
+             * mag[None, :, None, None]).to(dtype)
+    return state, k_new, v_new, pids, offs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain_bytes_48_slots(dev, dtype):
+    """K3 at 48 slots (the fused int8 step's count) and 8B widths: stored
+    bytes and scales equal the plain version's on every live page."""
+    state, k_new, v_new, pids, offs = _k3_state_48(_gen(48), dev, dtype)
+    P = state[0].shape[2]
+    got = [t.clone() for t in state]
+    want = [t.clone() for t in state]
+    tpa.paged_append_quantized(*got, k_new, v_new, pids, offs)
+    tpa.paged_append_quantized_plain(*want, k_new, v_new, pids, offs)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a[:, :, : P - 1], b[:, :, : P - 1])
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a[:, : P - 1], b[:, : P - 1])
+        assert torch.isfinite(a).all()
+    # Some scales grew, some held.
+    grew = got[2][:, : P - 1] > state[2][:, : P - 1]
+    assert grew.any() and not grew.all()
+
+
+def test_k2_is_capturable(dev):
+    """K2 captured in a CUDA graph writes what the eager call writes, with
+    new rows, page ids and offsets copied into the captured buffers."""
+    g = _gen(71)
+    L, KVH, P, page, D, B = 4, 8, 17, 16, 128, 8
+    k = torch.randn((L, KVH, P, page, D), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    rows = [torch.randn((L, B, KVH, D), generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2)]
+    meta = [torch.randperm(P - 1, generator=g, device=dev)[:B].to(
+                torch.int32),
+            torch.randint(0, page, (B,), generator=g, device=dev,
+                          dtype=torch.int32)]
+    kg, vg = k.clone(), v.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpa.paged_append(k.clone(), v.clone(), *rows, *meta)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tpa.paged_append(kg, vg, *rows, *meta)
+    kg.copy_(k)
+    vg.copy_(v)
+    new = [torch.randn_like(rows[0]), torch.randn_like(rows[1]),
+           meta[0].flip(0), (meta[1] + 3) % page]
+    for buf, x in zip(rows + meta, new):
+        buf.copy_(x)
+    graph.replay()
+    ke, ve = k.clone(), v.clone()
+    tpa.paged_append(ke, ve, *new)
+    torch.cuda.synchronize()
+    assert torch.equal(kg, ke) and torch.equal(vg, ve)
+    assert not torch.equal(kg, k)
+
+
+def test_k3_is_capturable(dev):
+    """K3 captured in a CUDA graph writes the bytes and scales the eager
+    call writes, with new rows, page ids and offsets copied into the
+    captured buffers (the fresh, stable and grown cases all occur)."""
+    state, k_new, v_new, pids, offs = _k3_state_48(
+        _gen(72), dev, torch.bfloat16, L=2, B=12)
+    inputs = [k_new, v_new, pids, offs]
+    graph_state = [t.clone() for t in state]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpa.paged_append_quantized(*[t.clone() for t in state], *inputs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tpa.paged_append_quantized(*graph_state, *inputs)
+    for t, t0 in zip(graph_state, state):
+        t.copy_(t0)
+    new = [k_new * 2.0, v_new.flip(1), pids.flip(0), offs.roll(1)]
+    for buf, x in zip(inputs, new):
+        buf.copy_(x)
+    graph.replay()
+    eager = [t.clone() for t in state]
+    tpa.paged_append_quantized(*eager, *new)
+    torch.cuda.synchronize()
+    P = state[0].shape[2]  # live pages below the scratch page P - 1
+    for a, b in zip(graph_state[:2], eager[:2]):
+        assert torch.equal(a[:, :, : P - 1], b[:, :, : P - 1])
+    for a, b in zip(graph_state[2:], eager[2:]):
+        assert torch.equal(a[:, : P - 1], b[:, : P - 1])
+    assert not torch.equal(graph_state[0], state[0])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1565,11 +1679,123 @@ def test_k13_wrapper_rejects_what_the_kernel_does_not_take(dev):
         tpa.paged_decode_attention(q, pages, pages, bt.long(), lens)
     with pytest.raises(ValueError, match="bad shapes"):
         tpa.paged_decode_attention(q[:, :3], pages, pages, bt, lens)
-    # A group above 8 rows and D 48 are no instantiation of K13.
-    with pytest.raises(ValueError, match="unsupported qpg=9"):
-        tpa.paged_decode_attention(torch.zeros((1, 9, 16), device=dev),
-                                   pages[:1], pages[:1], bt, lens)
-    with pytest.raises(ValueError, match="unsupported qpg=2, D=48"):
-        tpa.paged_decode_attention(torch.zeros((1, 4, 48), device=dev),
-                                   pages.new_zeros((2, 3, 8, 48)),
-                                   pages.new_zeros((2, 3, 8, 48)), bt, lens)
+    # A group above 8 rows and D 48, which the Hopper route does not take,
+    # run on the page-walk route; D above 256 is no route's.
+    g = _gen(57)
+    for H, D in ((9, 16), (4, 48)):
+        KVH = 1 if H == 9 else 2
+        q_ = torch.randn((1, H, D), generator=g, device=dev)
+        kp = torch.randn((KVH, 3, 8, D), generator=g, device=dev)
+        vp = torch.randn_like(kp)
+        lens_ = torch.tensor([13], dtype=torch.int32, device=dev)
+        torch.testing.assert_close(
+            tpa.paged_decode_attention(q_, kp, vp, bt, lens_),
+            tpa.paged_decode_attention_plain(q_, kp, vp, bt, lens_),
+            atol=K1_TOL, rtol=K1_TOL)
+    with pytest.raises(ValueError, match="unsupported D=257"):
+        tpa.paged_decode_attention(torch.zeros((1, 4, 257), device=dev),
+                                   pages.new_zeros((2, 3, 8, 257)),
+                                   pages.new_zeros((2, 3, 8, 257)), bt, lens)
+
+
+# ---------------------------------------------------------------------------
+# The page-walk route of K1 and K13: the shapes the Hopper route refuses
+# ---------------------------------------------------------------------------
+
+# (qpg, D, page, maxp): groups of 9 and 16 at D 128 (two CTAs of 8 rows
+# each at 16), D 36 (element loads, zero-padded to 40), 48, 80 and 256, a
+# slot over 40 pages, and page 128 at D 256, where k and v of a page do
+# not fit in shared memory together and are staged one after the other.
+_WALK_CASES = [(9, 128, 16, 5), (16, 128, 16, 40), (2, 36, 16, 5),
+               (4, 48, 16, 40), (2, 80, 64, 5), (2, 256, 64, 5),
+               (1, 256, 128, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qpg,D,page,maxp", _WALK_CASES)
+@pytest.mark.parametrize("soft_cap", [None, 30.0])
+def test_k13_walk_matches_plain(dev, dtype, qpg, D, page, maxp, soft_cap):
+    """K13 on the page-walk route against its plain version, with
+    test_k13_matches_plain's tolerances: an empty slot gives 0."""
+    q, k, v, bt, lengths = _k13_inputs(dev, dtype, qpg, D, page, maxp,
+                                       seed=qpg * D + page + 17)
+    assert tpa.hopper_decode_plan(6, 2, qpg, D, page, maxp, k.element_size(),
+                                  False, dev) is None
+    before = tpa.paged_decode_attention.launches
+    got = tpa.paged_decode_attention(q, k, v, bt, lengths, soft_cap=soft_cap)
+    want = tpa.paged_decode_attention_plain(q, k, v, bt, lengths,
+                                            soft_cap=soft_cap)
+    torch.cuda.synchronize()
+    assert tpa.paged_decode_attention.launches == before + 1
+    assert got.dtype == dtype and (got[0] == 0).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=K1_TOL, rtol=K1_TOL)
+    else:
+        err = (got.float() - want.float()).abs()
+        limit = 2 ** -7 * want.float().abs() + 1e-5
+        assert (err <= limit).all(), (err / limit).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qpg,D,page,maxp", _WALK_CASES)
+@pytest.mark.parametrize("soft_cap", [None, 30.0])
+def test_k1_walk_matches_plain(dev, dtype, qpg, D, page, maxp, soft_cap):
+    """K1 on the page-walk route against its plain version on two layers,
+    with test_k1_matches_plain's tolerance; an empty slot gives acc 0,
+    m -1e30, l 0."""
+    q, k, v, bt, lengths = _k1_case(dev, dtype, qpg, D, page, maxp,
+                                    seed=qpg * D + page + maxp, L=2)
+    assert tpa.hopper_decode_plan(6, 2, qpg, D, page, maxp, k.element_size(),
+                                  True, dev) is None
+    for layer in range(2):
+        got = tpa.paged_decode_attention_partial(q, k, v, layer, bt, lengths,
+                                                 soft_cap=soft_cap)
+        want = tpa.paged_decode_attention_partial_plain(
+            q, k, v, layer, bt, lengths, soft_cap=soft_cap)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=K1_TOL, rtol=K1_TOL)
+        acc, m, l = got
+        assert (m[0] == -1e30).all() and (l[0] == 0).all() \
+            and (acc[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qpg,D,page,maxp", [(16, 128, 16, 40),
+                                             (2, 36, 16, 5), (2, 256, 64, 5)])
+def test_k1_walk_int8_matches_plain(dev, dtype, qpg, D, page, maxp):
+    """K1 on int8 pools on the page-walk route (D 36: element loads of
+    int8 rows) against its plain version, with test_k1_int8_matches_plain's
+    tolerance."""
+    q, k, v, bt, lengths = _k1_case(dev, dtype, qpg, D, page, maxp,
+                                    seed=qpg * D + 5, L=2)
+    k, v, ks, vs = _quantise(_gen(qpg + D), k, k.shape[2], k.shape[1])
+    before = tpa.paged_decode_attention_partial.launches_int8
+    got = tpa.paged_decode_attention_partial(q, k, v, 1, bt, lengths,
+                                             soft_cap=30.0, k_scales=ks,
+                                             v_scales=vs)
+    want = tpa.paged_decode_attention_partial_plain(
+        q, k, v, 1, bt, lengths, soft_cap=30.0, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert tpa.paged_decode_attention_partial.launches_int8 == before + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+def test_k13_walk_is_capturable(dev):
+    """K13 on the page-walk route (a group of 16) captured in a CUDA graph
+    replays to the eager bits."""
+    q, k, v, bt, lengths = _k13_inputs(dev, torch.bfloat16, 16, 128, 16, 40,
+                                       seed=33)
+    eager = tpa.paged_decode_attention(q, k, v, bt, lengths, soft_cap=30.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpa.paged_decode_attention(q, k, v, bt, lengths, soft_cap=30.0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpa.paged_decode_attention(q, k, v, bt, lengths, soft_cap=30.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)

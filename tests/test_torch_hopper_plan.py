@@ -606,12 +606,14 @@ def _dot_serial(a: np.ndarray, b: np.ndarray) -> np.float32:
     return part[0]
 
 
-@pytest.mark.parametrize("D", [8, 16, 24, 48, 64, 72, 128, 256])
+@pytest.mark.parametrize("D", [8, 16, 24, 36, 48, 64, 72, 128, 256])
 def test_fixed_order_dot_is_the_kernels_order(D):
     """The plain versions' q·k (``_fixed_order_dot``) equals, bit for bit,
     the kernels' fixed order: eight products left to right, then pairs of
     partial sums i, i + n/2 with an odd one carried (the halving exchanges
-    of the Hopper route where D/8 is a power of two)."""
+    of the Hopper route where D/8 is a power of two); a D off a multiple
+    of 8 is zero-padded, as the page-walk route pads q and k in shared
+    memory."""
     rng = np.random.default_rng(D)
     q = rng.standard_normal((2, 3, D)).astype(np.float32)
     k = rng.standard_normal((2, 5, D)).astype(np.float32)
@@ -620,4 +622,81 @@ def test_fixed_order_dot_is_the_kernels_order(D):
     for g in range(2):
         for i in range(3):
             for t in range(5):
-                assert got[g, i, t] == _dot_serial(q[g, i], k[g, t])
+                pad = (0, -D % 8)
+                assert got[g, i, t] == _dot_serial(np.pad(q[g, i], pad),
+                                                   np.pad(k[g, t], pad))
+
+
+@pytest.mark.parametrize("qpg,D,page,rows,split", [
+    (4, 128, 64, 4, 0),      # the 8B shape: one CTA a (slot, kv head)
+    (16, 128, 64, 8, 0),     # a group of 16: two CTAs of 8 rows
+    (9, 36, 16, 9, 0),       # 1024 // 36 = 28 rows: the whole group
+    (64, 48, 16, 21, 0),
+    (2, 256, 64, 2, 0),
+    (1, 256, 128, 1, 1),     # k, then v, into one buffer
+    (4, 1, 16, 4, 0),
+])
+def test_walk_plan(qpg, D, page, rows, split):
+    """K1's and K13's page-walk plan: at most 1024 / D rows a CTA (its
+    accumulators), k and v staged together where they fit the H100's
+    shared memory, else one after the other."""
+    assert tpa.walk_plan("k", qpg, D, page) == (rows, split)
+    assert rows * D <= 1024 and 1 <= rows <= qpg
+    Dp = -(-D // 8) * 8
+    smem = 4 * (page * (Dp + 4) + (0 if split else page * D) + rows * Dp
+                + rows * page + 3 * rows)
+    assert smem <= 227 * 1024
+
+
+def test_walk_plan_refuses_what_no_route_takes():
+    with pytest.raises(ValueError, match="unsupported D=257"):
+        tpa.walk_plan("k", 4, 257, 16)
+    with pytest.raises(ValueError, match="over the H100's 227 KB"):
+        tpa.walk_plan("k", 1, 256, 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k13_walk_arithmetic_matches_plain(dtype):
+    """K13's page walk, emulated one page at a time as page_walk_kernel
+    runs it: p against a running power of two M (raised to the ceiling of
+    y = s·log2(e) page by page), the sums so far scaled by 2^(M_old - M).
+    Every p it rounds, taken to the slot's final M, equals the plain
+    version's rounded p bit for bit (powers of two rescale exactly), and
+    the output is within one ulp of the plain version's in q's dtype."""
+    rng = np.random.default_rng(3)
+    B, H, D, page, maxp = 2, 3, 36, 8, 3
+    q = torch.from_numpy(rng.standard_normal((B, H, D)) * 3).to(dtype)
+    k = torch.from_numpy(rng.standard_normal((1, 7, page, D))).to(dtype)
+    v = torch.from_numpy(rng.standard_normal((1, 7, page, D))).to(dtype)
+    bt = torch.tensor([[4, 1, 6], [2, 0, 5]], dtype=torch.int32)
+    lengths = torch.tensor([21, 9], dtype=torch.int32)
+    want = tpa.paged_decode_attention_plain(q, k, v, bt, lengths,
+                                            soft_cap=20.0)
+    scale = torch.tensor(D ** -0.5, dtype=torch.float32)
+    for b in range(B):
+        n = int(lengths[b])
+        ks = k[0, bt[b].long()].reshape(-1, D)[:n]
+        vs = v[0, bt[b].long()].reshape(-1, D)[:n]
+        s = tpa._fixed_order_dot(q[b][None, None], ks[None, None])[0, 0]
+        s = torch.tanh((s * scale / 20.0).double()).float() * 20.0
+        y = s.double() * tpa._LOG2E
+        final = torch.exp2(y - torch.ceil(y.amax(-1, keepdim=True)))
+        want_p = final.float().to(dtype).float()
+        M = torch.full((H, 1), float("-inf"), dtype=torch.float64)
+        acc = torch.zeros((H, D))
+        l = torch.zeros((H, 1))
+        for j in range(-(-n // page)):
+            cols = slice(j * page, min((j + 1) * page, n))
+            m_new = torch.maximum(M, torch.ceil(y[:, cols].amax(-1, True)))
+            corr = torch.exp2(M - m_new).float()
+            p = torch.exp2(y[:, cols] - m_new).float()
+            p_r = p.to(dtype).float()
+            # This page's rounded p at the final M: the plain version's.
+            to_final = torch.exp2(m_new - torch.ceil(y.amax(-1, True)))
+            assert torch.equal(p_r * to_final.float(), want_p[:, cols])
+            acc = acc * corr + p_r @ vs[cols].float()
+            l = l * corr + p.sum(-1, keepdim=True)
+            M = m_new
+        got = (acc / l).to(dtype).float()
+        err = (got - want[b].float()).abs()
+        assert (err <= 2 ** -7 * want[b].float().abs() + 1e-6).all()

@@ -114,6 +114,29 @@ def test_k1_int8_plain_matches_jax_kernel_bf16_q(soft_cap):
                                    rtol=TOL)
 
 
+def test_k1_int8_plain_matches_jax_kernel_qpg16_d48():
+    """K1's plain version on int8 pools at a group of 16 query heads and
+    D 48 (shapes only K1's page-walk route takes on the card) against the
+    JAX Pallas kernel in interpret mode: 2 slots of up to 3 pages, one kv
+    head, a soft cap."""
+    rng = np.random.default_rng(12)
+    L, KVH, D, page, maxp, B, qpg = 1, 1, 48, 8, 3, 2, 16
+    P = B * maxp + 1
+    k, v, ks, vs = _int8_pools(rng, L, KVH, P, page, D)
+    q = rng.standard_normal((B, KVH * qpg, D)).astype(np.float32)
+    bt = rng.permutation(P - 1)[: B * maxp].reshape(B, maxp).astype(np.int32)
+    lengths = np.asarray([0, 2 * page + 3], np.int32)
+    want = jpa.paged_decode_attention_partial(
+        *_j(q, k, v), jnp.int32(0), *_j(bt, lengths), soft_cap=20.0,
+        k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+    got = tpa.paged_decode_attention_partial(
+        *_t(q, k, v), 0, *_t(bt, lengths), soft_cap=20.0,
+        k_scales=torch.from_numpy(ks), v_scales=torch.from_numpy(vs))
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
+                                   rtol=TOL)
+
+
 def test_int8_pools_and_scales_come_together():
     q = torch.zeros((1, 2, 16))
     pools = torch.zeros((1, 1, 3, 16, 16), dtype=torch.int8)

@@ -18,9 +18,8 @@ from ray_tpu_torch.ops import paged_attention as tpa
 ATOL = RTOL = 2e-5
 
 
-def _inputs(qpg, seed, L=2, KVH=2, D=64, page=16, maxp=4):
+def _inputs(qpg, seed, L=2, KVH=2, D=64, page=16, maxp=4, B=4):
     rng = np.random.default_rng(seed)
-    B = 4
     H = KVH * qpg
     P = B * maxp + 1  # + the scratch page
     q = rng.standard_normal((B, H, D)).astype(np.float32)
@@ -28,7 +27,7 @@ def _inputs(qpg, seed, L=2, KVH=2, D=64, page=16, maxp=4):
     v = rng.standard_normal((L, KVH, P, page, D)).astype(np.float32)
     # Shuffled physical pages: the table indirection must be honoured.
     bt = rng.permutation(P - 1)[: B * maxp].reshape(B, maxp).astype(np.int32)
-    lengths = np.asarray([0, page - 1, page, page + 1], np.int32)
+    lengths = np.asarray([0, page - 1, page, page + 1][:B], np.int32)
     return q, k, v, bt, lengths
 
 
@@ -220,3 +219,49 @@ def test_k13_plain_matches_jax_kernel_bf16(pages, soft_cap):
     err = np.abs(got.float().numpy() - want)
     limit = _bf16_ulp(np.abs(want).max(axis=-1, keepdims=True))
     assert (err <= limit).all(), (err / limit).max()
+
+
+# Shapes the Hopper route of K1 and K13 does not take, which their
+# page-walk route does on the card: a group of 16 query heads and head dims
+# off a multiple of 8 (36) or off {16, 32, 64, 128} (48).  Small pools: 2
+# slots of up to 3 pages, one kv head.
+
+@pytest.mark.parametrize("qpg,D", [(16, 64), (2, 36)])
+@pytest.mark.parametrize("soft_cap", [None, 20.0])
+def test_k13_plain_matches_jax_kernel_off_the_hopper_shapes(qpg, D,
+                                                            soft_cap):
+    """K13's plain version against the JAX Pallas kernel in interpret mode
+    at qpg 16 and at D 36 (which ``_fixed_order_dot`` pads with zero
+    columns to 40), f32; slot 0 spans 2 pages and a bit of a third."""
+    q, k, v, bt, _ = _inputs(qpg, seed=50 + D, L=1, KVH=1, D=D, page=8,
+                             maxp=3, B=2)
+    lengths = np.asarray([17, 5], np.int32)
+    want = jpa.paged_decode_attention(
+        *[jnp.asarray(a) for a in (q, k[0], v[0], bt, lengths)],
+        soft_cap=soft_cap)
+    got = tpa.paged_decode_attention(
+        *[torch.from_numpy(a) for a in (q, k[0], v[0], bt, lengths)],
+        soft_cap=soft_cap)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("soft_cap", [None, 20.0])
+def test_k1_plain_matches_jax_kernel_qpg16_d48(soft_cap):
+    """K1's plain version against the JAX Pallas kernel in interpret mode
+    at a group of 16 query heads and D 48, f32, layer 1, with an empty
+    slot."""
+    q, k, v, bt, _ = _inputs(16, seed=60, L=2, KVH=1, D=48, page=8, maxp=3,
+                             B=2)
+    lengths = np.asarray([0, 19], np.int32)
+    want = jpa.paged_decode_attention_partial(
+        *[jnp.asarray(a) for a in (q, k, v)], jnp.int32(1),
+        jnp.asarray(bt), jnp.asarray(lengths), soft_cap=soft_cap)
+    got = tpa.paged_decode_attention_partial(
+        *[torch.from_numpy(a) for a in (q, k, v)], 1, torch.from_numpy(bt),
+        torch.from_numpy(lengths), soft_cap=soft_cap)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
+                                   rtol=RTOL)
+    assert (got[1][0] == -1e30).all() and (got[2][0] == 0).all()
