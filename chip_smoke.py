@@ -125,14 +125,43 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    profiled by kernel and one by op): finite logits, a falling loss, K12
    128 a step from 0; then
    K13's path, ``paged_decode_attention_tp`` without a mesh over 32
-   layers (K13 32 times from 0).
+   layers (K13 32 times from 0);
+11. speculative decoding and multi-tenant LoRA (no kernel of their own):
+   K4 (bf16 and int8 pools), K5, K6 and K8 (bf16 and int8 pools) at 8B
+   shapes on verify rows of 2-5 tokens starting 1-4 tokens before a page
+   boundary beside decode rows, then on the rows that overwrite the
+   rejected tails (K6's pages requantised whole), each against its plain
+   version (after phase 3's kernels); tiny f32 cuda-vs-cpu parity (after
+   phase 8's): spec on with self-draft and a wrong one-layer draft on
+   f32 and int8 pools (equal to spec off on f32 pools), a batch mixing
+   three adapters and the base model on f32 and int8 adapter pages, with
+   and without spec (its null row equal to the adapter-off stream); then
+   LLAMA3_8B (after phase 7) at bench.py's ``_probe_spec_ablation``
+   traffic (24 short_chat prompts, 32 new tokens, 16 slots), spec off,
+   self-draft and a random LLAMA3_1B-shaped draft: decode tokens/s, the
+   accept ratio, accepted tokens per step, cooldowns (at least one with
+   the 1B draft), K4 = 32 x target steps + draft layers x draft steps,
+   K5 = target + draft steps, peak memory, and each stream's common
+   prefix with spec off (a first divergence must rank in the top 2 of a
+   dense forward there), then a step of 16 decode rows and one of 16
+   verify rows of 5 tokens timed alone; and at ``_measure_serving_adapters``' traffic
+   (6 Zipf(1.1) adapters, a pool of 4, 24 requests of 96 tokens at 8/s,
+   16 new, rank 4), single-model then multiplexed: tokens/s, their
+   ratio, TTFT p50/p95 and the pool's hits, misses and evictions; null
+   rows beside adapter rows equal the adapter-off engine's, and the first
+   token of each of three adapters lies within 1.5 logit std of the top
+   of a dense forward over the merged weights W + scale A B and ranks
+   above 100 under the base weights (ranks, gaps and spreads printed);
+   one adapter load and one step of the leg's row mix, base vs LoRA,
+   timed alone.
 
 The last three lines of standard output are the kernel table (K1, K2,
 K9f, K10, K11, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8
 int8, K12, K13) as one JSON object, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Details go to ``--out`` (with
-``launch_floor_ms``, K2's and K3's 48-slot runs under ``slots48`` and the
-page-walk phases under ``kernels.walk``).
+``launch_floor_ms``, K2's and K3's 48-slot runs under ``slots48``, the
+page-walk phases under ``kernels.walk`` and the verify-row phases under
+``kernels.verify_rows``).
 """
 
 from __future__ import annotations
@@ -675,33 +704,41 @@ RAGGED_T = 8 + 256
 
 
 def ragged_inputs(torch, L=32, H=32, KVH=8, D=128, page=64, maxp=32,
-                  seed=7):
-    """Pools, block tables and a flat buffer at LLAMA3_8B shapes for
-    RAGGED_ROWS (row r owns slot r and shuffled pages)."""
+                  seed=7, rows_spec=None, T=RAGGED_T):
+    """Pools, block tables and a flat buffer of T tokens at LLAMA3_8B
+    shapes for ``rows_spec`` [(start, len)] (default RAGGED_ROWS; row r
+    owns slot r and shuffled pages)."""
+    spec = rows_spec or RAGGED_ROWS
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    R = len(RAGGED_ROWS)
+    R = len(spec)
     P = R * maxp + 1
-    T = RAGGED_T
     k = torch.randn((L, KVH, P, page, D), generator=g, device=dev,
                     dtype=torch.bfloat16)
     v = torch.randn_like(k)
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(seed))
     bt = torch.full((R, maxp), P - 1, dtype=torch.int32)
-    offs, at = [], 0
-    for r, (start, n) in enumerate(RAGGED_ROWS):
+    for r, (start, n) in enumerate(spec):
         live = -(-(start + n) // page)
         bt[r, :live] = perm[r * maxp: r * maxp + live].to(torch.int32)
-        offs.append(at)
-        at += n
-    rows = [torch.tensor(a, dtype=torch.int32, device=dev) for a in (
-        list(range(R)), [s for s, _ in RAGGED_ROWS],
-        [n for _, n in RAGGED_ROWS], offs)]
+    rows = row_tensors(torch, spec)
     q = torch.randn((T, H, D), generator=g, device=dev, dtype=torch.bfloat16)
     kn = torch.randn((T, KVH, D), generator=g, device=dev,
                      dtype=torch.bfloat16)
     vn = torch.randn_like(kn)
     return k, v, q, kn, vn, rows, bt.to(dev)
+
+
+def row_tensors(torch, spec):
+    """(slot, start, len, off) int32 row tensors on the card for ``spec``
+    [(start, len)], row r on slot r, packed in order."""
+    offs, at = [], 0
+    for _s, n in spec:
+        offs.append(at)
+        at += n
+    return [torch.tensor(a, dtype=torch.int32, device="cuda") for a in (
+        list(range(len(spec))), [s for s, _ in spec], [n for _, n in spec],
+        offs)]
 
 
 def k4_work(rows, H, KVH, D, page, int8, bt_elems):
@@ -3592,6 +3629,650 @@ def mamba_27b_phase(torch, tm, train, kernels):
     return out
 
 
+# --------------------------------------------------------------------------
+# speculative decoding and multi-tenant LoRA (no kernel of their own: their
+# verify rows and adapter rows ride K4, K5, K6 and K8)
+# --------------------------------------------------------------------------
+
+# Verify rows of 2-5 tokens whose start lies 1-4 tokens before a page
+# boundary (page 64) beside four decode rows; then the rows that overwrite
+# the rejected tails (each verify row restarts 1 + j tokens on, j drafts
+# accepted; the fourth restarts on its page boundary, a fresh page).
+VERIFY_ROWS = [(62, 2), (125, 3), (188, 5), (255, 4), (300, 1), (700, 1),
+               (1100, 1), (1500, 1)]
+REWRITE_ROWS = [(63, 2), (126, 3), (190, 5), (256, 4), (301, 1), (701, 1),
+                (1101, 1), (1501, 1)]
+VERIFY_T = 24
+
+
+def verify_rows_phase(torch, llama, quant, trpa, report):
+    """K4 (bf16 and int8 pools), K5, K6 and K8 (bf16 and int8 pools) at
+    LLAMA3_8B shapes on VERIFY_ROWS, then on REWRITE_ROWS over the state
+    the first call left, each against its plain version; K6's second call
+    feeds rows 8x larger, so every page it touches is requantised whole
+    (its "pages rewritten" case).  Timed beside the plain versions."""
+    out = {}
+    L, KVH, D = 32, 8, 128
+    k, v, q, kn, vn, rows, bt = ragged_inputs(
+        torch, seed=81, rows_spec=VERIFY_ROWS, T=VERIFY_T)
+    rewrite = row_tensors(torch, REWRITE_ROWS)
+    n_tok = sum(n for _, n in VERIFY_ROWS)
+    g = torch.Generator(device="cuda").manual_seed(82)
+    ki, vi, ks, vs = int8_pools(torch, g, tuple(k.shape))
+    for tag, pools, scales in (("K4", (k, v), {}),
+                               ("K4 int8", (ki, vi),
+                                {"k_scales": ks, "v_scales": vs})):
+        err = 0.0
+        for rs in (rows, rewrite):
+            got = trpa.ragged_paged_attention(q, kn, vn, *pools, 3, *rs, bt,
+                                              **scales)
+            want = trpa.ragged_paged_attention_plain(q, kn, vn, *pools, 3,
+                                                     *rs, bt, **scales)
+            err = max(err, (got - want).abs().max().item())
+            if got[n_tok:].any():
+                raise AssertionError(f"{tag} verify rows: tokens no row "
+                                     "covers must be zero")
+        if err > 1e-3:
+            raise AssertionError(f"{tag} verify rows disagree with the plain "
+                                 f"version: {err} (tolerance 1e-3)")
+        ms = time_ms(torch, lambda i: trpa.ragged_paged_attention(
+            q, kn, vn, *pools, i % L, *rows, bt, **scales))
+        plain_ms = time_ms(torch, lambda i: trpa.ragged_paged_attention_plain(
+            q, kn, vn, *pools, i % L, *rows, bt, **scales), n=4, blocks=3)
+        out[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    T = VERIFY_T
+    k_new = torch.randn((L, T, KVH, D), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+    v_new = torch.randn_like(k_new)
+    got, want = (k.clone(), v.clone()), (k.clone(), v.clone())
+    for rs in (rows, rewrite):
+        trpa.ragged_paged_append(*got, k_new, v_new, *rs, bt)
+        trpa.ragged_paged_append_plain(*want, k_new, v_new, *rs, bt)
+        if not all(torch_equal(a[:, :, :-1], b[:, :, :-1])
+                   for a, b in zip(got, want)):
+            raise AssertionError("K5 verify rows disagree with the plain "
+                                 "version")
+    del got, want
+    out["K5"] = {"max_abs_err": 0.0,
+                 "ms": time_ms(torch, lambda i: trpa.ragged_paged_append(
+                     k, v, k_new, v_new, *rows, bt)),
+                 "plain_ms": time_ms(torch, lambda i:
+                                     trpa.ragged_paged_append_plain(
+                                         k, v, k_new, v_new, *rows, bt))}
+    got = [t.clone() for t in (ki, vi, ks, vs)]
+    want = [t.clone() for t in (ki, vi, ks, vs)]
+    P = ki.shape[2]
+    for tag, rs, mag in (("verify rows", rows, 1.0),
+                         ("rewritten tails", rewrite, 8.0)):
+        kx = (k_new.float() * mag).to(torch.bfloat16)
+        before = got[2].clone()
+        trpa.ragged_paged_append_quantized(*got, kx, kx, *rs, bt)
+        trpa.ragged_paged_append_quantized_plain(*want, kx, kx, *rs, bt)
+        torch.cuda.synchronize()
+        compare_quantised(f"K6 ({tag})", got, want, P - 1)
+    pages = {int(bt[r, p // 64]) for r, (s_, n) in enumerate(REWRITE_ROWS)
+             for p in range(s_, s_ + n)}
+    if not all(bool((got[2][:, p] > before[:, p]).all()) for p in pages):
+        raise AssertionError("K6: a rewritten page's scale did not grow")
+    del got, want
+    feed = iter(growing(torch, k_new, 40))
+    out["K6"] = {"max_abs_err": 0.0,
+                 "ms": time_ms(torch, lambda i:
+                               trpa.ragged_paged_append_quantized(
+                                   ki, vi, ks, vs, k_new, v_new, *rows, bt)),
+                 "rewrite_ms": time_ms(torch, lambda i: (
+                     lambda x: trpa.ragged_paged_append_quantized(
+                         ki, vi, ks, vs, x, x, *rewrite, bt))(next(feed)),
+                     n=5, blocks=3),
+                 "plain_ms": time_ms(torch, lambda i:
+                                     trpa.ragged_paged_append_quantized_plain(
+                                         ki, vi, ks, vs, k_new, v_new, *rows,
+                                         bt), n=4, blocks=3)}
+    del k, v, ki, vi
+    torch.cuda.empty_cache()
+    cfg = llama.LLAMA3_8B
+    layer, _w = fused_layer_8b(torch, llama, quant, 83)
+    k, v, _q, _kn, _vn, rows, bt = ragged_inputs(
+        torch, L=1, seed=84, rows_spec=VERIFY_ROWS, T=VERIFY_T)
+    ki, vi, ks, vs = int8_pools(torch, g, tuple(k.shape))
+    x = torch.randn((T, cfg.dim), generator=g, device="cuda").to(
+        torch.bfloat16)
+    for tag, pools, scales in (("K8", (k, v), {}),
+                               ("K8 int8", (ki, vi),
+                                {"k_scales": ks, "v_scales": vs})):
+        kw = dict(eps=cfg.norm_eps, n_heads=cfg.n_heads,
+                  n_kv_heads=cfg.n_kv_heads, **scales)
+        err = 0.0
+        for spec in (VERIFY_ROWS, REWRITE_ROWS):
+            rs = row_tensors(torch, spec)
+            pos = torch.zeros(T, dtype=torch.int32)
+            at = 0
+            for s_, n in spec:
+                pos[at:at + n] = torch.arange(s_, s_ + n, dtype=torch.int32)
+                at += n
+            sin, cos = llama.rope_table(cfg, pos.cuda()[None])
+            args = (x, layer, *pools, 0, *rs, bt, sin[0], cos[0])
+            got = trpa.fused_ragged_layer(*args, **kw)
+            want = trpa.fused_ragged_layer_reference(*args, **kw)
+            err = max(err, fused_check(f"{tag} verify rows",
+                                       [t[:n_tok] for t in got],
+                                       [t[:n_tok] for t in want], FUSED_TOL))
+        out[tag] = {"max_abs_err": err,
+                    "ms": time_ms(torch, lambda i: trpa.fused_ragged_layer(
+                        *args, **kw), n=5, blocks=3),
+                    "plain_ms": time_ms(
+                        torch, lambda i: trpa.fused_ragged_layer_reference(
+                            *args, **kw), n=2, blocks=3)}
+    report["verify_rows"] = {"rows": VERIFY_ROWS, "rewrite_rows": REWRITE_ROWS,
+                             "T": T, **out}
+    for tag, r in out.items():
+        log(f"{tag} on verify rows {VERIFY_ROWS} then rewrites "
+            f"{REWRITE_ROWS}: err {r['max_abs_err']:.3e}  kernel "
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
+            + (f"  rewritten pages {r['rewrite_ms']:.4f} ms"
+               if "rewrite_ms" in r else ""))
+
+
+def _tiny_lora(torch, cfg, lora_mod, seed):
+    """A LoRA loader for the tiny model: factors drawn on the CPU from a
+    generator seeded with ``seed`` and the id, so both devices load the
+    same adapters."""
+    import zlib
+
+    lora = lora_mod.LoRAConfig(rank=4, alpha=8.0)
+
+    def load(adapter_id):
+        g = torch.Generator().manual_seed(seed + zlib.crc32(
+            adapter_id.encode()))
+        return lora_mod.init_adapter_params(g, cfg, lora)
+
+    return lora, load
+
+
+def spec_lora_parity_phase(torch, llama, eng_mod, kernels):
+    """Tiny f32 Llama, the engine on the card against the engine on the
+    CPU, identical greedy streams: spec on with self-draft and with a
+    wrong draft (one layer, other weights) on f32 and on int8 pools (on
+    f32 pools spec on must also equal spec off); then a batch mixing
+    three adapters and the base model, on f32 and on int8 adapter pages,
+    with and without spec."""
+    import dataclasses
+
+    import numpy as np
+
+    from ray_tpu_torch.ops import segmented_lora as lora_mod
+
+    base_cfg = dataclasses.replace(llama.LLAMA_TINY, max_seq_len=512,
+                                   dtype=torch.float32)
+    draft_cfg = dataclasses.replace(base_cfg, n_layers=1)
+    params = llama.init_params(torch.Generator().manual_seed(5), base_cfg,
+                               device="cpu", dtype=torch.float32)
+    wrong = llama.init_params(torch.Generator().manual_seed(6), draft_cfg,
+                              device="cpu", dtype=torch.float32)
+    ecfg = dict(max_slots=4, max_seq_len=512, page_size=64,
+                max_new_tokens_default=24, ragged_batching=True,
+                prefill_chunk=64)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, base_cfg.vocab_size, n).tolist()
+               for n in (9, 70, 150, 33)]
+    lora, load = _tiny_lora(torch, base_cfg, lora_mod, 7)
+    lora_cfg = dataclasses.replace(base_cfg, lora=lora)
+    tenants = ["tenant-a", "", "tenant-b", "tenant-c"]
+    runs = []
+    for pools in ("f32", "int8"):
+        cfg = dataclasses.replace(base_cfg, kv_int8=pools == "int8")
+        runs.append((f"spec off, {pools} pools", cfg, {}, None, None))
+        runs.append((f"spec self-draft, {pools} pools", cfg,
+                     {"spec_decode": True}, None, None))
+        runs.append((f"spec wrong draft, {pools} pools", cfg,
+                     {"spec_decode": True, "spec_cold_accept": 0.0}, wrong,
+                     draft_cfg))
+    for pages in ("f32", "int8"):
+        for spec in (False, True):
+            runs.append((f"LoRA mix, {pages} adapter pages"
+                         + (", spec" if spec else ""), lora_cfg,
+                         {"adapter_int8": pages == "int8",
+                          "adapter_page_elems": 4096,
+                          "spec_decode": spec}, None, None))
+    out = {}
+    for name, cfg, kw, draft, dcfg in runs:
+        streams, counts, stats = {}, {}, {}
+        for device in ("cuda", "cpu"):
+            reset_counts(kernels)
+            eng = eng_mod.LLMEngine(
+                _to(params, device),
+                eng_mod.llama_paged_adapter(cfg, load if cfg.lora else None),
+                eng_mod.EngineConfig(**ecfg, **kw), device=device,
+                draft_params=None if draft is None else _to(draft, device),
+                draft_adapter=(None if dcfg is None
+                               else eng_mod.llama_paged_adapter(dcfg)))
+            try:
+                ids = tenants if cfg.lora else [""] * len(prompts)
+                streams[device] = [s.result(timeout_s=300) for s in [
+                    eng.submit(p, adapter_id=a) for p, a in zip(prompts, ids)]]
+                stats[device] = eng.stats()
+            finally:
+                eng.shutdown()
+            counts[device] = read_counts(kernels)
+        must = (K4 + INT8, K6) if cfg.kv_int8 else (K4, "ragged_paged_append")
+        if any(counts["cuda"][k] == 0 for k in must) \
+                or any(counts["cpu"].values()):
+            raise AssertionError(f"spec/LoRA parity ({name}): kernel "
+                                 f"launches {counts}")
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"spec/LoRA parity ({name}): greedy streams "
+                                 f"differ: cuda {streams['cuda']} vs cpu "
+                                 f"{streams['cpu']}")
+        sp = stats["cuda"].get("spec")
+        if kw.get("spec_decode") and not sp["rounds"]:
+            raise AssertionError(f"spec/LoRA parity ({name}): no round")
+        out[name] = {"streams": streams["cuda"], "spec": sp,
+                     "adapters": stats["cuda"].get("adapters")}
+        log(f"spec/LoRA parity ({name}): LLAMA_TINY f32, prompts "
+            f"{[len(p) for p in prompts]}: cuda == cpu greedy streams "
+            f"({sum(len(s) for s in streams['cuda'])} tokens"
+            + (f"; {sp['rounds']} rounds, accept ratio "
+               f"{sp['accept_ratio']}" if sp else "") + ")")
+    for name in ("spec self-draft, f32 pools", "spec wrong draft, f32 pools"):
+        if out[name]["streams"] != out["spec off, f32 pools"]["streams"]:
+            raise AssertionError(f"{name}: spec on != spec off")
+    for pages in ("f32", "int8"):
+        mix = out[f"LoRA mix, {pages} adapter pages"]["streams"]
+        if out[f"LoRA mix, {pages} adapter pages, spec"]["streams"] != mix:
+            raise AssertionError(f"LoRA mix, {pages} pages: spec on != off")
+        if mix[1] != out["spec off, f32 pools"]["streams"][1]:
+            raise AssertionError(f"LoRA mix, {pages} pages: the null row "
+                                 "differs from the adapter-off stream")
+    return {k: {kk: vv for kk, vv in v.items() if kk != "streams"}
+            for k, v in out.items()}
+
+
+SPEC_SLOTS, SPEC_GEN, SPEC_N = 16, 32, 24
+
+
+def _divergence(torch, llama, params, cfg, prompts, base, other):
+    """Per stream: the common prefix of ``other`` with ``base``, and at
+    the first divergence the rank of ``other``'s token among a dense
+    forward's logits at the end of prompt + common prefix (0 = argmax)."""
+    prefix, ranks = [], []
+    for p, a, b in zip(prompts, base, other):
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        prefix.append(n)
+        if n < len(b):
+            ranks.append(first_token_rank(torch, llama, params, cfg,
+                                          p + a[:n], b[n]))
+    return prefix, ranks
+
+
+def rows_step_breakdown(torch, llama, params, cfg, rows_spec, T, page,
+                        maxp, step_fn=None, **kw):
+    """One 8B ragged step over ``rows_spec`` [(start, len)] (row r on
+    slot r, a cache of len(rows_spec) x maxp pages), timed as ``time_step``
+    says: ``ragged_step_paged`` with ``kw`` (``logit_idx``), or
+    ``step_fn(params, tokens, tok_pos, *rows, block_tables, cache)``."""
+    slots = len(rows_spec)
+    cache = llama.init_paged_cache(cfg, slots * maxp, page, device="cuda")
+    bt = torch.arange(slots * maxp, dtype=torch.int32,
+                      device="cuda").reshape(slots, maxp)
+    rows = row_tensors(torch, rows_spec)
+    pos = torch.zeros(T, dtype=torch.int32)
+    at = 0
+    for s_, n in rows_spec:
+        pos[at:at + n] = torch.arange(s_, s_ + n, dtype=torch.int32)
+        at += n
+    pos = pos.cuda()
+    tokens = torch.randint(0, cfg.vocab_size, (T,), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(14)).cuda()
+    if step_fn is None:
+        step = lambda: llama.ragged_step_paged(  # noqa: E731
+            params, tokens, pos, *rows, bt, cfg, cache, **kw)
+    else:
+        step = lambda: step_fn(params, tokens, pos, *rows, bt,  # noqa: E731
+                               cache)
+    return {"rows": rows_spec, "T": T, **time_step(torch, step)}
+
+
+def spec_serving_phase(torch, llama, eng_mod, kernels, card, params):
+    """LLAMA3_8B in bf16 at ``_probe_spec_ablation``'s traffic (bench.py):
+    24 prompts of the short_chat mix (32/64/128 tokens, rng 5), 32 new
+    tokens, 16 slots, page 64, decode_chunk 8, prefill_chunk 256, ragged;
+    spec off, spec on with self-draft, spec on with a LLAMA3_1B-shaped
+    random draft (same vocabulary).  Each run: counters at 0 after a
+    warm-up request, K4 = 32 x target steps + draft layers x draft steps
+    and K5 = target + draft steps."""
+    import numpy as np
+
+    cfg = llama.LLAMA3_8B
+    rng = np.random.default_rng(5)
+    mix_lens, weights = (32, 64, 128), np.asarray((0.5, 0.3, 0.2))
+    lens = rng.choice(np.asarray(mix_lens), SPEC_N, p=weights / weights.sum())
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+    max_seq = max(512, int(64 * np.ceil((lens.max() + SPEC_GEN + 1) / 64)))
+    draft_cfg = llama.LLAMA3_1B
+    out, streams = {}, {}
+    for label in ("off", "self", "1b"):
+        torch.cuda.reset_peak_memory_stats()
+        draft = None
+        if label == "1b":
+            draft = llama.init_params(
+                torch.Generator(device="cuda").manual_seed(1), draft_cfg,
+                device="cuda", dtype=torch.bfloat16)
+        eng = eng_mod.LLMEngine(
+            params, eng_mod.llama_paged_adapter(cfg),
+            eng_mod.EngineConfig(max_slots=SPEC_SLOTS, max_seq_len=max_seq,
+                                 decode_chunk=8,
+                                 max_new_tokens_default=SPEC_GEN,
+                                 page_size=64, ragged_batching=True,
+                                 prefill_chunk=256,
+                                 spec_decode=label != "off"),
+            device="cuda", draft_params=draft,
+            draft_adapter=(eng_mod.llama_paged_adapter(draft_cfg)
+                           if draft is not None else None))
+        try:
+            eng.submit(prompts[0], max_new_tokens=SPEC_GEN).result(
+                timeout_s=600)
+            st0 = eng.stats()
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            ss = [eng.submit(p, max_new_tokens=SPEC_GEN) for p in prompts]
+            streams[label] = [s.result(timeout_s=600) for s in ss]
+            dt = time.perf_counter() - t0
+            launches = read_counts(kernels)
+            st1 = eng.stats()
+        finally:
+            eng.shutdown()
+        for o in streams[label]:
+            if len(o) != SPEC_GEN or not all(0 <= t < cfg.vocab_size
+                                             for t in o):
+                raise AssertionError(f"8B spec ({label}): stream malformed")
+        steps = st1["steps"] - st0["steps"]
+        sp0, sp = st0.get("spec") or {}, st1.get("spec") or {}
+        dsteps = sp.get("draft_steps", 0) - sp0.get("draft_steps", 0)
+        dlayers = (draft_cfg if label == "1b" else cfg).n_layers
+        k4, k5 = launches[K4], launches["ragged_paged_append"]
+        if k4 != cfg.n_layers * steps + dlayers * dsteps \
+                or k5 != steps + dsteps:
+            raise AssertionError(
+                f"8B spec ({label}): K4 {k4} / K5 {k5} launches, want "
+                f"{cfg.n_layers} x {steps} + {dlayers} x {dsteps} and "
+                f"{steps} + {dsteps}")
+        res = {"decode_tokens_per_s": SPEC_N * SPEC_GEN / dt, "wall_s": dt,
+               "target_steps": steps, "draft_steps": dsteps,
+               "launches": {K4: k4, "ragged_paged_append": k5},
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "card": card}
+        if label != "off":
+            rounds = sp["rounds"] - sp0["rounds"]
+            drafted = sp["drafted_tokens"] - sp0["drafted_tokens"]
+            accepted = sp["accepted_tokens"] - sp0["accepted_tokens"]
+            res.update({
+                "rounds": rounds, "drafted_tokens": drafted,
+                "accepted_tokens": accepted,
+                "accept_ratio": accepted / drafted if drafted else None,
+                "accepted_tokens_per_step": ((accepted + rounds) / rounds
+                                             if rounds else None),
+                "cooldowns": sp["cooldowns"] - sp0["cooldowns"]})
+            if not rounds:
+                raise AssertionError(f"8B spec ({label}): no verify round")
+            prefix, ranks = _divergence(torch, llama, params, cfg, prompts,
+                                        streams["off"], streams[label])
+            res["common_prefix"] = prefix
+            res["first_divergence_ranks"] = ranks
+            if any(r > 1 for r in ranks):
+                raise AssertionError(
+                    f"8B spec ({label}): a first divergence from spec off "
+                    f"ranks {ranks} (want top 2 of the dense logits)")
+        del draft
+        out[label] = res
+        log(f"8B spec {label} ({card}): decode {res['decode_tokens_per_s']:.1f}"
+            f" tok/s, {steps} target + {dsteps} draft steps, K4 {k4}, K5 "
+            f"{k5}, peak {res['peak_memory_gb']:.2f} GB"
+            + (f"; {res['rounds']} rounds, accept ratio "
+               f"{res['accept_ratio']}, accepted/step "
+               f"{res['accepted_tokens_per_step']}, cooldowns "
+               f"{res['cooldowns']}, common prefix {sum(res['common_prefix'])}"
+               f"/{SPEC_N * SPEC_GEN} tokens, divergence ranks "
+               f"{res['first_divergence_ranks']}" if label != "off" else ""))
+        torch.cuda.empty_cache()
+    if out["1b"]["cooldowns"] < 1:
+        raise AssertionError("8B spec (1B draft): the cooldown never engaged")
+    out["speedup_self"] = (out["self"]["decode_tokens_per_s"]
+                           / out["off"]["decode_tokens_per_s"])
+    out["speedup_1b"] = (out["1b"]["decode_tokens_per_s"]
+                         / out["off"]["decode_tokens_per_s"])
+    # One step of 16 decode rows against one of 16 verify rows of 5 tokens
+    # (with the verify gather), alone, at this phase's budget of 272.
+    T = SPEC_SLOTS + 256
+    decode = rows_step_breakdown(
+        torch, llama, params, cfg, [(100 + 7 * r, 1) for r in
+                                    range(SPEC_SLOTS)], T, 64, 8)
+    verify = rows_step_breakdown(
+        torch, llama, params, cfg, [(100 + 7 * r, 5) for r in
+                                    range(SPEC_SLOTS)], T, 64, 8,
+        logit_idx=torch.arange(5 * SPEC_SLOTS, dtype=torch.int32,
+                               device="cuda"))
+    out["decode_step"], out["verify_step"] = decode, verify
+    log(f"8B spec: a step of {SPEC_SLOTS} decode rows alone: host "
+        f"{decode['host_ms']:.2f} ms, device {decode['device_ms']} ms; of "
+        f"{SPEC_SLOTS} verify rows of 5 tokens: host {verify['host_ms']:.2f} "
+        f"ms, device {verify['device_ms']} ms ({card})")
+    return out
+
+
+def _merged_params(torch, params, cfg, lora, adapter):
+    """``params`` with W + scale * A @ B merged into every targeted weight,
+    one layer at a time (an f32 sum rounded to the weights' dtype): the
+    dense model one adapter stands for."""
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qkv = {"wq": slice(0, H * hd), "wk": slice(H * hd, (H + KVH) * hd),
+           "wv": slice((H + KVH) * hd, None)}
+
+    def merge(w, target, cols=slice(None)):
+        a = adapter[target]["a"].to("cuda")
+        b = adapter[target]["b"].to("cuda")
+        out = torch.empty_like(w)
+        for layer in range(cfg.n_layers):
+            dw = (a[layer] @ b[layer])[:, cols] * lora.scale
+            out[layer] = (w[layer].float() + dw.reshape(w[layer].shape)
+                          ).to(w.dtype)
+        return out
+
+    attn, mlp = params["layers"]["attn"], params["layers"]["mlp"]
+    merged_attn = {k: merge(attn[k], "qkv", c) for k, c in qkv.items()}
+    merged_attn["wo"] = merge(attn["wo"], "o")
+    merged_mlp = {"w_gate": merge(mlp["w_gate"], "gate"),
+                  "w_up": merge(mlp["w_up"], "up"),
+                  "w_down": merge(mlp["w_down"], "down")}
+    return {**params, "layers": {**params["layers"], "attn": merged_attn,
+                                 "mlp": merged_mlp}}
+
+
+def lora_serving_phase(torch, llama, eng_mod, kernels, card, params):
+    """LLAMA3_8B in bf16 at ``_measure_serving_adapters``' defaults
+    (bench.py): 6 adapters drawn Zipf(1.1), a pool of 4, 24 requests of
+    96 tokens at 8 requests/s, 16 new tokens, 8 slots, page 32,
+    prefill_chunk 64, rank 4; single-model, then multiplexed.  Then null
+    rows beside adapter rows against the adapter-off engine, and three
+    adapters' first tokens against a dense forward of the merged
+    weights."""
+    import dataclasses
+
+    import numpy as np
+
+    from ray_tpu_torch.ops import segmented_lora as lora_mod
+
+    cfg = llama.LLAMA3_8B
+    n_adapters, pool_adapters, n_req, gen, plen = 6, 4, 24, 16, 96
+    rng = np.random.default_rng(11)
+    pz = np.arange(1, n_adapters + 1, dtype=np.float64) ** -1.1
+    draws = rng.choice(n_adapters, n_req, p=pz / pz.sum())
+    prompts = [rng.integers(0, cfg.vocab_size, plen).tolist()
+               for _ in range(n_req)]
+    max_seq = max(128, int(64 * np.ceil((plen + gen + 1) / 64)))
+    lora = lora_mod.LoRAConfig(rank=4, alpha=8.0)
+    lcfg = dataclasses.replace(cfg, lora=lora)
+    pp = -(-lora_mod.adapter_elems(cfg, lora) // 8192)
+    loader = lora_mod.default_adapter_loader(cfg, lora)
+
+    def engine(model_cfg, pages):
+        return eng_mod.LLMEngine(
+            params, eng_mod.llama_paged_adapter(model_cfg),
+            eng_mod.EngineConfig(max_slots=8, max_seq_len=max_seq,
+                                 page_size=32, decode_chunk=4,
+                                 ragged_batching=True, prefill_chunk=64,
+                                 max_new_tokens_default=gen,
+                                 adapter_pool_pages=pages),
+            device="cuda")
+
+    legs = {}
+    for label, model_cfg, ids in (
+            ("single", cfg, None),
+            ("multiplexed", lcfg, [f"tenant-{d}" for d in draws])):
+        eng = engine(model_cfg, pool_adapters * pp if ids else 0)
+        try:
+            eng.submit(prompts[0][: plen // 2], max_new_tokens=gen,
+                       adapter_id=ids[0] if ids else "").result(timeout_s=600)
+            reset_counts(kernels)
+            steps0 = eng.stats()["steps"]
+            t0 = time.perf_counter()
+            ss = []
+            for i, p in enumerate(prompts):
+                delay = t0 + i / 8.0 - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                ss.append(eng.submit(p, max_new_tokens=gen,
+                                     adapter_id=ids[i] if ids else ""))
+            outs = [s.result(timeout_s=600) for s in ss]
+            dt = time.perf_counter() - t0
+            launches = read_counts(kernels)
+            st = eng.stats()
+        finally:
+            eng.shutdown()
+        steps = st["steps"] - steps0
+        if launches[K4] != cfg.n_layers * steps \
+                or launches["ragged_paged_append"] != steps:
+            raise AssertionError(f"8B LoRA ({label}): launches {launches} "
+                                 f"over {steps} steps")
+        ttfts = sorted(s._req.ttft_s for s in ss)
+        legs[label] = {
+            "tokens_per_s": sum(len(o) for o in outs) / dt,
+            "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3,
+            "ttft_p95_ms": ttfts[min(len(ttfts) - 1,
+                                     int(0.95 * len(ttfts)))] * 1e3,
+            "steps": steps, "launches": {K4: launches[K4]}}
+        if ids:
+            pool = st["adapters"]
+            legs[label]["pool"] = {k: pool[k] for k in (
+                "pool_pages", "resident", "hits", "misses", "evictions")}
+            legs[label]["first_tokens"] = [o[0] for o in outs]
+        log(f"8B LoRA {label} ({card}): {legs[label]['tokens_per_s']:.1f} "
+            f"tok/s, TTFT p50 {legs[label]['ttft_p50_ms']:.1f} ms p95 "
+            f"{legs[label]['ttft_p95_ms']:.1f} ms, {steps} steps"
+            + (f", pool {legs[label]['pool']}" if ids else ""))
+    legs["ratio"] = (legs["multiplexed"]["tokens_per_s"]
+                     / legs["single"]["tokens_per_s"])
+    # Where the multiplexed leg's time goes: one adapter load (a miss:
+    # loader, flatten, hash, upload) and one step of the leg's row mix
+    # (seven decode rows, a 64-token chunk; T = 72) alone, base vs LoRA.
+    from ray_tpu_torch.serve.adapter_pool import AdapterPool
+
+    pool = AdapterPool(cfg, lora, num_pages=2 * pp, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pool.acquire("tenant-0")
+    torch.cuda.synchronize()
+    legs["adapter_load_s"] = time.perf_counter() - t0
+    pool.acquire("tenant-1")
+    mix = [(40 + 3 * r, 1) for r in range(7)] + [(0, 64)]
+    tok_adapter = torch.tensor([1, 2, 0, 1, 2, 0, 1] + [2] * 64 + [0],
+                               dtype=torch.int32, device="cuda")
+    page_table = torch.from_numpy(pool.page_table(
+        ["tenant-0", "tenant-1"])).cuda()
+    lora_step = eng_mod.llama_paged_adapter(lcfg).ragged_step_lora
+    legs["base_step"] = rows_step_breakdown(torch, llama, params, cfg, mix,
+                                            72, 32, 4)
+    legs["lora_step"] = rows_step_breakdown(
+        torch, llama, params, lcfg, mix, 72, 32, 4,
+        step_fn=lambda *a: lora_step(*a, pool.device_pool, page_table,
+                                     tok_adapter))
+    del pool
+    log(f"8B LoRA: one adapter load {legs['adapter_load_s']:.3f} s; the "
+        f"leg's step alone, base: host {legs['base_step']['host_ms']:.2f} ms "
+        f"({legs['base_step']['aten_ops']} ATen ops), device "
+        f"{legs['base_step']['device_ms']} ms; LoRA (two adapters): host "
+        f"{legs['lora_step']['host_ms']:.2f} ms "
+        f"({legs['lora_step']['aten_ops']} ATen ops), device "
+        f"{legs['lora_step']['device_ms']} ms")
+    # Null rows beside adapter rows: four 16-token prompts (each one whole
+    # row: the budget of 72 holds them all), two on the base model.
+    short = [p[:16] for p in prompts[:4]]
+    ids = ["tenant-0", "", "tenant-1", ""]
+    mixed = {}
+    for label, model_cfg, aids in (("off", cfg, [""] * 4),
+                                   ("mixed", lcfg, ids)):
+        eng = engine(model_cfg, pool_adapters * pp if model_cfg.lora else 0)
+        try:
+            mixed[label] = [s.result(timeout_s=600) for s in [
+                eng.submit(p, max_new_tokens=gen, adapter_id=a)
+                for p, a in zip(short, aids)]]
+        finally:
+            eng.shutdown()
+    if mixed["mixed"][1] != mixed["off"][1] \
+            or mixed["mixed"][3] != mixed["off"][3]:
+        raise AssertionError("8B LoRA: null-adapter rows differ from the "
+                             "adapter-off engine")
+    legs["null_rows_equal"] = True
+    # The first request of each of the first three adapters: its first
+    # token against a dense forward over the merged weights.  This random
+    # 8B's logits are flat (std about 1, the top five within about half a
+    # std), and these adapters' deltas are twice the weights' size (alpha 8
+    # on rank 4), which sharpens attention and amplifies bf16 rounding
+    # (merged vs unmerged factors, chunked vs one row) into swaps among
+    # near-ties, so a rank bar would gate on noise.  The bar is the token's
+    # gap to the top logit: within 1.5 logit std, where a token the adapter
+    # did not shape lies about 4 std below; and its rank under the base
+    # weights above 100, which shows the adapter took effect.
+    checks = []
+    for aid in dict.fromkeys(f"tenant-{d}" for d in draws).keys():
+        if len(checks) == 3:
+            break
+        i = [f"tenant-{d}" for d in draws].index(aid)
+        tok = legs["multiplexed"]["first_tokens"][i]
+        merged = _merged_params(torch, params, cfg, lora, loader(aid))
+        with torch.no_grad():
+            last = llama.forward(merged, torch.tensor(
+                [prompts[i]], device="cuda"), cfg)[0, -1].float()
+        del merged
+        torch.cuda.empty_cache()
+        top = last.topk(5).values
+        checks.append({
+            "adapter": aid, "request": i, "token": tok,
+            "rank": int((last > last[tok]).sum()),
+            "gap_to_top": float(top[0] - last[tok]),
+            "top5_spread": float(top[0] - top[4]),
+            "logit_std": float(last.std()),
+            "base_rank": first_token_rank(torch, llama, params, cfg,
+                                          prompts[i], tok)})
+    if any(c["gap_to_top"] > 1.5 * c["logit_std"] or c["base_rank"] <= 100
+           for c in checks):
+        raise AssertionError(f"8B LoRA: an adapter's first token lies more "
+                             f"than 1.5 logit std under the merged dense "
+                             f"forward's top, or the adapter did not move "
+                             f"it: {checks}")
+    legs["merged_first_tokens"] = checks
+    legs["card"] = card
+    log(f"8B LoRA: multiplexed / single {legs['ratio']:.3f}; null rows equal "
+        f"the adapter-off engine; first tokens against the merged dense "
+        f"forward (rank, gap to the top logit, top-5 spread, logit std, rank "
+        f"under the base weights): "
+        + "; ".join(f"{c['adapter']} {c['rank']}, {c['gap_to_top']:.3f}, "
+                    f"{c['top5_spread']:.3f}, {c['logit_std']:.3f}, "
+                    f"{c['base_rank']}" for c in checks))
+    return legs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(
@@ -3678,10 +4359,13 @@ def main() -> int:
     kernel_phase_k12(torch, tssd, tm, report)
     kernel_phase_k13(torch, F, tpa, report)
     kernel_phase_walk(torch, tpa, kernels, report)
+    verify_rows_phase(torch, llama, quant, trpa, report)
+    torch.cuda.empty_cache()
     parity = parity_phase(torch, llama, eng_mod)
     ragged_parity = ragged_parity_phase(torch, llama, eng_mod, trpa)
     int8_parity = int8_parity_phase(torch, llama, eng_mod, kernels)
     fused_parity = fused_parity_phase(torch, llama, quant, eng_mod, kernels)
+    spec_lora_parity = spec_lora_parity_phase(torch, llama, eng_mod, kernels)
     params, init_s = init_8b(torch, llama)
     # Each path is driven with every launch counter at 0 just before it
     # and read just after: the bucketed path's K1, K2, K9f, the ragged
@@ -3695,6 +4379,12 @@ def main() -> int:
                                   params)
     int8_ragged, int8_bucketed = int8_serving_phase(
         torch, llama, eng_mod, kernels, card, params)
+    # Speculative decoding and LoRA at full width: the ragged path's K4 and
+    # K5 on verify rows, a draft model's own pool and depth, adapter rows.
+    spec_serving = spec_serving_phase(torch, llama, eng_mod, kernels, card,
+                                      params)
+    lora_serving = lora_serving_phase(torch, llama, eng_mod, kernels, card,
+                                      params)
     del params
     torch.cuda.empty_cache()
     fused_bucketed, fused_ragged, fused_short = fused_serving_phase(
@@ -3752,6 +4442,8 @@ def main() -> int:
                    "int8_ragged_serving": int8_ragged,
                    "int8_bucketed_serving": int8_bucketed,
                    "fused_parity": fused_parity,
+                   "spec_lora_parity": spec_lora_parity,
+                   "spec_serving": spec_serving, "lora_serving": lora_serving,
                    "fused_bucketed_serving": fused_bucketed,
                    "fused_ragged_serving": fused_ragged,
                    "fused_bf16_pool_runs": fused_short,

@@ -7,6 +7,11 @@ nesting, key names and layouts (``wq [L,d,H,hd]``, ``lm_head [d,V]``,
 JAX arrays into numpy (``jax.tree.map(np.asarray, params)``) outside
 this package: the bridge never imports jax.
 
+A LoRA adapter crosses through ``adapter_from_jax``: the factor tree
+(``{target: {"a", "b"}}``) or the flat vector of ``flatten_adapter``, as
+numpy, becomes the port's tensors, which the port's adapter pool loads
+as they are (one ``lora_loader`` can serve both packages).
+
 An optimizer state (``train.AdamW``'s ``{"count", "mu", "nu"}``) comes
 back to the host through ``opt_state_to_numpy``, so its moments can be
 held against optax's.
@@ -61,6 +66,18 @@ def params_to_numpy(tree: Any, bf16_dtype: Optional[Any] = None) -> Any:
             return t.float().numpy()
         return t.view(torch.int16).numpy().view(np.dtype(bf16_dtype))
     return t.numpy()
+
+
+def adapter_from_jax(adapter: Any, device: DeviceLike = None) -> Any:
+    """A JAX LoRA adapter as numpy (the factor tree ``{target: {"a": [L,
+    d_in, r], "b": [L, r, d_out]}}`` or the flat f32 vector of
+    ``segmented_lora.flatten_adapter``) → the same layout as f32 tensors
+    on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    if isinstance(adapter, dict):
+        return {k: adapter_from_jax(v, dev) for k, v in adapter.items()}
+    a = np.asarray(adapter, np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(dev)
 
 
 _CACHE_KEYS = ("k", "v", "k_scale", "v_scale")

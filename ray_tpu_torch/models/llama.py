@@ -37,8 +37,10 @@ package), the fused ``wqkv``/``w_gateup`` operands of
 ``quant.fuse_for_decode``, and an int8 head whose scale multiplies the
 logits.  With ``cfg.fused_decode`` the decode step runs each layer as one
 fused kernel, K7 (``decode_slots_paged_fused``), and the ragged step as
-K8; the prefills stay unfused, as in the JAX package.  Tensor and
-sequence parallelism and LoRA raise NotImplementedError.
+K8; the prefills stay unfused, as in the JAX package.  With
+``cfg.lora`` (an ``ops.segmented_lora.LoRAConfig``) ``ragged_step_paged``
+takes per-token adapter deltas (``lora=``) and then runs unfused.
+Tensor and sequence parallelism raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -109,6 +111,9 @@ class LlamaConfig:
     rope_scaling: Optional[Tuple[float, float, float, int]] = None
     kv_int8: bool = False
     fused_decode: bool = False
+    # Multi-tenant LoRA: an ops.segmented_lora.LoRAConfig enables the
+    # segmented adapter body of ragged_step_paged (serve/adapter_pool.py
+    # holds the factors); None = base model only.
     lora: Optional[Any] = None
 
     @property
@@ -135,8 +140,7 @@ LLAMA_TINY = LlamaConfig(vocab_size=256, dim=64, n_layers=2, n_heads=4,
 
 def _unported(cfg: LlamaConfig) -> None:
     for field, slice_name in (("tensor_parallel", "tensor parallelism"),
-                              ("sequence_parallel", "sequence parallelism"),
-                              ("lora", "LoRA multiplexing")):
+                              ("sequence_parallel", "sequence parallelism")):
         if getattr(cfg, field):
             raise NotImplementedError(
                 f"LlamaConfig.{field}: {slice_name} is not ported to "
@@ -785,6 +789,81 @@ def prefill_chunk_paged(params: Params, tokens: torch.Tensor,
     return logits.float(), cache
 
 
+def _ragged_lora_layer(x, layer, stk, tok_adapter, lora_scale,
+                       cfg: LlamaConfig, cache, i, sin, cos, row_slot,
+                       row_start, row_len, row_off, block_tables,
+                       max_row_tokens, scales):
+    """One layer of the segmented-LoRA ragged body: the base body's ops
+    and cast points with each targeted projection's per-token delta
+    added (qkv jointly, before RoPE).  A delta of the scratch page is
+    exactly 0.0 and x + 0.0 is exact, so null rows keep the base bytes.
+    Returns (x, k [T, KVH, hd], v)."""
+    from ray_tpu_torch.ops.segmented_lora import segmented_lora_delta
+
+    layer = _deq_layer(layer, cfg.dtype)
+    dt = cfg.dtype
+    T = x.shape[0]
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def delta(name, inp):
+        if name not in stk:
+            return None
+        return segmented_lora_delta(inp, stk[name]["a"], stk[name]["b"],
+                                    tok_adapter, lora_scale, dt)
+
+    normed = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
+    a = layer["attn"]
+    x1 = normed[None]
+    dqkv = delta("qkv", normed)                     # joint, before RoPE
+    if "wqkv" in a:
+        qkv = _proj(x1, a["wqkv"], dt)
+        if dqkv is not None:
+            qkv = qkv + dqkv[None]
+        q = qkv[..., :H * hd].reshape(1, T, H, hd)
+        k = qkv[..., H * hd:(H + KVH) * hd].reshape(1, T, KVH, hd)
+        # v is a column slice of qkv: the kernels take contiguous rows.
+        v = qkv[..., (H + KVH) * hd:].reshape(1, T, KVH, hd).contiguous()
+    else:
+        q = _proj(x1, a["wq"], dt)
+        k = _proj(x1, a["wk"], dt)
+        v = _proj(x1, a["wv"], dt)
+        if dqkv is not None:
+            dq, dk, dv = dqkv.split([H * hd, KVH * hd, KVH * hd], dim=-1)
+            q = q + dq.reshape(1, T, H, hd)
+            k = k + dk.reshape(1, T, KVH, hd)
+            v = v + dv.reshape(1, T, KVH, hd)
+    q, k1, v1 = apply_rope(q, sin, cos)[0], apply_rope(k, sin, cos)[0], v[0]
+    out = ragged_paged_attention(
+        q, k1, v1, cache["k"], cache["v"], i, row_slot, row_start, row_len,
+        row_off, block_tables, soft_cap=cfg.logits_soft_cap,
+        max_row_tokens=max_row_tokens, **scales)    # [T, H, hd] f32
+    attn_f = out.to(dt).reshape(T, -1)              # the base cast point
+    wo = a["wo"]
+    o = attn_f @ wo.to(dt).reshape(-1, wo.shape[-1])
+    do = delta("o", attn_f)
+    if do is not None:
+        o = o + do
+    h = x + o
+    xm = rms_norm(h, layer["ln_mlp"], cfg.norm_eps)
+    m = layer["mlp"]
+    if "w_gateup" in m:
+        gate, up = (xm @ m["w_gateup"].to(dt)).chunk(2, dim=-1)
+    else:
+        gate = xm @ m["w_gate"].to(dt)
+        up = xm @ m["w_up"].to(dt)
+    dg, du = delta("gate", xm), delta("up", xm)
+    if dg is not None:
+        gate = gate + dg
+    if du is not None:
+        up = up + du
+    act = F.silu(gate) * up
+    down = act @ m["w_down"].to(dt)
+    dd = delta("down", act)
+    if dd is not None:
+        down = down + dd
+    return h + down, k1, v1
+
+
 def ragged_step_paged(params: Params, tokens: torch.Tensor,
                       tok_pos: torch.Tensor, row_slot: torch.Tensor,
                       row_start: torch.Tensor, row_len: torch.Tensor,
@@ -810,13 +889,15 @@ def ragged_step_paged(params: Params, tokens: torch.Tensor,
     cache), from one gather + norm + head matmul, so the first R rows
     equal the call without it.  With ``cfg.fused_decode`` each layer
     runs as one fused kernel (K8, ``fused_ragged_layer``); the append
-    after the loop and ``logit_idx`` are the same.  LoRA is a later slice
-    and raises."""
+    after the loop and ``logit_idx`` are the same.
+
+    ``lora`` is an optional ``(stacks, tok_adapter, scale)`` triple
+    (``ops/segmented_lora``): per-token segmented adapter deltas are
+    added at every targeted projection, qkv before RoPE.  That body
+    keeps the base body's ops and cast points, so a token whose adapter
+    index gathers the pool's zero scratch page gets the base body's
+    bytes.  It always runs unfused, even under ``cfg.fused_decode``."""
     _unported(cfg)
-    if lora is not None:
-        raise NotImplementedError(
-            "ragged_step_paged(lora=...): LoRA multiplexing is not ported "
-            "to ray_tpu_torch yet (a later slice; see ROADMAP.md)")
     quantized = "k_scale" in cache
     scales = _scale_kwargs(cache)
     T = tokens.shape[0]
@@ -824,7 +905,19 @@ def ragged_step_paged(params: Params, tokens: torch.Tensor,
     sin, cos = rope_table(cfg, tok_pos[None])      # [1, T, hd // 2]
     x = params["tok_embed"][tokens.long()].to(dt)   # [T, d]
     k_news, v_news = [], []
-    for i, layer in enumerate(_layers(params["layers"], cfg.n_layers)):
+    layers = _layers(params["layers"], cfg.n_layers)
+    if lora is not None:
+        stacks, tok_adapter, lora_scale = lora
+        stks = _layers(stacks, cfg.n_layers)
+    for i, layer in enumerate(layers):
+        if lora is not None:
+            x, k1, v1 = _ragged_lora_layer(
+                x, layer, stks[i], tok_adapter, lora_scale, cfg, cache, i,
+                sin, cos, row_slot, row_start, row_len, row_off,
+                block_tables, max_row_tokens, scales)
+            k_news.append(k1)
+            v_news.append(v1)
+            continue
         if cfg.fused_decode:
             x, k1, v1 = fused_ragged_layer(
                 x, layer, cache["k"], cache["v"], i, row_slot,

@@ -107,17 +107,18 @@ def pack_ragged_batch(rows, token_budget: int, max_slots: int,
         host_toks, decode_mask, tok_slot, tok_pos  [T]
         row_slot, row_start, row_len, row_off      [R]
 
-    Padding rows get len 0 / slot 0; padding tokens get pos 0.  Packing
-    past the budget or the slot count is a scheduler bug and asserts."""
-    if with_adapters:
-        raise NotImplementedError(
-            "pack_ragged_batch(with_adapters=True): LoRA multiplexing is "
-            "not ported to ray_tpu_torch yet (see ROADMAP.md)")
+    With ``with_adapters`` a ninth array ``tok_adapter`` [T] follows:
+    each row's optional ``adapter`` key (an index into the step's adapter
+    gather set, ops/segmented_lora) over its tokens, 0 (the null adapter)
+    for rows without one and for padding.  Padding rows get len 0 / slot
+    0; padding tokens get pos 0.  Packing past the budget or the slot
+    count is a scheduler bug and asserts."""
     T, R = token_budget, max_slots
     host_toks = np.zeros(T, np.int32)
     decode_mask = np.zeros(T, bool)
     tok_slot = np.zeros(T, np.int32)
     tok_pos = np.zeros(T, np.int32)
+    tok_adapter = np.zeros(T, np.int32)
     row_slot = np.zeros(R, np.int32)
     row_start = np.zeros(R, np.int32)
     row_len = np.zeros(R, np.int32)
@@ -133,13 +134,15 @@ def pack_ragged_batch(rows, token_budget: int, max_slots: int,
         row_off[i] = cursor
         tok_slot[cursor:cursor + n] = row["slot"]
         tok_pos[cursor:cursor + n] = row["start"] + np.arange(n)
+        tok_adapter[cursor:cursor + n] = row.get("adapter", 0)
         if toks is None:
             decode_mask[cursor] = True
         else:
             host_toks[cursor:cursor + n] = np.asarray(toks, np.int32)
         cursor += n
-    return (host_toks, decode_mask, tok_slot, tok_pos,
-            row_slot, row_start, row_len, row_off)
+    out = (host_toks, decode_mask, tok_slot, tok_pos,
+           row_slot, row_start, row_len, row_off)
+    return out + (tok_adapter,) if with_adapters else out
 
 
 # --------------------------------------------------------------------------

@@ -45,9 +45,25 @@ and the ragged prefill resumes at the hit boundary; an exact full-prompt
 hit copies the deepest shared page before the last token is re-run;
 admission pressure evicts unreferenced cached pages.
 
-Out of the port so far (they raise if configured): speculative decoding,
-LoRA, SLO accounting and shedding, migration, the request ring,
-telemetry, the audit plane and ``LLMServer``.
+**Speculative decoding** (``spec_decode=True``, ragged only): a draft
+model (the target itself when none is given) keeps its own paged pool;
+each uncontended dispatch drafts up to ``spec_k`` tokens for every idle
+greedy base-model slot, and the step carries them as one verify row of
+k+1 tokens whose logits at every position come back with the step.  The
+host accepts the longest matching prefix plus the bonus token and
+rewinds the slot's length to the accept boundary; rejected positions
+are overwritten before anything attends to them.  The base ragged step
+is untouched, so spec-off output is the oracle.
+
+**Multi-tenant LoRA** (a ``LlamaConfig.lora`` model, ragged only):
+``submit(adapter_id=)`` borrows the adapter's pages from a paged pool
+(``serve/adapter_pool.py``) for the request's lifetime, and steps that
+hold an adapter row run the segmented-LoRA variant of the ragged step
+(``ops/segmented_lora.py``); steps without one run the base step.
+
+Out of the port so far (they raise if configured): SLO accounting and
+shedding, migration, the request ring, telemetry, the audit plane and
+``LLMServer``.
 """
 
 from __future__ import annotations
@@ -88,9 +104,8 @@ class EngineConfig:
     # Chunked prefill: prompts longer than this prefill in chunks of
     # this many tokens between decode chunks (0 = one bucketed prefill).
     prefill_chunk: int = 0
-    # slo, shed_queue_age_s and every field from adapter_pool_pages on
-    # belong to modes the port does not have yet: each must keep its
-    # default (see _UNPORTED).
+    # slo and shed_queue_age_s belong to modes the port does not have
+    # yet: each must keep its default (see _UNPORTED).
     slo: Optional[Any] = None
     shed_queue_age_s: Optional[float] = None
     # Ragged unified step (K4 + K5): one device step packs decode rows
@@ -102,10 +117,18 @@ class EngineConfig:
     # ragged_batching: prefill-from-offset rides the ragged step's
     # per-row start).
     prefix_cache: bool = False
+    # Multi-tenant LoRA (ragged only, with an adapter whose model config
+    # sets lora): the adapter pool's pages (0 = room for 4 adapters),
+    # their size in f32 elements, the distinct adapters one step may
+    # gather (the null adapter included), and int8 pages.
     adapter_pool_pages: int = 0
     adapter_page_elems: int = 8192
     max_batch_adapters: int = 8
     adapter_int8: bool = False
+    # Speculative decoding (ragged only): drafts per verify row, the
+    # draft pool's pages (0 = max_slots x pages per sequence), and the
+    # cooldown: when the acceptance EMA falls below spec_cold_accept,
+    # spec_cooldown_rounds dispatches decode plainly.
     spec_decode: bool = False
     spec_k: int = 4
     spec_draft_pages: int = 0
@@ -124,15 +147,6 @@ class EngineConfig:
 _UNPORTED = {
     "slo": "SLO accounting",
     "shed_queue_age_s": "overload shedding",
-    "adapter_pool_pages": "LoRA multiplexing",
-    "adapter_page_elems": "LoRA multiplexing",
-    "max_batch_adapters": "LoRA multiplexing",
-    "adapter_int8": "LoRA multiplexing",
-    "spec_decode": "speculative decoding",
-    "spec_k": "speculative decoding",
-    "spec_draft_pages": "speculative decoding",
-    "spec_cold_accept": "speculative decoding",
-    "spec_cooldown_rounds": "speculative decoding",
 }
 
 
@@ -165,6 +179,18 @@ class PagedEngineAdapter:
         (the unified step; needed by ragged_batching)
     copy_page(cache, src, dst) -> cache  (duplicate one physical page,
         scales included; needed by prefix_cache)
+    ragged_step_lora(params, tokens, tok_pos, row_slot, row_start,
+        row_len, row_off, block_tables, cache, pool, page_table,
+        tok_adapter) -> (logits[R,V], cache)  (the unified step with
+        per-token segmented adapter deltas gathered from the pool)
+    make_adapter_pool(engine_config, device) -> AdapterPool  (both set
+        iff the model config enables LoRA)
+    ragged_step_verify(params, tokens, ..., cache, logit_idx) ->
+        (logits[R,V], verify_logits[Tv,V], cache)  (the unified step with
+        extra logits at the flat-buffer positions logit_idx, the first R
+        rows equal to ragged_step's; needed by spec_decode)
+    ragged_step_lora_verify(..., pool, page_table, tok_adapter,
+        logit_idx)  (both at once: verify rows beside adapter rows)
     """
 
     init_cache: Callable[[int, int, torch.device], Any]
@@ -174,12 +200,66 @@ class PagedEngineAdapter:
     prefill_chunk: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
     ragged_step: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
     copy_page: Optional[Callable[[Any, int, int], Any]] = None
+    ragged_step_lora: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
+    make_adapter_pool: Optional[Callable[[Any, torch.device], Any]] = None
+    ragged_step_verify: Optional[
+        Callable[..., Tuple[torch.Tensor, torch.Tensor, Any]]] = None
+    ragged_step_lora_verify: Optional[
+        Callable[..., Tuple[torch.Tensor, torch.Tensor, Any]]] = None
 
 
-def llama_paged_adapter(cfg) -> PagedEngineAdapter:
+def llama_paged_adapter(cfg, lora_loader=None) -> PagedEngineAdapter:
+    """``lora_loader`` (adapter_id -> factor tree or flat f32 vector)
+    feeds the adapter pool when ``cfg.lora`` is set; None uses the seeded
+    loader (``segmented_lora.default_adapter_loader``)."""
     from ray_tpu_torch.models import llama
 
+    def ragged(params, tokens, tok_pos, row_slot, row_start, row_len,
+               row_off, bt, cache, **kw):
+        return llama.ragged_step_paged(params, tokens, tok_pos, row_slot,
+                                       row_start, row_len, row_off, bt, cfg,
+                                       cache, **kw)
+
+    lora_fields: Dict[str, Any] = {}
+    if getattr(cfg, "lora", None) is not None:
+        from ray_tpu_torch.ops import segmented_lora as _sl
+        from ray_tpu_torch.serve.adapter_pool import AdapterPool
+
+        def lora_arg(pool, page_table, tok_adapter):
+            # One cast to the compute dtype a step: each layer's delta
+            # would otherwise cast its own factors (the same values).
+            flat = _sl.gather_adapter_flat(pool, page_table).to(cfg.dtype)
+            stacks = _sl.gather_adapter_stacks(flat, cfg, cfg.lora)
+            return (stacks, tok_adapter.long(), cfg.lora.scale)
+
+        def ragged_step_lora(params, tokens, tok_pos, row_slot, row_start,
+                             row_len, row_off, bt, cache, pool, page_table,
+                             tok_adapter):
+            return ragged(params, tokens, tok_pos, row_slot, row_start,
+                          row_len, row_off, bt, cache,
+                          lora=lora_arg(pool, page_table, tok_adapter))
+
+        def ragged_step_lora_verify(params, tokens, tok_pos, row_slot,
+                                    row_start, row_len, row_off, bt, cache,
+                                    pool, page_table, tok_adapter,
+                                    logit_idx):
+            return ragged(params, tokens, tok_pos, row_slot, row_start,
+                          row_len, row_off, bt, cache,
+                          lora=lora_arg(pool, page_table, tok_adapter),
+                          logit_idx=logit_idx)
+
+        lora_fields = {
+            "ragged_step_lora": ragged_step_lora,
+            "ragged_step_lora_verify": ragged_step_lora_verify,
+            "make_adapter_pool": lambda ecfg, device: AdapterPool(
+                cfg, cfg.lora, num_pages=ecfg.adapter_pool_pages,
+                page_elems=ecfg.adapter_page_elems,
+                max_batch_adapters=ecfg.max_batch_adapters,
+                int8=ecfg.adapter_int8, loader=lora_loader, device=device),
+        }
+
     return PagedEngineAdapter(
+        **lora_fields,
         init_cache=lambda num_pages, page, device: llama.init_paged_cache(
             cfg, num_pages, page, device),
         prefill_slot=lambda params, tokens, true_len, pages, cache:
@@ -195,11 +275,11 @@ def llama_paged_adapter(cfg) -> PagedEngineAdapter:
         cache:
             llama.prefill_chunk_paged(params, tokens, start, chunk_lens,
                                       pages_rows, cfg, cache),
-        ragged_step=lambda params, tokens, tok_pos, row_slot, row_start,
-        row_len, row_off, bt, cache:
-            llama.ragged_step_paged(params, tokens, tok_pos, row_slot,
-                                    row_start, row_len, row_off, bt, cfg,
-                                    cache),
+        ragged_step=ragged,
+        ragged_step_verify=lambda params, tokens, tok_pos, row_slot,
+        row_start, row_len, row_off, bt, cache, logit_idx: ragged(
+            params, tokens, tok_pos, row_slot, row_start, row_len, row_off,
+            bt, cache, logit_idx=logit_idx),
         copy_page=llama.copy_page_paged,
     )
 
@@ -233,6 +313,11 @@ class Request:
     request_id: str = ""
     # Prompt tokens served from the prefix cache (0 = cold prefill).
     prefix_hit: int = 0
+    # LoRA adapter this request decodes with ("" = the base model).
+    adapter_id: str = ""
+    # Speculative tokens drafted for this request and accepted of them.
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -340,15 +425,20 @@ class LLMEngine:
 
     def __init__(self, params: Any, adapter: PagedEngineAdapter,
                  config: EngineConfig, *, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, draft_params: Any = None,
+                 draft_adapter: Optional[PagedEngineAdapter] = None):
+        """``draft_params``/``draft_adapter``: the draft model of
+        speculative decoding (``config.spec_decode``); with no draft
+        params the target drafts for itself."""
         _check_ported(config)
         self.config = config
         self.adapter = adapter
         self.device = resolve_device(device)
-        pdev = _tensor_device(params)
-        if pdev is not None and pdev.type != self.device.type:
-            raise ValueError(f"params live on {pdev}, engine device is "
-                             f"{self.device}")
+        for tree in (params, draft_params):
+            pdev = _tensor_device(tree)
+            if pdev is not None and pdev.type != self.device.type:
+                raise ValueError(f"params live on {pdev}, engine device is "
+                                 f"{self.device}")
         self._params = params
         page = config.page_size
         self._ragged = bool(config.ragged_batching)
@@ -362,6 +452,16 @@ class LLMEngine:
                 raise ValueError(
                     "token_budget must leave room for a prefill chunk "
                     f"beside {config.max_slots} decode rows")
+        else:
+            if config.spec_decode:
+                raise ValueError(
+                    "EngineConfig.spec_decode requires ragged_batching=True "
+                    "(verify rows are k-token rows of the unified ragged "
+                    "step)")
+            if adapter.make_adapter_pool is not None:
+                raise ValueError(
+                    "LoRA multiplexing requires ragged_batching (the "
+                    "segmented adapter matmul rides the unified step)")
         self._chunked = (not self._ragged and config.prefill_chunk > 0
                          and adapter.prefill_chunk is not None)
         self._maxp = -(-config.max_seq_len // page)
@@ -400,6 +500,15 @@ class LLMEngine:
             self._prefix = PrefixIndex(page)
         self._prefix_hit_tokens = 0
         self._prefix_prompt_tokens = 0
+        # LoRA: the engine owns the adapter pool; a slot's borrow ("" =
+        # base model) is released with the slot on every terminal path.
+        self._adapters = None
+        self._slot_adapter: Dict[int, str] = {}
+        if self._ragged and adapter.make_adapter_pool is not None:
+            if adapter.ragged_step_lora is None:
+                raise ValueError("adapter exposes make_adapter_pool without "
+                                 "ragged_step_lora")
+            self._adapters = adapter.make_adapter_pool(config, self.device)
         # Unallocated block-table entries hold the OOB sentinel
         # (num_pages, the scratch page): never read by attention, and a
         # slot decoded past its allocation writes only scratch.
@@ -444,18 +553,87 @@ class LLMEngine:
         self._prefilling: List[Dict[str, Any]] = []
         self._step_tokens = {"decode": 0, "prefill": 0}
         self._mixed_steps = 0  # ragged steps with decode AND prompt rows
+        self._spec_on = False
+        if config.spec_decode:
+            self._init_spec(draft_params, draft_adapter)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="llm-engine-torch")
         self._thread.start()
+
+    def _init_spec(self, draft_params: Any,
+                   draft_adapter: Optional[PagedEngineAdapter]) -> None:
+        """The speculative-decoding plane: a second paged pool for the
+        draft model's KV (same allocator discipline, its own OOB scratch
+        page) and the draft and verify calls.  The base ragged step is
+        untouched: steps without verify rows call it as before, so
+        spec-off output is the oracle by construction."""
+        config, adapter = self.config, self.adapter
+        if adapter.ragged_step_verify is None:
+            raise ValueError(
+                "EngineConfig.spec_decode requires an adapter with "
+                "ragged_step_verify (the unified step with extra verify "
+                "logits)")
+        if self._adapters is not None \
+                and adapter.ragged_step_lora_verify is None:
+            # A verify row can share a step with another slot's LoRA row.
+            raise ValueError("spec_decode with LoRA multiplexing requires "
+                             "an adapter with ragged_step_lora_verify")
+        if draft_params is None:
+            # Self-draft: every draft is accepted, so this drives the
+            # verify path (and the parity tests) rather than saving steps.
+            draft_params, draft_adapter = self._params, None
+        da = draft_adapter or adapter
+        if da.ragged_step is None:
+            raise ValueError(
+                "spec_decode draft adapter must provide ragged_step")
+        self._draft_adapter = da
+        self._draft_params = draft_params
+        self._draft_pages = (config.spec_draft_pages
+                             or config.max_slots * self._maxp)
+        self._draft_cache = da.init_cache(self._draft_pages,
+                                          config.page_size, self.device)
+        self._draft_free = list(range(self._draft_pages))
+        self._draft_slot_pages: Dict[int, List[int]] = {}
+        self._draft_bt = np.full((config.max_slots, self._maxp),
+                                 self._draft_pages, np.int32)
+        # Tokens of each slot's sequence already fed to the draft KV.
+        self._draft_fed: Dict[int, int] = {}
+        # A slot with a verify round in flight is fully idle (its length
+        # only moves at the accept boundary, on the host at fetch); a
+        # slot whose device cur went stale after a verify round re-seeds
+        # it through a host-token decode row.
+        self._spec_inflight: set = set()
+        self._spec_stale_cur: set = set()
+        self._spec_ema = 1.0
+        self._spec_cooldown = 0
+        self._spec_rounds = 0
+        self._spec_drafted_total = 0
+        self._spec_accepted_total = 0
+        self._spec_cooldowns = 0
+        self._spec_draft_steps = 0
+        self._step_tokens["spec_verify"] = 0
+        # Static width of the verify-logit gather: flat-buffer positions
+        # of every verify row's k+1 candidate tokens, padded with 0.
+        self._spec_tv = min(self._token_budget,
+                            config.max_slots * (config.spec_k + 1))
+        self._spec_on = True
 
     # -- client API --------------------------------------------------------
 
     def submit(self, prompt: List[int], *,
                max_new_tokens: Optional[int] = None,
                temperature: float = 0.0,
-               request_id: Optional[str] = None) -> CompletionStream:
+               request_id: Optional[str] = None,
+               adapter_id: str = "") -> CompletionStream:
+        """``adapter_id`` names a LoRA adapter of the engine's pool (a
+        LoRA model only; "" = the base model)."""
         if self._stopped.is_set():
             raise RuntimeError("engine is stopped (shut down or crashed)")
+        if adapter_id and self._adapters is None:
+            raise ValueError(
+                f"request carries adapter_id {adapter_id!r} but this "
+                "engine has no adapter pool (serve a model whose "
+                "LlamaConfig sets lora)")
         if len(prompt) == 0:
             raise ValueError("empty prompt")
         if len(prompt) >= self.config.max_seq_len:
@@ -466,7 +644,7 @@ class LLMEngine:
             max_new_tokens=(max_new_tokens
                             or self.config.max_new_tokens_default),
             temperature=float(temperature), stream=queue.Queue(),
-            req_id=next(self._req_counter))
+            req_id=next(self._req_counter), adapter_id=adapter_id)
         req.request_id = request_id or f"torch-engine-r{req.req_id}"
         # Reject requests the page pool can NEVER satisfy — they would
         # otherwise wedge admission head-of-line forever.
@@ -514,6 +692,21 @@ class LLMEngine:
             pstats["hit_tokens"] = self._prefix_hit_tokens
             pstats["prompt_tokens"] = self._prefix_prompt_tokens
             out["prefix"] = pstats
+        if self._adapters is not None:
+            out["adapters"] = self._adapters.stats()
+        if self._spec_on:
+            out["spec"] = {
+                "rounds": self._spec_rounds,
+                "drafted_tokens": self._spec_drafted_total,
+                "accepted_tokens": self._spec_accepted_total,
+                "accept_ratio": (
+                    self._spec_accepted_total / self._spec_drafted_total
+                    if self._spec_drafted_total else None),
+                "cooldowns": self._spec_cooldowns,
+                "draft_steps": self._spec_draft_steps,
+                "ema": self._spec_ema,
+                "k": self.config.spec_k,
+            }
         return out
 
     def prefix_summary(self, max_entries: int = 256) -> Optional[dict]:
@@ -710,7 +903,12 @@ class LLMEngine:
         """Ragged admission: EVERY request claims its slot and pages up
         front and joins the incremental track; the unified step packs
         its prompt in budget-sized chunks beside live decode rows, so no
-        separate prefill program can block them."""
+        separate prefill program can block them.  A request with an
+        adapter borrows its pages first: pool pressure (every resident
+        adapter borrowed) sends it back to the backlog like page
+        pressure, and a loader error fails that request only."""
+        from ray_tpu_torch.serve.adapter_pool import AdapterPoolPressure
+
         while self._free_slots:
             if self._backlog:
                 req = self._backlog.pop(0)
@@ -719,11 +917,29 @@ class LLMEngine:
                     req = self._waiting.get_nowait()
                 except queue.Empty:
                     return
+            if req.adapter_id:
+                try:
+                    self._adapters.acquire(req.adapter_id)
+                except AdapterPoolPressure:
+                    self._backlog.insert(0, req)
+                    return
+                except Exception as e:  # the loader's failure is the
+                    # request's, never the engine's
+                    log.warning("adapter %r load failed", req.adapter_id,
+                                exc_info=True)
+                    req.finished_at = time.monotonic()
+                    req.stream.put(RuntimeError(
+                        f"adapter {req.adapter_id!r} load failed: {e!r}"))
+                    continue
             got = self._admit_slot_for(req)
             if got is None:
+                if req.adapter_id:
+                    self._adapters.release(req.adapter_id)
                 self._backlog.insert(0, req)
                 return
             slot, start = got
+            if req.adapter_id:
+                self._slot_adapter[slot] = req.adapter_id
             self._prefilling.append({"req": req, "slot": slot,
                                      "pos": start})
             self._state_dirty = True  # bt rows changed
@@ -866,25 +1082,182 @@ class LLMEngine:
         else:
             self._enqueue_fetch("pfchunk", toks, 0, [])
 
+    # -- speculative decoding: the draft round -----------------------------
+
+    def _draft_alloc(self, req: Request, slot: int) -> bool:
+        """Claim draft-pool pages for a slot's first speculative round,
+        sized like its target allocation.  False = the draft pool is
+        exhausted; the slot decodes plainly until pages free."""
+        if slot in self._draft_slot_pages:
+            return True
+        need = self._pages_needed(req)
+        if len(self._draft_free) < need:
+            return False
+        pages = [self._draft_free.pop() for _ in range(need)]
+        self._draft_slot_pages[slot] = pages
+        row = np.full((self._maxp,), self._draft_pages, np.int32)
+        row[: len(pages)] = pages
+        self._draft_bt[slot] = row
+        self._draft_fed[slot] = 0
+        return True
+
+    def _run_draft(self, toks, tok_pos, row_slot, row_start, row_len,
+                   row_off) -> torch.Tensor:
+        """One draft-model ragged step over ``toks`` (host int32 tokens or
+        a device tensor); returns the device [R] per-row argmax (a row
+        fed through its sequence end gives that slot's next draft)."""
+        R = self.config.max_slots
+        on_host = isinstance(toks, np.ndarray)
+        segs = [tok_pos, row_slot, row_start, row_len, row_off,
+                self._draft_bt.reshape(-1)]
+        dev = self._upload(segs + [toks] if on_host else segs)
+        t_pos, r_slot, r_start, r_len, r_off, bt = dev[:6]
+        if on_host:
+            toks = dev[6]
+        self._spec_draft_steps += 1
+        logits, self._draft_cache = self._draft_adapter.ragged_step(
+            self._draft_params, toks, t_pos, r_slot, r_start, r_len, r_off,
+            bt.view(R, self._maxp), self._draft_cache)
+        return logits.argmax(dim=-1).to(torch.int32)
+
+    def _spec_rem(self, req: Request) -> int:
+        """Tokens the request may still emit (no in-flight charge:
+        speculation only plans on fully idle slots)."""
+        return min(req.max_new_tokens - len(req.tokens),
+                   self.config.max_seq_len - len(req.prompt)
+                   - len(req.tokens))
+
+    def _spec_draft_round(self) -> Dict[int, List[int]]:
+        """Plan and run ONE draft round: pick this dispatch's candidates
+        (greedy, base-model, fully idle slots that have their first
+        token), catch the draft KV up to each candidate's sequence (one
+        ragged feed whose row argmaxes are the first drafts; catch-up
+        rows of slots that do not fit pack after the candidates), chain
+        up to spec_k - 1 one-token draft steps, and return {slot: draft
+        tokens}.  The stacked drafts reach the host in ONE device→host
+        copy, the round's one sync; the verify step stays pipelined."""
+        R, Td = self.config.max_slots, self._token_budget
+        k_cfg = self.config.spec_k
+        active = sorted(self._slot_req)
+        # Every active slot takes at least one token of the verify
+        # dispatch's budget; a candidate spends k_eff on top of it.
+        budget_left = Td - len(active)
+        feed_left = Td
+        plan: List[Tuple[int, Request, int, int]] = []  # candidate i = row i
+        feed_rows: List[Dict[str, Any]] = []
+        catchup_rows: List[Dict[str, Any]] = []
+        for slot in active:
+            req = self._slot_req[slot]
+            if (slot in self._spec_inflight
+                    or self._inflight_tokens.get(slot, 0)
+                    or req.temperature != 0.0 or req.adapter_id
+                    or req.first_token_at is None):
+                continue
+            k_eff = min(k_cfg, self._spec_rem(req) - 1, budget_left)
+            if k_eff < 1 or not self._draft_alloc(req, slot):
+                continue
+            seq = req.prompt + req.tokens
+            fed = self._draft_fed.get(slot, 0)
+            backlog = seq[fed:]
+            if (len(backlog) > feed_left
+                    or len(feed_rows) + len(catchup_rows) >= R):
+                # Cannot catch up this round: feed what fits (the draft
+                # KV persists across rounds) and decode plainly meanwhile.
+                if feed_left > 0 and len(feed_rows) + len(catchup_rows) < R:
+                    part = backlog[:feed_left]
+                    catchup_rows.append({"slot": slot, "start": fed,
+                                         "tokens": [int(t) for t in part]})
+                    self._draft_fed[slot] = fed + len(part)
+                    feed_left = 0
+                continue
+            feed_rows.append({"slot": slot, "start": fed,
+                              "tokens": [int(t) for t in backlog]})
+            feed_left -= len(backlog)
+            self._draft_fed[slot] = len(seq)
+            plan.append((slot, req, k_eff, len(seq)))
+            budget_left -= k_eff
+        feed_rows += catchup_rows
+        if not feed_rows:
+            return {}
+        packed = pack_ragged_batch(feed_rows, Td, R)
+        nxt = self._run_draft(packed[0], *packed[3:])
+        if not plan:
+            return {}
+        max_k = max(k for _s, _r, k, _n in plan)
+        outs = [nxt]
+        row_off = np.arange(R, dtype=np.int32)
+        for m in range(2, max_k + 1):
+            row_slot = np.zeros((R,), np.int32)
+            row_start = np.zeros((R,), np.int32)
+            row_len = np.zeros((R,), np.int32)
+            tok_pos = np.zeros((Td,), np.int32)
+            for i, (slot, _req, k_eff, seq_len) in enumerate(plan):
+                if k_eff < m:
+                    continue  # shorter chains idle as length-0 rows
+                row_slot[i] = slot
+                row_start[i] = tok_pos[i] = seq_len + m - 2
+                row_len[i] = 1
+            # One-token rows at row_off = arange(R): the previous step's
+            # [R] argmax IS the head of the flat token buffer.
+            toks = torch.zeros((Td,), dtype=torch.int32, device=self.device)
+            toks[:R] = outs[-1]
+            outs.append(self._run_draft(toks, tok_pos, row_slot, row_start,
+                                        row_len, row_off))
+        stacked = torch.stack(outs).cpu().numpy()
+        return {slot: [int(stacked[m, i]) for m in range(k_eff)]
+                for i, (slot, _req, k_eff, _n) in enumerate(plan)}
+
     # -- ragged unified step -----------------------------------------------
 
     def _dispatch_ragged_step(self) -> bool:
         """Pack and dispatch ONE unified ragged step: first a decode row
-        (one token) for every running slot with budget left, then prompt
+        (one token) or a verify row (the slot's true last token and its
+        k drafts) for every running slot with budget left, then prompt
         chunks from the incremental track until token_budget is full.
         Decode rows are never displaced by prompt tokens: that priority
-        is the no-stall guarantee.  Returns False when nothing fit (every
-        slot budget-capped by in-flight tokens, no prompt pending)."""
+        is the no-stall guarantee; and drafting never runs while prompt
+        chunks wait for the budget.  Returns False when nothing fit
+        (every slot budget-capped by in-flight tokens, no prompt
+        pending)."""
         T, R = self._token_budget, self.config.max_slots
         budget = T
         rows: List[Dict[str, Any]] = []
-        parts: List[Tuple[str, Request, int, int]] = []
+        parts: List[Tuple[str, Request, int, Any]] = []
         scatter = np.full((R,), R, np.int32)  # R = sample dropped
         temps = np.zeros((R,), np.float32)
-        n_decode = n_prefill = 0
+        n_decode = n_prefill = n_spec = 0
+        # Draft only on uncontended dispatches: pending prompt chunks
+        # always win the budget over draft tokens, and a cold acceptance
+        # EMA pauses drafting for a while.
+        drafts: Dict[int, List[int]] = {}
+        spec_round = (self._spec_on and bool(self._slot_req)
+                      and not self._prefilling)
+        if spec_round and self._spec_cooldown > 0:
+            self._spec_cooldown -= 1
+            spec_round = False
+        if spec_round:
+            drafts = self._spec_draft_round()
+        # The step's adapter gather set: distinct adapter ids -> index
+        # 1..K-1 (0 is the null adapter).  A row whose adapter would
+        # overflow the set waits for the next step.
+        step_adapters: Dict[str, int] = {}
+
+        def adapter_idx(req: Request) -> Optional[int]:
+            if not req.adapter_id:
+                return 0
+            idx = step_adapters.get(req.adapter_id)
+            if idx is None:
+                if len(step_adapters) >= self.config.max_batch_adapters - 1:
+                    return None
+                idx = len(step_adapters) + 1
+                step_adapters[req.adapter_id] = idx
+            return idx
+
         for slot in sorted(self._slot_req):
             if budget <= 0 or len(rows) >= R:
                 break
+            if self._spec_on and slot in self._spec_inflight:
+                continue  # verify round in flight: the slot is idle
             req = self._slot_req[slot]
             rem = min(req.max_new_tokens - len(req.tokens),
                       self.config.max_seq_len - len(req.prompt)
@@ -892,10 +1265,52 @@ class LLMEngine:
                 - self._inflight_tokens.get(slot, 0)
             if rem <= 0:
                 continue  # its budget is covered by in-flight steps
+            ai = adapter_idx(req)
+            if ai is None:
+                continue
+            seq_last = int(req.tokens[-1] if req.tokens else req.prompt[-1])
+            dr = drafts.get(slot)
+            if dr and budget >= len(dr) + 1 and rem > len(dr):
+                # Verify row: the true last token and the k drafts as ONE
+                # k+1-token row at the current length.  The target's
+                # logits at every position come back with the step; the
+                # row's own sample is dropped (the accept boundary is
+                # resolved on the host at fetch).
+                i = len(rows)
+                rows.append({"slot": slot, "start": int(self._lens[slot]),
+                             "tokens": [seq_last] + dr, "adapter": ai})
+                parts.append(("verify", req, slot,
+                              {"drafts": dr, "row": i,
+                               "base_len": int(self._lens[slot])}))
+                budget -= len(dr) + 1
+                n_spec += len(dr) + 1
+                continue
+            if (spec_round and dr is None
+                    and self._inflight_tokens.get(slot, 0) > 0
+                    and req.temperature == 0.0 and not req.adapter_id
+                    and req.first_token_at is not None
+                    and self._spec_rem(req) >= 2
+                    and (slot in self._draft_slot_pages
+                         or len(self._draft_free)
+                         >= self._pages_needed(req))):
+                # A slot that could speculate but has steps in flight:
+                # hold further decode rows so its pipeline drains and the
+                # NEXT round can draft for it (k accepted tokens per
+                # verify step beat depth-k pipelining of one-token
+                # steps).  Cooldown and prompt contention clear
+                # spec_round and restore plain pipelining.
+                continue
             i = len(rows)
-            # The token lives on the device (cur): no host round trip.
-            rows.append({"slot": slot, "start": int(self._lens[slot]),
-                         "tokens": None})
+            if self._spec_on and slot in self._spec_stale_cur:
+                # The device cur went stale at the slot's last verify
+                # round: a host-token row computes the same decode step
+                # and its scatter re-seeds cur.
+                rows.append({"slot": slot, "start": int(self._lens[slot]),
+                             "tokens": [seq_last], "adapter": ai})
+            else:
+                # The token lives on the device (cur): no host round trip.
+                rows.append({"slot": slot, "start": int(self._lens[slot]),
+                             "tokens": None, "adapter": ai})
             parts.append(("decode", req, slot, i))
             scatter[i] = slot
             temps[i] = req.temperature
@@ -909,9 +1324,12 @@ class LLMEngine:
             chunk = req.prompt[pos:pos + budget]
             if not chunk:
                 continue
+            ai = adapter_idx(req)
+            if ai is None:
+                continue
             i = len(rows)
             rows.append({"slot": slot, "start": pos,
-                         "tokens": [int(t) for t in chunk]})
+                         "tokens": [int(t) for t in chunk], "adapter": ai})
             temps[i] = req.temperature
             if pos + len(chunk) >= len(req.prompt):
                 # The last chunk's sample is the first token; mid-prompt
@@ -925,11 +1343,38 @@ class LLMEngine:
         if not rows:
             return False
         self._refresh_state_args()
-        toks_dev = self._run_ragged(
-            pack_ragged_batch(rows, T, R), scatter, temps)
-        for kind, req, slot, _i in parts:
+        packed = pack_ragged_batch(rows, T, R,
+                                   with_adapters=bool(step_adapters))
+        logit_idx = None
+        if n_spec:
+            # Flat-buffer positions of every verify row's k+1 tokens
+            # (static width, padded with 0), and each part's offset into
+            # the returned verify vector.
+            logit_idx = np.zeros((self._spec_tv,), np.int32)
+            voff = 0
+            for kind, _req, _slot, info in parts:
+                if kind != "verify":
+                    continue
+                n = len(info["drafts"]) + 1
+                off = int(packed[7][info["row"]])
+                logit_idx[voff:voff + n] = np.arange(off, off + n)
+                info["voff"] = voff
+                voff += n
+        page_table = (self._adapters.page_table(list(step_adapters))
+                      if step_adapters else None)
+        toks_dev = self._run_ragged(packed, scatter, temps, logit_idx,
+                                    page_table)
+        for kind, req, slot, info in parts:
+            if kind == "verify":
+                # The slot idles until its accept boundary returns: its
+                # length moves only at fetch, which is the rollback point.
+                self._inflight_tokens[slot] = len(info["drafts"]) + 1
+                self._spec_inflight.add(slot)
+                continue
             if kind == "decode":
                 self._lens[slot] += 1  # the mirror advances at dispatch
+                if self._spec_on:
+                    self._spec_stale_cur.discard(slot)
             self._inflight_tokens[slot] = \
                 self._inflight_tokens.get(slot, 0) + 1
         for st in finishing:
@@ -941,24 +1386,18 @@ class LLMEngine:
         self._steps += 1
         self._step_tokens["decode"] += n_decode
         self._step_tokens["prefill"] += n_prefill
+        if n_spec:
+            self._step_tokens["spec_verify"] += n_spec
         if n_decode and n_prefill:
             self._mixed_steps += 1
         self._enqueue_fetch("ragged", toks_dev, 1, parts)
         return True
 
-    def _run_ragged(self, packed, scatter: np.ndarray,
-                    temps: np.ndarray) -> torch.Tensor:
-        """One ragged step on the device.  The step's host arrays travel
-        as ONE int32 buffer (pinned, non-blocking on the card), sliced on
-        the device; each slice starts on a 16-byte boundary.  Decode rows
-        read their token from the device cur; the row samples scatter
-        into cur, dropping scatter id R (mid-prompt and padding rows)."""
-        R = self.config.max_slots
-        (host_toks, decode_mask, tok_slot, tok_pos, row_slot, row_start,
-         row_len, row_off) = packed
-        segs = [host_toks, decode_mask.astype(np.int32), tok_slot, tok_pos,
-                row_slot, row_start, row_len, row_off, scatter,
-                temps.view(np.int32)]
+    def _upload(self, segs: List[np.ndarray]) -> List[torch.Tensor]:
+        """Host int32 arrays as device tensors through ONE buffer
+        (pinned, non-blocking on the card), sliced on the device; each
+        slice starts on a 16-byte boundary (the kernel wrappers reject
+        unaligned pointers)."""
         widths = [-(-len(a) // 4) * 4 for a in segs]
         buf = np.zeros((sum(widths),), np.int32)
         cuts, at = [], 0
@@ -967,19 +1406,58 @@ class LLMEngine:
             cuts.append((at, at + len(a)))
             at += w
         dev = self._h2d(buf)
+        return [dev[a:b] for a, b in cuts]
+
+    def _run_ragged(self, packed, scatter: np.ndarray, temps: np.ndarray,
+                    logit_idx: Optional[np.ndarray] = None,
+                    page_table: Optional[np.ndarray] = None
+                    ) -> torch.Tensor:
+        """One ragged step on the device: the base step, or its LoRA
+        (``page_table`` given), verify (``logit_idx`` given) or LoRA
+        verify variant.  The step's host arrays travel as ONE upload.
+        Decode rows read their token from the device cur; the row
+        samples scatter into cur, dropping scatter id R (mid-prompt,
+        verify and padding rows).  Returns the [R] row samples, followed
+        on a verify step by the target argmax at each logit_idx
+        position."""
+        R = self.config.max_slots
+        (host_toks, decode_mask, tok_slot, tok_pos, row_slot, row_start,
+         row_len, row_off) = packed[:8]
+        segs = [host_toks, decode_mask.astype(np.int32), tok_slot, tok_pos,
+                row_slot, row_start, row_len, row_off, scatter,
+                temps.view(np.int32)]
+        if page_table is not None:
+            segs += [packed[8], page_table.reshape(-1)]
+        if logit_idx is not None:
+            segs.append(logit_idx)
+        dev = self._upload(segs)
         (h_toks, d_mask, t_slot, t_pos, r_slot, r_start, r_len, r_off,
-         scatter_d, temps_d) = (dev[a:b] for a, b in cuts)
+         scatter_d, temps_d) = dev[:10]
         toks = torch.where(d_mask != 0, self._cur_dev[t_slot.long()], h_toks)
-        logits, self._cache = self.adapter.ragged_step(
-            self._params, toks, t_pos, r_slot, r_start, r_len, r_off,
-            self._bt_dev, self._cache)
+        args = (self._params, toks, t_pos, r_slot, r_start, r_len, r_off,
+                self._bt_dev, self._cache)
+        if page_table is not None:
+            args += (self._adapters.device_pool,
+                     dev[11].view(page_table.shape), dev[10])
+        if logit_idx is None:
+            step = (self.adapter.ragged_step if page_table is None
+                    else self.adapter.ragged_step_lora)
+            logits, self._cache = step(*args)
+        else:
+            step = (self.adapter.ragged_step_verify if page_table is None
+                    else self.adapter.ragged_step_lora_verify)
+            logits, vlogits, self._cache = step(*args, dev[-1])
         sampled = _sample(logits, temps_d.view(torch.float32),
                           self._gen if (temps > 0).any() else None)
         cur = torch.empty((R + 1,), dtype=torch.int32, device=self.device)
         cur[:R] = self._cur_dev
         cur[scatter_d.long()] = sampled
         self._cur_dev = cur[:R]
-        return sampled
+        if logit_idx is None:
+            return sampled
+        # The target's argmax at every verify position, on the device:
+        # the fetch carries k+1 ints per verify row, not k+1 logit rows.
+        return torch.cat([sampled, vlogits.argmax(dim=-1).to(torch.int32)])
 
     # -- token delivery ----------------------------------------------------
 
@@ -1013,11 +1491,17 @@ class LLMEngine:
             if entry.kind == "pfchunk":
                 continue  # a marker: it only gated the pipeline depth
             if entry.kind == "ragged":
-                # One unified step: toks is the [R] row-sample vector;
-                # the parts are decode rows and last prompt chunks
-                # (mid-prompt rows have nothing to emit).
+                # One unified step: toks is the [R] row-sample vector
+                # (then, on a verify step, the target argmax at each
+                # verify position); the parts are decode rows, verify
+                # rows and last prompt chunks (mid-prompt rows have
+                # nothing to emit).
                 now = time.monotonic()
+                R = self.config.max_slots
                 for rkind, req, slot, i in entry.participants:
+                    if rkind == "verify":
+                        self._finish_verify(req, slot, i, toks[R:])
+                        continue
                     self._drop_inflight(slot, 1)
                     if req.finished_at is not None:
                         continue  # cancelled while in flight
@@ -1044,6 +1528,61 @@ class LLMEngine:
                     if self._slot_req.get(slot) is not req:
                         break  # finished mid-chunk
         return processed
+
+    def _finish_verify(self, req: Request, slot: int, info: Dict[str, Any],
+                       ver: np.ndarray) -> None:
+        """Resolve one fetched verify round: accept the longest draft
+        prefix that matches the target's argmaxes plus the bonus token
+        the target computed past it, rewind the slot's length to the
+        accept boundary, and emit the burst.
+
+        Rollback safety: the target wrote KV for all k+1 positions, but
+        ``_lens[slot]`` only moves to ``base_len + 1 + j``; every later
+        step (and draft feed) writes from there, so rejected positions
+        are overwritten before anything attends to them, int8 page
+        scales (grow-only) merely stay larger than the accepted rows
+        need, and the finish path donates only ``seq[:-1]``, inside the
+        accepted prefix, to the prefix cache."""
+        drafts, base_len = info["drafts"], info["base_len"]
+        k = len(drafts)
+        self._spec_inflight.discard(slot)
+        # The round's whole k+1 charge drops at once (speculation only
+        # starts on slots with nothing in flight).
+        self._drop_inflight(slot, k + 1)
+        voff = info["voff"]
+        row_ver = [int(t) for t in ver[voff:voff + k + 1]]
+        j = 0
+        while j < k and drafts[j] == row_ver[j]:
+            j += 1
+        self._spec_rounds += 1
+        self._spec_drafted_total += k
+        self._spec_accepted_total += j
+        self._spec_ema = 0.8 * self._spec_ema + 0.2 * (j / k)
+        if (self._spec_cooldown == 0
+                and self._spec_ema < self.config.spec_cold_accept):
+            # Acceptance ran cold: decode plainly for a while, then probe
+            # again with a reset EMA.
+            self._spec_cooldown = self.config.spec_cooldown_rounds
+            self._spec_cooldowns += 1
+            self._spec_ema = 1.0
+        if req.finished_at is not None or self._slot_req.get(slot) is not req:
+            return  # cancelled while the verify was in flight
+        # Draft rollback: the draft fed seq[-1], d1 .. d(k-1) at
+        # base_len .. base_len + k - 1, of which min(j, k - 1) drafts
+        # survive (d(k) was never fed back).
+        self._draft_fed[slot] = base_len + 1 + min(j, k - 1)
+        # Target rollback, before any emit can finish the request and
+        # donate its pages: the length rewinds to the accept boundary.
+        self._lens[slot] = base_len + 1 + j
+        # The device cur holds no accepted token: the slot's next decode
+        # row feeds its true last token from the host and re-seeds cur.
+        self._spec_stale_cur.add(slot)
+        req.spec_drafted += k
+        req.spec_accepted += j
+        for tok in drafts[:j] + [row_ver[j]]:
+            self._emit(req, slot, int(tok))
+            if req.finished_at is not None:
+                break  # EOS or a limit inside the burst: drop the tail
 
     def _drop_inflight(self, slot: int, n: int) -> None:
         left = self._inflight_tokens.get(slot, 0) - n
@@ -1083,7 +1622,18 @@ class LLMEngine:
         cache_tokens: their tail pages may be partially written, so
         nothing is donated."""
         self._slot_req.pop(slot, None)
+        aid = self._slot_adapter.pop(slot, "")
+        if aid:
+            self._adapters.release(aid)
         self._free_slots.append(slot)
+        if self._spec_on:
+            self._spec_inflight.discard(slot)
+            self._spec_stale_cur.discard(slot)
+            self._draft_fed.pop(slot, None)
+            dpages = self._draft_slot_pages.pop(slot, None)
+            if dpages:
+                self._draft_free.extend(dpages)
+                self._draft_bt[slot] = self._draft_pages
         pages = self._slot_pages.pop(slot, [])
         if self._prefix is not None:
             borrowed = self._slot_borrowed.pop(slot, [])

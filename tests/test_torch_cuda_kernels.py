@@ -1799,3 +1799,126 @@ def test_k13_walk_is_capturable(dev):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding's row shapes for K4, K5, K6 and K8: verify rows of
+# 2-5 tokens starting 1-4 tokens before a page boundary beside decode rows,
+# then the rows that overwrite the rejected tails (each verify row restarts
+# 1 + j tokens later, j drafts accepted), at LLAMA3_8B shapes
+# ---------------------------------------------------------------------------
+
+_VERIFY = [(62, 2), (125, 3), (188, 5), (253, 5), (300, 1), (510, 1)]
+_REWRITE = [(63, 2), (126, 3), (190, 5), (254, 5), (301, 1), (511, 1)]
+
+
+def _rows_like(meta, rows):
+    """``meta``'s slots with other (start, len) rows, packed in order."""
+    dev = meta[0].device
+    offs, at = [], 0
+    for _s, n in rows:
+        offs.append(at)
+        at += n
+    return [meta[0]] + [torch.tensor(c, dtype=torch.int32, device=dev)
+                        for c in ([s for s, _ in rows],
+                                  [n for _, n in rows], offs)]
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_k4_verify_rows_match_plain(dev, pool):
+    g = _gen(71)
+    kf, vf, q, kn, vn, meta, bt, covered = _ragged_case(
+        dev, g, torch.bfloat16, 2, 32, 8, 128, 64, _VERIFY)
+    scales = {}
+    if pool == "int8":
+        kf, vf, ks, vs = _quantise(g, kf, kf.shape[2], 8)
+        scales = {"k_scales": ks, "v_scales": vs}
+    for rows in (meta, _rows_like(meta, _REWRITE)):
+        n = int(rows[2].sum())
+        got = trpa.ragged_paged_attention(q, kn, vn, kf, vf, 1, *rows, bt,
+                                          **scales)
+        want = trpa.ragged_paged_attention_plain(q, kn, vn, kf, vf, 1,
+                                                 *rows, bt, **scales)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[:n], want[:n], atol=1e-3, rtol=1e-3)
+        assert not got[n:].any()
+
+
+def test_k5_verify_rows_and_rewrite_match_plain(dev):
+    g = _gen(72)
+    L, KVH, D = 2, 8, 128
+    k, v, _q, kn, _vn, meta, bt, _cov = _ragged_case(
+        dev, g, torch.bfloat16, L, KVH, KVH, D, 64, _VERIFY)
+    T = kn.shape[0]
+    got, want = (k.clone(), v.clone()), (k.clone(), v.clone())
+    for rows in (meta, _rows_like(meta, _REWRITE)):
+        k_new = torch.randn((L, T, KVH, D), generator=g, device=dev,
+                            dtype=torch.bfloat16)
+        v_new = torch.randn_like(k_new)
+        trpa.ragged_paged_append(*got, k_new, v_new, *rows, bt)
+        trpa.ragged_paged_append_plain(*want, k_new, v_new, *rows, bt)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a[:, :, :-1], b[:, :, :-1])
+
+
+def test_k6_verify_rows_and_rewritten_pages_match_plain_bytes(dev):
+    """The verify rows, then the rewrite rows fed values 8x larger: every
+    page they touch grows its scale and is requantised whole (K6's "pages
+    rewritten" case), bytes and scales equal the plain version's."""
+    g = _gen(73)
+    L, KVH, D = 2, 8, 128
+    kf, _vf, _q, kn, _vn, meta, bt, _cov = _ragged_case(
+        dev, g, torch.bfloat16, L, KVH, KVH, D, 64, _VERIFY)
+    P, T = kf.shape[2], kn.shape[0]
+    k, v, ks, vs = _quantise(g, kf, P, KVH)
+    got = [t.clone() for t in (k, v, ks, vs)]
+    want = [t.clone() for t in (k, v, ks, vs)]
+    for rows, mag in ((meta, 1.0), (_rows_like(meta, _REWRITE), 8.0)):
+        k_new = (torch.randn((L, T, KVH, D), generator=g, device=dev)
+                 * mag).to(torch.bfloat16)
+        v_new = (torch.randn((L, T, KVH, D), generator=g, device=dev)
+                 * mag).to(torch.bfloat16)
+        scales_before = got[2].clone()
+        trpa.ragged_paged_append_quantized(*got, k_new, v_new, *rows, bt)
+        trpa.ragged_paged_append_quantized_plain(*want, k_new, v_new, *rows,
+                                                 bt)
+        torch.cuda.synchronize()
+        for a, b in zip(got[:2], want[:2]):
+            assert torch.equal(a[:, :, :-1], b[:, :, :-1])
+        for a, b in zip(got[2:], want[2:]):
+            assert torch.equal(a[:, :-1], b[:, :-1])
+    slot, start, ln, _off = (t.tolist() for t in _rows_like(meta, _REWRITE))
+    rewritten = {int(bt[s_, p // 64]) for s_, st, n in zip(slot, start, ln)
+                 for p in range(st, st + n)}
+    for p in rewritten:
+        assert (got[2][:, p] > scales_before[:, p]).all()
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_k8_verify_rows_match_plain_8b_layer(dev, pool):
+    """One LLAMA3_8B layer of the fused int8 artifact over the verify
+    rows, then the rewrite rows."""
+    D, H, KVH, M = _8B
+    hd = D // H
+    layer = _fused_layer(74, _8B, "fused", torch.bfloat16)
+    g = _gen(75)
+    page, maxp, T = 64, 10, 24
+    P = len(_VERIFY) * maxp + 1
+    k, v, scales = _fused_pools(g, pool, 1, KVH, P, page, hd, torch.bfloat16)
+    bt = _ragged_bt(g, [(r, s, n) for r, (s, n) in enumerate(_VERIFY)],
+                    maxp, page, P)
+    x = torch.randn((T, D), generator=g, device=dev).to(torch.bfloat16)
+    for rows_spec in (_VERIFY, _REWRITE):
+        spec = [(r, s, n) for r, (s, n) in enumerate(rows_spec)]
+        rows, pos = _ragged_rows(spec, T)
+        sin, cos = _rope_rows(pos, hd)
+        n = sum(n_ for _, n_ in rows_spec)
+        got = trpa.fused_ragged_layer(x, layer, k, v, 0, *rows, bt, sin, cos,
+                                      eps=1e-5, n_heads=H, n_kv_heads=KVH,
+                                      **scales)
+        want = trpa.fused_ragged_layer_reference(
+            x, layer, k, v, 0, *rows, bt, sin, cos, eps=1e-5, n_heads=H,
+            n_kv_heads=KVH, **scales)
+        torch.cuda.synchronize()
+        _assert_fused_close(got, want, torch.bfloat16, rows=slice(0, n))

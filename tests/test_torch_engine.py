@@ -105,15 +105,23 @@ def test_sampling_is_seeded_and_greedy_at_zero_temperature():
     assert torch.equal(teng._sample(logits, temps), greedy)
 
 
-@pytest.mark.parametrize("field,value", [("adapter_pool_pages", 4),
-                                         ("adapter_int8", True),
-                                         ("shed_queue_age_s", 1.0),
-                                         ("spec_decode", True)])
-def test_unported_modes_raise(params, field, value):
+@pytest.mark.parametrize("field,value,lora,exc,match", [
+    ("slo", object(), False, NotImplementedError, "slo"),
+    ("shed_queue_age_s", 1.0, False, NotImplementedError,
+     "shed_queue_age_s"),
+    # Speculative decoding and LoRA are ported to the ragged engine only,
+    # as in the JAX package.
+    ("spec_decode", True, False, ValueError, "ragged_batching"),
+    ("adapter_pool_pages", 4, True, ValueError, "ragged_batching")])
+def test_unported_modes_raise(params, field, value, lora, exc, match):
+    from ray_tpu_torch.ops.segmented_lora import LoRAConfig
+
     _, tp = params
     cfg = teng.EngineConfig(**{**ENGINE_KW, field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        teng.LLMEngine(tp, teng.llama_paged_adapter(T_CFG), cfg,
+    model_cfg = (dataclasses.replace(T_CFG, lora=LoRAConfig(rank=4))
+                 if lora else T_CFG)
+    with pytest.raises(exc, match=match):
+        teng.LLMEngine(tp, teng.llama_paged_adapter(model_cfg), cfg,
                        device="cpu")
 
 

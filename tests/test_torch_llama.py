@@ -143,12 +143,25 @@ def test_unported_modes_raise(params):
     _, tp = params
     cache = tl.init_paged_cache(T_CFG, 4, 16, device="cpu")
     toks = torch.zeros((1, 16), dtype=torch.int32)
-    for field, value in (("tensor_parallel", True), ("lora", object())):
+    for field, value in (("tensor_parallel", True),
+                         ("sequence_parallel", True)):
         with pytest.raises(NotImplementedError, match=field):
             tl.prefill_batch_paged(
                 tp, toks, torch.tensor([3]),
                 torch.zeros((1, 1), dtype=torch.int32),
                 dataclasses.replace(T_CFG, **{field: value}), cache)
+    # LoRA is ported (the ragged step's segmented body); the prefills
+    # never read it, as in the JAX package.
+    from ray_tpu_torch.ops.segmented_lora import LoRAConfig
+
+    base, _ = tl.prefill_batch_paged(
+        tp, toks, torch.tensor([3]), torch.zeros((1, 1), dtype=torch.int32),
+        T_CFG, tl.init_paged_cache(T_CFG, 4, 16, device="cpu"))
+    with_lora, _ = tl.prefill_batch_paged(
+        tp, toks, torch.tensor([3]), torch.zeros((1, 1), dtype=torch.int32),
+        dataclasses.replace(T_CFG, lora=LoRAConfig()),
+        tl.init_paged_cache(T_CFG, 4, 16, device="cpu"))
+    assert torch.equal(base, with_lora)
     # Fused decode is ported; the prefills never read the flag, as in the
     # JAX package, and it still refuses tensor parallelism.
     fused = dataclasses.replace(T_CFG, fused_decode=True)

@@ -186,8 +186,15 @@ def test_pack_ragged_batch_matches_jax():
         with pytest.raises(AssertionError):
             pack([dict(slot=s, start=0, tokens=None) for s in range(5)],
                  token_budget=8, max_slots=4)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        trpa.pack_ragged_batch(rows, 8, 4, with_adapters=True)
+    # The adapter column (LoRA multiplexing): each row's optional
+    # "adapter" index over its tokens, 0 elsewhere.
+    rows[1]["adapter"] = 2
+    got = trpa.pack_ragged_batch(rows, 8, 4, with_adapters=True)
+    want = jrpa.pack_ragged_batch(rows, 8, 4, with_adapters=True)
+    assert len(got) == len(want) == 9
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert list(got[8]) == [0, 2, 2, 2, 0, 0, 0, 0]
 
 
 def test_window_size_matches_jax():
@@ -310,16 +317,14 @@ def test_ragged_step_unported_modes_raise(params):
     args = [torch.zeros(8, dtype=torch.int32)] * 2 \
         + [torch.zeros(1, dtype=torch.int32)] * 4 + [bt]
     cache = tl.init_paged_cache(T_CFG, 2, 16, device="cpu")
-    # The fused body is ported; with LoRA, tensor parallelism or
-    # sequence parallelism it still raises, as the unfused body does.
+    # The fused body and LoRA (tests/test_torch_lora.py) are ported; with
+    # tensor or sequence parallelism the step still raises, fused or not.
     fused = dataclasses.replace(T_CFG, fused_decode=True)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tl.ragged_step_paged(tp, *args, fused, cache, lora=object())
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tl.ragged_step_paged(tp, *args, T_CFG, cache, lora=object())
-    with pytest.raises(NotImplementedError, match="tensor_parallel"):
-        tl.ragged_step_paged(tp, *args, dataclasses.replace(
-            fused, tensor_parallel=True), cache)
+    for cfg in (fused, T_CFG):
+        for field in ("tensor_parallel", "sequence_parallel"):
+            with pytest.raises(NotImplementedError, match=field):
+                tl.ragged_step_paged(tp, *args, dataclasses.replace(
+                    cfg, **{field: True}), cache)
 
 
 @pytest.mark.parametrize("chunk_lens", [(16, 16), (16, 9)])
