@@ -153,15 +153,42 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    of a dense forward over the merged weights W + scale A B and ranks
    above 100 under the base weights (ranks, gaps and spreads printed);
    one adapter load and one step of the leg's row mix, base vs LoRA,
-   timed alone.
+   timed alone;
+12. the dense (non-paged) serving path (``llama_adapter``, no kernel of
+   its own; its prefills take K9f): a tiny f32 Llama on the dense engine,
+   cuda vs cpu greedy streams identical and equal to the paged engine's
+   on the card, K9f launched and no other kernel; then LLAMA3_8B in bf16
+   (after phase 11, on the same weights) with 8 slots of 2048 and prompts
+   of 17, 300, 700 and 1500 tokens at once: counters at 0 just before,
+   K9f risen and no paged kernel (K1, K2, K4, K5, K13 or their int8
+   kin); the paged engine on the same prompts, each stream's common
+   prefix with it (a first divergence must rank in the top 2 of a dense
+   forward); decode tokens/s beside the paged engine's and phase 5's,
+   one dense decode step timed alone (host, and device from a
+   CUDA-graph replay) and peak memory;
+13. int8 Adam states (``train.adamw8bit``, no kernel of its own), after
+   phase 9's training: K9f, K10 and K11 at BENCH_2B_CFG's attention (B
+   4, S 2048, 20 query heads over 4 kv heads: a GQA group of 5, D 128,
+   bf16) against their plain versions, timed beside them, SDPA and the
+   bound; a small f32 Llama trained 3 steps with ``adamw8bit`` on the
+   card and on the CPU (losses, grad norms and int8 states agree); then
+   BENCH_2B_CFG at full width and depth (2.24 B params, bf16 master,
+   "full" remat, loss chunks of 512) with ``adamw8bit(1e-4,
+   warmup_steps=10)`` on 4 x 2048 batches, as bench.py drives it: 2
+   warm-up and 3 timed steps with counters read per step (K9f 44, K10
+   and K11 22 a step), tokens/s, MFU, one step's kernel time by kernel,
+   peak memory and the optimizer state's bytes beside AdamW's; the loss
+   on the first batch must fall, and a checkpoint is written and
+   restored on the card.
 
 The last three lines of standard output are the kernel table (K1, K2,
 K9f, K10, K11, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8
 int8, K12, K13) as one JSON object, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Details go to ``--out`` (with
 ``launch_floor_ms``, K2's and K3's 48-slot runs under ``slots48``, the
-page-walk phases under ``kernels.walk`` and the verify-row phases under
-``kernels.verify_rows``).
+page-walk phases under ``kernels.walk``, the verify-row phases under
+``kernels.verify_rows`` and the group-5 rows of K9f, K10 and K11 under
+each one's ``group5``).
 """
 
 from __future__ import annotations
@@ -2568,16 +2595,16 @@ def _bwd_case(torch, tfa, g, B, S, H, KVH, D, dtype):
     return q, k, v, do, o, lse, tfa.flash_backward_delta(o, do)
 
 
-def _k9f_training_row(torch, F, tfa, q, k, v, o, lse, tag):
+def _k9f_training_row(torch, F, tfa, q, k, v, o, lse, tag, timed=None):
     """K9f on a training case's (q, k, v), which the case's backward
     reads: (o, lse) held against the plain version; at BENCH_CFG's
-    shapes also timed beside the plain version, causal SDPA and the
-    bound."""
+    shapes (or with ``timed``) also timed beside the plain version,
+    causal SDPA and the bound."""
     err, rel, lse_err = check_k9f(torch, tfa, q, k, v, o, lse, tag)
     row = {"max_abs_err": err, "max_rel_err": rel, "lse_err": lse_err}
     log(f"K9f flash_forward {tag}: err {err:.3e} (rel {rel:.3e}, lse "
         f"{lse_err:.3e})")
-    if tag != "bench":
+    if not (tag == "bench" if timed is None else timed):
         return row
     B, S, H, D = q.shape
     KVH = k.shape[2]
@@ -4273,6 +4300,466 @@ def lora_serving_phase(torch, llama, eng_mod, kernels, card, params):
     return legs
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the dense (non-paged) serving path
+# --------------------------------------------------------------------------
+
+DENSE_LENS = (17, 300, 700, 1500)
+DENSE_NEW = 32
+
+
+def dense_parity_phase(torch, llama, eng_mod, kernels):
+    """Tiny f32 Llama on the dense engine (``llama_adapter``): cuda vs cpu
+    greedy streams identical, with prompts long enough for flash buckets
+    (K9f on the card, no paged kernel); on the card the dense streams
+    equal the paged engine's."""
+    import numpy as np
+
+    cfg = dataclasses.replace(llama.LLAMA_TINY, max_seq_len=512,
+                              dtype=torch.float32)
+    cpu_params = llama.init_params(torch.Generator().manual_seed(2), cfg,
+                                   device="cpu", dtype=torch.float32)
+    ecfg = eng_mod.EngineConfig(max_slots=4, max_seq_len=512, page_size=64,
+                                decode_chunk=8, min_prefill_bucket=32,
+                                max_new_tokens_default=16)
+    rng = np.random.default_rng(12)
+    # Five prompts on four slots: 130 and 300 take buckets 256 and 512.
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (9, 40, 130, 300, 21)]
+    streams, counts = {}, None
+    for name, device, adapter in (
+            ("cuda", "cuda", eng_mod.llama_adapter(cfg)),
+            ("cpu", "cpu", eng_mod.llama_adapter(cfg)),
+            ("cuda paged", "cuda", eng_mod.llama_paged_adapter(cfg))):
+        if name == "cuda":
+            reset_counts(kernels)
+        eng = eng_mod.LLMEngine(_to(cpu_params, device), adapter, ecfg,
+                                device=device)
+        try:
+            streams[name] = [s.result(timeout_s=300)
+                             for s in [eng.submit(p) for p in prompts]]
+        finally:
+            eng.shutdown()
+        if name == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts(kernels)
+    ran = {k: n for k, n in counts.items() if n}
+    if set(ran) != {K9F}:
+        raise AssertionError(f"dense parity: launches {ran}, want K9f only")
+    for other in ("cpu", "cuda paged"):
+        if streams["cuda"] != streams[other]:
+            raise AssertionError(f"dense parity: cuda dense streams "
+                                 f"{streams['cuda']} vs {other} "
+                                 f"{streams[other]}")
+    log(f"dense parity: LLAMA_TINY f32, {len(prompts)} prompts of "
+        f"{[len(p) for p in prompts]} tokens on 4 slots: cuda dense == cpu "
+        f"dense == cuda paged greedy streams "
+        f"({sum(len(s) for s in streams['cuda'])} tokens, K9f {ran[K9F]})")
+    return {"prompts": [len(p) for p in prompts], "launches": ran,
+            "tokens": sum(len(s) for s in streams["cuda"])}
+
+
+def dense_step_breakdown(torch, llama, params, cfg, lens, slots=8,
+                         max_len=2048):
+    """One 8B dense decode step outside the engine (timed as ``time_step``
+    says), at this run's live slots 16 tokens into their decode."""
+    cache = llama.init_kv_cache(cfg, slots, max_len, device="cuda")
+    cache["length"][: len(lens)] = torch.tensor(
+        [n + 16 for n in lens], dtype=torch.int32)
+    active = cache["length"] > 0
+    tokens = torch.zeros(slots, dtype=torch.int32, device="cuda")
+    step = lambda: llama.decode_slots(  # noqa: E731
+        params, tokens, active, cfg, cache)
+    out = {"live_lengths": [n + 16 for n in lens], **time_step(torch, step)}
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_8b(torch, eng_mod, params, adapter, ecfg, prompts, kernels):
+    """Serve ``prompts`` at once on a fresh engine (after a warm-up
+    request) with every counter at 0 just before; returns (streams,
+    launches, decode tokens/s, engine steps, TTFTs)."""
+    eng = eng_mod.LLMEngine(params, adapter, ecfg, device="cuda")
+    try:
+        eng.submit(prompts[0][:5], max_new_tokens=2).result(timeout_s=600)
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        steps0 = eng.stats()["steps"]
+        streams = [eng.submit(p, max_new_tokens=DENSE_NEW) for p in prompts]
+        outs = [s.result(timeout_s=600) for s in streams]
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        steps = eng.stats()["steps"] - steps0
+        reqs = [s._req for s in streams]
+    finally:
+        eng.shutdown()
+    first = min(r.first_token_at for r in reqs)
+    last_done = max(r.finished_at for r in reqs)
+    tps = sum(len(o) - 1 for o in outs) / (last_done - first)
+    return outs, launches, tps, steps, [r.ttft_s for r in reqs]
+
+
+def dense_serving_phase(torch, llama, eng_mod, kernels, card, params,
+                        paged_phase5_tps):
+    """LLAMA3_8B in bf16 (phase 5's weights) on the dense engine: 8 slots
+    of 2048, prompts of 17, 300, 700 and 1500 tokens at once (one prefill
+    of 4 x 2048: K9f), 32 new tokens; counters at 0 just before: K9f
+    risen, no paged kernel.  The paged engine serves the same prompts;
+    each dense stream's common prefix with it is printed, and a first
+    divergence must rank in the top 2 of a dense forward."""
+    import numpy as np
+
+    cfg = llama.LLAMA3_8B
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in DENSE_LENS]
+    torch.cuda.reset_peak_memory_stats()
+    ecfg = eng_mod.EngineConfig(max_slots=8, max_seq_len=2048, page_size=64,
+                                decode_chunk=8)
+    outs, launches, tps, steps, ttft = _serve_8b(
+        torch, eng_mod, params, eng_mod.llama_adapter(cfg), ecfg, prompts,
+        kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for out in outs:
+        if len(out) != DENSE_NEW or not all(0 <= t < cfg.vocab_size
+                                            for t in out):
+            raise AssertionError(f"8B dense stream malformed: {out}")
+    ran = {k: n for k, n in launches.items() if n}
+    if set(ran) != {K9F}:
+        raise AssertionError(f"8B dense serving: launches {ran}, want K9f "
+                             "only (no paged kernel)")
+    p_outs, p_launches, p_tps, p_steps, _ = _serve_8b(
+        torch, eng_mod, params, eng_mod.llama_paged_adapter(cfg), ecfg,
+        prompts, kernels)
+    prefix, ranks = _divergence(torch, llama, params, cfg, prompts, p_outs,
+                                outs)
+    if any(r > 1 for r in ranks):
+        raise AssertionError(f"8B dense: a first divergence from the paged "
+                             f"stream ranks {ranks} (want top 2)")
+    breakdown = dense_step_breakdown(torch, llama, params, cfg, DENSE_LENS)
+    res = {"config": "LLAMA3_8B bf16, 32 layers, random weights (seed 0)",
+           "engine": "dense, max_slots=8 max_seq_len=2048 decode_chunk=8",
+           "prompt_lens": list(DENSE_LENS), "max_new_tokens": DENSE_NEW,
+           "ttft_s": ttft, "decode_tokens_per_s": tps, "decode_steps": steps,
+           "launches": ran, "peak_memory_gb": peak_gb,
+           "paged_same_prompts": {"decode_tokens_per_s": p_tps,
+                                  "decode_steps": p_steps},
+           "paged_phase5_decode_tokens_per_s": paged_phase5_tps,
+           "common_prefix": prefix, "first_divergence_ranks": ranks,
+           "decode_step": breakdown, "card": card}
+    dev_ms = breakdown["device_ms"]
+    log(f"8B dense serving ({card}): prompts {list(DENSE_LENS)}, TTFT "
+        f"{[round(t, 4) for t in ttft]} s, decode {tps:.1f} tok/s over "
+        f"{steps} steps (paged engine on the same prompts {p_tps:.1f}, "
+        f"phase 5's paged run {paged_phase5_tps:.1f}), peak {peak_gb:.2f} "
+        f"GB, launches {ran}; common prefix with the paged streams {prefix} "
+        f"of {DENSE_NEW}, divergence ranks {ranks}")
+    log(f"8B dense decode step alone ({breakdown['aten_ops']} ATen ops): "
+        f"host {breakdown['host_ms']:.2f} ms, device "
+        + (f"{dev_ms:.2f} ms" if dev_ms is not None else
+           f"not measured ({breakdown['device_ms_error']})"))
+    return res
+
+
+# --------------------------------------------------------------------------
+# Phase 13: int8 Adam states and bench.py's 2.24B point
+# --------------------------------------------------------------------------
+
+B2_B = 4                          # bench.py's batch at the 2.24B point
+# int8 states: card vs cpu, relative to the block's scale (grads summed in
+# other orders move m and sqrt(v) by f32 roundings: one int8 step at most).
+ADAM8_SCALE_TOL = 1e-4
+
+
+def bench_2b_cfg(llama, torch):
+    """bench.py's BENCH_2B_CFG (bench.py:72-83)."""
+    return llama.LlamaConfig(
+        vocab_size=32_768, dim=2560, n_layers=22, n_heads=20, n_kv_heads=4,
+        mlp_dim=10240, max_seq_len=TRAIN_S, param_dtype=torch.bfloat16,
+        remat_policy="full", loss_chunk=512)
+
+
+def kernel_phase_group5(torch, F, tfa, report):
+    """K9f, K10 and K11 at BENCH_2B_CFG's attention (B 4, S 2048, H 20,
+    KVH 4, D 128, causal, bf16: a GQA group of 5) against their plain
+    versions, timed beside the plain versions, SDPA and the bound; kept
+    under each kernel's ``group5`` entry."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    B, S, H, KVH, D = B2_B, TRAIN_S, 20, 4, 128
+    q, k, v, do, o, lse, delta = _bwd_case(torch, tfa, g, B, S, H, KVH, D,
+                                           torch.bfloat16)
+    report["K9f"]["group5"] = _k9f_training_row(
+        torch, F, tfa, q, k, v, o, lse, "group5", timed=True)
+    del o
+    got = (tfa.flash_backward_dq(q, k, v, do, lse, delta, True),
+           *tfa.flash_backward_dkv(q, k, v, do, lse, delta, True))
+    want = (tfa.flash_backward_dq_plain(q, k, v, do, lse, delta, True),
+            *tfa.flash_backward_dkv_plain(q, k, v, do, lse, delta, True))
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        rel = err / b.float().abs().max().item()
+        errs[name] = {"max_abs_err": err, "rel_to_max": rel}
+        if not rel <= BWD_TOL["bfloat16"]:
+            raise AssertionError(f"K10/K11 {name} at group 5 disagrees with "
+                                 f"its plain version: {rel} of the max")
+    del got, want
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    library_ms = time_ms(torch, lambda i: torch.autograd.grad(
+        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), n=3,
+        blocks=3)
+    del out, qt, kt, vt
+    pairs = S * (S + 1) // 2
+    io = 2 * (2 * B * S * H * D + 2 * B * S * KVH * D) + 8 * B * H * S
+    for key, fn, plain, extra, mult, part in (
+            ("K10", tfa.flash_backward_dq, tfa.flash_backward_dq_plain,
+             2 * B * S * H * D, 3, ("dq",)),
+            ("K11", tfa.flash_backward_dkv, tfa.flash_backward_dkv_plain,
+             2 * 2 * B * S * KVH * D, 4, ("dk", "dv"))):
+        ms = time_ms(torch, lambda i, fn=fn: fn(q, k, v, do, lse, delta,
+                                                True), n=3, blocks=3)
+        plain_ms = time_ms(torch, lambda i, fn=plain: fn(
+            q, k, v, do, lse, delta, True), n=2, blocks=3)
+        flops = mult * 2 * B * H * D * pairs
+        bnd = bound(io + extra, flops, BF16_FLOPS)
+        row = {"shape": f"B={B} S={S} H={H} KVH={KVH} D={D} causal bfloat16",
+               "max_abs_err": max(errs[n]["max_abs_err"] for n in part),
+               "errs": {n: errs[n] for n in part}, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bnd[0], "bound_by": bnd[1],
+               "tflops": flops / (ms * 1e-3) / 1e12,
+               "vs_library": ms / library_ms}
+        report[key]["group5"] = row
+        log(f"{key} at group 5: kernel {ms:.4f} ms ({row['tflops']:.1f} "
+            f"TFLOP/s)  plain {plain_ms:.4f} ms  SDPA backward "
+            f"{library_ms:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]}); errs "
+            + ", ".join(f"{n} {e['rel_to_max']:.2e} of max"
+                        for n, e in row["errs"].items()))
+    del q, k, v, do, lse, delta
+    torch.cuda.empty_cache()
+
+
+def _state_pairs(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _state_pairs(tree[k])
+    else:
+        yield tree
+
+
+def adam8_parity_phase(torch, llama, train, kernels):
+    """A small f32 Llama at S = 256 trained 3 steps with ``adamw8bit`` on
+    the card (K9f, K10, K11) and on the CPU from the same weights and
+    batches: losses and grad norms agree, and the int8 states agree within
+    one step (scales within ADAM8_SCALE_TOL)."""
+    cfg = llama.LlamaConfig(vocab_size=512, dim=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, mlp_dim=256, max_seq_len=256,
+                            dtype=torch.float32, param_dtype=torch.float32)
+    base = llama.init_params(torch.Generator().manual_seed(8), cfg,
+                             device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (3, 2, 256),
+                           generator=torch.Generator().manual_seed(9),
+                           dtype=torch.int32)
+    hist, states, counts = {}, {}, None
+    for dev in ("cuda", "cpu"):
+        params = _clone_to(torch, base, dev)
+        trainer = train.TorchTrainer(
+            init_params=lambda g, p=params: p,
+            loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+            optimizer=train.adamw8bit(1e-3, warmup_steps=1),
+            scaling_config=train.ScalingConfig(devices=[dev]),
+            run_config=train.RunConfig(report_every=1))
+        trainer.state
+        if dev == "cuda":
+            reset_counts(kernels)
+        res = trainer.fit(({"tokens": t} for t in tokens), num_steps=3)
+        if res.error is not None:
+            raise res.error
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts(kernels)
+        hist[dev] = res.metrics_history
+        states[dev] = trainer.state.opt_state
+    want = {K9F: 2 * 2 * 3, K10: 2 * 3, K11: 2 * 3}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"adam8 parity: launches {got}, want {want}")
+    worst = {}
+    for key in ("loss", "grad_norm"):
+        a = [m[key] for m in hist["cuda"]]
+        b = [m[key] for m in hist["cpu"]]
+        worst[key] = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        if worst[key] > 1e-4:
+            raise AssertionError(f"adam8 parity: {key} cuda {a} vs cpu {b}")
+    steps, scale_rel = 0, 0.0
+    for m in ("mu", "nu"):
+        for (qa, sa), (qb, sb) in zip(_state_pairs(states["cuda"][m]),
+                                      _state_pairs(states["cpu"][m])):
+            steps = max(steps, (qa.cpu().int() - qb.int()).abs().max().item())
+            scale_rel = max(scale_rel, ((sa.cpu() - sb).abs() / sb).max()
+                            .item())
+    if steps > 1 or scale_rel > ADAM8_SCALE_TOL:
+        raise AssertionError(f"adam8 parity: int8 states {steps} steps apart,"
+                             f" scales {scale_rel:.2e} relative")
+    log(f"adam8 parity (f32, S=256, 3 steps): losses cuda "
+        f"{[round(m['loss'], 6) for m in hist['cuda']]}, worst relative loss "
+        f"{worst['loss']:.2e}, grad_norm {worst['grad_norm']:.2e}; int8 "
+        f"states at most {steps} step apart, scales {scale_rel:.2e}; "
+        f"launches {got}")
+    return {"launches": got, "worst_rel": worst, "int8_steps": steps,
+            "scale_rel": scale_rel}
+
+
+def _opt_state_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_opt_state_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_opt_state_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def train_2b_phase(torch, llama, train, kernels, repo):
+    """BENCH_2B_CFG at full width and depth (22 layers, dim 2560, 20/4
+    heads, bf16 master, "full" remat, loss chunks of 512) with
+    ``adamw8bit(1e-4, warmup_steps=10)`` on batches of 4 x 2048, as
+    bench.py:1580-1593 drives it: 2 warm-up and 3 timed steps through the
+    trainer's state and step, counters read per step (full remat: K9f
+    twice a layer, forward and recompute; K10 and K11 once), one step's
+    kernels under the profiler, the loss on the first batch again, then a
+    checkpoint written and restored on the card."""
+    cfg = bench_2b_cfg(llama, torch)
+    want = {K9F: 2 * cfg.n_layers, K10: cfg.n_layers, K11: cfg.n_layers}
+    trainer = train.TorchTrainer(
+        init_params=lambda g: llama.init_params(g, cfg),
+        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+        optimizer=train.adamw8bit(1e-4, warmup_steps=10),
+        run_config=train.RunConfig(report_every=1_000_000))
+    t0 = time.perf_counter()
+    state = trainer.state
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = trainer._step_fn
+    gen = torch.Generator().manual_seed(3)
+    staged = [trainer.shard_batch({"tokens": torch.randint(
+        0, cfg.vocab_size, (B2_B, TRAIN_S), generator=gen,
+        dtype=torch.int32)}) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_step, losses = [], []
+
+    def counted(batch):
+        # The counters move on the host at each launch: reading them
+        # needs no sync.
+        nonlocal state
+        reset_counts(kernels)
+        state, metrics = step(state, batch)
+        counts = read_counts(kernels)
+        per_step.append({k: counts[k] for k in want})
+        losses.append(metrics["loss"])
+        return metrics
+
+    for i in range(2):
+        counted(staged[i % len(staged)])
+    float(losses[-1])
+    t0 = time.perf_counter()
+    timed = 3
+    for i in range(timed):
+        metrics = counted(staged[i % len(staged)])
+    float(metrics["loss"])
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    reset_counts(kernels)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], staged[1])
+
+    breakdown = _step_breakdown(torch, one_step)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    per_step.append({k: counts[k] // 2 for k in want})
+    state = holder[0]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(c != want for c in per_step):
+        raise AssertionError(f"2B training: launches per step {per_step}, "
+                             f"want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"2B training: losses {losses}")
+    with torch.no_grad():
+        end_loss = float(llama.loss_fn(state.params, staged[0], cfg)[0])
+    if not end_loss < losses[0]:
+        raise AssertionError(f"2B training: loss on the first batch "
+                             f"{losses[0]} -> {end_loss}: not falling")
+    n = cfg.num_params()
+    opt_bytes = sum(_opt_state_bytes(state.opt_state[m])
+                    for m in ("mu", "nu"))
+    adamw_bytes = 2 * sum(p.numel() * p.element_size()
+                          for p in _leaves(state.params))
+    # A checkpoint of the whole state (int8 pairs included), written, then
+    # restored over a zeroed leaf and a zeroed int8 state: the restore
+    # copies into the state's own tensors on the card.
+    ckpt_root = os.path.join(repo, "smoke_out", "train_2b_ckpt")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    mngr = train.CheckpointManager(ckpt_root)
+    t0 = time.perf_counter()
+    mngr.save(state.step, state)
+    save_s = time.perf_counter() - t0
+    q, sc = state.opt_state["mu"]["layers"]["mlp"]["w_up"]
+    saved = (state.params["final_norm"].detach().clone(), q.clone())
+    with torch.no_grad():
+        state.params["final_norm"].zero_()
+        q.zero_()
+    t0 = time.perf_counter()
+    restored = mngr.restore(state)
+    restore_s = time.perf_counter() - t0
+    rq, rsc = restored.opt_state["mu"]["layers"]["mlp"]["w_up"]
+    if not (rq is q and rsc is sc and rq.is_cuda
+            and torch.equal(rq, saved[1])
+            and torch.equal(restored.params["final_norm"], saved[0])
+            and restored.step == state.step):
+        raise AssertionError("2B training: checkpoint restore")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    tokens_per_s = B2_B * TRAIN_S * timed / wall
+    out = {"config": "BENCH_2B_CFG (bench.py:72-83)", "params": n,
+           "optimizer": "adamw8bit(1e-4, warmup_steps=10)",
+           "batch": [B2_B, TRAIN_S], "init_s": init_s,
+           "tokens_per_s": tokens_per_s, "step_ms": wall / timed * 1e3,
+           "mfu": 6 * n * tokens_per_s / BF16_FLOPS, "peak_gb": peak_gb,
+           "losses": losses, "end_loss_first_batch": end_loss,
+           "launches_per_step": per_step, "want_per_step": want,
+           "opt_state_bytes": opt_bytes, "adamw_state_bytes": adamw_bytes,
+           "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+           "breakdown": breakdown}
+    log(f"BENCH_2B_CFG train ({n / 1e9:.3f} B params, {B2_B} x {TRAIN_S}, "
+        f"adamw8bit): {tokens_per_s:.0f} tokens/s, step "
+        f"{out['step_ms']:.1f} ms, MFU {out['mfu']:.4f}, peak "
+        f"{peak_gb:.2f} GB; optimizer state {opt_bytes / 1e9:.3f} GB "
+        f"(AdamW would hold {adamw_bytes / 1e9:.3f} GB); loss "
+        f"{losses[0]:.4f} -> first batch again {end_loss:.4f}; launches per "
+        f"step {per_step[0]} (want {want}); checkpoint save {save_s:.1f} s, "
+        f"restore {restore_s:.1f} s")
+    if "error" in breakdown:
+        log(f"  breakdown: not measured ({breakdown['error']})")
+    else:
+        out["device_idle_share"] = 1 - breakdown["kernel_ms_total"] / (
+            wall / timed * 1e3)
+        top = dict(list(breakdown["by_kernel"].items())[:6])
+        log(f"  one step's kernels {breakdown['kernel_ms_total']:.1f} ms "
+            f"(idle {out['device_idle_share']:.3f} of the step): flash "
+            f"{breakdown['flash_share']:.3f} "
+            f"({_fmt_breakdown(breakdown['flash_ms'])}), matrix products "
+            f"{breakdown['gemm_ms']:.1f}, other {breakdown['other_ms']:.1f};"
+            f" top: {_fmt_breakdown(top)}")
+    del trainer, state, holder, staged, restored, saved
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(
@@ -4385,6 +4872,11 @@ def main() -> int:
                                       params)
     lora_serving = lora_serving_phase(torch, llama, eng_mod, kernels, card,
                                       params)
+    # The dense (non-paged) path: K9f on its prefills, no paged kernel.
+    dense_parity = dense_parity_phase(torch, llama, eng_mod, kernels)
+    dense_serving = dense_serving_phase(
+        torch, llama, eng_mod, kernels, card, params,
+        serving["decode_tokens_per_s"])
     del params
     torch.cuda.empty_cache()
     fused_bucketed, fused_ragged, fused_short = fused_serving_phase(
@@ -4396,6 +4888,12 @@ def main() -> int:
                                     os.path.dirname(os.path.abspath(
                                         __file__)))
     train_1b = train_1b_phase(torch, llama, train, kernels)
+    # int8 Adam states: the flash kernels at a GQA group of 5, cuda-vs-cpu
+    # parity, then BENCH_2B_CFG (K9f, K10, K11 counted per step).
+    kernel_phase_group5(torch, F, tfa, report)
+    adam8_parity = adam8_parity_phase(torch, llama, train, kernels)
+    train_2b = train_2b_phase(torch, llama, train, kernels,
+                              os.path.dirname(os.path.abspath(__file__)))
     # Mamba-2: cuda-vs-cpu parity, the small hybrid, then the 2.7B at full
     # width and depth (K12 counted from 0 over its steps); then K13's path.
     mamba_parity = mamba_parity_phase(torch, tm, train, kernels)
@@ -4449,6 +4947,9 @@ def main() -> int:
                    "fused_bf16_pool_runs": fused_short,
                    "train_parity": train_parity, "train_headline": headline,
                    "train_1b": train_1b, "mamba_parity": mamba_parity,
+                   "dense_parity": dense_parity,
+                   "dense_serving": dense_serving,
+                   "adam8_parity": adam8_parity, "train_2b": train_2b,
                    "jamba_tiny": jamba, "mamba2_2_7b": mamba_27b,
                    "k13_path": k13_path}, f, indent=1)
     log(f"total {total_s:.1f} s; details in {args.out}")

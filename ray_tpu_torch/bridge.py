@@ -12,9 +12,14 @@ A LoRA adapter crosses through ``adapter_from_jax``: the factor tree
 numpy, becomes the port's tensors, which the port's adapter pool loads
 as they are (one ``lora_loader`` can serve both packages).
 
-An optimizer state (``train.AdamW``'s ``{"count", "mu", "nu"}``) comes
-back to the host through ``opt_state_to_numpy``, so its moments can be
-held against optax's.
+An optimizer state (``train.AdamW``'s or ``train.adamw8bit``'s
+``{"count", "mu", "nu"}``, the latter with an ``(int8 q, f32 scale)``
+pair at each leaf) comes back to the host through
+``opt_state_to_numpy``, so its moments can be held against optax's.  A
+JAX chain state (optax's tuple of per-transform states, as numpy)
+crosses into the port with ``opt_state_from_jax``, and a port state goes
+back into such a chain with ``opt_state_to_jax``: the ``count``, ``mu``
+and ``nu`` fields are found by name, so the bridge needs no optax.
 
 A paged cache crosses the same way (``paged_cache_from_jax`` /
 ``paged_cache_to_numpy``): the port keeps the pools [L, KVH, P+1, page,
@@ -104,10 +109,75 @@ def paged_cache_to_numpy(cache: Any, bf16_dtype: Optional[Any] = None) -> Any:
     return params_to_numpy(dict(cache), bf16_dtype)
 
 
+def _state_to_numpy(tree: Any, bf16_dtype: Optional[Any]) -> Any:
+    if isinstance(tree, (tuple, list)):
+        return tuple(_state_to_numpy(v, bf16_dtype) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _state_to_numpy(v, bf16_dtype) for k, v in tree.items()}
+    return params_to_numpy(tree, bf16_dtype)
+
+
 def opt_state_to_numpy(opt_state: Any, bf16_dtype: Optional[Any] = None
                        ) -> Any:
-    """``train.AdamW``'s state → ``{"count": int, "mu": ..., "nu": ...}``
-    with numpy moments (bf16 ones as ``params_to_numpy`` returns them)."""
+    """``train.AdamW``'s or ``train.adamw8bit``'s state → ``{"count": int,
+    "mu": ..., "nu": ...}`` with numpy moments (bf16 ones as
+    ``params_to_numpy`` returns them; int8 states as ``(q, scale)``
+    tuples)."""
     return {"count": int(opt_state["count"]),
-            "mu": params_to_numpy(opt_state["mu"], bf16_dtype),
-            "nu": params_to_numpy(opt_state["nu"], bf16_dtype)}
+            "mu": _state_to_numpy(opt_state["mu"], bf16_dtype),
+            "nu": _state_to_numpy(opt_state["nu"], bf16_dtype)}
+
+
+def _moment_from_jax(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _moment_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_moment_from_jax(v, device) for v in tree)
+    return _leaf_to_torch(tree, device)
+
+
+def _adam_states(chain: Any) -> list:
+    """The states of an optax chain state (NamedTuples in tuples) that
+    hold ``count``, ``mu`` and ``nu``."""
+    if hasattr(chain, "_fields"):
+        return [chain] if {"count", "mu", "nu"} <= set(chain._fields) else []
+    if isinstance(chain, (tuple, list)):
+        return [st for c in chain for st in _adam_states(c)]
+    return []
+
+
+def opt_state_from_jax(chain_state: Any, device: DeviceLike = None) -> Any:
+    """An optax chain state as numpy (``jax.tree.map(np.asarray,
+    state)``) → the port's ``{"count", "mu", "nu"}`` from its one Adam
+    state, on ``device``; an int8 state's ``(q, scale)`` pairs stay
+    pairs."""
+    dev = resolve_device(device)
+    found = _adam_states(chain_state)
+    if len(found) != 1:
+        raise ValueError(f"want one Adam state (count, mu, nu) in the "
+                         f"chain, found {len(found)}")
+    st = found[0]
+    return {"count": int(np.asarray(st.count)),
+            "mu": _moment_from_jax(st.mu, dev),
+            "nu": _moment_from_jax(st.nu, dev)}
+
+
+def opt_state_to_jax(opt_state: Any, like: Any,
+                     bf16_dtype: Optional[Any] = None) -> Any:
+    """The port's state put back into ``like``, an optax chain state of
+    the same optimizer (e.g. its ``init``): every ``count`` field (the
+    Adam state's and the schedule's, which advance together) and the
+    Adam state's ``mu`` and ``nu`` replaced by numpy values."""
+    host = opt_state_to_numpy(opt_state, bf16_dtype)
+
+    def walk(chain):
+        if hasattr(chain, "_fields"):
+            return chain._replace(**{
+                f: (np.asarray(host[f], np.int32) if f == "count"
+                    else host[f])
+                for f in chain._fields if f in ("count", "mu", "nu")})
+        if isinstance(chain, (tuple, list)):
+            return type(chain)(walk(c) for c in chain)
+        return chain
+
+    return walk(like)

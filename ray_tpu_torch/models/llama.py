@@ -18,7 +18,18 @@ outputs and recomputes the rest, the flash kernel K9f included;
 at S >= 256 on the card runs K9f forward and K10 + K11 backward
 (``ops/flash_attention.py``).
 
-Serving: the paged path with a
+Serving on a dense cache (``init_kv_cache``: k/v [L, slots, max_len,
+KVH, D] and an int32 ``length`` per slot, written in place):
+``prefill`` (every row full length), ``prefill_slot`` (one prompt into
+one slot), ``prefill_batch`` (K prompts in one forward, scattered into
+their slots), ``decode_slots`` (one step over every slot, lengths
+advanced for the active ones) and ``decode_step``; prefill attention
+goes through ``ops.attention`` (K9f on the card for buckets >= 256),
+decode through the plain ``ops.attention.decode_attention``.  As in the
+JAX package only ``prefill`` and ``prefill_batch`` dequantise int8
+weights, so the dense engine refuses an int8 tree.
+
+Serving on the paged path with a
 bf16 (or f32) page pool, or with ``cfg.kv_int8`` an int8 pool plus one
 f32 scale per page and kv head: ``prefill_batch_paged`` /
 ``prefill_slot_paged`` (prefill attention through ``ops.attention``,
@@ -58,7 +69,10 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
-from ray_tpu_torch.ops.attention import dot_product_attention
+from ray_tpu_torch.ops.attention import (
+    decode_attention,
+    dot_product_attention,
+)
 from ray_tpu_torch.ops.fused_decode import fused_decode_layer
 from ray_tpu_torch.ops.paged_attention import (
     NEG_INF,
@@ -484,6 +498,161 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
                                          batch.get("loss_mask"),
                                          z_loss=z_loss)
     return total, {"loss": total, "ntokens": ntokens}
+
+
+# --- dense KV cache serving -------------------------------------------------
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                  device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Dense cache: k/v [L, batch, max_len, KVH, D] in ``cfg.dtype`` and
+    the valid length of each row, int32 [batch]."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def _prefill_layers(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                    write, deq: bool) -> torch.Tensor:
+    """The prefill forward over tokens [K, S]: each layer's k/v
+    [K, S, KVH, D] go to ``write(layer_index, k, v)``; returns the final
+    normed hidden [K, S, D].  ``deq`` dequantises int8 layers (only
+    ``prefill`` and ``prefill_batch`` do, as in the JAX package)."""
+    _unported(cfg)
+    S = tokens.shape[1]
+    positions = torch.arange(S, device=tokens.device)[None, :]
+    sin, cos = rope_table(cfg, positions)
+    x = params["tok_embed"][tokens.long()].to(cfg.dtype)
+    for i, layer in enumerate(_layers(params["layers"], cfg.n_layers)):
+        if deq:
+            layer = _deq_layer(layer, cfg.dtype)
+        normed = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
+        out, (k, v) = _attn_block(normed, layer, cfg, sin, cos, None)
+        h = x + out
+        x = h + _mlp_block(rms_norm(h, layer["ln_mlp"], cfg.norm_eps),
+                           layer, cfg)
+        write(i, k, v)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            cache: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run the prompt through the model, filling the cache in place.
+    tokens [B, S] (every row uses the full S) → (logits at the last
+    position [B, V] f32, cache) with ``length = S`` for every row."""
+    B, S = tokens.shape
+
+    def write(i, k, v):
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+
+    x = _prefill_layers(params, tokens, cfg, write, deq=True)
+    logits = x[:, -1] @ _head(params, cfg).to(cfg.dtype)
+    cache["length"] = torch.full((B,), S, dtype=torch.int32,
+                                 device=tokens.device)
+    return logits.float(), cache
+
+
+def prefill_slot(params: Params, tokens: torch.Tensor, true_len, slot,
+                 cfg: LlamaConfig, cache: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill ONE sequence into one slot: tokens [S] right-padded to a
+    bucket; k/v land in ``cache[:, slot, :S]`` and ``length[slot] =
+    true_len``.  Returns (logits at true_len - 1 [V] f32, cache).
+    Causality keeps the padding invisible to the real positions."""
+    S = tokens.shape[0]
+    dev = tokens.device
+    slot = torch.as_tensor(slot, device=dev).reshape(1).long()
+    true_len = torch.as_tensor(true_len, device=dev).reshape(())
+
+    def write(i, k, v):
+        cache["k"][i, slot, :S] = k
+        cache["v"][i, slot, :S] = v
+
+    x = _prefill_layers(params, tokens[None], cfg, write, deq=False)
+    logits = x[0, true_len.long() - 1] @ _head(params, cfg).to(cfg.dtype)
+    cache["length"][slot] = true_len.to(torch.int32)
+    return logits.float(), cache
+
+
+def prefill_batch(params: Params, tokens: torch.Tensor,
+                  true_lens: torch.Tensor, slots: torch.Tensor,
+                  cfg: LlamaConfig, cache: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill K sequences in ONE batched forward: tokens [K, S],
+    true_lens [K], slots [K] → (logits at each row's true_len - 1
+    [K, V] f32, cache).  Whole [:S] rows scatter into their slots;
+    duplicate slot ids (admission padding rows) write identical
+    values."""
+    S = tokens.shape[1]
+    slots = slots.long()
+
+    def write(i, k, v):
+        cache["k"][i, slots, :S] = k
+        cache["v"][i, slots, :S] = v
+
+    x = _prefill_layers(params, tokens, cfg, write, deq=True)
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    logits = _head_matmul(x[rows, true_lens.long() - 1], _head(params, cfg),
+                          cfg)
+    cache["length"][slots] = true_lens.to(torch.int32)
+    return logits.float(), cache
+
+
+def _write_rows(pool: torch.Tensor, idx: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """pool [B, S_max, KVH, D][b, idx[b]] = new[b], in place; a row
+    whose idx is past S_max writes nothing (the JAX scatter drops it)
+    and no host sync decides that."""
+    rows = torch.arange(pool.shape[0], device=pool.device)
+    at = idx.clamp(max=pool.shape[1] - 1).long()
+    keep = (idx < pool.shape[1])[:, None, None]
+    pool[rows, at] = torch.where(keep, new.to(pool.dtype), pool[rows, at])
+
+
+def decode_slots(params: Params, tokens: torch.Tensor, active: torch.Tensor,
+                 cfg: LlamaConfig, cache: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step over ALL slots: tokens [slots] int32, active
+    [slots] bool → (logits [slots, V] f32, cache).  Every row's new k/v
+    is written at its length, inactive rows too, but only active rows
+    advance their length, so an inactive row's write is overwritten
+    before anything attends to it."""
+    _unported(cfg)
+    lengths = cache["length"]
+    new_len = torch.where(active, lengths + 1, lengths)
+    sin, cos = rope_table(cfg, lengths[:, None])
+    x = params["tok_embed"][tokens[:, None].long()].to(cfg.dtype)
+    B = tokens.shape[0]
+    for i, layer in enumerate(_layers(params["layers"], cfg.n_layers)):
+        normed = rms_norm(x, layer["ln_attn"], cfg.norm_eps)
+        q, k, v = _qkv(normed, layer, cfg, sin, cos)
+        kc, vc = cache["k"][i], cache["v"][i]
+        _write_rows(kc, lengths, k[:, 0])
+        _write_rows(vc, lengths, v[:, 0])
+        out = decode_attention(q, kc, vc, new_len,
+                               logits_soft_cap=cfg.logits_soft_cap)
+        wo = layer["attn"]["wo"]
+        out = out.reshape(B, 1, -1) @ wo.to(cfg.dtype).reshape(
+            -1, wo.shape[-1])
+        h = x + out
+        x = h + _mlp_block(rms_norm(h, layer["ln_mlp"], cfg.norm_eps),
+                           layer, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x[:, 0] @ _head(params, cfg).to(cfg.dtype)
+    cache["length"] = new_len
+    return logits.float(), cache
+
+
+def decode_step(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                cache: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step of every row: tokens [B] → (logits [B, V] f32,
+    cache), each length advanced by one."""
+    active = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
+    return decode_slots(params, tokens, active, cfg, cache)
 
 
 # --- paged serving --------------------------------------------------------

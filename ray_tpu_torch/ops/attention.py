@@ -5,7 +5,9 @@ autograd; the flash kernels (``ops/flash_attention.py``: K9f forward,
 K10 + K11 backward through one ``torch.autograd.Function``) take over
 for CUDA tensors under the same eligibility rule as the JAX package
 (causal, unpacked, no soft cap, no decode offset, block-divisible
-S >= 256).
+S >= 256).  ``decode_attention`` (one step against a dense
+[B, S_max, KVH, D] cache) is plain PyTorch, as the JAX package's is
+plain ``jnp``.
 
 Conventions: q [B, S, H, D], k/v [B, S, KVH, D] with H a multiple of
 KVH (grouped-query attention).
@@ -87,3 +89,31 @@ def dot_product_attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
     return out.to(orig_dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                     logits_soft_cap: Optional[float] = None
+                     ) -> torch.Tensor:
+    """Single-step attention against a (possibly longer) KV cache.
+
+    q [B, Q, H, D]; caches [B, S_max, KVH, D]; cache_len [B] valid
+    lengths (the new token's k/v already written at cache_len - 1).
+    Logits in float32; positions at or past cache_len are masked with
+    -1e30, not -inf, so an empty slot gets uniform weights and no NaN.
+    Each kv head serves its group of H / KVH query heads in place (the
+    JAX package expands k/v to H heads first: the same products, without
+    the [B, S_max, H, D] float32 copies)."""
+    orig_dtype = q.dtype
+    B, Q, H, D = q.shape
+    S, KVH = k_cache.shape[1], k_cache.shape[2]
+    qg = q.float().reshape(B, Q, KVH, H // KVH, D)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float()) \
+        * D ** -0.5
+    if logits_soft_cap is not None:
+        logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
+    valid = torch.arange(S, device=q.device)[None, :] < cache_len[:, None]
+    logits = logits.masked_fill(~valid[:, None, None, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache.float())
+    return out.reshape(B, Q, H, D).to(orig_dtype)

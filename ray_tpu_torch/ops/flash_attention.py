@@ -290,8 +290,22 @@ class _Flash(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Blockwise attention. q [B,S,H,D], k/v [B,S,KVH,D] → [B,S,H,D];
-    differentiable through K10 + K11."""
+    differentiable through K10 + K11.
+
+    The JAX rule sends any causal S from 256 to 511 to its kernel (one
+    block of S); the CUDA kernels tile S by 64.  On the card a causal S
+    off the tile is zero-padded to the next multiple of 64 and the
+    output cut back: under the causal mask no real query sees a padded
+    key, and the padded queries' zero gradient adds exact zeros to the
+    real keys' dk/dv, so the real rows are what an S-row kernel would
+    give."""
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"n_heads {q.shape[2]} not divisible by kv heads "
                          f"{k.shape[2]}")
+    S = q.shape[1]
+    pad = (-S) % _TILE
+    if q.is_cuda and causal and pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                   for t in (q, k, v))
+        return _Flash.apply(q, k, v, causal)[:, :S]
     return _Flash.apply(q, k, v, causal)

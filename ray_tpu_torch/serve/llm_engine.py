@@ -1,6 +1,6 @@
-"""Continuous-batching LLM engine on the paged KV cache (port of
-``ray_tpu/serve/llm_engine.py``, its paged path: bucketed, chunked and
-ragged).
+"""Continuous-batching LLM engine (port of
+``ray_tpu/serve/llm_engine.py``): on the paged KV cache (bucketed,
+chunked and ragged) or on a dense one.
 
 Design, as in the JAX engine:
 
@@ -18,8 +18,14 @@ Design, as in the JAX engine:
   * admission interleaves with decode between chunks.
 
 The engine owns the page pool and mutates it in place (the paged
-kernels write into it).  One loop thread does all device work; client
-threads only submit, cancel and read their streams.
+kernels write into it).  With a dense ``EngineAdapter``
+(``llama_adapter``) the cache is max_slots rows of max_seq_len that
+keep their lengths on the device: admission takes up to 8 requests into
+one prefill padded to the group's largest bucket, decode advances the
+active rows, a released slot only returns to the free list, and neither
+the ragged step nor chunked prefill applies, as in the JAX engine.  One
+loop thread does all device work; client threads only submit, cancel
+and read their streams.
 
 Two more scheduling modes, as in the JAX engine:
 
@@ -75,7 +81,7 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -157,6 +163,46 @@ def _check_ported(config: EngineConfig) -> None:
             raise NotImplementedError(
                 f"EngineConfig.{field}: {mode} is not ported to "
                 "ray_tpu_torch yet (a later slice; see ROADMAP.md)")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineAdapter:
+    """Model plug for the dense cache (max_slots rows of max_seq_len):
+
+    init_cache(slots, max_len, device) -> cache dict with an int32
+        "length"[slots] on the device
+    prefill_slot(params, tokens[S], true_len, slot, cache)
+        -> (logits[V], cache)
+    decode_slots(params, tokens[slots], active[slots], cache)
+        -> (logits[slots, V], cache)
+    prefill_batch(params, tokens[K,S], true_lens[K], slots[K], cache)
+        -> (logits[K,V], cache)  (one [K, S] forward; without it the
+        engine prefills the rows one prefill_slot call at a time)
+    """
+
+    init_cache: Callable[[int, int, torch.device], Any]
+    prefill_slot: Callable[..., Tuple[torch.Tensor, Any]]
+    decode_slots: Callable[..., Tuple[torch.Tensor, Any]]
+    prefill_batch: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
+
+
+def llama_adapter(cfg) -> EngineAdapter:
+    """The dense-cache plug for a Llama model (``models/llama.py``'s
+    ``init_kv_cache``, ``prefill_slot``, ``decode_slots`` and
+    ``prefill_batch``)."""
+    from ray_tpu_torch.models import llama
+
+    return EngineAdapter(
+        init_cache=lambda slots, max_len, device: llama.init_kv_cache(
+            cfg, slots, max_len, device),
+        prefill_slot=lambda params, tokens, true_len, slot, cache:
+            llama.prefill_slot(params, tokens, true_len, slot, cfg, cache),
+        decode_slots=lambda params, tokens, active, cache:
+            llama.decode_slots(params, tokens, active, cfg, cache),
+        prefill_batch=lambda params, tokens, true_lens, slots, cache:
+            llama.prefill_batch(params, tokens, true_lens, slots, cfg,
+                                cache),
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -405,6 +451,15 @@ class _InFlight:
             and any(part[0] == "first" for part in self.participants))
 
 
+def _holds_qdict(tree: Any) -> bool:
+    """Whether a param tree holds an int8 ``{"q", "scale"}`` leaf."""
+    if not isinstance(tree, dict):
+        return False
+    if set(tree) == {"q", "scale"}:
+        return True
+    return any(_holds_qdict(v) for v in tree.values())
+
+
 def _tensor_device(tree: Any) -> Optional[torch.device]:
     if isinstance(tree, dict):
         for v in tree.values():
@@ -417,13 +472,15 @@ def _tensor_device(tree: Any) -> Optional[torch.device]:
 
 class LLMEngine:
     """Continuous-batching scheduler around paged prefill/decode, with
-    chunked prefill or the ragged unified step when configured."""
+    chunked prefill or the ragged unified step when configured, or
+    around dense prefill/decode with an ``EngineAdapter``."""
 
     # Dispatched-but-unemitted entries: enough to keep the device busy
     # while the host processes tokens; budget gating bounds run-ahead.
     _PIPELINE_DEPTH = 6
 
-    def __init__(self, params: Any, adapter: PagedEngineAdapter,
+    def __init__(self, params: Any,
+                 adapter: Union[EngineAdapter, PagedEngineAdapter],
                  config: EngineConfig, *, seed: int = 0,
                  device: DeviceLike = None, draft_params: Any = None,
                  draft_adapter: Optional[PagedEngineAdapter] = None):
@@ -441,9 +498,17 @@ class LLMEngine:
                                  f"{self.device}")
         self._params = params
         page = config.page_size
+        self._paged = isinstance(adapter, PagedEngineAdapter)
+        if not self._paged and _holds_qdict(params):
+            # The JAX dense path dequantises only in its prefills: its
+            # decode fails on an int8 tree.
+            raise ValueError(
+                "the dense EngineAdapter (llama_adapter) does not serve int8 "
+                "weights: its decode step takes plain weights, as in the JAX "
+                "package; serve a quantised tree with llama_paged_adapter")
         self._ragged = bool(config.ragged_batching)
         if self._ragged:
-            if adapter.ragged_step is None:
+            if not self._paged or adapter.ragged_step is None:
                 raise ValueError("EngineConfig.ragged_batching requires a "
                                  "PagedEngineAdapter with ragged_step")
             self._token_budget = config.token_budget or (
@@ -458,15 +523,26 @@ class LLMEngine:
                     "EngineConfig.spec_decode requires ragged_batching=True "
                     "(verify rows are k-token rows of the unified ragged "
                     "step)")
-            if adapter.make_adapter_pool is not None:
+            if getattr(adapter, "make_adapter_pool", None) is not None:
                 raise ValueError(
                     "LoRA multiplexing requires ragged_batching (the "
                     "segmented adapter matmul rides the unified step)")
-        self._chunked = (not self._ragged and config.prefill_chunk > 0
+        # A dense adapter has no chunked prefill: prefill_chunk > 0 does
+        # not chunk, as in the JAX engine.
+        self._chunked = (self._paged and not self._ragged
+                         and config.prefill_chunk > 0
                          and adapter.prefill_chunk is not None)
-        self._maxp = -(-config.max_seq_len // page)
-        self._num_pages = config.num_pages or config.max_slots * self._maxp
-        self._cache = adapter.init_cache(self._num_pages, page, self.device)
+        if self._paged:
+            self._maxp = -(-config.max_seq_len // page)
+            self._num_pages = (config.num_pages
+                               or config.max_slots * self._maxp)
+            self._cache = adapter.init_cache(self._num_pages, page,
+                                             self.device)
+        else:
+            # max_slots rows of max_seq_len positions; the cache keeps
+            # each row's length on the device.
+            self._cache = adapter.init_cache(config.max_slots,
+                                             config.max_seq_len, self.device)
         if (isinstance(self._cache, dict) and "k_scale" in self._cache
                 and config.prefill_chunk > 0 and not self._ragged):
             # The ragged append works a page at a time and CAN grow page
@@ -478,7 +554,8 @@ class LLMEngine:
                 "on the gather path) — set "
                 "EngineConfig.prefill_chunk=0, enable "
                 "ragged_batching, or serve with bf16 KV")
-        self._free_pages = list(range(self._num_pages))
+        self._free_pages = (list(range(self._num_pages)) if self._paged
+                            else [])
         self._slot_pages: Dict[int, List[int]] = {}
         # Radix-tree prefix cache: finished requests donate full pages
         # to the trie; slots borrow them at admission (_slot_borrowed
@@ -512,8 +589,10 @@ class LLMEngine:
         # Unallocated block-table entries hold the OOB sentinel
         # (num_pages, the scratch page): never read by attention, and a
         # slot decoded past its allocation writes only scratch.
-        self._bt = np.full((config.max_slots, self._maxp), self._num_pages,
-                           np.int32)
+        self._bt = (np.full((config.max_slots, self._maxp), self._num_pages,
+                            np.int32) if self._paged else None)
+        # Host mirror of every slot's cache length (the dense cache's
+        # ``length`` on a dense adapter).
         self._lens = np.zeros((config.max_slots,), np.int32)
         self._backlog: List[Request] = []  # admitted-but-no-pages
         self._waiting: "queue.Queue[Request]" = queue.Queue()
@@ -648,11 +727,10 @@ class LLMEngine:
         req.request_id = request_id or f"torch-engine-r{req.req_id}"
         # Reject requests the page pool can NEVER satisfy — they would
         # otherwise wedge admission head-of-line forever.
-        need = self._pages_needed(req)
-        if need > self._num_pages:
+        if self._paged and self._pages_needed(req) > self._num_pages:
             raise ValueError(
-                f"request needs {need} pages ({len(prompt)}+"
-                f"{req.max_new_tokens} tokens, page "
+                f"request needs {self._pages_needed(req)} pages "
+                f"({len(prompt)}+{req.max_new_tokens} tokens, page "
                 f"{self.config.page_size}) but the pool has only "
                 f"{self._num_pages}")
         self._waiting.put(req)
@@ -683,10 +761,11 @@ class LLMEngine:
                # padding rows included), and ragged steps that packed
                # decode rows beside prompt tokens.
                "step_tokens": dict(self._step_tokens),
-               "mixed_steps": self._mixed_steps,
-               "kv_pages_free": len(self._free_pages),
-               "kv_pages_cached": (self._prefix.cached_pages
-                                   if self._prefix else 0)}
+               "mixed_steps": self._mixed_steps}
+        if self._paged:
+            out["kv_pages_free"] = len(self._free_pages)
+            out["kv_pages_cached"] = (self._prefix.cached_pages
+                                      if self._prefix else 0)
         if self._prefix is not None:
             pstats = self._prefix.stats()
             pstats["hit_tokens"] = self._prefix_hit_tokens
@@ -899,6 +978,44 @@ class LLMEngine:
                                          temps, scatter_ids)
             self._finish_admit(batch, toks_dev)
 
+    def _admit_dense(self) -> None:
+        """Dense admission, the JAX engine's: up to 8 waiting requests,
+        one free slot each, prefill in one dispatch padded to a power of
+        two rows (copies of the last row, whose samples scatter out of
+        bounds) and to the largest prompt bucket of the group."""
+        while self._free_slots:
+            batch: List[Tuple[Request, int]] = []
+            while self._free_slots and len(batch) < 8:
+                try:
+                    req = self._waiting.get_nowait()
+                except queue.Empty:
+                    break
+                batch.append((req, self._free_slots.pop()))
+            if not batch:
+                return
+            bucket = max(self._bucket_for(len(r.prompt)) for r, _ in batch)
+            k = 1
+            while k < len(batch):
+                k *= 2
+            tokens = np.zeros((k, bucket), np.int32)
+            true_lens = np.zeros((k,), np.int32)
+            slot_ids = np.zeros((k,), np.int32)
+            temps = np.zeros((k,), np.float32)
+            for i in range(k):
+                req, slot = batch[min(i, len(batch) - 1)]  # pad = copy
+                tokens[i, : len(req.prompt)] = req.prompt
+                true_lens[i] = len(req.prompt)
+                slot_ids[i] = slot
+                temps[i] = req.temperature
+            for req, slot in batch:
+                self._lens[slot] = len(req.prompt)
+            self._admitting = [req for req, _slot in batch]
+            scatter_ids = slot_ids.copy()
+            scatter_ids[len(batch):] = self.config.max_slots
+            toks_dev = self._run_prefill(tokens, true_lens, slot_ids, temps,
+                                         scatter_ids)
+            self._finish_admit(batch, toks_dev)
+
     def _admit_ragged(self) -> None:
         """Ragged admission: EVERY request claims its slot and pages up
         front and joins the incremental track; the unified step packs
@@ -944,15 +1061,28 @@ class LLMEngine:
                                      "pos": start})
             self._state_dirty = True  # bt rows changed
 
-    def _run_prefill(self, tokens, true_lens, pages_rows, temps,
+    def _run_prefill(self, tokens, true_lens, slot_or_pages, temps,
                      scatter_ids) -> torch.Tensor:
-        """One batched prefill; the sampled first tokens scatter into
-        the device cur (OOB scatter ids dropped)."""
+        """One batched prefill (``slot_or_pages``: each row's pages, or
+        its slot on a dense adapter); the sampled first tokens scatter
+        into the device cur (OOB scatter ids dropped).  A dense adapter
+        without prefill_batch prefills the rows one prefill_slot call at
+        a time, as the JAX engine's loop of rows does."""
         # Padding rows are device work too: they count as prefill tokens.
         self._step_tokens["prefill"] += int(np.sum(true_lens))
-        logits, self._cache = self.adapter.prefill_batch(
-            self._params, self._h2d(tokens), self._h2d(true_lens),
-            self._h2d(pages_rows), self._cache)
+        toks_d, lens_d = self._h2d(tokens), self._h2d(true_lens)
+        rows_d = self._h2d(slot_or_pages)
+        if self.adapter.prefill_batch is not None:
+            logits, self._cache = self.adapter.prefill_batch(
+                self._params, toks_d, lens_d, rows_d, self._cache)
+        else:
+            rows = []
+            for i in range(tokens.shape[0]):
+                row, self._cache = self.adapter.prefill_slot(
+                    self._params, toks_d[i], lens_d[i], rows_d[i],
+                    self._cache)
+                rows.append(row)
+            logits = torch.stack(rows)
         toks = _sample(logits, self._h2d(temps),
                        self._gen if (temps > 0).any() else None)
         keep = np.nonzero(scatter_ids < self.config.max_slots)[0]
@@ -986,8 +1116,10 @@ class LLMEngine:
         self._active_dev = self._h2d(active)
         self._temps_dev = self._h2d(self._temps)
         self._any_sampled = bool((self._temps[active] > 0).any())
-        self._bt_dev = self._h2d(self._bt)
-        self._lens_dev = self._h2d(self._lens)
+        if self._paged:
+            # The dense cache keeps its lengths on the device itself.
+            self._bt_dev = self._h2d(self._bt)
+            self._lens_dev = self._h2d(self._lens)
         self._state_dirty = False
 
     def _h2d(self, arr: np.ndarray) -> torch.Tensor:
@@ -1024,9 +1156,13 @@ class LLMEngine:
         cur, lens = self._cur_dev, self._lens_dev
         steps = []
         for _ in range(chunk):
-            logits, self._cache, lens = self.adapter.decode_slots(
-                self._params, cur, self._active_dev, self._bt_dev, lens,
-                self._cache)
+            if self._paged:
+                logits, self._cache, lens = self.adapter.decode_slots(
+                    self._params, cur, self._active_dev, self._bt_dev, lens,
+                    self._cache)
+            else:
+                logits, self._cache = self.adapter.decode_slots(
+                    self._params, cur, self._active_dev, self._cache)
             toks = _sample(logits, self._temps_dev, gen)
             cur = torch.where(self._active_dev, toks, cur)
             steps.append(cur)
@@ -1626,6 +1762,11 @@ class LLMEngine:
         if aid:
             self._adapters.release(aid)
         self._free_slots.append(slot)
+        if not self._paged:
+            # A dense slot owns no pages, and its cache row keeps its
+            # length until the next prefill overwrites it.
+            self._state_dirty = True
+            return
         if self._spec_on:
             self._spec_inflight.discard(slot)
             self._spec_stale_cur.discard(slot)
@@ -1740,8 +1881,10 @@ class LLMEngine:
             self._process_fetched(block=False)
             if self._ragged:
                 self._admit_ragged()
-            else:
+            elif self._paged:
                 self._admit_paged()
+            else:
+                self._admit_dense()
             # Enqueueing a step costs tens of ms of host time in eager
             # PyTorch: deliver the first tokens of a fresh admission
             # before it, not after.

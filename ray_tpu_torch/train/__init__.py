@@ -1,4 +1,5 @@
 from ray_tpu_torch.train.checkpoint import CheckpointManager
+from ray_tpu_torch.train.optim8 import adamw8bit, scale_by_adam8bit
 from ray_tpu_torch.train.state import (
     AdamW,
     TrainState,
@@ -25,8 +26,10 @@ __all__ = [
     "TorchTrainer",
     "TrainState",
     "TrainerConfig",
+    "adamw8bit",
     "compile_train_step",
     "create_train_state",
     "default_optimizer",
     "make_train_step",
+    "scale_by_adam8bit",
 ]

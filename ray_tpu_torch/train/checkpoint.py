@@ -32,12 +32,21 @@ def _to_host(tree: Any) -> Any:
 @torch.no_grad()
 def _fill(like: Any, saved: Any, where: str = "state") -> Any:
     """``saved``'s values in ``like``'s tensors (copied in place, so
-    devices, dtypes and ``requires_grad`` stay), shapes checked."""
+    devices, dtypes and ``requires_grad`` stay), shapes checked; dicts,
+    tuples and lists (the int8 Adam states' ``(q, scale)`` pairs) are
+    walked alike."""
     if isinstance(like, dict):
         if set(like) != set(saved):
             raise ValueError(f"checkpoint {where}: keys {sorted(saved)}, "
                              f"want {sorted(like)}")
         return {k: _fill(like[k], saved[k], f"{where}.{k}") for k in like}
+    if isinstance(like, (tuple, list)):
+        if not isinstance(saved, (tuple, list)) or len(saved) != len(like):
+            raise ValueError(f"checkpoint {where}: {type(saved).__name__} "
+                             f"where a {type(like).__name__} of {len(like)} "
+                             "is wanted")
+        return type(like)(_fill(a, b, f"{where}[{i}]")
+                          for i, (a, b) in enumerate(zip(like, saved)))
     if torch.is_tensor(like):
         if tuple(saved.shape) != tuple(like.shape):
             raise ValueError(f"checkpoint {where}: shape "

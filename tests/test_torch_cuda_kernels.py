@@ -1922,3 +1922,147 @@ def test_k8_verify_rows_match_plain_8b_layer(dev, pool):
             n_kv_heads=KVH, **scales)
         torch.cuda.synchronize()
         _assert_fused_close(got, want, torch.bfloat16, rows=slice(0, n))
+
+
+# ---------------------------------------------------------------------------
+# A GQA group of 5 (BENCH_2B_CFG: 20 query heads over 4 kv heads, D 128)
+# and CUDA-graph capture of K4 and K5
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,B,S", [(torch.bfloat16, 4, 2048),
+                                       (torch.float32, 1, 256)])
+def test_flash_group_of_5_matches_plain(dev, dtype, B, S):
+    """K9f, K10 and K11 at BENCH_2B_CFG's attention (H 20, KVH 4, D 128,
+    causal), in bf16 at its batch and length and in f32 at a small one,
+    against their plain versions (K9F / K10 tolerances above)."""
+    g = _gen(55 + S)
+    H, KVH, D = 20, 4, 128
+    q = torch.randn((B, S, H, D), generator=g, device=dev, dtype=dtype)
+    k = torch.randn((B, S, KVH, D), generator=g, device=dev, dtype=dtype)
+    v = torch.randn_like(k)
+    do = torch.randn_like(q)
+    counts = [f.launches for f in (tfa.flash_forward, tfa.flash_backward_dq,
+                                   tfa.flash_backward_dkv)]
+    o, lse = tfa.flash_forward(q, k, v, True)
+    o_p, lse_p = tfa.flash_forward_plain(q, k, v, True)
+    delta = tfa.flash_backward_delta(o, do)
+    dq = tfa.flash_backward_dq(q, k, v, do, lse, delta, True)
+    dk, dv = tfa.flash_backward_dkv(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (tfa.flash_forward, tfa.flash_backward_dq,
+                                 tfa.flash_backward_dkv)] == \
+        [c + 1 for c in counts]
+    tol = K9_TOL[dtype]
+    torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+    del o_p, lse_p
+    dq_p = tfa.flash_backward_dq_plain(q, k, v, do, lse, delta, True)
+    dk_p, dv_p = tfa.flash_backward_dkv_plain(q, k, v, do, lse, delta, True)
+    tol = K10_TOL[dtype]
+    for name, a, b in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
+        scale = b.float().abs().max().item()
+        torch.testing.assert_close(a.float() / scale, b.float() / scale,
+                                   atol=tol, rtol=0, msg=name)
+
+
+def _capture(call):
+    """``call`` warmed on a side stream, then captured as one graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    return graph, out
+
+
+def test_k4_is_capturable(dev):
+    """K4 captured in a CUDA graph returns what the eager call returns,
+    with new q, k/v rows and row descriptors copied into the captured
+    buffers (8B heads: the Hopper route)."""
+    g = _gen(91)
+    rows = [(300, 1), (517, 1), (70, 1), (0, 0), (40, 64)]
+    other = [(301, 1), (0, 0), (71, 1), (5, 1), (41, 63)]
+    k, v, q, kn, vn, meta, bt, covered = _ragged_case(
+        dev, g, torch.bfloat16, 2, 32, 8, 128, 64, rows)
+    bufs = [q, kn, vn, *meta]
+    graph, out = _capture(lambda: trpa.ragged_paged_attention(
+        q, kn, vn, k, v, 1, *meta, bt))
+    new = [torch.randn_like(q), torch.randn_like(kn), torch.randn_like(vn),
+           *[torch.tensor(a, dtype=torch.int32, device=dev) for a in (
+               meta[0].tolist(), [s for s, _ in other],
+               [n for _, n in other],
+               [0, 0, 1, 2, 3])]]
+    for buf, x in zip(bufs, new):
+        buf.copy_(x)
+    graph.replay()
+    eager = trpa.ragged_paged_attention(*new[:3], k, v, 1, *new[3:], bt)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert out[:67].abs().sum() > 0
+
+
+def test_k5_is_capturable(dev):
+    """K5 captured in a CUDA graph writes what the eager call writes, with
+    new rows and row descriptors copied into the captured buffers."""
+    g = _gen(92)
+    L, KVH, D, page = 3, 8, 128, 64
+    k, v, _q, kn, _vn, meta, bt, _cov = _ragged_case(
+        dev, g, torch.bfloat16, L, KVH, KVH, D, page, _MIX)
+    T = kn.shape[0]
+    k_new = torch.randn((L, T, KVH, D), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+    v_new = torch.randn_like(k_new)
+    kg, vg = k.clone(), v.clone()
+    graph, _ = _capture(lambda: trpa.ragged_paged_append(
+        kg, vg, k_new, v_new, *meta, bt))
+    kg.copy_(k)
+    vg.copy_(v)
+    new = [torch.randn_like(k_new), torch.randn_like(v_new),
+           meta[0], meta[1] + 1, meta[2], meta[3]]
+    for buf, x in zip([k_new, v_new, *meta], new):
+        buf.copy_(x.clone())
+    graph.replay()
+    ke, ve = k.clone(), v.clone()
+    trpa.ragged_paged_append(ke, ve, *new, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(kg, ke) and torch.equal(vg, ve)
+    assert not torch.equal(kg, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [311, 300, 449])
+def test_flash_attention_pads_causal_lengths_off_the_tile(dev, dtype, S):
+    """Causal S from 256 to 511 off the 64-row tile (the JAX rule's one
+    block of S): ``flash_attention`` pads, launches K9f and, through
+    autograd, K10 and K11, and its output and gradients agree with the
+    plain versions on the unpadded tensors (K9F / K10 tolerances)."""
+    g = _gen(S)
+    H, KVH, D = 20, 4, 128
+    q, k, v = (torch.randn((2, S, h, D), generator=g, device=dev,
+                           dtype=dtype).requires_grad_(True)
+               for h in (H, KVH, KVH))
+    do = torch.randn((2, S, H, D), generator=g, device=dev, dtype=dtype)
+    counts = [f.launches for f in (tfa.flash_forward, tfa.flash_backward_dq,
+                                   tfa.flash_backward_dkv)]
+    o = tfa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (tfa.flash_forward, tfa.flash_backward_dq,
+                                 tfa.flash_backward_dkv)] == \
+        [c + 1 for c in counts]
+    assert o.shape == (2, S, H, D)
+    q, k, v = (t.detach() for t in (q, k, v))
+    o_p, lse_p = tfa.flash_forward_plain(q, k, v, True)
+    tol = K9_TOL[dtype]
+    torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
+    delta = tfa.flash_backward_delta(o_p, do)
+    want = (tfa.flash_backward_dq_plain(q, k, v, do, lse_p, delta, True),
+            *tfa.flash_backward_dkv_plain(q, k, v, do, lse_p, delta, True))
+    tol = K10_TOL[dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        scale = b.float().abs().max().item()
+        torch.testing.assert_close(a.float() / scale, b.float() / scale,
+                                   atol=tol, rtol=0, msg=name)
