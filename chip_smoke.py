@@ -179,16 +179,38 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    and K11 22 a step), tokens/s, MFU, one step's kernel time by kernel,
    peak memory and the optimizer state's bytes beside AdamW's; the loss
    on the first batch must fall, and a checkpoint is written and
-   restored on the card.
+   restored on the card; then one step through ``fit``, after which the
+   trainer's ``raytpu_train_*`` families are printed (phase 9's 2-step
+   ``fit`` prints them too): ``steps_total`` up by the steps ``fit`` ran,
+   ``opt_state_bytes`` equal to the state's bytes;
+14. the serving engine's planes (run after phase 12, on phase 5's
+   weights): a tiny f32 Llama drained mid-stream through ``LLMServer``
+   on the card, each continuation (exactly the delivered tokens) resumed
+   on a second engine to the undisturbed stream; LLAMA3_8B through
+   ``LLMServer(adapter_factory=llama_paged_adapter)`` at phase 5's
+   traffic with an SLO every request meets by nine orders of magnitude:
+   streams equal to phase 5's engine-direct ones, the exposition's counts
+   (TTFT count, FINISHED, SLO met and missed, shed, prefill step tokens)
+   equal to what was submitted, K1 = 32 x K2 and K9f counted from 0, a
+   deep audit's ms and 0 violations; a drain of four streams mid-decode,
+   resumed on a fresh engine (common prefix with phase 5's streams and
+   the rank of a first divergence, top 5 wanted); a burst of 24 requests
+   on 8 slots with ``shed_queue_age_s`` 0.05 (the ShedErrors equal
+   ``raytpu_serve_shed_total``); the ragged engine with the prefix cache
+   through ``LLMServer``: phase 6's four prompts, then two sharing a
+   512-token prefix (a 512-token hit, the prefix gauges, K4 = 32 and
+   K5 = 1 per step counted from 0); and phase 5's decode tokens/s and
+   one step's host ms, now with the planes on.
 
 The last three lines of standard output are the kernel table (K1, K2,
 K9f, K10, K11, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8
-int8, K12, K13) as one JSON object, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  Details go to ``--out`` (with
+int8, K12, K13; K1, K2, K9f, K4 and K5 launched by phase 14's
+``LLMServer`` runs) as one JSON object, the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.  Details go to ``--out`` (with
 ``launch_floor_ms``, K2's and K3's 48-slot runs under ``slots48``, the
 page-walk phases under ``kernels.walk``, the verify-row phases under
 ``kernels.verify_rows`` and the group-5 rows of K9f, K10 and K11 under
-each one's ``group5``).
+each one's ``group5``, and phase 14 under ``planes``).
 """
 
 from __future__ import annotations
@@ -1758,6 +1780,7 @@ def serving_phase(torch, llama, eng_mod, kernels, card, params, init_s):
         "decode_steps": steps,
         "engine_step_ms": (last_done - first) / max(steps, 1) * 1e3,
         "decode_step": breakdown, "launches": launches,
+        "outputs": outs,
         "launches_per_decode_step": {
             k: launches[k] / steps
             for k in ("paged_decode_attention_partial", "paged_append")},
@@ -2881,10 +2904,16 @@ def headline_train_phase(torch, llama, train, kernels, repo):
     breakdown = _step_breakdown(torch, one_step)
     n_steps += 2  # the profiler's warm-up call and the profiled one
     trainer._state = holder[0]
+    fit_steps0 = train_telemetry(trainer.state.opt_state)["steps_total"]
     result = trainer.fit(batches, num_steps=2)
     n_steps += 2
     torch.cuda.synchronize()
     counts = read_counts(kernels)
+    telemetry = train_telemetry(trainer.state.opt_state)
+    telemetry["fit_steps"] = telemetry["steps_total"] - fit_steps0
+    if telemetry["fit_steps"] != 2:
+        raise AssertionError(f"headline training: telemetry {telemetry} "
+                             "after a 2-step fit")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if result.error is not None:
         raise result.error
@@ -2925,13 +2954,17 @@ def headline_train_phase(torch, llama, train, kernels, repo):
         end_loss, "launches": counts, "launches_per_step": per_step,
         "steps": n_steps, "breakdown": breakdown,
         "fit_steps_per_sec": result.metrics["steps_per_sec"],
-        "checkpoint_restored_step": restored_step}
+        "checkpoint_restored_step": restored_step, "telemetry": telemetry}
     log(f"BENCH_CFG train ({cfg.num_params() / 1e6:.1f} M params, "
         f"{TRAIN_B} x {TRAIN_S}): {tokens_per_s:.0f} tokens/s, step "
         f"{out['step_ms']:.1f} ms (one step: stream {stream_ms:.1f} ms, "
         f"host enqueue {host_ms:.1f} ms), MFU {out['mfu']:.4f}, peak "
         f"{peak_gb:.2f} GB; loss {losses[0]:.4f} -> first batch again "
         f"{end_loss:.4f}; launches per step {per_step}")
+    log(f"  raytpu_train_*: steps_total +{telemetry['fit_steps']} over the "
+        f"2-step fit, opt_state_bytes {telemetry['opt_state_bytes']} (state "
+        f"{telemetry['state_bytes']} bytes), hbm_headroom_bytes "
+        f"{telemetry['hbm_headroom_bytes']}")
     if "error" in breakdown:
         log(f"  breakdown: not measured ({breakdown['error']})")
     else:
@@ -4724,6 +4757,18 @@ def train_2b_phase(torch, llama, train, kernels, repo):
             and restored.step == state.step):
         raise AssertionError("2B training: checkpoint restore")
     shutil.rmtree(ckpt_root, ignore_errors=True)
+    # One step through fit, so the trainer's families move: steps_total by
+    # 1, and the optimizer-state gauge equal to the bytes printed below.
+    trainer._state = state
+    fit_steps0 = train_telemetry(state.opt_state)["steps_total"]
+    result = trainer.fit(iter([staged[2]]), num_steps=1)
+    if result.error is not None:
+        raise result.error
+    telemetry = train_telemetry(trainer.state.opt_state)
+    telemetry["fit_steps"] = telemetry["steps_total"] - fit_steps0
+    if telemetry["fit_steps"] != 1 or telemetry["state_bytes"] != opt_bytes:
+        raise AssertionError(f"2B training: telemetry {telemetry}, state "
+                             f"{opt_bytes} bytes")
     tokens_per_s = B2_B * TRAIN_S * timed / wall
     out = {"config": "BENCH_2B_CFG (bench.py:72-83)", "params": n,
            "optimizer": "adamw8bit(1e-4, warmup_steps=10)",
@@ -4734,7 +4779,7 @@ def train_2b_phase(torch, llama, train, kernels, repo):
            "launches_per_step": per_step, "want_per_step": want,
            "opt_state_bytes": opt_bytes, "adamw_state_bytes": adamw_bytes,
            "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
-           "breakdown": breakdown}
+           "breakdown": breakdown, "telemetry": telemetry}
     log(f"BENCH_2B_CFG train ({n / 1e9:.3f} B params, {B2_B} x {TRAIN_S}, "
         f"adamw8bit): {tokens_per_s:.0f} tokens/s, step "
         f"{out['step_ms']:.1f} ms, MFU {out['mfu']:.4f}, peak "
@@ -4743,6 +4788,10 @@ def train_2b_phase(torch, llama, train, kernels, repo):
         f"{losses[0]:.4f} -> first batch again {end_loss:.4f}; launches per "
         f"step {per_step[0]} (want {want}); checkpoint save {save_s:.1f} s, "
         f"restore {restore_s:.1f} s")
+    log(f"  raytpu_train_*: steps_total +{telemetry['fit_steps']} over a "
+        f"1-step fit, opt_state_bytes {telemetry['opt_state_bytes']} (= the "
+        f"{opt_bytes} state bytes above), hbm_headroom_bytes "
+        f"{telemetry['hbm_headroom_bytes']}")
     if "error" in breakdown:
         log(f"  breakdown: not measured ({breakdown['error']})")
     else:
@@ -4757,6 +4806,445 @@ def train_2b_phase(torch, llama, train, kernels, repo):
             f" top: {_fmt_breakdown(top)}")
     del trainer, state, holder, staged, restored, saved
     torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 14: the serving engine's planes, LLMServer, trainer telemetry
+# --------------------------------------------------------------------------
+
+# Bounds every request meets by nine orders of magnitude: the verdicts
+# test the accounting, not the card's speed.
+PLANES_SLO = {"ttft_s": 1e9, "tpot_s": 1e9, "e2e_s": 1e9}
+PLANES_NEW = 32                  # phase 5's new tokens
+SHED_BUDGET_S = 0.05             # the burst's shedding budget
+REQUEST_FAMILIES = ("raytpu_serve_request_itl_seconds",
+                    "raytpu_serve_request_slo_total",
+                    "raytpu_serve_request_terminal_total",
+                    "raytpu_serve_goodput_ratio", "raytpu_serve_requests")
+
+
+def _exposition(metrics) -> dict:
+    """{(sample name, sorted label pairs): value} of the port's registry."""
+    out = {}
+    for line in metrics.export_prometheus().splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name_labels, value = line.rsplit(" ", 1)
+        name, _, labels = name_labels.partition("{")
+        out[(name, tuple(sorted(p for p in labels.rstrip("}").split(",")
+                                if p)))] = float(value)
+    return out
+
+
+def _delta(before, after, name, **labels) -> float:
+    key = (name, tuple(sorted(f'{k}="{v}"' for k, v in labels.items())))
+    return after.get(key, 0.0) - before.get(key, 0.0)
+
+
+def _plane_counts(before, after) -> dict:
+    """The counts an operator reads off the exposition for one run."""
+    return {
+        "ttft_count": _delta(before, after, "raytpu_serve_ttft_seconds_count"),
+        "finished": _delta(before, after,
+                           "raytpu_serve_request_terminal_total",
+                           state="FINISHED"),
+        "slo_met": _delta(before, after, "raytpu_serve_request_slo_total",
+                          outcome="met"),
+        "slo_missed": _delta(before, after, "raytpu_serve_request_slo_total",
+                             outcome="missed"),
+        "shed": _delta(before, after, "raytpu_serve_shed_total"),
+        "prefill_tokens": _delta(before, after,
+                                 "raytpu_serve_step_tokens_total",
+                                 phase="prefill"),
+    }
+
+
+def _check_counts(what, counts, n, prefill) -> None:
+    want = {"ttft_count": n, "finished": n, "slo_met": n, "slo_missed": 0,
+            "shed": 0, "prefill_tokens": prefill}
+    if counts != want:
+        raise AssertionError(f"{what}: exposition counts {counts}, want "
+                             f"{want}")
+
+
+def _audit(srv, what) -> dict:
+    report = srv.doctor(deep=True)
+    if report["violations"]:
+        raise AssertionError(f"{what}: deep audit found violations: "
+                             f"{report['checks']}")
+    return {"violations": report["violations"],
+            "checks_run": report["checks_run"],
+            "ms": report["audit_seconds"] * 1e3}
+
+
+def _decode_tps(results) -> float:
+    """Decode tokens/s of requests submitted together: tokens after each
+    first one over the span from the first first token to the last
+    finish (phase 5's definition, from each request's metrics)."""
+    first = min(r["metrics"]["ttft_s"] for r in results)
+    last = max(r["metrics"]["total_s"] for r in results)
+    return sum(len(r["tokens"]) - 1 for r in results) / (last - first)
+
+
+def _drain_streams(srv, payloads, min_tokens):
+    """Stream ``payloads`` through ``srv.stream`` on threads, drain once
+    every stream holds ``min_tokens`` tokens, and return (delivered tokens
+    per stream, continuations, preempted count)."""
+    import threading
+
+    from ray_tpu_torch.core.exceptions import PreemptedError
+
+    got = [[] for _ in payloads]
+    conts = [None] * len(payloads)
+    errors = []
+
+    def consume(i):
+        try:
+            for tok in srv.stream(payloads[i]):
+                got[i].append(tok)
+        except PreemptedError as e:
+            conts[i] = e.continuation
+        except Exception as e:  # reported by the caller's thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=consume, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 600
+    while (min(len(g) for g in got) < min_tokens and not errors
+           and time.monotonic() < deadline):
+        time.sleep(0.002)
+    n = srv.drain(grace_s=0.0)
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("drain: a stream did not end within 600 s")
+    if errors or any(c is None for c in conts):
+        raise AssertionError(f"drain: streams ended without a continuation "
+                             f"({errors}, {conts})")
+    return got, conts, n
+
+
+def tiny_drain_parity(torch, llama, eng_mod) -> dict:
+    """Tiny f32 Llama on the card: drain mid-stream (steps in flight),
+    then resume each continuation on a second engine; every resumed
+    stream equals the undisturbed one token for token."""
+    import dataclasses
+
+    import numpy as np
+
+    cfg = dataclasses.replace(llama.LLAMA_TINY, dtype=torch.float32)
+    params = llama.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, device="cuda", dtype=torch.float32)
+    ecfg = eng_mod.EngineConfig(max_slots=4, max_seq_len=256, page_size=16,
+                                min_prefill_bucket=16, decode_chunk=2)
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 20, 40)]
+    new = 200
+    ref = eng_mod.LLMEngine(params, eng_mod.llama_paged_adapter(cfg), ecfg,
+                            device="cuda")
+    try:
+        want = [ref.generate(p, max_new_tokens=new) for p in prompts]
+    finally:
+        ref.shutdown()
+    srv = eng_mod.LLMServer(cfg, ecfg, lambda: params,
+                            adapter_factory=eng_mod.llama_paged_adapter,
+                            device="cuda")
+    try:
+        got, conts, n = _drain_streams(
+            srv, [{"tokens": p, "max_new_tokens": new} for p in prompts], 3)
+        audit = _audit(srv, "tiny drain")
+    finally:
+        srv.engine.shutdown()
+    for c, g in zip(conts, got):
+        if c["tokens"] != g or len(g) >= new:
+            raise AssertionError(f"tiny drain: continuation {c['tokens']} "
+                                 f"is not the delivered stream {g}")
+    res_eng = eng_mod.LLMEngine(params, eng_mod.llama_paged_adapter(cfg),
+                                ecfg, device="cuda")
+    try:
+        resumed = [g + res_eng.generate(c["prompt"] + c["tokens"],
+                                        max_new_tokens=new - len(g))
+                   for c, g in zip(conts, got)]
+    finally:
+        res_eng.shutdown()
+    if resumed != want:
+        raise AssertionError("tiny drain: resumed streams differ from the "
+                             "undisturbed ones")
+    res = {"preempted": n, "delivered": [len(g) for g in got],
+           "audit": audit}
+    log(f"planes tiny f32 drain: {n} preempted after {res['delivered']} "
+        f"delivered tokens; resumed = undisturbed streams ({new} tokens); "
+        f"deep audit {audit['violations']} violations")
+    return res
+
+
+def planes_phase(torch, llama, eng_mod, kernels, card, params, serving):
+    """Phase 14, on phase 5's weights: LLAMA3_8B through ``LLMServer``
+    (the bucketed paged engine with an SLO, phase 5's traffic; the ragged
+    engine with the prefix cache), a shedding burst, a drain mid-stream
+    with resumed continuations, and deep audits."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ray_tpu_torch.core.exceptions import ShedError
+    from ray_tpu_torch.util import metrics
+
+    cfg = llama.LLAMA3_8B
+    slo = eng_mod.SLO(**PLANES_SLO)
+    res = {"tiny_drain": tiny_drain_parity(torch, llama, eng_mod),
+           "card": card}
+    # (a) The bucketed engine through LLMServer at phase 5's traffic.
+    rng = np.random.default_rng(6)
+    lens = (17, 100, 300, 700)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    payloads = [{"tokens": p, "max_new_tokens": PLANES_NEW} for p in prompts]
+    bucketed = dict(max_slots=8, max_seq_len=1024, page_size=64,
+                    decode_chunk=8)
+    srv = eng_mod.LLMServer(cfg, eng_mod.EngineConfig(**bucketed, slo=slo),
+                            lambda: params,
+                            adapter_factory=eng_mod.llama_paged_adapter,
+                            device="cuda")
+    try:
+        srv({"tokens": prompts[0][:5], "max_new_tokens": 2})  # warm-up
+        torch.cuda.synchronize()
+        before = _exposition(metrics)
+        reset_counts(kernels)
+        with ThreadPoolExecutor(len(payloads)) as ex:
+            results = list(ex.map(srv, payloads))
+        launches = read_counts(kernels)
+        after = _exposition(metrics)
+        audit = _audit(srv, "8B LLMServer bucketed")
+        pressure = srv.pressure()
+        srv.check_health()
+        # (d) A drain mid-stream on the same server: every stream holds a
+        # few tokens, steps are in flight.
+        got, conts, n_pre = _drain_streams(srv, payloads, 4)
+        drain_audit = _audit(srv, "8B drain")
+    finally:
+        srv.engine.shutdown()
+    outs = [r["tokens"] for r in results]
+    if outs != serving["outputs"]:
+        raise AssertionError("8B LLMServer streams differ from phase 5's "
+                             "engine-direct streams on the same weights")
+    counts = _plane_counts(before, after)
+    _check_counts("8B LLMServer bucketed", counts, len(prompts), sum(lens))
+    k1, k2 = (launches["paged_decode_attention_partial"],
+              launches["paged_append"])
+    if (not k1 or not k2 or not launches["flash_forward"]
+            or k1 != cfg.n_layers * k2
+            or launches["paged_decode_attention_partial" + INT8]
+            or launches["paged_decode_attention_partial" + WALK]):
+        raise AssertionError(f"8B LLMServer bucketed: launches {launches}")
+    problems = _check_exposition(metrics.export_prometheus())
+    if problems:
+        raise AssertionError(f"8B LLMServer: exposition {problems}")
+    res["bucketed"] = {
+        "engine": "LLMServer(adapter_factory=llama_paged_adapter), "
+                  "max_slots=8 max_seq_len=1024 page_size=64 decode_chunk=8, "
+                  f"slo={PLANES_SLO}",
+        "prompt_lens": list(lens), "max_new_tokens": PLANES_NEW,
+        "launches": launches, "counts": counts, "audit": audit,
+        "pressure": pressure,
+        "decode_tokens_per_s": _decode_tps(results),
+        "ttft_s": [r["metrics"]["ttft_s"] for r in results]}
+    log(f"planes 8B LLMServer bucketed ({card}): streams = phase 5's; "
+        f"exposition {counts}; decode {res['bucketed']['decode_tokens_per_s']:.1f}"
+        f" tok/s; launches {launches}; deep audit {audit['ms']:.3f} ms, "
+        f"{audit['violations']} violations over {audit['checks_run']} checks")
+    # The drained streams, resumed on a fresh engine: common prefix with
+    # phase 5's undisturbed streams, and the rank of a first divergence.
+    for c, g in zip(conts, got):
+        if c["tokens"] != g or len(g) >= PLANES_NEW:
+            raise AssertionError(f"8B drain: continuation {len(c['tokens'])}"
+                                 f" tokens, delivered {len(g)}")
+    eng = eng_mod.LLMEngine(params, eng_mod.llama_paged_adapter(cfg),
+                            eng_mod.EngineConfig(**bucketed), device="cuda")
+    try:
+        streams = [eng.submit(c["prompt"] + c["tokens"],
+                              max_new_tokens=PLANES_NEW - len(g))
+                   for c, g in zip(conts, got)]
+        resumed = [g + s.result(timeout_s=600) for g, s in zip(got, streams)]
+    finally:
+        eng.shutdown()
+    prefix, ranks = _divergence(torch, llama, params, cfg, prompts, outs,
+                                resumed)
+    # The resumed stream re-prefills prompt + delivered tokens where the
+    # undisturbed one decoded them: bf16 rounding of another path, on
+    # logits whose top five lie within about half a logit std (a random
+    # 8B).  The bar is check_first_token's: the dense forward's top 5.
+    if any(r > 4 for r in ranks):
+        raise AssertionError(f"8B drain: a resumed stream's first divergence "
+                             f"ranks {ranks} (want top 5)")
+    res["drain"] = {"preempted": n_pre, "delivered": [len(g) for g in got],
+                    "common_prefix": prefix, "first_divergence_ranks": ranks,
+                    "audit": drain_audit}
+    log(f"planes 8B drain: {n_pre} preempted after {res['drain']['delivered']}"
+        f" delivered tokens; resumed streams' common prefix with phase 5's "
+        f"{prefix} of {PLANES_NEW}, divergence ranks {ranks}; deep audit "
+        f"{drain_audit['ms']:.3f} ms, {drain_audit['violations']} violations")
+    # (c) A burst past the slots with a small shedding budget: 16 requests
+    # take the 8 slots and queue, and once the queue is older than the
+    # budget every further submission is shed.
+    burst = [{"tokens": rng.integers(0, cfg.vocab_size, 17).tolist(),
+              "max_new_tokens": 16} for _ in range(24)]
+    srv = eng_mod.LLMServer(cfg, eng_mod.EngineConfig(
+        **bucketed, slo=slo, shed_queue_age_s=SHED_BUDGET_S), lambda: params,
+        adapter_factory=eng_mod.llama_paged_adapter, device="cuda")
+
+    def call(payload):
+        try:
+            return srv(payload)
+        except ShedError as e:
+            return e
+
+    try:
+        srv({"tokens": burst[0]["tokens"][:5], "max_new_tokens": 2})
+        before = _exposition(metrics)
+        with ThreadPoolExecutor(len(burst)) as ex:
+            first = [ex.submit(call, p) for p in burst[:16]]
+            deadline = time.monotonic() + 60
+            while (srv.engine.admission_queue_age() <= 2 * SHED_BUDGET_S
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+            late = [ex.submit(call, p) for p in burst[16:]]
+            outcomes = [f.result() for f in first + late]
+        after = _exposition(metrics)
+        shed_audit = _audit(srv, "8B shed burst")
+    finally:
+        srv.engine.shutdown()
+    n_shed = sum(isinstance(o, ShedError) for o in outcomes)
+    shed_total = _delta(before, after, "raytpu_serve_shed_total")
+    done = [o for o in outcomes if not isinstance(o, ShedError)]
+    if (n_shed == 0 or shed_total != n_shed
+            or _delta(before, after, "raytpu_serve_request_terminal_total",
+                      state="SHED") != n_shed
+            or any(len(o["tokens"]) != 16 for o in done)):
+        raise AssertionError(f"8B shed burst: {n_shed} ShedErrors, "
+                             f"shed_total {shed_total}, {len(done)} served")
+    res["shed"] = {"submitted": len(burst), "shed": n_shed,
+                   "shed_total": shed_total, "served": len(done),
+                   "budget_s": SHED_BUDGET_S, "audit": shed_audit}
+    log(f"planes 8B shed burst: {len(burst)} submitted to 8 slots, {n_shed} "
+        f"shed = raytpu_serve_shed_total {shed_total:.0f}, {len(done)} served")
+    # (b) The ragged engine with the prefix cache: phase 6's four prompts
+    # at once, then two prompts sharing a 512-token prefix one after the
+    # other.
+    rng = np.random.default_rng(13)
+    r_lens = (17, 300, 700, 1500)
+    r_prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in r_lens]
+    shared = rng.integers(0, cfg.vocab_size, 512).tolist()
+    pair = [shared + rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in (40, 60)]
+    srv = eng_mod.LLMServer(cfg, eng_mod.EngineConfig(
+        max_slots=8, max_seq_len=2048, page_size=64, decode_chunk=8,
+        ragged_batching=True, prefill_chunk=256, prefix_cache=True, slo=slo),
+        lambda: params, adapter_factory=eng_mod.llama_paged_adapter,
+        device="cuda")
+    try:
+        srv({"tokens": r_prompts[0][:5], "max_new_tokens": 2})
+        torch.cuda.synchronize()
+        before = _exposition(metrics)
+        steps0 = srv.stats()["steps"]
+        reset_counts(kernels)
+        with ThreadPoolExecutor(len(r_prompts)) as ex:
+            results = list(ex.map(srv, [{"tokens": p,
+                                         "max_new_tokens": PLANES_NEW}
+                                        for p in r_prompts]))
+        results += [srv({"tokens": p, "max_new_tokens": PLANES_NEW,
+                         "request_id": f"planes-pair-{i}"})
+                    for i, p in enumerate(pair)]
+        launches_r = read_counts(kernels)
+        steps = srv.stats()["steps"] - steps0
+        after = _exposition(metrics)
+        hit = srv.engine._ring.row("planes-pair-1")["prefix_hit"]
+        prefix_stats = srv.stats()["prefix"]
+        audit_r = _audit(srv, "8B LLMServer ragged")
+    finally:
+        srv.engine.shutdown()
+    n_req = len(r_prompts) + len(pair)
+    counts_r = _plane_counts(before, after)
+    _check_counts("8B LLMServer ragged", counts_r, n_req,
+                  sum(r_lens) + sum(len(p) for p in pair) - 512)
+    k4, k5 = (launches_r["ragged_paged_attention"],
+              launches_r["ragged_paged_append"])
+    if (hit != 512 or k4 != cfg.n_layers * steps or k5 != steps
+            or launches_r["ragged_paged_attention" + INT8]):
+        raise AssertionError(f"8B LLMServer ragged: hit {hit}, launches "
+                             f"{launches_r} over {steps} steps")
+    gauges = {g: after.get((g, ()), 0.0) for g in (
+        "raytpu_serve_prefix_hit_ratio", "raytpu_serve_kv_pages_cached",
+        "raytpu_serve_prefix_cached_pages")}
+    hits = _delta(before, after, "raytpu_serve_prefix_requests_total",
+                  outcome="hit")
+    if hits != 1 or min(gauges.values()) <= 0:
+        raise AssertionError(f"8B LLMServer ragged: prefix hits {hits}, "
+                             f"gauges {gauges}")
+    check_first_token(torch, llama, params, cfg, r_prompts[0],
+                      results[0]["tokens"][0], "8B LLMServer ragged")
+    res["ragged"] = {
+        "engine": "LLMServer, ragged_batching=True prefill_chunk=256 "
+                  "prefix_cache=True max_seq_len=2048",
+        "prompt_lens": list(r_lens) + [len(p) for p in pair],
+        "launches": launches_r, "ragged_steps": steps, "counts": counts_r,
+        "prefix_hit_tokens": hit, "prefix_hit_requests": hits,
+        "gauges": gauges, "prefix": prefix_stats, "audit": audit_r}
+    log(f"planes 8B LLMServer ragged + prefix cache: exposition {counts_r}; "
+        f"hit {hit} tokens, gauges {gauges}; K4 {k4} / K5 {k5} over {steps} "
+        f"steps; deep audit {audit_r['ms']:.3f} ms, "
+        f"{audit_r['violations']} violations")
+    res["launches"] = {**launches, **{k: v for k, v in launches_r.items()
+                                      if k.startswith("ragged_paged")}}
+    # Phase 5 ran with the planes on: its numbers beside PR 14 call 4's
+    # (71.6 decode tokens/s; one step alone 61.45 ms of host time).
+    res["phase5"] = {"decode_tokens_per_s": serving["decode_tokens_per_s"],
+                     "step_host_ms": serving["decode_step"]["host_ms"],
+                     "engine_step_ms": serving["engine_step_ms"]}
+    log(f"phase 5 with the planes on: {serving['decode_tokens_per_s']:.1f} "
+        f"decode tok/s (PR 14 call 4: 71.6), engine step "
+        f"{serving['engine_step_ms']:.2f} ms, one step alone host "
+        f"{serving['decode_step']['host_ms']:.2f} ms (PR 14 call 4: 61.45)")
+    return res
+
+
+def _check_exposition(text) -> list:
+    """scripts/check_metrics.check_exposition over ``text``, pinning the
+    request plane's families."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "check_metrics.py")
+    spec = importlib.util.spec_from_file_location("check_metrics", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.check_exposition(text, require=REQUEST_FAMILIES)
+
+
+def train_telemetry(opt_state) -> dict:
+    """The trainer's raytpu_train_* values, and the optimizer state's
+    bytes counted from its tensors (the gauge must equal them)."""
+    from ray_tpu_torch.train import trainer as ttrainer
+
+    tm = ttrainer._telemetry()
+
+    def by_tag(m):
+        return {dict(tags).get(m.tag_keys[0], "") if m.tag_keys else "": v
+                for _n, tags, v, _k in m._samples()}
+
+    out = {"steps_total": sum(by_tag(tm["steps"]).values()),
+           "checkpoints_total": sum(by_tag(tm["checkpoints"]).values()),
+           "opt_state_bytes": by_tag(tm["opt_bytes"]),
+           "hbm_headroom_bytes": by_tag(tm["hbm_headroom"]),
+           "state_bytes": sum(_opt_state_bytes(opt_state[m])
+                              for m in ("mu", "nu"))}
+    if not (out["opt_state_bytes"].get("global") == out["state_bytes"]
+            == out["opt_state_bytes"].get("per_device")
+            and out["hbm_headroom_bytes"]):
+        raise AssertionError(f"trainer telemetry: {out}")
     return out
 
 
@@ -4877,6 +5365,10 @@ def main() -> int:
     dense_serving = dense_serving_phase(
         torch, llama, eng_mod, kernels, card, params,
         serving["decode_tokens_per_s"])
+    # The planes through LLMServer: K1, K2, K9f on the bucketed server,
+    # K4, K5 on the ragged one, each counted from 0.
+    planes = planes_phase(torch, llama, eng_mod, kernels, card, params,
+                          serving)
     del params
     torch.cuda.empty_cache()
     fused_bucketed, fused_ragged, fused_short = fused_serving_phase(
@@ -4903,13 +5395,13 @@ def main() -> int:
     order = ("K1", "K2", "K9f", "K10", "K11", "K4", "K5", "K1i8", "K3",
              "K4i8", "K6", "K7", "K7i8", "K8", "K8i8", "K12", "K13")
     for key, name, run in (
-            ("K1", "paged_decode_attention_partial", serving),
-            ("K2", "paged_append", serving),
-            ("K9f", "flash_forward", serving),
+            ("K1", "paged_decode_attention_partial", planes),
+            ("K2", "paged_append", planes),
+            ("K9f", "flash_forward", planes),
             ("K10", K10, headline),
             ("K11", K11, headline),
-            ("K4", "ragged_paged_attention", ragged),
-            ("K5", "ragged_paged_append", ragged),
+            ("K4", "ragged_paged_attention", planes),
+            ("K5", "ragged_paged_append", planes),
             ("K1i8", "paged_decode_attention_partial" + INT8, int8_bucketed),
             ("K3", "paged_append_quantized", int8_bucketed),
             ("K4i8", "ragged_paged_attention" + INT8, int8_ragged),
@@ -4951,7 +5443,7 @@ def main() -> int:
                    "dense_serving": dense_serving,
                    "adam8_parity": adam8_parity, "train_2b": train_2b,
                    "jamba_tiny": jamba, "mamba2_2_7b": mamba_27b,
-                   "k13_path": k13_path}, f, indent=1)
+                   "k13_path": k13_path, "planes": planes}, f, indent=1)
     log(f"total {total_s:.1f} s; details in {args.out}")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

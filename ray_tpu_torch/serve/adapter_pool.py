@@ -39,6 +39,47 @@ from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.quant import quantize_tensor
 from ray_tpu_torch.ops import segmented_lora as _sl
 
+_TELEMETRY = None
+
+
+def _telemetry():
+    """Adapter-pool metric singletons, merged into the engine's telemetry
+    dict (llm_engine._telemetry) so every family is declared at engine
+    construction, before any adapter is loaded; re-registered on later
+    fetches so a registry clear() cannot drop them."""
+    global _TELEMETRY
+    from ray_tpu_torch.util import metrics
+
+    if _TELEMETRY is None:
+        _TELEMETRY = {
+            "adapter_pool_pages": metrics.Gauge(
+                "raytpu_serve_adapter_pool_pages",
+                "Fixed-size pages in the LoRA adapter pool (scratch "
+                "page excluded)."),
+            "adapter_resident": metrics.Gauge(
+                "raytpu_serve_adapter_resident",
+                "Adapter ids currently resident (backed by loaded "
+                "pages; content-deduped ids each count once)."),
+            "adapter_hits": metrics.Counter(
+                "raytpu_serve_adapter_hits_total",
+                "Adapter acquisitions served from resident pages "
+                "(same id, or a content-hash dedup against another "
+                "id's pages)."),
+            "adapter_misses": metrics.Counter(
+                "raytpu_serve_adapter_misses_total",
+                "Adapter acquisitions that uploaded pages (first "
+                "load, or a re-load after eviction)."),
+            "adapter_evictions": metrics.Counter(
+                "raytpu_serve_adapter_evictions_total",
+                "Adapter page-sets evicted (refcount-0 LRU under "
+                "pool pressure)."),
+        }
+    else:
+        reg = metrics.registry()
+        for m in _TELEMETRY.values():
+            reg.register(m)
+    return _TELEMETRY
+
 
 class AdapterPoolPressure(RuntimeError):
     """Transient: every resident adapter is borrowed by an in-flight row,
@@ -105,6 +146,9 @@ class AdapterPool:
         self.hits_total = 0
         self.misses_total = 0
         self.evictions_total = 0
+        self._tm = _telemetry()
+        self._tm["adapter_pool_pages"].set(self.num_pages)
+        self._tm["adapter_resident"].set(0)
 
     # -- load / borrow -----------------------------------------------------
 
@@ -121,6 +165,10 @@ class AdapterPool:
                 f"want ({self.elems},)")
         return flat
 
+    def _set_resident_gauge_locked(self) -> None:
+        self._tm["adapter_resident"].set(
+            len({i for b in self._blocks.values() for i in b.ids}))
+
     def _evict_one_locked(self) -> bool:
         victim_h, victim = None, None
         for h, block in self._blocks.items():
@@ -132,6 +180,8 @@ class AdapterPool:
         del self._blocks[victim_h]
         self._free.extend(victim.pages)
         self.evictions_total += 1
+        self._tm["adapter_evictions"].inc()
+        self._set_resident_gauge_locked()
         return True
 
     def _upload_locked(self, pages: List[int], flat: np.ndarray) -> None:
@@ -176,6 +226,8 @@ class AdapterPool:
                 block.last_used = stamp
                 block.ids.add(adapter_id)
                 self.hits_total += 1
+                self._tm["adapter_hits"].inc()
+                self._set_resident_gauge_locked()
                 return
             if flat is None:  # known hash, pages evicted: load again
                 flat = self._load_flat(adapter_id)
@@ -194,6 +246,8 @@ class AdapterPool:
             block.ids.add(adapter_id)
             self._blocks[h] = block
             self.misses_total += 1
+            self._tm["adapter_misses"].inc()
+            self._set_resident_gauge_locked()
 
     def release(self, adapter_id: str) -> None:
         """Unpin one borrow.  An unknown or unborrowed id is a double
@@ -257,6 +311,22 @@ class AdapterPool:
         """Compact view for adapter-affinity routing, as the prefix
         cache's ``summary()``."""
         return {"adapters": self.resident_ids()}
+
+    def audit_snapshot(self) -> dict:
+        """Consistent allocator view for the doctor plane (serve/audit):
+        the free list, every resident block's pages / refs / ids, and the
+        id → content-hash map, enough to recount the pool partition and
+        borrow balance externally."""
+        with self._lock:
+            return {
+                "num_pages": self.num_pages,
+                "pages_per_adapter": self.pages_per_adapter,
+                "free": list(self._free),
+                "blocks": {h: {"pages": list(b.pages), "refs": b.refs,
+                               "ids": sorted(b.ids)}
+                           for h, b in self._blocks.items()},
+                "entries": dict(self._entries),
+            }
 
     def stats(self) -> dict:
         with self._lock:

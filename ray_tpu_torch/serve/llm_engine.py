@@ -67,9 +67,26 @@ is untouched, so spec-off output is the oracle.
 hold an adapter row run the segmented-LoRA variant of the ragged step
 (``ops/segmented_lora.py``); steps without one run the base step.
 
-Out of the port so far (they raise if configured): SLO accounting and
-shedding, migration, the request ring, telemetry, the audit plane and
-``LLMServer``.
+**The planes**, as in the JAX engine, all on host mirrors (no device
+read of their own):
+
+  * telemetry under the ``raytpu_serve_*`` names (``_telemetry``),
+    updated where the loop already stands: at dispatch and at fetch;
+  * the request ring (``serve/request_events.py``): QUEUED →
+    PREFILLING → DECODING → FINISHED / CANCELLED / PREEMPTED / FAILED,
+    or SHED at admission;
+  * SLO accounting and goodput (``EngineConfig.slo``) and shedding
+    (``shed_queue_age_s``: a ``ShedError`` while the oldest queued
+    request is older than the budget);
+  * ``drain()``: admission stops, and after a grace window every
+    request still running ends with a ``PreemptedError`` carrying its
+    continuation (prompt and the tokens its stream delivered);
+  * the invariant audit (``doctor()``, ``serve/audit.py``): O(slots)
+    conservation sums after slot releases, full walks on demand, on
+    idle, after a drain evicts and at stop;
+  * ``LLMServer``, the ready-made deployment class.
+
+The KV migration verbs and the latency waterfall are not ported yet.
 """
 
 from __future__ import annotations
@@ -87,9 +104,205 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch.core.exceptions import PreemptedError, ShedError
 from ray_tpu_torch.ops.ragged_paged_attention import pack_ragged_batch
+from ray_tpu_torch.serve import audit as _audit
+from ray_tpu_torch.serve import request_events as _reqev
+from ray_tpu_torch.util import tracing
 
 log = logging.getLogger(__name__)
+
+_TELEMETRY = None
+
+# A decode step slower than this many times its running median is a
+# stall worth a warning.
+STALL_FACTOR = 5.0
+
+
+def _telemetry():
+    """Engine metric singletons (created on first engine construction,
+    re-registered on later fetches so a registry clear() cannot drop the
+    serving plane from the exposition), merged with the adapter pool's,
+    the flight recorder's and the doctor's families."""
+    global _TELEMETRY
+    from ray_tpu_torch.util import metrics
+
+    if _TELEMETRY is None:
+        _TELEMETRY = {
+            "ttft": metrics.Histogram(
+                "raytpu_serve_ttft_seconds",
+                "Time from submit to first generated token, per request.",
+                boundaries=[0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                            1.0, 2.5, 5.0, 10.0, 30.0],
+            ),
+            "tpot": metrics.Histogram(
+                "raytpu_serve_tpot_seconds",
+                "Mean per-output-token latency after the first token, "
+                "per request.",
+                boundaries=[0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+                            0.05, 0.1, 0.25, 1.0],
+            ),
+            "queue_depth": metrics.Gauge(
+                "raytpu_serve_queue_depth",
+                "Requests admitted nowhere yet: waiting queue + paged "
+                "backlog, sampled at dispatch time.",
+            ),
+            "batch_size": metrics.Histogram(
+                "raytpu_serve_decode_batch_size",
+                "Active slots per decode dispatch (continuous-batch "
+                "occupancy).",
+                boundaries=[1, 2, 4, 8, 16, 32, 64],
+            ),
+            "step_wall": metrics.Gauge(
+                "raytpu_serve_step_wall_seconds",
+                "High-water mark of per-decode-step wall time "
+                "(dispatch-to-fetch wall of a chunk / steps in it — an "
+                "upper bound on device step time including pipeline "
+                "queueing).",
+            ),
+            "queue_age": metrics.Gauge(
+                "raytpu_serve_admission_queue_age_seconds",
+                "Age of the oldest request still waiting for admission "
+                "(waiting queue + paged backlog), sampled at dispatch "
+                "time.  Climbing age with stable depth = stalled "
+                "admission, not load.",
+            ),
+            "itl": metrics.Histogram(
+                "raytpu_serve_request_itl_seconds",
+                "Worst client-observed inter-token gap within a "
+                "finished request (the hiccup a streaming reader "
+                "actually sees; mean gap is TPOT).  A speculative "
+                "verify round emits several tokens in one burst: the "
+                "round's wall gap is divided by the burst size so the "
+                "histogram stays an exact per-token partition.",
+                boundaries=[0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                            0.1, 0.25, 1.0, 5.0],
+            ),
+            "spec_rounds": metrics.Counter(
+                "raytpu_serve_spec_rounds_total",
+                "Speculative verify rounds completed (one draft+verify "
+                "cycle of up to spec_k tokens per round).",
+            ),
+            "spec_drafted": metrics.Counter(
+                "raytpu_serve_spec_drafted_tokens_total",
+                "Tokens drafted by the draft model across verify "
+                "rounds.",
+            ),
+            "spec_accepted": metrics.Counter(
+                "raytpu_serve_spec_accepted_tokens_total",
+                "Drafted tokens the target model accepted (the free "
+                "bonus token each round emits on top is not counted).",
+            ),
+            "spec_accept_ratio": metrics.Gauge(
+                "raytpu_serve_spec_accept_ratio",
+                "Cumulative accepted/drafted token ratio over this "
+                "engine's speculative verify rounds.",
+            ),
+            "slo": metrics.Counter(
+                "raytpu_serve_request_slo_total",
+                "Terminal requests by SLO outcome: met only when the "
+                "request FINISHED inside every bound of "
+                "EngineConfig.slo (no slo config = every finish is "
+                "met); failed/cancelled always miss.",
+                tag_keys=("outcome",),
+            ),
+            "terminal": metrics.Counter(
+                "raytpu_serve_request_terminal_total",
+                "Requests reaching a terminal state, by state "
+                "(FINISHED / FAILED / CANCELLED / SHED).",
+                tag_keys=("state",),
+            ),
+            "arrived": metrics.Counter(
+                "raytpu_serve_requests_arrived_total",
+                "Requests submitted to this engine (admitted, shed or "
+                "rejected alike) — the raw arrival process.  Its rate "
+                "and slope are the LEADING load signal: they move "
+                "before the queue forms.",
+            ),
+            "shed": metrics.Counter(
+                "raytpu_serve_shed_total",
+                "Requests refused at admission because the queue was "
+                "already older than the SLO budget "
+                "(EngineConfig.shed_queue_age_s) — clean fast-fail "
+                "backpressure instead of a guaranteed-late answer.",
+            ),
+            "goodput": metrics.Gauge(
+                "raytpu_serve_goodput_ratio",
+                "Tokens from SLO-met requests over all tokens of "
+                "terminal requests — goodput vs raw throughput.",
+            ),
+            "step_tokens": metrics.Counter(
+                "raytpu_serve_step_tokens_total",
+                "Tokens dispatched to the device, split by phase "
+                "(prefill vs decode).  Attributes step wall time: a "
+                "rising prefill share explains decode-stream TPOT "
+                "regressions without any per-request change.",
+                tag_keys=("phase",),
+            ),
+            "kv_pages_free": metrics.Gauge(
+                "raytpu_serve_kv_pages_free",
+                "Free pages in the paged KV pool (neither slot-mapped "
+                "nor held by the prefix cache).",
+            ),
+            "kv_pages_cached": metrics.Gauge(
+                "raytpu_serve_kv_pages_cached",
+                "Pages owned by the prefix cache (0 when the cache is "
+                "disabled).  free + cached + slot-owned = pool.",
+            ),
+            "prefix_requests": metrics.Counter(
+                "raytpu_serve_prefix_requests_total",
+                "Admitted requests by prefix-cache outcome (hit = at "
+                "least one full page reused).",
+                tag_keys=("outcome",),
+            ),
+            "prefix_hit_ratio": metrics.Gauge(
+                "raytpu_serve_prefix_hit_ratio",
+                "Cumulative prompt tokens served from the prefix cache "
+                "over all prompt tokens admitted (token-weighted hit "
+                "ratio).",
+            ),
+            "prefix_hit_depth": metrics.Histogram(
+                "raytpu_serve_prefix_hit_depth_tokens",
+                "Per-request prefix-cache hit depth in tokens (0 = "
+                "cold prefill) — joins with TTFT for "
+                "TTFT-by-hit-depth.",
+                boundaries=[1, 16, 32, 64, 128, 256, 512, 1024, 2048,
+                            4096],
+            ),
+            "prefix_cached_pages": metrics.Gauge(
+                "raytpu_serve_prefix_cached_pages",
+                "Pages currently held by the radix-tree prefix index.",
+            ),
+            "prefix_evicted": metrics.Counter(
+                "raytpu_serve_prefix_evicted_pages_total",
+                "Cache pages evicted (refcount-0 LRU) under admission "
+                "pressure.",
+            ),
+        }
+    else:
+        reg = metrics.registry()
+        for m in _TELEMETRY.values():
+            reg.register(m)
+    from ray_tpu_torch.serve import adapter_pool as _apool
+    from ray_tpu_torch.util import doctor as _doc
+    from ray_tpu_torch.util import flight_recorder as _frec
+
+    out = dict(_TELEMETRY)
+    out.update(_apool._telemetry())
+    out.update({f"frec_{k}": v for k, v in _frec._telemetry().items()})
+    out.update({f"doctor_{k}": v for k, v in _doc._telemetry().items()})
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SLO:
+    """Per-request latency objectives; a None bound is unconstrained.  A
+    request is SLO-met only when it FINISHED inside every set bound:
+    failed, cancelled and preempted requests always miss."""
+
+    ttft_s: Optional[float] = None
+    tpot_s: Optional[float] = None
+    e2e_s: Optional[float] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,9 +323,12 @@ class EngineConfig:
     # Chunked prefill: prompts longer than this prefill in chunks of
     # this many tokens between decode chunks (0 = one bucketed prefill).
     prefill_chunk: int = 0
-    # slo and shed_queue_age_s belong to modes the port does not have
-    # yet: each must keep its default (see _UNPORTED).
-    slo: Optional[Any] = None
+    # Latency objectives driving the SLO met/missed counters and the
+    # goodput gauge (None = every finished request counts as met).
+    slo: Optional[SLO] = None
+    # Overload shedding: refuse (ShedError) new submissions while the
+    # oldest unadmitted request has already waited longer than this
+    # (None = never shed).  The natural setting is slo.e2e_s.
     shed_queue_age_s: Optional[float] = None
     # Ragged unified step (K4 + K5): one device step packs decode rows
     # and prompt chunks into token_budget tokens (0 = max_slots +
@@ -148,21 +364,6 @@ class EngineConfig:
             b *= 2
         out.append(self.max_seq_len)
         return out
-
-
-_UNPORTED = {
-    "slo": "SLO accounting",
-    "shed_queue_age_s": "overload shedding",
-}
-
-
-def _check_ported(config: EngineConfig) -> None:
-    defaults = EngineConfig()
-    for field, mode in _UNPORTED.items():
-        if getattr(config, field) != getattr(defaults, field):
-            raise NotImplementedError(
-                f"EngineConfig.{field}: {mode} is not ported to "
-                "ray_tpu_torch yet (a later slice; see ROADMAP.md)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -356,7 +557,16 @@ class Request:
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
     tokens: List[int] = dataclasses.field(default_factory=list)
+    # Telemetry: the submitter's span context (None when tracing is
+    # off) and the admission stamp splitting queue wait from prefill in
+    # the request's span tree.
+    trace_ctx: Optional[Dict[str, str]] = None
+    admitted_at: Optional[float] = None
+    # End-to-end id labelling the ring, spans and log lines; the
+    # inter-token gap is tracked incrementally by _emit.
     request_id: str = ""
+    last_token_at: Optional[float] = None
+    max_itl_s: float = 0.0
     # Prompt tokens served from the prefix cache (0 = cold prefill).
     prefix_hit: int = 0
     # LoRA adapter this request decodes with ("" = the base model).
@@ -432,6 +642,113 @@ class CompletionStream:
                 "num_tokens": len(r.tokens)}
 
 
+class LLMServer:
+    """Ready-made serving deployment hosting an LLMEngine (the JAX
+    package's ``LLMServer``, unified role).
+
+    Request payload: {"tokens": [...], "max_new_tokens"?: int,
+    "temperature"?: float, "request_id"?: str, "adapter_id"?: str} →
+    {"tokens": [...], "metrics": {...}, "request_id": str}.
+    ``param_loader`` runs where the server is built, so weights never
+    travel as arguments; ``device`` is the engine's (the card unless the
+    caller asks for the CPU).
+
+    The JAX server also reads the shard group and the disaggregated
+    role that ``ray_tpu.serve`` installs around a replica; no context of
+    ``ray_tpu.serve`` is readable from the port, so this server hosts one
+    engine on one device in the unified role, and the adapter id comes
+    from the payload only.
+    """
+
+    def __init__(self, model_cfg: Any, engine_cfg: EngineConfig,
+                 param_loader: Callable[[], Any], *,
+                 adapter_factory: Optional[Callable[[Any], Union[
+                     EngineAdapter, PagedEngineAdapter]]] = None,
+                 draft_param_loader: Optional[Callable[[], Any]] = None,
+                 draft_model_cfg: Any = None, device: DeviceLike = None):
+        make_adapter = adapter_factory or llama_adapter
+        # The draft model of speculative decoding loads here like the
+        # target; no loader + spec_decode=True = the engine self-drafts.
+        draft_params = (draft_param_loader()
+                        if draft_param_loader is not None else None)
+        draft_adapter = None
+        if draft_params is not None:
+            draft_adapter = make_adapter(draft_model_cfg
+                                         if draft_model_cfg is not None
+                                         else model_cfg)
+        self.engine = LLMEngine(
+            param_loader(), make_adapter(model_cfg), engine_cfg,
+            device=device, draft_params=draft_params,
+            draft_adapter=draft_adapter)
+
+    def _submit(self, payload: Dict[str, Any]) -> "CompletionStream":
+        return self.engine.submit(
+            payload["tokens"],
+            max_new_tokens=payload.get("max_new_tokens"),
+            temperature=payload.get("temperature", 0.0),
+            request_id=payload.get("request_id"),
+            adapter_id=payload.get("adapter_id") or "")
+
+    def __call__(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        stream = self._submit(payload)
+        tokens = stream.result()
+        return {"tokens": tokens, "metrics": stream.metrics,
+                "request_id": stream.request_id}
+
+    def stream(self, payload: Dict[str, Any]):
+        """Streaming entry: yields tokens as the engine generates them.
+        A preemption surfaces as PreemptedError AFTER every generated
+        token has been yielded, so the caller knows the exact delivered
+        prefix."""
+        yield from self._submit(payload)
+
+    def drain(self, grace_s: float = 5.0) -> int:
+        """Preemption notice: drain the engine (stop admitting, evict
+        running requests with continuations)."""
+        return self.engine.drain(grace_s)
+
+    def stats(self) -> Dict[str, Any]:
+        return self.engine.stats()
+
+    def pressure(self) -> Dict[str, Any]:
+        """SLO-pressure signals for an autoscaling policy: the admission
+        queue's age (the leading overload signal), the cumulative goodput
+        ratio (None until a request is terminal) and the cumulative
+        arrival count."""
+        return {"queue_age_s": self.engine.admission_queue_age(),
+                "goodput": self.engine.goodput_ratio(),
+                "arrivals": self.engine.arrivals_total()}
+
+    def prefix_summary(self) -> Optional[Dict[str, Any]]:
+        """Prefix-cache routing summary (None when the cache is off)."""
+        return self.engine.prefix_summary()
+
+    def adapter_summary(self) -> Optional[Dict[str, Any]]:
+        """Resident-adapter routing summary (None when LoRA multiplexing
+        is off)."""
+        return self.engine.adapter_summary()
+
+    def doctor(self, deep: bool = True) -> Dict[str, Any]:
+        """Run one invariant audit over the hosted engine and return its
+        report."""
+        return self.engine.doctor(deep=deep)
+
+    def check_health(self) -> None:
+        if self.engine._stopped.is_set():
+            raise RuntimeError("engine stopped")
+        # A critical violation (a corrupted page partition or refcount)
+        # from the most recent audit fails the health verdict: such a
+        # pool can silently corrupt streams.  Leaks (error) alert
+        # through metrics instead.
+        critical = self.engine._auditor.last_critical()
+        if critical:
+            v = critical[0]
+            raise RuntimeError(
+                f"doctor: invariant {v['check']} violated "
+                f"({v['subject']}: expected {v['expected']!r}, got "
+                f"{v['actual']!r}; {len(critical)} critical total)")
+
+
 @dataclasses.dataclass
 class _InFlight:
     """A dispatched prefill or decode whose tokens are on their way to
@@ -443,6 +760,7 @@ class _InFlight:
     event: Optional[Any]
     chunk: int
     participants: List[Tuple[Any, ...]]
+    t_disp: float  # dispatch stamp: the stall watermark's wall starts here
 
     @property
     def carries_first_tokens(self) -> bool:
@@ -458,6 +776,9 @@ def _holds_qdict(tree: Any) -> bool:
     if set(tree) == {"q", "scale"}:
         return True
     return any(_holds_qdict(v) for v in tree.values())
+
+
+_ENGINE_IDS = itertools.count()
 
 
 def _tensor_device(tree: Any) -> Optional[torch.device]:
@@ -487,7 +808,6 @@ class LLMEngine:
         """``draft_params``/``draft_adapter``: the draft model of
         speculative decoding (``config.spec_decode``); with no draft
         params the target drafts for itself."""
-        _check_ported(config)
         self.config = config
         self.adapter = adapter
         self.device = resolve_device(device)
@@ -607,13 +927,41 @@ class LLMEngine:
         self._pending: "deque[_InFlight]" = deque()
         self._inflight_tokens: Dict[int, int] = {}  # slot → undelivered
         self._req_counter = itertools.count()
+        # Cumulative arrivals (every submit, shed included), a plain int
+        # so pressure() reads it without the registry.
+        self._arrived = 0
         self._stopped = threading.Event()
+        # drain(): _draining stops admission, _drain_evict tells the loop
+        # to preempt whatever still runs.  Both are one-way latches.
+        self._draining = threading.Event()
+        self._drain_evict = threading.Event()
+        self._preempted_count = 0
         self._work = threading.Event()
         self._steps = 0
         self._tokens_out = 0
         self._admitting: List[Request] = []
+        self._tm = _telemetry()
+        self._update_page_gauges()
+        # The request ring: the engine holds the only strong ref (the
+        # module registry is weak).
+        self._engine_id = f"torch-engine-{next(_ENGINE_IDS)}"
+        self._ring = _reqev.RequestEventBuffer(self._engine_id)
+        _reqev.register(self._ring)
+        # The audit plane: doctor() enqueues audit ops like cancels, and
+        # the loop, which owns every audited registry, runs them.
+        self._auditor = _audit.EngineAuditor(self)
+        self._audit_lock = threading.Lock()
+        self._audit_ops: List[Dict[str, Any]] = []
+        self._crashed = False
+        self._drain_audited = False
         self._cancel_lock = threading.Lock()
         self._cancels: set = set()
+        # Goodput: tokens of SLO-met requests vs all terminal tokens.
+        self._good_tokens = 0
+        self._terminal_tokens = 0
+        self._step_walls: deque = deque(maxlen=64)  # recent s/step
+        self._step_wall_hw = 0.0  # watermark mirrored to the gauge
+        self._stall_events = 0  # steps past STALL_FACTOR x median
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         ladder, k = [], max(1, config.decode_chunk)
@@ -690,6 +1038,7 @@ class LLMEngine:
         self._spec_accepted_total = 0
         self._spec_cooldowns = 0
         self._spec_draft_steps = 0
+        self._step_tokens["spec_draft"] = 0
         self._step_tokens["spec_verify"] = 0
         # Static width of the verify-logit gather: flat-buffer positions
         # of every verify row's k+1 candidate tokens, padded with 0.
@@ -705,9 +1054,47 @@ class LLMEngine:
                request_id: Optional[str] = None,
                adapter_id: str = "") -> CompletionStream:
         """``adapter_id`` names a LoRA adapter of the engine's pool (a
-        LoRA model only; "" = the base model)."""
+        LoRA model only; "" = the base model).  A draining engine raises
+        PreemptedError with an empty continuation; with
+        ``shed_queue_age_s`` set, an admission queue older than it raises
+        ShedError."""
         if self._stopped.is_set():
             raise RuntimeError("engine is stopped (shut down or crashed)")
+        if self._draining.is_set():
+            # The failover signal of a mid-stream preemption, with an
+            # empty generated prefix.
+            raise PreemptedError(
+                "engine is draining: not admitting new requests",
+                continuation={"prompt": list(prompt), "tokens": [],
+                              "temperature": float(temperature),
+                              "request_id": request_id or "",
+                              "adapter_id": adapter_id})
+        # Count the arrival before any admission decision: the signal
+        # must see offered load, not just what survived shedding.
+        self._arrived += 1
+        self._tm["arrived"].inc()
+        shed_after = self.config.shed_queue_age_s
+        if shed_after is not None:
+            age = self._admission_queue_age()
+            if age > shed_after:
+                # A request queued now waits behind work already over
+                # the budget: record the SHED terminal (no attempt ever
+                # runs) and fail fast.  Goodput is untouched.
+                rid = (request_id or _reqev.get_request_id()
+                       or f"{self._engine_id}-r{next(self._req_counter)}")
+                self._ring.record(rid, _reqev.SHED,
+                                  prompt_tokens=len(prompt),
+                                  terminal_cause="ShedError",
+                                  adapter_id=adapter_id)
+                self._tm["shed"].inc()
+                self._tm["terminal"].inc(tags={"state": _reqev.SHED})
+                try:
+                    from ray_tpu_torch.util import flight_recorder
+                    flight_recorder.trigger("shed", request_id=rid,
+                                            queue_age_s=age)
+                except Exception:
+                    pass  # the verdict must not depend on the recorder
+                raise ShedError(queue_age_s=age)
         if adapter_id and self._adapters is None:
             raise ValueError(
                 f"request carries adapter_id {adapter_id!r} but this "
@@ -723,8 +1110,14 @@ class LLMEngine:
             max_new_tokens=(max_new_tokens
                             or self.config.max_new_tokens_default),
             temperature=float(temperature), stream=queue.Queue(),
-            req_id=next(self._req_counter), adapter_id=adapter_id)
-        req.request_id = request_id or f"torch-engine-r{req.req_id}"
+            req_id=next(self._req_counter),
+            trace_ctx=(tracing.capture_context()
+                       if tracing.is_enabled() else None),
+            adapter_id=adapter_id)
+        # Explicit id > the ambient one (the request_id contextvar) >
+        # a local mint.
+        req.request_id = (request_id or _reqev.get_request_id()
+                          or f"{self._engine_id}-r{req.req_id}")
         # Reject requests the page pool can NEVER satisfy — they would
         # otherwise wedge admission head-of-line forever.
         if self._paged and self._pages_needed(req) > self._num_pages:
@@ -733,6 +1126,9 @@ class LLMEngine:
                 f"({len(prompt)}+{req.max_new_tokens} tokens, page "
                 f"{self.config.page_size}) but the pool has only "
                 f"{self._num_pages}")
+        self._ring.record(req.request_id, _reqev.QUEUED,
+                          prompt_tokens=len(req.prompt),
+                          adapter_id=req.adapter_id)
         self._waiting.put(req)
         self._work.set()
         return CompletionStream(req, self)
@@ -750,13 +1146,63 @@ class LLMEngine:
             self._cancels.add(request_id)
         self._work.set()
 
+    def drain(self, grace_s: float = 5.0) -> int:
+        """Preemption-aware drain: stop admitting, give requests already
+        in a slot ``grace_s`` to finish, then evict the survivors with a
+        PREEMPTED terminal whose PreemptedError carries the continuation
+        (prompt, the tokens its stream delivered, sampling state):
+        everything another engine needs to resume with one re-prefill.
+        Requests that never reached a slot are evicted at once.
+        Blocking, callable from any thread, idempotent; returns the
+        number of requests preempted so far."""
+        if self._stopped.is_set():
+            return self._preempted_count
+        self._draining.set()
+        self._work.set()
+        deadline = time.monotonic() + max(0.0, grace_s)
+        while (time.monotonic() < deadline
+               and not self._stopped.is_set()
+               and not self._drain_idle()):
+            time.sleep(0.01)
+        self._drain_evict.set()
+        self._work.set()
+        # The loop owns slot and page state: give it a bounded window to
+        # run the eviction pass.
+        evict_deadline = time.monotonic() + 5.0
+        while (time.monotonic() < evict_deadline
+               and not self._stopped.is_set()
+               and not self._drain_idle()):
+            time.sleep(0.01)
+        return self._preempted_count
+
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
+    def _drain_idle(self) -> bool:
+        """No request the drain still has to account for."""
+        if self._slot_req or not self._waiting.empty() or self._admitting:
+            return False
+        if self._prefilling or (self._paged and self._backlog):
+            return False
+        return True
+
+    @property
+    def engine_id(self) -> str:
+        """Stable name of this engine's request ring (the ``engine`` key
+        of its rows)."""
+        return self._engine_id
+
     def stats(self) -> Dict[str, Any]:
-        out = {"device": str(self.device),
+        out = {"engine": self._engine_id,
+               "device": str(self.device),
                "active_slots": self.config.max_slots - len(self._free_slots),
                "waiting": self._waiting.qsize() + len(self._backlog),
                "prefilling": len(self._prefilling),
                "steps": self._steps,
                "tokens_out": self._tokens_out,
+               "stall_events": self._stall_events,
+               "requests": self._ring.counts_by_state(),
                # Tokens dispatched to the device by phase (prefill
                # padding rows included), and ragged steps that packed
                # decode rows beside prompt tokens.
@@ -785,8 +1231,26 @@ class LLMEngine:
                 "draft_steps": self._spec_draft_steps,
                 "ema": self._spec_ema,
                 "k": self.config.spec_k,
+                "draft_pages_free": len(self._draft_free),
             }
         return out
+
+    def admission_queue_age(self) -> float:
+        """Seconds the oldest still-unadmitted request has waited (0.0
+        when nothing waits): the leading overload signal."""
+        return self._admission_queue_age()
+
+    def goodput_ratio(self) -> Optional[float]:
+        """Cumulative goodput ratio (tokens of SLO-met requests over all
+        terminal tokens, the raytpu_serve_goodput_ratio gauge), or None
+        before any request reached a terminal state."""
+        if not self._terminal_tokens:
+            return None
+        return self._good_tokens / self._terminal_tokens
+
+    def arrivals_total(self) -> int:
+        """Cumulative requests submitted (shed included)."""
+        return self._arrived
 
     def prefix_summary(self, max_entries: int = 256) -> Optional[dict]:
         """Compact routing summary of the prefix cache ({"page": …,
@@ -795,6 +1259,52 @@ class LLMEngine:
         if self._prefix is None:
             return None
         return self._prefix.summary(max_entries)
+
+    def adapter_summary(self) -> Optional[dict]:
+        """Compact routing summary of the adapter pool ({"adapters":
+        [resident ids]}), or None when LoRA multiplexing is off."""
+        if self._adapters is None:
+            return None
+        return self._adapters.summary()
+
+    def doctor(self, deep: bool = True,
+               timeout_s: float = 30.0) -> Dict[str, Any]:
+        """Run one invariant audit pass (serve/audit) and return its
+        report.  While the loop runs, the audit is queued for it to run
+        between dispatches (the loop owns every audited registry); once
+        the engine has stopped it runs inline.  ``deep=False`` runs only
+        the O(slots) conservation tier."""
+        if self._stopped.is_set() or not self._thread.is_alive():
+            # Let a stopping loop finish its final audit and clean-up
+            # first, so the inline walk never races it.
+            self._thread.join(timeout=5.0)
+            return self._auditor.run(deep=deep)
+        op: Dict[str, Any] = {"deep": bool(deep),
+                              "done": threading.Event(),
+                              "result": None, "error": None}
+        with self._audit_lock:
+            self._audit_ops.append(op)
+        self._work.set()
+        if not op["done"].wait(timeout_s):
+            with self._audit_lock:
+                try:
+                    self._audit_ops.remove(op)
+                except ValueError:
+                    pass
+            if not op["done"].is_set():
+                if self._stopped.is_set():
+                    self._thread.join(timeout=5.0)
+                    return self._auditor.run(deep=deep)
+                raise TimeoutError(
+                    f"doctor audit not serviced within {timeout_s}s")
+        if op["error"] is not None:
+            raise op["error"]
+        return op["result"]
+
+    def doctor_report(self) -> Optional[Dict[str, Any]]:
+        """The most recent audit report without running a new pass (None
+        before the first audit)."""
+        return self._auditor.last_report
 
     def shutdown(self, timeout_s: float = 30.0) -> None:
         """Stop the loop and wait for it; requests still running end
@@ -838,8 +1348,10 @@ class LLMEngine:
             # Admission pressure evicts refcount-0 LRU cache pages
             # BEFORE the request queues: the cache borrows idle pool
             # capacity, it never competes with admission for it.
-            self._free_pages.extend(
-                self._prefix.evict(need - len(self._free_pages)))
+            freed = self._prefix.evict(need - len(self._free_pages))
+            if freed:
+                self._free_pages.extend(freed)
+                self._tm["prefix_evicted"].inc(len(freed))
         if len(self._free_pages) < need:
             return None
         slot = self._free_slots.pop()
@@ -848,6 +1360,7 @@ class LLMEngine:
         row = np.full((self._maxp,), self._num_pages, np.int32)
         row[: len(pages)] = pages
         self._bt[slot] = row
+        self._update_page_gauges()
         return slot
 
     def _admit_slot_for(self, req: Request) -> Optional[Tuple[int, int]]:
@@ -875,6 +1388,7 @@ class LLMEngine:
             req, need=self._pages_needed(req) - d + (1 if cow else 0))
         if slot is None:
             self._prefix.release(hit_pages)
+            self._update_page_gauges()
             return None
         fresh = self._slot_pages[slot]
         if cow:
@@ -894,7 +1408,23 @@ class LLMEngine:
         req.prefix_hit = start
         self._prefix_hit_tokens += start
         self._prefix_prompt_tokens += len(req.prompt)
+        self._tm["prefix_requests"].inc(
+            tags={"outcome": "hit" if start else "miss"})
+        self._tm["prefix_hit_depth"].observe(start)
+        if self._prefix_prompt_tokens:
+            self._tm["prefix_hit_ratio"].set(
+                self._prefix_hit_tokens / self._prefix_prompt_tokens)
+        self._update_page_gauges()
         return slot, start
+
+    def _update_page_gauges(self) -> None:
+        if not self._paged:
+            return
+        self._tm["kv_pages_free"].set(len(self._free_pages))
+        cached = self._prefix.cached_pages if self._prefix else 0
+        self._tm["kv_pages_cached"].set(cached)
+        if self._prefix is not None:
+            self._tm["prefix_cached_pages"].set(cached)
 
     def _admit_paged(self) -> None:
         """A request needs pages for max(prefill bucket, prompt+max_new)
@@ -924,6 +1454,9 @@ class LLMEngine:
             if slot is None:
                 self._backlog.insert(0, req)
                 break
+            req.admitted_at = time.monotonic()
+            self._ring.record(req.request_id, _reqev.PREFILLING, slot=slot,
+                              num_pages=len(self._slot_pages[slot]))
             self._prefilling.append({"req": req, "slot": slot, "pos": 0})
         while self._free_slots:
             batch: List[Tuple[Request, int]] = []
@@ -1045,6 +1578,9 @@ class LLMEngine:
                     log.warning("adapter %r load failed", req.adapter_id,
                                 exc_info=True)
                     req.finished_at = time.monotonic()
+                    self._observe_request(
+                        req, state=_reqev.FAILED,
+                        cause=f"adapter load failed: {e!r}")
                     req.stream.put(RuntimeError(
                         f"adapter {req.adapter_id!r} load failed: {e!r}"))
                     continue
@@ -1057,6 +1593,10 @@ class LLMEngine:
             slot, start = got
             if req.adapter_id:
                 self._slot_adapter[slot] = req.adapter_id
+            req.admitted_at = time.monotonic()
+            self._ring.record(req.request_id, _reqev.PREFILLING, slot=slot,
+                              num_pages=len(self._slot_pages[slot]),
+                              prefix_hit=req.prefix_hit)
             self._prefilling.append({"req": req, "slot": slot,
                                      "pos": start})
             self._state_dirty = True  # bt rows changed
@@ -1069,7 +1609,7 @@ class LLMEngine:
         without prefill_batch prefills the rows one prefill_slot call at
         a time, as the JAX engine's loop of rows does."""
         # Padding rows are device work too: they count as prefill tokens.
-        self._step_tokens["prefill"] += int(np.sum(true_lens))
+        self._count_step_tokens("prefill", int(np.sum(true_lens)))
         toks_d, lens_d = self._h2d(tokens), self._h2d(true_lens)
         rows_d = self._h2d(slot_or_pages)
         if self.adapter.prefill_batch is not None:
@@ -1094,9 +1634,16 @@ class LLMEngine:
         """Register the slots now (decode chunks dispatch behind the
         prefill without waiting); the first tokens ride the fetch
         pipeline."""
+        now = time.monotonic()
         for req, slot in batch:
             self._slot_req[slot] = req
             self._temps[slot] = req.temperature
+            if req.admitted_at is None:
+                req.admitted_at = now
+            self._ring.record(
+                req.request_id, _reqev.PREFILLING, slot=slot,
+                num_pages=(len(self._slot_pages.get(slot, []))
+                           if self._paged else None))
             # The pending first token counts against the budget until
             # the prefill entry is processed.
             self._inflight_tokens[slot] = \
@@ -1171,7 +1718,9 @@ class LLMEngine:
         for slot in self._slot_req:
             self._lens[slot] += chunk
         self._steps += chunk
-        self._step_tokens["decode"] += chunk * len(self._slot_req)
+        self._count_step_tokens("decode", chunk * len(self._slot_req))
+        self._tm["batch_size"].observe(len(self._slot_req))
+        self._observe_queue()
         participants = list(self._slot_req.items())
         for slot, _req in participants:
             self._inflight_tokens[slot] = \
@@ -1209,7 +1758,7 @@ class LLMEngine:
                        self._h2d(np.asarray([req.temperature], np.float32)),
                        self._gen if req.temperature > 0 else None)
         st["pos"] = pos + len(chunk)
-        self._step_tokens["prefill"] += len(chunk)
+        self._count_step_tokens("prefill", len(chunk))
         if is_last:
             self._prefilling.pop(0)
             self._cur_dev[slot] = toks[0]
@@ -1317,6 +1866,8 @@ class LLMEngine:
             return {}
         packed = pack_ragged_batch(feed_rows, Td, R)
         nxt = self._run_draft(packed[0], *packed[3:])
+        self._count_step_tokens(
+            "spec_draft", sum(len(r["tokens"]) for r in feed_rows))
         if not plan:
             return {}
         max_k = max(k for _s, _r, k, _n in plan)
@@ -1339,6 +1890,7 @@ class LLMEngine:
             toks[:R] = outs[-1]
             outs.append(self._run_draft(toks, tok_pos, row_slot, row_start,
                                         row_len, row_off))
+            self._count_step_tokens("spec_draft", int(row_len.sum()))
         stacked = torch.stack(outs).cpu().numpy()
         return {slot: [int(stacked[m, i]) for m in range(k_eff)]
                 for i, (slot, _req, k_eff, _n) in enumerate(plan)}
@@ -1513,21 +2065,40 @@ class LLMEngine:
                     self._spec_stale_cur.discard(slot)
             self._inflight_tokens[slot] = \
                 self._inflight_tokens.get(slot, 0) + 1
+        now = time.monotonic()
         for st in finishing:
             self._prefilling.remove(st)
             req, slot = st["req"], st["slot"]
             self._lens[slot] = len(req.prompt)
             self._slot_req[slot] = req
             self._temps[slot] = req.temperature
+            if req.admitted_at is None:
+                req.admitted_at = now
         self._steps += 1
-        self._step_tokens["decode"] += n_decode
-        self._step_tokens["prefill"] += n_prefill
+        self._count_step_tokens("decode", n_decode)
+        self._count_step_tokens("prefill", n_prefill)
         if n_spec:
-            self._step_tokens["spec_verify"] += n_spec
+            self._count_step_tokens("spec_verify", n_spec)
         if n_decode and n_prefill:
             self._mixed_steps += 1
+        if n_decode:
+            self._tm["batch_size"].observe(n_decode)
+        self._observe_queue()
         self._enqueue_fetch("ragged", toks_dev, 1, parts)
         return True
+
+    def _count_step_tokens(self, phase: str, n: int) -> None:
+        """Tokens dispatched to the device in one phase: the stats mirror
+        and raytpu_serve_step_tokens_total{phase}."""
+        self._step_tokens[phase] = self._step_tokens.get(phase, 0) + n
+        self._tm["step_tokens"].inc(n, tags={"phase": phase})
+
+    def _observe_queue(self) -> None:
+        """The admission queue's depth and age gauges, sampled at
+        dispatch."""
+        self._tm["queue_depth"].set(self._waiting.qsize()
+                                    + len(self._backlog))
+        self._tm["queue_age"].set(self._admission_queue_age())
 
     def _upload(self, segs: List[np.ndarray]) -> List[torch.Tensor]:
         """Host int32 arrays as device tensors through ONE buffer
@@ -1609,7 +2180,7 @@ class LLMEngine:
         else:
             host = toks
         self._pending.append(_InFlight(kind, host, event, chunk,
-                                       participants))
+                                       participants, time.monotonic()))
 
     def _process_fetched(self, block: bool) -> bool:
         """Emit every dispatch whose tokens have reached the host, in
@@ -1624,6 +2195,9 @@ class LLMEngine:
             self._pending.popleft()
             processed = True
             toks = entry.host.numpy()
+            now = time.monotonic()
+            if entry.kind == "decode":
+                self._note_step_time(now - entry.t_disp, entry.chunk)
             if entry.kind == "pfchunk":
                 continue  # a marker: it only gated the pipeline depth
             if entry.kind == "ragged":
@@ -1631,8 +2205,9 @@ class LLMEngine:
                 # (then, on a verify step, the target argmax at each
                 # verify position); the parts are decode rows, verify
                 # rows and last prompt chunks (mid-prompt rows have
-                # nothing to emit).
-                now = time.monotonic()
+                # nothing to emit).  Its wall feeds the stall watermark:
+                # a ragged step is a decode step for every stream in it.
+                self._note_step_time(now - entry.t_disp, 1)
                 R = self.config.max_slots
                 for rkind, req, slot, i in entry.participants:
                     if rkind == "verify":
@@ -1640,9 +2215,10 @@ class LLMEngine:
                         continue
                     self._drop_inflight(slot, 1)
                     if req.finished_at is not None:
-                        continue  # cancelled while in flight
+                        continue  # cancelled or preempted while in flight
                     if rkind == "first":
                         req.first_token_at = now
+                        self._ring.record(req.request_id, _reqev.DECODING)
                         self._emit(req, slot, int(toks[i]))
                     elif self._slot_req.get(slot) is req:
                         self._emit(req, slot, int(toks[i]))
@@ -1651,8 +2227,9 @@ class LLMEngine:
                 for i, (req, slot) in enumerate(entry.participants):
                     self._drop_inflight(slot, 1)
                     if req.finished_at is not None:
-                        continue  # cancelled while its prefill ran
-                    req.first_token_at = time.monotonic()
+                        continue  # cancelled or preempted in its prefill
+                    req.first_token_at = now
+                    self._ring.record(req.request_id, _reqev.DECODING)
                     self._emit(req, slot, int(toks[i]))
                 continue
             for slot, req in entry.participants:
@@ -1693,6 +2270,12 @@ class LLMEngine:
         self._spec_rounds += 1
         self._spec_drafted_total += k
         self._spec_accepted_total += j
+        self._tm["spec_rounds"].inc()
+        self._tm["spec_drafted"].inc(k)
+        if j:
+            self._tm["spec_accepted"].inc(j)
+        self._tm["spec_accept_ratio"].set(
+            self._spec_accepted_total / self._spec_drafted_total)
         self._spec_ema = 0.8 * self._spec_ema + 0.2 * (j / k)
         if (self._spec_cooldown == 0
                 and self._spec_ema < self.config.spec_cold_accept):
@@ -1715,8 +2298,11 @@ class LLMEngine:
         self._spec_stale_cur.add(slot)
         req.spec_drafted += k
         req.spec_accepted += j
-        for tok in drafts[:j] + [row_ver[j]]:
-            self._emit(req, slot, int(tok))
+        self._ring.update(req.request_id, spec_drafted=req.spec_drafted,
+                          spec_accepted=req.spec_accepted)
+        emitted = drafts[:j] + [row_ver[j]]
+        for tok in emitted:
+            self._emit(req, slot, int(tok), burst=len(emitted))
             if req.finished_at is not None:
                 break  # EOS or a limit inside the burst: drop the tail
 
@@ -1727,22 +2313,37 @@ class LLMEngine:
         else:
             self._inflight_tokens.pop(slot, None)
 
-    def _emit(self, req: Request, slot: int, tok: int) -> None:
-        """Record one generated token; finish and free the slot if
-        done."""
+    def _emit(self, req: Request, slot: int, tok: int,
+              burst: int = 1) -> None:
+        """Record one generated token; finish and free the slot if done.
+        ``burst`` > 1: one of several tokens a single verify step
+        emitted; the round's wall gap is split evenly across the burst,
+        so the ITL histogram stays a per-token partition of decode
+        time."""
+        now = time.monotonic()
+        if req.last_token_at is not None:
+            gap = (now - req.last_token_at) / max(burst, 1)
+            req.max_itl_s = max(req.max_itl_s, gap)
+        req.last_token_at = now
         req.tokens.append(tok)
         req.stream.put(tok)
         self._tokens_out += 1
+        self._ring.update(req.request_id, generated_tokens=len(req.tokens))
         eos = self.config.eos_id is not None and tok == self.config.eos_id
         if (eos or len(req.tokens) >= req.max_new_tokens
                 or len(req.prompt) + len(req.tokens)
                 >= self.config.max_seq_len):
+            cause = ("eos" if eos
+                     else "max_new_tokens"
+                     if len(req.tokens) >= req.max_new_tokens
+                     else "max_seq_len")
             # KV is written for prompt + generated minus the last
             # sampled token (it was never fed back): exactly the prefix
             # a later request can resume from.
             seq = req.prompt + req.tokens
             self._release_slot(slot, cache_tokens=seq[:len(seq) - 1])
-            req.finished_at = time.monotonic()
+            req.finished_at = now
+            self._observe_request(req, state=_reqev.FINISHED, cause=cause)
             req.stream.put(_DONE)
 
     def _release_slot(self, slot: int, *,
@@ -1756,12 +2357,13 @@ class LLMEngine:
         full pages are offered to the trie; pages the trie adopts stay
         cached, the rest are freed.  Cancel and failure paths pass no
         cache_tokens: their tail pages may be partially written, so
-        nothing is donated."""
+        nothing is donated, and neither does a draining engine."""
         self._slot_req.pop(slot, None)
         aid = self._slot_adapter.pop(slot, "")
         if aid:
             self._adapters.release(aid)
         self._free_slots.append(slot)
+        self._auditor.mark_dirty()
         if not self._paged:
             # A dense slot owns no pages, and its cache row keeps its
             # length until the next prefill overwrites it.
@@ -1773,14 +2375,19 @@ class LLMEngine:
             self._draft_fed.pop(slot, None)
             dpages = self._draft_slot_pages.pop(slot, None)
             if dpages:
+                if _audit.corrupt(_audit.INJECT_DRAFT_PAGE):
+                    dpages = dpages[1:]  # leak one draft page
                 self._draft_free.extend(dpages)
                 self._draft_bt[slot] = self._draft_pages
         pages = self._slot_pages.pop(slot, [])
         if self._prefix is not None:
             borrowed = self._slot_borrowed.pop(slot, [])
-            self._prefix.release(borrowed)
+            release = borrowed
+            if borrowed and _audit.corrupt(_audit.INJECT_TRIE_REF):
+                release = borrowed[1:]  # leak one trie borrow ref
+            self._prefix.release(release)
             adopted: set = set()
-            if cache_tokens is not None:
+            if cache_tokens is not None and not self._draining.is_set():
                 full = len(cache_tokens) // self.config.page_size
                 adopted = self._prefix.insert(cache_tokens, pages[:full])
             self._free_pages.extend(p for p in pages[len(borrowed):]
@@ -1790,6 +2397,132 @@ class LLMEngine:
         self._bt[slot] = self._num_pages
         self._lens[slot] = 0
         self._state_dirty = True
+        self._update_page_gauges()
+
+    def _slo_met(self, req: Request) -> bool:
+        """Did a FINISHED request meet every configured bound?  (No slo
+        config = met; callers gate on the terminal state.)"""
+        slo = self.config.slo
+        if slo is None:
+            return True
+        if slo.ttft_s is not None and (
+                req.ttft_s is None or req.ttft_s > slo.ttft_s):
+            return False
+        if slo.tpot_s is not None:
+            if req.first_token_at is None or len(req.tokens) < 2:
+                return False
+            tpot = ((req.finished_at - req.first_token_at)
+                    / (len(req.tokens) - 1))
+            if tpot > slo.tpot_s:
+                return False
+        if slo.e2e_s is not None and (
+                req.finished_at - req.submitted_at) > slo.e2e_s:
+            return False
+        return True
+
+    def _observe_request(self, req: Request, *,
+                         state: str = _reqev.FINISHED,
+                         cause: Optional[str] = None) -> None:
+        """Terminal accounting for EVERY outcome: the ring's verdict, the
+        SLO, goodput and terminal counters, the latency histograms for
+        FINISHED only (a cancelled request has no honest TTFT), and the
+        request's span tree (queue wait → prefill → decode) when tracing
+        is on, recorded after the fact from the monotonic stamps the loop
+        takes anyway, so the decode path carries no tracing code."""
+        self._ring.record(req.request_id, state,
+                          generated_tokens=len(req.tokens),
+                          terminal_cause=cause,
+                          spec_drafted=req.spec_drafted or None,
+                          spec_accepted=(req.spec_accepted
+                                         if req.spec_drafted else None))
+        finished = state == _reqev.FINISHED
+        met = finished and self._slo_met(req)
+        if finished and not met and self.config.slo is not None:
+            try:
+                from ray_tpu_torch.util import flight_recorder
+                flight_recorder.trigger("slo_miss",
+                                        request_id=req.request_id)
+            except Exception:
+                pass  # the verdict must not depend on the recorder
+        self._tm["terminal"].inc(tags={"state": state})
+        self._tm["slo"].inc(tags={"outcome": "met" if met else "missed"})
+        self._terminal_tokens += len(req.tokens)
+        if met:
+            self._good_tokens += len(req.tokens)
+        if self._terminal_tokens:
+            self._tm["goodput"].set(
+                self._good_tokens / self._terminal_tokens)
+        log.debug("request %s %s (cause=%s, %d tokens)",
+                  req.request_id, state, cause, len(req.tokens))
+        if finished:
+            if req.ttft_s is not None:
+                self._tm["ttft"].observe(req.ttft_s)
+            if req.first_token_at is not None and len(req.tokens) > 1:
+                self._tm["tpot"].observe(
+                    (req.finished_at - req.first_token_at)
+                    / (len(req.tokens) - 1))
+                self._tm["itl"].observe(req.max_itl_s)
+        if not tracing.is_enabled():
+            return
+        # Monotonic stamps → wall clock for the trace view.
+        off = time.time() - time.monotonic()
+        root = tracing.record_span(
+            "llm.request", req.submitted_at + off, req.finished_at + off,
+            ctx=req.trace_ctx,
+            attributes={"request_id": req.request_id,
+                        "state": state,
+                        "terminal_cause": cause,
+                        "prompt_len": len(req.prompt),
+                        "num_tokens": len(req.tokens)})
+        ctx = {"trace_id": root["trace_id"], "span_id": root["span_id"]}
+        # A never-admitted terminal (cancelled or failed in the queue)
+        # spends its whole life in queue_wait.
+        admitted = req.admitted_at or req.finished_at
+        tracing.record_span("llm.queue_wait", req.submitted_at + off,
+                            admitted + off, ctx=ctx)
+        if req.first_token_at is not None:
+            tracing.record_span("llm.prefill", admitted + off,
+                                req.first_token_at + off, ctx=ctx)
+            tracing.record_span("llm.decode", req.first_token_at + off,
+                                req.finished_at + off, ctx=ctx,
+                                attributes={"tokens": len(req.tokens)})
+
+    def _admission_queue_age(self) -> float:
+        """Seconds since the oldest still-unadmitted request was
+        submitted (0.0 when nothing waits).  A snapshot of the waiting
+        queue's and the backlog's internals: both only hold Request
+        objects, and a stale read shifts the gauge one sample."""
+        oldest = None
+        for req in list(self._waiting.queue) + (
+                list(self._backlog) if self._paged else []):
+            if oldest is None or req.submitted_at < oldest:
+                oldest = req.submitted_at
+        return 0.0 if oldest is None else time.monotonic() - oldest
+
+    def _note_step_time(self, wall_s: float, chunk: int) -> bool:
+        """Record an entry's dispatch-to-fetch wall as per-step cost;
+        returns True (and logs a warning) when the step blows past
+        STALL_FACTOR x its running median over the last 64 entries, so a
+        slow ramp moves the baseline while a one-off stall stands
+        out."""
+        per_step = wall_s / max(chunk, 1)
+        history = sorted(self._step_walls)
+        self._step_walls.append(per_step)
+        if per_step > self._step_wall_hw:
+            self._step_wall_hw = per_step
+            self._tm["step_wall"].set(per_step)
+        if len(history) < 8:
+            return False
+        median = history[len(history) // 2]
+        if median > 0 and per_step > STALL_FACTOR * median:
+            log.warning(
+                "decode step stall: %.1f ms/step vs running median "
+                "%.1f ms (x%.1f, chunk=%d, active=%d)",
+                per_step * 1e3, median * 1e3, per_step / median,
+                chunk, len(self._slot_req))
+            self._stall_events += 1
+            return True
+        return False
 
     def _process_cancels(self) -> None:
         with self._cancel_lock:
@@ -1802,6 +2535,8 @@ class LLMEngine:
             if slot is not None:
                 self._release_slot(slot)
             req.finished_at = time.monotonic()
+            self._observe_request(req, state=_reqev.CANCELLED,
+                                  cause="cancelled")
             req.stream.put(_DONE)
 
         for slot, req in list(self._slot_req.items()):
@@ -1832,6 +2567,71 @@ class LLMEngine:
             for req in kept:
                 self._waiting.put(req)
 
+    def _preempt_request(self, req: Request, slot: Optional[int]) -> None:
+        """Evict one request with a PREEMPTED terminal.  Its stream ends
+        by raising PreemptedError carrying the continuation, so the
+        consumer knows exactly which generated prefix it holds: tokens
+        of its steps still in flight are dropped at fetch (its
+        finished_at is set)."""
+        if slot is not None:
+            self._release_slot(slot)
+        req.finished_at = time.monotonic()
+        self._observe_request(req, state=_reqev.PREEMPTED,
+                              cause="preempted")
+        self._preempted_count += 1
+        req.stream.put(PreemptedError(
+            "replica draining: request evicted",
+            continuation={"prompt": list(req.prompt),
+                          "tokens": list(req.tokens),
+                          "temperature": req.temperature,
+                          "request_id": req.request_id,
+                          "adapter_id": req.adapter_id}))
+
+    def _process_drain(self) -> None:
+        """The loop's half of drain(): while draining, requests that
+        never reached a slot are preempted at once (admission has
+        stopped); once the grace window has passed (_drain_evict),
+        everything still in a slot goes too, and one deep audit follows,
+        so a drained engine provably hands back a leak-free pool."""
+        if not self._draining.is_set():
+            return
+        while True:
+            try:
+                req = self._waiting.get_nowait()
+            except queue.Empty:
+                break
+            self._preempt_request(req, None)
+        for req in list(self._backlog):
+            self._backlog.remove(req)
+            self._preempt_request(req, None)
+        if not self._drain_evict.is_set():
+            return
+        for st in list(self._prefilling):
+            self._prefilling.remove(st)
+            self._preempt_request(st["req"], st["slot"])
+        for slot, req in list(self._slot_req.items()):
+            self._preempt_request(req, slot)
+        if not self._drain_audited:
+            self._drain_audited = True
+            try:
+                self._auditor.run(deep=True)
+            except Exception:
+                log.exception("drain-evict audit failed")
+
+    def _process_audits(self) -> None:
+        """Run queued doctor() ops on the loop thread, the only thread
+        allowed to walk slot and page state while the engine runs."""
+        with self._audit_lock:
+            if not self._audit_ops:
+                return
+            ops, self._audit_ops = self._audit_ops, []
+        for op in ops:
+            try:
+                op["result"] = self._auditor.run(deep=op["deep"])
+            except Exception as e:
+                op["error"] = e
+            op["done"].set()
+
     # -- loop --------------------------------------------------------------
 
     def _loop(self) -> None:
@@ -1840,12 +2640,32 @@ class LLMEngine:
                 self._loop_body()
         except BaseException as e:  # engine crash — fail every client
             self._stopped.set()
+            # A loop that died mid-dispatch strands allocator state: that
+            # is no leak for an audit to report.
+            self._crashed = True
             log.exception("torch LLM engine loop crashed")
-            self._fail_all(RuntimeError(f"LLM engine loop crashed: {e!r}"))
+            with self._audit_lock:  # release doctor() waiters too
+                audit_ops, self._audit_ops = self._audit_ops, []
+            for op in audit_ops:
+                op["error"] = RuntimeError(
+                    f"engine crashed before audit ran: {e!r}")
+                op["done"].set()
+            self._fail_all(RuntimeError(f"LLM engine loop crashed: {e!r}"),
+                           cause=repr(e))
             raise
-        self._fail_all(RuntimeError("engine shut down"))
+        # A clean stop fails what still runs and releases every slot
+        # (pages, adapter borrows, draft pages, borrowed prefix pages)
+        # before the final deep audit, so anything the audit finds is an
+        # accounting fault, not an artefact of stopping mid-flight.
+        self._fail_all(RuntimeError("engine shut down"),
+                       cause="engine shut down")
+        self._process_audits()  # queued doctor() ops still get served
+        try:
+            self._auditor.run(deep=True)
+        except Exception:
+            log.exception("final shutdown audit failed")
 
-    def _fail_all(self, err: BaseException) -> None:
+    def _fail_all(self, err: BaseException, cause: str) -> None:
         failing = list(self._slot_req.values()) + list(self._admitting)
         failing += [st["req"] for st in self._prefilling]
         failing += list(self._backlog)
@@ -1860,6 +2680,12 @@ class LLMEngine:
                 continue
             seen.add(id(req))
             req.finished_at = time.monotonic()
+            try:
+                # FAILED accounting (ring, counters, spans); the stream
+                # must get its error whatever the accounting does.
+                self._observe_request(req, state=_reqev.FAILED, cause=cause)
+            except Exception:
+                log.exception("FAILED accounting of %s", req.request_id)
             req.stream.put(err)
         leftovers = set(self._slot_req)
         leftovers.update(st["slot"] for st in self._prefilling)
@@ -1872,19 +2698,29 @@ class LLMEngine:
             torch.cuda.set_device(self.device)
         while not self._stopped.is_set():
             self._process_cancels()
+            self._process_drain()
+            self._process_audits()
             if (not self._slot_req and not self._prefilling
                     and self._waiting.empty() and not self._backlog
                     and not self._pending):
+                # Idle: settle the incremental audit, and now and then a
+                # deep one (idle is when a full walk costs nobody).
+                self._auditor.maybe_incremental()
+                if not self._draining.is_set():
+                    self._auditor.maybe_idle_deep(time.monotonic())
                 self._work.wait(timeout=0.05)
                 self._work.clear()
                 continue
             self._process_fetched(block=False)
-            if self._ragged:
+            if self._draining.is_set():
+                pass  # racing submits are preempted, never admitted
+            elif self._ragged:
                 self._admit_ragged()
             elif self._paged:
                 self._admit_paged()
             else:
                 self._admit_dense()
+            self._auditor.maybe_incremental()
             # Enqueueing a step costs tens of ms of host time in eager
             # PyTorch: deliver the first tokens of a fresh admission
             # before it, not after.

@@ -10,8 +10,10 @@ mesh or device list that asks for more raises NotImplementedError.
 ``params_axes``, ``batch_axes`` and ``rules`` are accepted so calls
 cross unchanged and are unused on one device.  ``init_params`` receives
 a ``torch.Generator`` on the trainer's device, seeded with ``seed``.
-The JAX trainer's telemetry (metrics, tracing spans, device-plane
-sampling) is not ported.
+Telemetry as in the JAX trainer: the six ``raytpu_train_*`` families
+and the ``train.step`` / ``train.data_wait`` / ``train.compute`` /
+``train.checkpoint`` spans; the device plane's memory sampling is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +33,78 @@ from ray_tpu_torch.train.state import (
     default_optimizer,
 )
 from ray_tpu_torch.train.step import compile_train_step
+from ray_tpu_torch.util import tracing
+
+_TELEMETRY = None
+
+
+def _telemetry():
+    """Trainer metric singletons (re-registered on later fetches so a
+    registry clear() cannot drop them)."""
+    global _TELEMETRY
+    from ray_tpu_torch.util import metrics
+
+    if _TELEMETRY is None:
+        _TELEMETRY = {
+            "step_s": metrics.Histogram(
+                "raytpu_train_step_seconds",
+                "Host-side duration of one training step (dispatch, plus "
+                "device sync on report steps).",
+                boundaries=[0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0,
+                            5.0, 30.0, 120.0],
+            ),
+            "data_wait_s": metrics.Histogram(
+                "raytpu_train_data_wait_seconds",
+                "Seconds each step waited on the input iterator + batch "
+                "copy to the device.",
+                boundaries=[0.0001, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5,
+                            1.0, 5.0],
+            ),
+            "steps": metrics.Counter(
+                "raytpu_train_steps_total",
+                "Training steps completed.",
+            ),
+            "checkpoints": metrics.Counter(
+                "raytpu_train_checkpoints_total",
+                "Checkpoints written by the trainer.",
+            ),
+            "opt_bytes": metrics.Gauge(
+                "raytpu_train_opt_state_bytes",
+                "Optimizer-state footprint: scope=global across the "
+                "devices, scope=per_device resident on one device (equal "
+                "on one device).",
+                tag_keys=("scope",),
+            ),
+            "hbm_headroom": metrics.Gauge(
+                "raytpu_train_hbm_headroom_bytes",
+                "Per-device memory left above the peak watermark "
+                "(total_memory - max_memory_allocated), sampled on report "
+                "steps; absent on the CPU.",
+                tag_keys=("device",),
+            ),
+        }
+    else:
+        reg = metrics.registry()
+        for m in _TELEMETRY.values():
+            reg.register(m)
+    return _TELEMETRY
+
+
+def opt_state_bytes(opt_state: Any) -> Dict[str, int]:
+    """Optimizer-state bytes: ``global`` and ``per_device``, equal on one
+    device (the JAX package's ``zero.opt_state_bytes``).  Tensor leaves
+    only: the step count is a host int here."""
+    def walk(node) -> int:
+        if isinstance(node, dict):
+            return sum(walk(v) for v in node.values())
+        if isinstance(node, (tuple, list)):
+            return sum(walk(v) for v in node)
+        if torch.is_tensor(node):
+            return node.numel() * node.element_size()
+        return 0
+
+    n = walk(opt_state)
+    return {"global": n, "per_device": n}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +216,20 @@ class TorchTrainer:
             grad_accum=self.trainer_config.grad_accum)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self._state = create_train_state(self.init_params_fn(gen), self.tx)
+        self._emit_memory_gauges()
+
+    def _emit_memory_gauges(self):
+        """The optimizer state's footprint, and on the card the memory
+        left above the peak watermark (absent, not zero, on the CPU)."""
+        tm = _telemetry()
+        b = opt_state_bytes(self._state.opt_state)
+        tm["opt_bytes"].set(b["global"], tags={"scope": "global"})
+        tm["opt_bytes"].set(b["per_device"], tags={"scope": "per_device"})
+        if self.device.type == "cuda":
+            total = torch.cuda.get_device_properties(self.device).total_memory
+            tm["hbm_headroom"].set(
+                total - torch.cuda.max_memory_allocated(self.device),
+                tags={"device": str(self.device)})
 
     @property
     def state(self) -> TrainState:
@@ -183,25 +271,43 @@ class TorchTrainer:
                                      max_to_keep=rc.checkpoints_to_keep)
         history: List[Dict[str, float]] = []
         last_metrics: Dict[str, float] = {}
+        tm = _telemetry()
         it = iter(data)
         t0 = time.perf_counter()
         error: Optional[BaseException] = None
         try:
             for i in range(num_steps):
                 step = i + 1
-                batch = self.shard_batch(next(it))
-                self._state, metrics = self._step_fn(self._state, batch)
-                if step % rc.report_every == 0 or step == num_steps:
-                    # float() of a device value waits for the step.
-                    m = {k: float(v) for k, v in metrics.items()}
-                    m["steps_per_sec"] = step / (time.perf_counter() - t0)
-                    history.append(m)
-                    last_metrics = m
-                    if report:
-                        report(m)
-                if ckpt and rc.checkpoint_every \
-                        and step % rc.checkpoint_every == 0:
-                    ckpt.save(step, self._state)
+                with tracing.span("train.step", attributes={"step": step}):
+                    w0 = time.perf_counter()
+                    with tracing.span("train.data_wait"):
+                        batch = self.shard_batch(next(it))
+                    c0 = time.perf_counter()
+                    tm["data_wait_s"].observe(c0 - w0)
+                    # Host-side timing: the card runs asynchronously, so
+                    # off-report steps measure the enqueue; report steps
+                    # wait below.
+                    with tracing.span("train.compute"):
+                        self._state, metrics = self._step_fn(self._state,
+                                                             batch)
+                    tm["step_s"].observe(time.perf_counter() - c0)
+                    tm["steps"].inc()
+                    if step % rc.report_every == 0 or step == num_steps:
+                        # float() of a device value waits for the step.
+                        m = {k: float(v) for k, v in metrics.items()}
+                        m["steps_per_sec"] = step / (time.perf_counter()
+                                                     - t0)
+                        history.append(m)
+                        last_metrics = m
+                        self._emit_memory_gauges()
+                        if report:
+                            report(m)
+                    if ckpt and rc.checkpoint_every \
+                            and step % rc.checkpoint_every == 0:
+                        with tracing.span("train.checkpoint",
+                                          attributes={"step": step}):
+                            ckpt.save(step, self._state)
+                        tm["checkpoints"].inc()
         except BaseException as e:  # report partial progress + the failure
             error = e
             if not isinstance(e, Exception):

@@ -106,9 +106,6 @@ def test_sampling_is_seeded_and_greedy_at_zero_temperature():
 
 
 @pytest.mark.parametrize("field,value,lora,exc,match", [
-    ("slo", object(), False, NotImplementedError, "slo"),
-    ("shed_queue_age_s", 1.0, False, NotImplementedError,
-     "shed_queue_age_s"),
     # Speculative decoding and LoRA are ported to the ragged engine only,
     # as in the JAX package.
     ("spec_decode", True, False, ValueError, "ragged_batching"),
@@ -123,6 +120,35 @@ def test_unported_modes_raise(params, field, value, lora, exc, match):
     with pytest.raises(exc, match=match):
         teng.LLMEngine(tp, teng.llama_paged_adapter(model_cfg), cfg,
                        device="cpu")
+
+
+@pytest.mark.parametrize("field", ["slo", "shed_queue_age_s"])
+def test_slo_and_shedding_settings_act(params, field):
+    """The two settings that raised before they were ported: an SLO whose
+    tpot bound a one-token request cannot meet (fewer than two tokens)
+    moves goodput, and a shedding budget below any queue age refuses
+    every submission with ShedError."""
+    from ray_tpu_torch.core.exceptions import ShedError
+
+    _, tp = params
+    value = (teng.SLO(tpot_s=1e9) if field == "slo" else -1.0)
+    eng = teng.LLMEngine(tp, teng.llama_paged_adapter(T_CFG),
+                         teng.EngineConfig(**{**ENGINE_KW, field: value}),
+                         device="cpu")
+    try:
+        if field == "slo":
+            eng.generate(_prompts(6, (9,))[0], max_new_tokens=1)
+            assert eng.goodput_ratio() == 0.0  # one token: tpot missed
+            eng.generate(_prompts(7, (9,))[0], max_new_tokens=4)
+            assert eng.goodput_ratio() == 4 / 5
+        else:
+            with pytest.raises(ShedError) as err:
+                eng.submit(_prompts(6, (9,))[0])
+            assert err.value.queue_age_s == 0.0
+            assert eng.arrivals_total() == 1
+            assert eng.stats()["requests"] == {"SHED": 1}
+    finally:
+        eng.shutdown()
 
 
 def test_eos_ends_stream_and_iteration_matches_result(params):
