@@ -200,7 +200,29 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    through ``LLMServer``: phase 6's four prompts, then two sharing a
    512-token prefix (a 512-token hit, the prefix gauges, K4 = 32 and
    K5 = 1 per step counted from 0); and phase 5's decode tokens/s and
-   one step's host ms, now with the planes on.
+   one step's host ms, now with the planes on;
+15. KV page migration, the latency waterfall and the device plane (run
+   after phase 14, on phase 5's weights): a tiny f32 Llama's transfer
+   exported by an engine on the CPU and ingested on the card (the probe
+   over it is a full hit and streams the CPU engine's tokens); then,
+   with tracing on, the ragged 8B engine with the prefix cache serves
+   phase 6's four prompts and two sharing 512 tokens, and exports its
+   hot prefixes exactly and as int8 (transfers, pages, wire bytes, ms,
+   GB/s); a cold engine ingests the exact ones (pages in = the warm
+   engine's cached pages), and a probe over the deepest migrated path
+   is a hit over exactly those pages whose stream equals the warm
+   engine's token for token (its TTFT beside a third engine that
+   recomputes the probe; K4 = 32 and K5 = 1 per step counted from 0);
+   the int8 transfers into a bf16 pool (common prefix with the warm
+   stream, rank of a first divergence, top 5 wanted); a lease left open
+   across ``drain()`` is released and the deep audit is clean with
+   ``kv.lease_accounting`` in it; both pools int8 (raw bytes and scales,
+   no requantisation; streams equal; K4 int8 = 32 x K6); every terminal
+   request's waterfall sums to its e2e within 1e-6 s (the control-plane
+   share printed); ``xprof.roofline()``'s ``serve.ragged`` row at or
+   below 1.0 of the card's bandwidth; the analytic decode bound beside
+   PERF.md's 4.79 ms; the ``raytpu_device_hbm_*`` gauges equal to
+   ``torch.cuda.memory_stats()``.
 
 The last three lines of standard output are the kernel table (K1, K2,
 K9f, K10, K11, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8
@@ -210,7 +232,8 @@ and ``{"ok": true, "device": {...}}``.  Details go to ``--out`` (with
 ``launch_floor_ms``, K2's and K3's 48-slot runs under ``slots48``, the
 page-walk phases under ``kernels.walk``, the verify-row phases under
 ``kernels.verify_rows`` and the group-5 rows of K9f, K10 and K11 under
-each one's ``group5``, and phase 14 under ``planes``).
+each one's ``group5``, phase 14 under ``planes`` and phase 15 under
+``migration``).
 """
 
 from __future__ import annotations
@@ -5248,6 +5271,348 @@ def train_telemetry(opt_state) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 15: KV page migration, the latency waterfall and the device plane
+# --------------------------------------------------------------------------
+
+MIG_NEW = 32                     # phase 6's new tokens
+MIG_ENGINE = dict(max_slots=8, max_seq_len=2048, page_size=64, decode_chunk=8,
+                  ragged_batching=True, prefill_chunk=256, prefix_cache=True)
+WEIGHT_STREAM_MS = 4.79          # PERF.md: bf16 8B weights / 3.35 TB/s
+
+
+def _mig_engine(eng_mod, cfg, params, device="cuda", **kw):
+    return eng_mod.LLMEngine(params, eng_mod.llama_paged_adapter(cfg),
+                             eng_mod.EngineConfig(**dict(MIG_ENGINE, **kw)),
+                             device=device)
+
+
+def _mig_export(eng, mode) -> tuple:
+    """``export_hot_prefixes`` timed, every lease released after it."""
+    t0 = time.perf_counter()
+    transfers = eng.export_hot_prefixes(mode=mode)
+    sec = time.perf_counter() - t0
+    if eng._prefix.leased_pages() or eng._mig_leases:
+        raise AssertionError(f"export ({mode}) left leases open: "
+                             f"{eng._prefix.leased_pages()}")
+    wire = sum(t["wire_bytes"] for t in transfers)
+    return transfers, {
+        "transfers": len(transfers),
+        "pages": sum(len(t["hashes"]) for t in transfers),
+        "wire_bytes": wire, "ms": sec * 1e3, "gb_per_s": wire / sec / 1e9}
+
+
+def _mig_ingest(torch, eng, transfers) -> tuple:
+    """Every transfer ingested, timed to the end of the scatter."""
+    t0 = time.perf_counter()
+    n = sum(eng.migration_ingest(t) for t in transfers)
+    torch.cuda.synchronize()
+    return n, (time.perf_counter() - t0) * 1e3
+
+
+def _mig_probe(eng, kernels, probe) -> tuple:
+    """One request alone, its kernels counted from 0: (stream, facts)."""
+    steps0 = eng.stats()["steps"]
+    reset_counts(kernels)
+    s = eng.submit(probe, max_new_tokens=MIG_NEW)
+    out = s.result(timeout_s=600)
+    launches = read_counts(kernels)
+    return out, {"prefix_hit": s._req.prefix_hit, "ttft_s": s._req.ttft_s,
+                 "steps": eng.stats()["steps"] - steps0,
+                 "launches": {k: v for k, v in launches.items()
+                              if k.startswith("ragged_paged") and v}}
+
+
+def _mig_launches_ok(cfg, facts, int8) -> bool:
+    ln, steps = facts["launches"], facts["steps"]
+    k4 = ln.get("ragged_paged_attention", 0)
+    app = ln.get("ragged_paged_append_quantized" if int8
+                 else "ragged_paged_append", 0)
+    other = ln.get("ragged_paged_append" if int8
+                   else "ragged_paged_append_quantized", 0)
+    return (steps > 0 and k4 == cfg.n_layers * steps and app == steps
+            and not other
+            and ln.get("ragged_paged_attention" + INT8, 0)
+            == (k4 if int8 else 0))
+
+
+def _waterfalls(lat, engines) -> dict:
+    """Every terminal request's waterfall over its engine's ring row: the
+    components must sum to the e2e within 1e-6 s."""
+    worst, n = 0.0, 0
+    for eng in engines:
+        for rec in eng._ring.snapshot():
+            if not rec.is_terminal():
+                continue
+            wf = lat.waterfall(rec.request_id, rows=[rec.to_dict()])
+            gap = abs(sum(wf["components"].values()) - wf["e2e_s"])
+            if gap > 1e-6 or min(wf["components"].values()) < -1e-9:
+                raise AssertionError(f"waterfall of {rec.request_id}: "
+                                     f"{wf['components']} vs e2e "
+                                     f"{wf['e2e_s']}")
+            worst, n = max(worst, gap), n + 1
+    return {"requests": n, "max_gap_s": worst}
+
+
+def tiny_migration_parity(torch, llama, eng_mod, kernels) -> dict:
+    """Tiny f32 Llama: a transfer exported by an engine on the CPU and
+    ingested by one on the card (the host→device scatter); the card
+    engine's probe over the migrated pages is a full hit and its stream
+    equals the CPU engine's."""
+    import numpy as np
+
+    cfg = dataclasses.replace(llama.LLAMA_TINY, dtype=torch.float32)
+    params = llama.init_params(torch.Generator().manual_seed(3), cfg,
+                               device="cpu", dtype=torch.float32)
+    kw = dict(max_seq_len=256, prefill_chunk=64, max_slots=4)
+    rng = np.random.default_rng(15)
+    prompt = rng.integers(0, cfg.vocab_size, 150).tolist()
+    cpu = _mig_engine(eng_mod, cfg, params, device="cpu", **kw)
+    try:
+        out = cpu.generate(prompt, max_new_tokens=20)
+        transfers, exp = _mig_export(cpu, "exact")
+        n = cpu._prefix.cached_pages
+        probe = (prompt + out)[:n * 64] + [5, 6, 7]
+        want = cpu.generate(probe, max_new_tokens=MIG_NEW)
+    finally:
+        cpu.shutdown()
+    card = _mig_engine(eng_mod, cfg, _to(params, "cuda"), **kw)
+    try:
+        n_in, ingest_ms = _mig_ingest(torch, card, transfers)
+        got, facts = _mig_probe(card, kernels, probe)
+        audit = card.doctor(deep=True)
+    finally:
+        card.shutdown()
+    if (n_in != n or n < 2 or facts["prefix_hit"] != n * 64 or got != want
+            or not _mig_launches_ok(cfg, facts, False)
+            or audit["violations"]):
+        raise AssertionError(f"tiny migration cpu → card: {n_in} of {n} "
+                             f"pages, {facts}, streams equal {got == want}, "
+                             f"{audit['violations']} violations")
+    log(f"migration tiny f32: cpu engine exported {exp['pages']} pages "
+        f"({exp['wire_bytes']} wire bytes), card engine ingested {n_in} in "
+        f"{ingest_ms:.2f} ms; probe hit {facts['prefix_hit']} tokens, stream "
+        f"= the cpu engine's ({MIG_NEW} tokens), launches "
+        f"{facts['launches']}")
+    return {"pages": n, "export": exp, "ingest_ms": ingest_ms,
+            "probe": facts}
+
+
+def migration_phase(torch, llama, eng_mod, kernels, card, params) -> dict:
+    """Phase 15, on phase 5's weights: hot prefixes of a warm ragged
+    engine exported exactly and as int8 and ingested by cold engines (a
+    migrated probe's hit, stream and TTFT beside a recomputing engine);
+    int8 pools end to end; a lease left open across a drain; with tracing
+    on, every request's waterfall, the roofline's serve.ragged row, the
+    decode bound and the device-memory gauges."""
+    import numpy as np
+
+    from ray_tpu_torch.serve import latency_attribution as lat
+    from ray_tpu_torch.util import metrics, tracing, xprof
+
+    cfg = llama.LLAMA3_8B
+    res = {"card": card,
+           "tiny": tiny_migration_parity(torch, llama, eng_mod, kernels)}
+    tracing.clear()
+    tracing.enable_tracing()
+    t_phase = time.time()
+    rng = np.random.default_rng(13)
+    lens = (17, 300, 700, 1500)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    shared = rng.integers(0, cfg.vocab_size, 512).tolist()
+    pair = [shared + rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in (40, 60)]
+    tail = rng.integers(0, cfg.vocab_size, 7).tolist()
+    engines = []
+    try:
+        # (a) The warm engine: phase 6's four prompts at once, then the
+        # pair one after the other; its hot prefixes exported both ways.
+        warm = _mig_engine(eng_mod, cfg, params)
+        engines.append(warm)
+        warm.submit(prompts[0][:5], max_new_tokens=2).result(timeout_s=600)
+        outs = [s.result(timeout_s=600) for s in
+                [warm.submit(p, max_new_tokens=MIG_NEW) for p in prompts]]
+        outs += [warm.submit(p, max_new_tokens=MIG_NEW).result(timeout_s=600)
+                 for p in pair]
+        cached = warm._prefix.cached_pages
+        exact, exp_exact = _mig_export(warm, "exact")
+        quant, exp_int8 = _mig_export(warm, "int8")
+        deepest = max(exact, key=lambda t: len(t["hashes"]))
+        depth = len(deepest["hashes"]) * MIG_ENGINE["page_size"]
+        probe = deepest["tokens"] + tail
+        log(f"migration 8B ({card}): warm engine {cached} cached pages; "
+            f"export exact {exp_exact}; int8 {exp_int8}")
+        # (b) Cold engine, exact ingest: a full hit over the migrated depth
+        # and the warm engine's stream token for token.
+        cold = _mig_engine(eng_mod, cfg, params)
+        engines.append(cold)
+        cold.submit(tail[:5], max_new_tokens=2).result(timeout_s=600)
+        n_in, ingest_ms = _mig_ingest(torch, cold, exact)
+        got, facts = _mig_probe(cold, kernels, probe)
+        want, warm_facts = _mig_probe(warm, kernels, probe)
+        if (n_in != cached or cold.stats()["kv_migration"]["pages_in"]
+                != cached or facts["prefix_hit"] != depth
+                or warm_facts["prefix_hit"] != depth or got != want
+                or not _mig_launches_ok(cfg, facts, False)):
+            raise AssertionError(f"8B exact migration: {n_in} of {cached} "
+                                 f"pages in, probe {facts}, warm {warm_facts},"
+                                 f" streams equal {got == want}")
+        # The same probe recomputed by a third engine.
+        recompute = _mig_engine(eng_mod, cfg, params)
+        engines.append(recompute)
+        recompute.submit(tail[:5], max_new_tokens=2).result(timeout_s=600)
+        rec_out, rec_facts = _mig_probe(recompute, kernels, probe)
+        check_first_token(torch, llama, params, cfg, probe, got[0],
+                          "8B migrated probe")
+        res["exact"] = {"export": exp_exact, "pages_in": n_in,
+                        "ingest_ms": ingest_ms, "probe": facts,
+                        "warm_probe": warm_facts, "recompute": rec_facts,
+                        "recompute_equal": rec_out == got}
+        log(f"migration 8B exact: {n_in} pages ingested in {ingest_ms:.1f} "
+            f"ms; probe of {len(probe)} tokens hit {facts['prefix_hit']}, "
+            f"stream = the warm engine's; TTFT {facts['ttft_s'] * 1e3:.1f} "
+            f"ms migrated vs {rec_facts['ttft_s'] * 1e3:.1f} ms recomputed "
+            f"(stream equal {rec_out == got}); probe launches "
+            f"{facts['launches']} over {facts['steps']} steps")
+        # (c) An int8-mode transfer into a bf16 pool: quantised pages, so
+        # the stream may part from the warm one at a near-tie.
+        cold8 = _mig_engine(eng_mod, cfg, params)
+        engines.append(cold8)
+        n8, ingest8_ms = _mig_ingest(torch, cold8, quant)
+        got8, facts8 = _mig_probe(cold8, kernels, probe)
+        prefix, ranks = _divergence(torch, llama, params, cfg, [probe],
+                                    [want], [got8])
+        if (n8 != cached or facts8["prefix_hit"] != depth
+                or any(r > 4 for r in ranks)):
+            raise AssertionError(f"8B int8 → bf16 migration: {n8} pages, "
+                                 f"probe {facts8}, divergence ranks {ranks}")
+        res["int8_into_bf16"] = {"pages_in": n8, "ingest_ms": ingest8_ms,
+                                 "probe": facts8, "common_prefix": prefix[0],
+                                 "first_divergence_ranks": ranks}
+        log(f"migration 8B int8 → bf16 pool: {n8} pages in {ingest8_ms:.1f} "
+            f"ms; common prefix with the warm stream {prefix[0]} of "
+            f"{MIG_NEW}, divergence ranks {ranks}")
+        # (d) A lease left open across drain(): released before the drain's
+        # audit, and the deep audit clean with kv.lease_accounting in it.
+        lease = cold.migration_lease(probe)
+        if len(lease["pages"]) * MIG_ENGINE["page_size"] != depth:
+            raise AssertionError(f"lease covers {len(lease['pages'])} pages")
+        cold.drain(grace_s=0.0)
+        deadline = time.monotonic() + 30
+        while cold._mig_leases and time.monotonic() < deadline:
+            time.sleep(0.01)
+        report = cold.doctor(deep=True)
+        checks = {row["check"] for row in report["checks"]}
+        if (cold._mig_leases or cold._prefix.leased_pages()
+                or report["violations"]
+                or "kv.lease_accounting" not in checks):
+            raise AssertionError(f"lease across drain: leases "
+                                 f"{cold._mig_leases}, report {report}")
+        res["drain_lease"] = {"pages": len(lease["pages"]),
+                              "violations": report["violations"],
+                              "checks_run": report["checks_run"],
+                              "ms": report["audit_seconds"] * 1e3}
+        log(f"migration drain: a lease of {len(lease['pages'])} pages "
+            f"released by the drain; deep audit {report['violations']} "
+            f"violations over {report['checks_run']} checks "
+            f"(kv.lease_accounting among them)")
+        for eng in (warm, recompute, cold8):
+            rep = eng.doctor(deep=True)
+            if rep["violations"]:
+                raise AssertionError(f"8B migration audit: {rep['checks']}")
+        res["waterfalls_bf16"] = _waterfalls(lat, engines)
+    finally:
+        for eng in engines:
+            eng.shutdown()
+    engines.clear()
+    torch.cuda.empty_cache()
+    # (e) Both pools int8: the transfer ships raw bytes and scales, no
+    # requantisation; the migrated stream equals the warm one.
+    cfg8 = dataclasses.replace(cfg, kv_int8=True)
+    try:
+        warm = _mig_engine(eng_mod, cfg8, params)
+        engines.append(warm)
+        warm.submit(prompts[0][:5], max_new_tokens=2).result(timeout_s=600)
+        warm.submit(prompts[3], max_new_tokens=MIG_NEW).result(timeout_s=600)
+        t8, exp8 = _mig_export(warm, "int8")
+        cold = _mig_engine(eng_mod, cfg8, params)
+        engines.append(cold)
+        n_in, ingest_ms = _mig_ingest(torch, cold, t8)
+        got, facts = _mig_probe(cold, kernels, probe)
+        want, _ = _mig_probe(warm, kernels, probe)
+        back, _ = _mig_export(cold, "exact")
+        src = max(t8, key=lambda t: len(t["hashes"]))
+        dst = max(back, key=lambda t: len(t["hashes"]))
+        raw = all(np.array_equal(np.asarray(src[k]), np.asarray(dst[k]))
+                  and np.asarray(src[k]).dtype == np.asarray(dst[k]).dtype
+                  for k in ("k", "v", "k_scale", "v_scale"))
+        if (n_in != warm._prefix.cached_pages or not raw or got != want
+                or facts["prefix_hit"] != depth
+                or not _mig_launches_ok(cfg, facts, True)):
+            raise AssertionError(f"8B int8 → int8 migration: {n_in} pages, "
+                                 f"raw bytes equal {raw}, probe {facts}, "
+                                 f"streams equal {got == want}")
+        for eng in (warm, cold):
+            if eng.doctor(deep=True)["violations"]:
+                raise AssertionError("8B int8 migration audit")
+        res["int8_pools"] = {"export": exp8, "pages_in": n_in,
+                             "ingest_ms": ingest_ms, "probe": facts,
+                             "raw_bytes_equal": raw}
+        log(f"migration 8B int8 pools: export {exp8}; {n_in} pages in "
+            f"{ingest_ms:.1f} ms, bytes and scales re-exported from the cold "
+            f"pool equal the warm pool's; probe hit {facts['prefix_hit']}, "
+            f"stream = the warm engine's; launches {facts['launches']} over "
+            f"{facts['steps']} steps")
+        res["waterfalls_int8"] = _waterfalls(lat, engines)
+    finally:
+        for eng in engines:
+            eng.shutdown()
+    engines.clear()
+    # (f) The device plane, with tracing on since (a).
+    agg = lat.aggregate(since=t_phase)
+    roof = xprof.roofline()
+    tracing.disable_tracing()
+    row = roof.get("serve.ragged")
+    if row is None or not 0 < row.get("hbm_utilization", 0) <= 1.0:
+        raise AssertionError(f"roofline serve.ragged: {row}")
+    mc = xprof.llama_costs(cfg, params)
+    _f, weights = xprof.step_cost(mc, [(0, 1)], 1)
+    bound = {"weights_and_head_ms": weights / HBM_BYTES_PER_S * 1e3,
+             "with_embedding_table_ms": (weights + cfg.vocab_size * cfg.dim
+                                         * 2) / HBM_BYTES_PER_S * 1e3}
+    dec = xprof.programs().get("serve.decode")
+    if dec is not None:
+        bound["serve_decode_record_ms"] = \
+            dec.bytes_accessed / HBM_BYTES_PER_S * 1e3
+    if abs(bound["with_embedding_table_ms"] / WEIGHT_STREAM_MS - 1) > 0.02:
+        raise AssertionError(f"8B decode bound {bound}")
+    torch.cuda.synchronize()
+    mem = xprof.sample_device_memory()
+    stats = torch.cuda.memory_stats(0)
+    expo = _exposition(metrics)
+    gauges = {name: expo.get((name, ('device="cuda:0"',)))
+              for name in ("raytpu_device_hbm_bytes_in_use",
+                           "raytpu_device_hbm_bytes_peak")}
+    if (gauges["raytpu_device_hbm_bytes_in_use"]
+            != stats["allocated_bytes.all.current"]
+            or gauges["raytpu_device_hbm_bytes_peak"]
+            != stats["allocated_bytes.all.peak"]):
+        raise AssertionError(f"memory gauges {gauges} vs memory_stats "
+                             f"{stats['allocated_bytes.all.current']}, "
+                             f"{stats['allocated_bytes.all.peak']}")
+    res.update(aggregate=agg, roofline=roof, decode_bound=bound,
+               memory=mem, memory_gauges=gauges)
+    log(f"migration waterfalls: {res['waterfalls_bf16']} and "
+        f"{res['waterfalls_int8']} (sum = e2e); control-plane share "
+        f"{agg['control_plane_share']:.4f} over {agg['requests']} requests, "
+        f"mean components {agg['components']}")
+    log(f"roofline serve.ragged ({card}): {row}")
+    log(f"decode bound: {bound} (PERF.md {WEIGHT_STREAM_MS} ms counts the "
+        f"embedding table whole; a decode step gathers one row a token)")
+    log(f"device memory gauges {gauges} = torch.cuda.memory_stats()")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(
@@ -5369,6 +5734,10 @@ def main() -> int:
     # K4, K5 on the ragged one, each counted from 0.
     planes = planes_phase(torch, llama, eng_mod, kernels, card, params,
                           serving)
+    # KV page migration between 8B engines (K4, K5 on bf16 pools, K4 int8
+    # and K6 on int8 ones, each counted from 0 over a probe), the
+    # waterfall and the device plane.
+    migration = migration_phase(torch, llama, eng_mod, kernels, card, params)
     del params
     torch.cuda.empty_cache()
     fused_bucketed, fused_ragged, fused_short = fused_serving_phase(
@@ -5443,7 +5812,8 @@ def main() -> int:
                    "dense_serving": dense_serving,
                    "adam8_parity": adam8_parity, "train_2b": train_2b,
                    "jamba_tiny": jamba, "mamba2_2_7b": mamba_27b,
-                   "k13_path": k13_path, "planes": planes}, f, indent=1)
+                   "k13_path": k13_path, "planes": planes,
+                   "migration": migration}, f, indent=1, default=str)
     log(f"total {total_s:.1f} s; details in {args.out}")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -17,9 +17,10 @@ Two tiers, per the doctor contract:
     check on drain/stop.
 
 The ``RAYTPU_FAILPOINTS``-gated corruption injectors (``corrupt``) let
-tests prove that a check fires.  The migration-lease check belongs with
-the KV migration verbs, and the controller/router census checks with a
-Serve control plane; the port has neither yet.
+tests prove that a check fires (``kv.lease_accounting`` has none, as in
+the JAX auditor: tests corrupt ``_mig_leases`` directly).  The
+controller/router census checks belong with a Serve control plane, which
+the port does not have yet.
 """
 
 from __future__ import annotations
@@ -86,6 +87,10 @@ CHECKS = {cd.name: cd for cd in (
         "kv.trie_integrity", 1, doctor.DEEP, "critical",
         "Every trie page is reachable from the root and its borrow "
         "refcount equals a recount over the slots' borrowed lists."),
+    doctor.register_check(
+        "kv.lease_accounting", 1, doctor.DEEP, "error",
+        "Migration leases pin only cached pages, and per-page lease "
+        "counts equal the recount over the engine's open leases."),
     doctor.register_check(
         "adapter.pool_partition", 1, doctor.DEEP, "critical",
         "Adapter pool pages partition into the free list plus "
@@ -169,6 +174,8 @@ class EngineAuditor:
                      lambda: self._check_pool_partition(eng)),
                     (CHECKS["kv.trie_integrity"],
                      lambda: self._check_trie_integrity(eng)),
+                    (CHECKS["kv.lease_accounting"],
+                     lambda: self._check_lease_accounting(eng)),
                     (CHECKS["adapter.pool_partition"],
                      lambda: self._check_adapter_partition(eng)),
                     (CHECKS["adapter.block_refs"],
@@ -338,6 +345,32 @@ class EngineAuditor:
                 "kv.trie_integrity", "critical", f"page-{p}",
                 expected="tree node present in the page index",
                 actual="reachable but unindexed"))
+        return out
+
+    def _check_lease_accounting(self, eng):
+        if eng._prefix is None:
+            return []
+        out: List[InvariantViolation] = []
+        snap = eng._prefix.audit_snapshot()
+        held: Dict[int, int] = {}
+        for lease in eng._mig_leases.values():
+            for p in lease["pages"]:
+                held[p] = held.get(p, 0) + 1
+        pages = {p: info["leases"] for p, info in snap["pages"].items()}
+        for p in sorted(set(held) | {q for q, n in pages.items() if n}):
+            want = held.get(p, 0)
+            have = pages.get(p)
+            if have is None:
+                out.append(InvariantViolation(
+                    "kv.lease_accounting", "error", f"page-{p}",
+                    expected="leased page cached in trie",
+                    actual="missing from trie"))
+            elif have != want:
+                out.append(InvariantViolation(
+                    "kv.lease_accounting", "error", f"page-{p}",
+                    expected=f"leases == {want} (recount over open "
+                             "engine leases)",
+                    actual=have))
         return out
 
     def _check_adapter_partition(self, eng):

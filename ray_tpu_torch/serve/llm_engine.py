@@ -86,7 +86,24 @@ read of their own):
     idle, after a drain evicts and at stop;
   * ``LLMServer``, the ready-made deployment class.
 
-The KV migration verbs and the latency waterfall are not ported yet.
+**KV page migration** (``prefix_cache=True``, as in the JAX engine):
+``migration_lease`` pins a cached prefix against eviction,
+``migration_export`` serialises its pages (``serve/kv_transfer.py``'s
+wire format, exact or int8), ``migration_release`` drops the lease,
+``migration_ingest`` verifies a transfer's hashes and scatters its pages
+into free pages of the local pool and trie, and ``export_hot_prefixes``
+runs lease, export and release over the trie's hot paths.  The verbs are
+queued to the loop thread, which owns the pool: export gathers exactly
+the leased pages on the engine's stream and copies them to the host
+once; ingest copies from pinned memory on the same stream, so the
+scatter lands after every step already queued.
+
+**The latency waterfall and the device plane**: the first dispatch of
+each program (``serve.prefill``, ``serve.decode``, ``serve.ragged``,
+``serve.ragged_spec``, ``serve.spec_draft``, ``serve.spec_chain``)
+registers its analytic cost with ``util/xprof.py``, and every terminal
+request's waterfall (``serve/latency_attribution.py``) partitions its
+e2e wall into queue, compile, device and host components.
 """
 
 from __future__ import annotations
@@ -122,8 +139,10 @@ STALL_FACTOR = 5.0
 def _telemetry():
     """Engine metric singletons (created on first engine construction,
     re-registered on later fetches so a registry clear() cannot drop the
-    serving plane from the exposition), merged with the adapter pool's,
-    the flight recorder's and the doctor's families."""
+    serving plane from the exposition), merged with the KV migration's,
+    the adapter pool's, the waterfall's, the flight recorder's and the
+    doctor's families, so each family is exported from engine
+    construction on, before its first event."""
     global _TELEMETRY
     from ray_tpu_torch.util import metrics
 
@@ -284,11 +303,15 @@ def _telemetry():
         for m in _TELEMETRY.values():
             reg.register(m)
     from ray_tpu_torch.serve import adapter_pool as _apool
+    from ray_tpu_torch.serve import kv_transfer as _kvt
+    from ray_tpu_torch.serve import latency_attribution as _lat
     from ray_tpu_torch.util import doctor as _doc
     from ray_tpu_torch.util import flight_recorder as _frec
 
     out = dict(_TELEMETRY)
+    out.update(_kvt._telemetry())
     out.update(_apool._telemetry())
+    out.update(_lat._telemetry())
     out.update({f"frec_{k}": v for k, v in _frec._telemetry().items()})
     out.update({f"doctor_{k}": v for k, v in _doc._telemetry().items()})
     return out
@@ -379,12 +402,15 @@ class EngineAdapter:
     prefill_batch(params, tokens[K,S], true_lens[K], slots[K], cache)
         -> (logits[K,V], cache)  (one [K, S] forward; without it the
         engine prefills the rows one prefill_slot call at a time)
+    model_cfg: the model's config, from which the device plane counts
+        each program's cost (None: the records carry no cost)
     """
 
     init_cache: Callable[[int, int, torch.device], Any]
     prefill_slot: Callable[..., Tuple[torch.Tensor, Any]]
     decode_slots: Callable[..., Tuple[torch.Tensor, Any]]
     prefill_batch: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
+    model_cfg: Any = None
 
 
 def llama_adapter(cfg) -> EngineAdapter:
@@ -403,6 +429,7 @@ def llama_adapter(cfg) -> EngineAdapter:
         prefill_batch=lambda params, tokens, true_lens, slots, cache:
             llama.prefill_batch(params, tokens, true_lens, slots, cfg,
                                 cache),
+        model_cfg=cfg,
     )
 
 
@@ -438,6 +465,8 @@ class PagedEngineAdapter:
         rows equal to ragged_step's; needed by spec_decode)
     ragged_step_lora_verify(..., pool, page_table, tok_adapter,
         logit_idx)  (both at once: verify rows beside adapter rows)
+    model_cfg: the model's config, from which the device plane counts
+        each program's cost (None: the records carry no cost)
     """
 
     init_cache: Callable[[int, int, torch.device], Any]
@@ -453,6 +482,7 @@ class PagedEngineAdapter:
         Callable[..., Tuple[torch.Tensor, torch.Tensor, Any]]] = None
     ragged_step_lora_verify: Optional[
         Callable[..., Tuple[torch.Tensor, torch.Tensor, Any]]] = None
+    model_cfg: Any = None
 
 
 def llama_paged_adapter(cfg, lora_loader=None) -> PagedEngineAdapter:
@@ -528,6 +558,7 @@ def llama_paged_adapter(cfg, lora_loader=None) -> PagedEngineAdapter:
             params, tokens, tok_pos, row_slot, row_start, row_len, row_off,
             bt, cache, logit_idx=logit_idx),
         copy_page=llama.copy_page_paged,
+        model_cfg=cfg,
     )
 
 
@@ -657,7 +688,10 @@ class LLMServer:
     role that ``ray_tpu.serve`` installs around a replica; no context of
     ``ray_tpu.serve`` is readable from the port, so this server hosts one
     engine on one device in the unified role, and the adapter id comes
-    from the payload only.
+    from the payload only.  Of the migration plane it serves the two
+    replica-to-replica targets, ``ingest_kv_transfer`` and
+    ``export_hot_prefixes``; the handoff stream and the prefix pull need
+    Serve handles.
     """
 
     def __init__(self, model_cfg: Any, engine_cfg: EngineConfig,
@@ -733,6 +767,19 @@ class LLMServer:
         report."""
         return self.engine.doctor(deep=deep)
 
+    def ingest_kv_transfer(self, transfer: Dict[str, Any]) -> int:
+        """Land one migration transfer (``kv_transfer`` wire format, made
+        by either package) in the hosted engine's pool; returns the pages
+        ingested."""
+        return self.engine.migration_ingest(transfer)
+
+    def export_hot_prefixes(self, max_pages: int = 256,
+                            mode: str = "int8") -> List[Dict[str, Any]]:
+        """Serialise the hosted engine's hot cached prefixes (prefix
+        migration, source side)."""
+        return self.engine.export_hot_prefixes(max_pages=max_pages,
+                                               mode=mode)
+
     def check_health(self) -> None:
         if self.engine._stopped.is_set():
             raise RuntimeError("engine stopped")
@@ -761,6 +808,10 @@ class _InFlight:
     chunk: int
     participants: List[Tuple[Any, ...]]
     t_disp: float  # dispatch stamp: the stall watermark's wall starts here
+    # Where the dispatch's host enqueue began: the device may run the
+    # step's kernels while the host still enqueues them, so a step's
+    # device time lies between this stamp and the fetch.
+    t_start: float = 0.0
 
     @property
     def carries_first_tokens(self) -> bool:
@@ -895,6 +946,19 @@ class LLMEngine:
                     "copy_page (the COW split of a shared page)")
             from ray_tpu_torch.serve.prefix_index import PrefixIndex
             self._prefix = PrefixIndex(page)
+        # KV page migration (serve/kv_transfer): clients queue lease,
+        # export, release and ingest ops here and the loop thread, the
+        # only one that touches the pool, runs them (_process_migrations).
+        # _mig_staging holds each ingest's pinned host buffer with an
+        # event recorded after its copy: the buffer lives until the event
+        # has completed.
+        self._mig_lock = threading.Lock()
+        self._mig_ops: List[Dict[str, Any]] = []
+        self._mig_leases: Dict[str, Dict[str, Any]] = {}
+        self._mig_lease_ids = itertools.count(1)
+        self._mig_counts = {"pages_out": 0, "pages_in": 0,
+                            "bytes_out": 0, "bytes_in": 0}
+        self._mig_staging: List[Tuple[torch.Tensor, Any]] = []
         self._prefix_hit_tokens = 0
         self._prefix_prompt_tokens = 0
         # LoRA: the engine owns the adapter pool; a slot's borrow ("" =
@@ -980,6 +1044,11 @@ class LLMEngine:
         self._prefilling: List[Dict[str, Any]] = []
         self._step_tokens = {"decode": 0, "prefill": 0}
         self._mixed_steps = 0  # ragged steps with decode AND prompt rows
+        # The device plane: programs whose first dispatch registered
+        # their analytic cost (util/xprof), and the model's static cost
+        # quantities (None when the adapter names no model config).
+        self._xprof_recorded: set = set()
+        self._costs = self._model_costs(adapter, params)
         self._spec_on = False
         if config.spec_decode:
             self._init_spec(draft_params, draft_adapter)
@@ -1015,6 +1084,7 @@ class LLMEngine:
                 "spec_decode draft adapter must provide ragged_step")
         self._draft_adapter = da
         self._draft_params = draft_params
+        self._draft_costs = self._model_costs(da, draft_params)
         self._draft_pages = (config.spec_draft_pages
                              or config.max_slots * self._maxp)
         self._draft_cache = da.init_cache(self._draft_pages,
@@ -1045,6 +1115,59 @@ class LLMEngine:
         self._spec_tv = min(self._token_budget,
                             config.max_slots * (config.spec_k + 1))
         self._spec_on = True
+
+    # -- the device plane (util/xprof) --------------------------------------
+
+    @staticmethod
+    def _model_costs(adapter: Any, params: Any) -> Optional[Any]:
+        """The model's static cost quantities for the device plane's
+        analytic counts, or None when the adapter names no model
+        config."""
+        cfg = getattr(adapter, "model_cfg", None)
+        if cfg is None:
+            return None
+        from ray_tpu_torch.util import xprof
+        try:
+            return xprof.llama_costs(cfg, params)
+        except Exception:
+            log.exception("device plane: no cost model for this adapter's "
+                          "config; program records carry no cost")
+            return None
+
+    def _first_dispatch(self, name: str) -> Optional[float]:
+        """Wall-clock start of ``name``'s first dispatch (None for every
+        later one, which passes straight through)."""
+        return None if name in self._xprof_recorded else time.time()
+
+    def _register_program(self, name: str, t0: float, *, span_name: str,
+                          rows, logit_rows: int,
+                          steps_attr: Optional[str] = None,
+                          cost_steps: Optional[float] = None,
+                          costs: Any = None) -> None:
+        """After the first dispatch of ``name``: register its analytic cost
+        (``rows`` = (start, new tokens) per sequence row, ``logit_rows``
+        rows through the head) and the dispatch's wall, which on the card
+        holds the kernels' first-use builds and lazy CUDA init.  That wall
+        is also a span tagged compile=True, which the roofline skips and
+        the waterfall charges to ``compile``, as in the JAX engine."""
+        t1 = time.time()
+        self._xprof_recorded.add(name)
+        mc = self._costs if costs is None else costs
+        try:
+            from ray_tpu_torch.util import xprof
+            flops = nbytes = None
+            if mc is not None:
+                flops, nbytes = xprof.step_cost(mc, rows, logit_rows,
+                                                self.config.page_size)
+            xprof.record_program(name, flops=flops, bytes_accessed=nbytes,
+                                 compile_time_s=t1 - t0, span_name=span_name,
+                                 steps_attr=steps_attr, cost_steps=cost_steps,
+                                 compiled_at=t1)
+        except Exception:
+            log.exception("device plane: recording program %s failed", name)
+        if tracing.is_enabled():
+            tracing.record_span(span_name, t0, t1,
+                                attributes={"compile": True, "program": name})
 
     # -- client API --------------------------------------------------------
 
@@ -1217,6 +1340,7 @@ class LLMEngine:
             pstats["hit_tokens"] = self._prefix_hit_tokens
             pstats["prompt_tokens"] = self._prefix_prompt_tokens
             out["prefix"] = pstats
+            out["kv_migration"] = dict(self._mig_counts)
         if self._adapters is not None:
             out["adapters"] = self._adapters.stats()
         if self._spec_on:
@@ -1610,6 +1734,7 @@ class LLMEngine:
         a time, as the JAX engine's loop of rows does."""
         # Padding rows are device work too: they count as prefill tokens.
         self._count_step_tokens("prefill", int(np.sum(true_lens)))
+        t0 = self._first_dispatch("serve.prefill")
         toks_d, lens_d = self._h2d(tokens), self._h2d(true_lens)
         rows_d = self._h2d(slot_or_pages)
         if self.adapter.prefill_batch is not None:
@@ -1623,6 +1748,12 @@ class LLMEngine:
                     self._cache)
                 rows.append(row)
             logits = torch.stack(rows)
+        if t0 is not None:
+            self._register_program(
+                "serve.prefill", t0, span_name="llm.prefill",
+                rows=[(0, int(n)) for n in true_lens],
+                logit_rows=len(true_lens),
+                cost_steps=float(np.sum(true_lens)))
         toks = _sample(logits, self._h2d(temps),
                        self._gen if (temps > 0).any() else None)
         keep = np.nonzero(scatter_ids < self.config.max_slots)[0]
@@ -1701,6 +1832,7 @@ class LLMEngine:
         self._refresh_state_args()
         gen = self._gen if self._any_sampled else None
         cur, lens = self._cur_dev, self._lens_dev
+        t0 = self._first_dispatch("serve.decode")
         steps = []
         for _ in range(chunk):
             if self._paged:
@@ -1713,6 +1845,15 @@ class LLMEngine:
             toks = _sample(logits, self._temps_dev, gen)
             cur = torch.where(self._active_dev, toks, cur)
             steps.append(cur)
+        if t0 is not None:
+            # One decode step's cost (the weights read once), over the
+            # active slots' lengths; the chunk is its cost_steps, as in
+            # the JAX engine.
+            self._register_program(
+                "serve.decode", t0, span_name="llm.decode",
+                rows=[(int(self._lens[slot]), 1) for slot in self._slot_req],
+                logit_rows=len(self._slot_req), steps_attr="tokens",
+                cost_steps=float(chunk))
         self._cur_dev, self._lens_dev = cur, lens
         # Host mirror advances for slots active in THIS dispatch.
         for slot in self._slot_req:
@@ -1800,10 +1941,20 @@ class LLMEngine:
         if on_host:
             toks = dev[6]
         self._spec_draft_steps += 1
+        # The round's first step (host tokens) feeds each candidate's
+        # backlog; later ones chain one-token drafts.
+        name = "serve.spec_draft" if on_host else "serve.spec_chain"
+        t0 = self._first_dispatch(name)
         logits, self._draft_cache = self._draft_adapter.ragged_step(
             self._draft_params, toks, t_pos, r_slot, r_start, r_len, r_off,
             bt.view(R, self._maxp), self._draft_cache)
-        return logits.argmax(dim=-1).to(torch.int32)
+        out = logits.argmax(dim=-1).to(torch.int32)
+        if t0 is not None:
+            live = [(int(a), int(n)) for a, n in zip(row_start, row_len) if n]
+            self._register_program(
+                name, t0, span_name="llm.spec_draft", rows=live,
+                logit_rows=len(live), costs=self._draft_costs)
+        return out
 
     def _spec_rem(self, req: Request) -> int:
         """Tokens the request may still emit (no in-flight charge:
@@ -2050,6 +2201,7 @@ class LLMEngine:
                 voff += n
         page_table = (self._adapters.page_table(list(step_adapters))
                       if step_adapters else None)
+        t_start = time.monotonic()
         toks_dev = self._run_ragged(packed, scatter, temps, logit_idx,
                                     page_table)
         for kind, req, slot, info in parts:
@@ -2084,7 +2236,7 @@ class LLMEngine:
         if n_decode:
             self._tm["batch_size"].observe(n_decode)
         self._observe_queue()
-        self._enqueue_fetch("ragged", toks_dev, 1, parts)
+        self._enqueue_fetch("ragged", toks_dev, 1, parts, t_start=t_start)
         return True
 
     def _count_step_tokens(self, phase: str, n: int) -> None:
@@ -2137,6 +2289,8 @@ class LLMEngine:
             segs += [packed[8], page_table.reshape(-1)]
         if logit_idx is not None:
             segs.append(logit_idx)
+        name = "serve.ragged" if logit_idx is None else "serve.ragged_spec"
+        t0 = self._first_dispatch(name)
         dev = self._upload(segs)
         (h_toks, d_mask, t_slot, t_pos, r_slot, r_start, r_len, r_off,
          scatter_d, temps_d) = dev[:10]
@@ -2156,6 +2310,12 @@ class LLMEngine:
             logits, vlogits, self._cache = step(*args, dev[-1])
         sampled = _sample(logits, temps_d.view(torch.float32),
                           self._gen if (temps > 0).any() else None)
+        if t0 is not None:
+            live = [(int(a), int(n)) for a, n in zip(row_start, row_len) if n]
+            self._register_program(
+                name, t0, span_name="llm.ragged", rows=live,
+                logit_rows=len(live), steps_attr="tokens",
+                cost_steps=float(self._token_budget))
         cur = torch.empty((R + 1,), dtype=torch.int32, device=self.device)
         cur[:R] = self._cur_dev
         cur[scatter_d.long()] = sampled
@@ -2169,8 +2329,10 @@ class LLMEngine:
     # -- token delivery ----------------------------------------------------
 
     def _enqueue_fetch(self, kind: str, toks: torch.Tensor, chunk: int,
-                       participants) -> None:
-        """Start the one device→host copy of a dispatch's tokens."""
+                       participants, t_start: Optional[float] = None
+                       ) -> None:
+        """Start the one device→host copy of a dispatch's tokens
+        (``t_start``: where the dispatch's host enqueue began)."""
         event = None
         if toks.is_cuda:
             host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
@@ -2179,8 +2341,10 @@ class LLMEngine:
             event.record()
         else:
             host = toks
-        self._pending.append(_InFlight(kind, host, event, chunk,
-                                       participants, time.monotonic()))
+        now = time.monotonic()
+        self._pending.append(_InFlight(
+            kind, host, event, chunk, participants, now,
+            now if t_start is None else t_start))
 
     def _process_fetched(self, block: bool) -> bool:
         """Emit every dispatch whose tokens have reached the host, in
@@ -2208,6 +2372,14 @@ class LLMEngine:
                 # nothing to emit).  Its wall feeds the stall watermark:
                 # a ragged step is a decode step for every stream in it.
                 self._note_step_time(now - entry.t_disp, 1)
+                if tracing.is_enabled():
+                    # From the start of the step's host enqueue to its
+                    # fetch: an upper bound on its device time, the
+                    # roofline's serve.ragged wall (tokens = the device
+                    # steps the span covers).
+                    off = time.time() - now
+                    tracing.record_span("llm.ragged", entry.t_start + off,
+                                        now + off, attributes={"tokens": 1})
                 R = self.config.max_slots
                 for rkind, req, slot, i in entry.participants:
                     if rkind == "verify":
@@ -2462,6 +2634,17 @@ class LLMEngine:
                     (req.finished_at - req.first_token_at)
                     / (len(req.tokens) - 1))
                 self._tm["itl"].observe(req.max_itl_s)
+        # The waterfall: partition this request's e2e wall into the
+        # raytpu_serve_request_overhead_seconds components and fold it
+        # into the control-plane share (this engine's row only).
+        # Best-effort accounting, but never silent.
+        try:
+            from ray_tpu_torch.serve import latency_attribution as _lat
+            row = self._ring.row(req.request_id)
+            if row is not None:
+                _lat.observe_terminal(req.request_id, rows=[row])
+        except Exception:
+            log.exception("waterfall of request %s failed", req.request_id)
         if not tracing.is_enabled():
             return
         # Monotonic stamps → wall clock for the trace view.
@@ -2613,6 +2796,10 @@ class LLMEngine:
             self._preempt_request(req, slot)
         if not self._drain_audited:
             self._drain_audited = True
+            # Open migration leases belong to exports that can no longer
+            # complete against a draining engine: release them before the
+            # audit, which would rightly call a pinned page a leak.
+            self._release_open_leases()
             try:
                 self._auditor.run(deep=True)
             except Exception:
@@ -2632,6 +2819,316 @@ class LLMEngine:
                 op["error"] = e
             op["done"].set()
 
+    # -- KV page migration (serve/kv_transfer) ------------------------------
+
+    def _migration_op(self, kind: str, timeout_s: float, **kw) -> Any:
+        """Queue one migration verb for the loop thread, the only one that
+        touches the pool, and wait for its result; re-raises whatever the
+        verb raised there."""
+        if not self._paged or self._prefix is None:
+            raise RuntimeError(
+                "KV migration requires the paged engine with "
+                "EngineConfig.prefix_cache=True (transfers are keyed "
+                "by the prefix trie's chained path hashes)")
+        op: Dict[str, Any] = {"kind": kind, "done": threading.Event(),
+                              "result": None, "error": None,
+                              "abandoned": False, **kw}
+        with self._mig_lock:
+            # Under the lock the stop path drains the queue with: an op
+            # queued after that drain would wait out its whole timeout.
+            if self._stopped.is_set():
+                raise RuntimeError("engine stopped")
+            self._mig_ops.append(op)
+        self._work.set()
+        if not op["done"].wait(timeout_s):
+            with self._mig_lock:
+                if not op["done"].is_set():
+                    # Still queued: pull it so the loop never runs it.
+                    # Already running: flag it abandoned, so the loop
+                    # releases a lease nobody will own (a leaked lease
+                    # pins its pages against eviction for good).
+                    try:
+                        self._mig_ops.remove(op)
+                    except ValueError:
+                        op["abandoned"] = True
+                    raise TimeoutError(
+                        f"migration op {kind!r} not serviced within "
+                        f"{timeout_s}s")
+            # done was set between the wait's expiry and the lock: the op
+            # completed and its result is usable.
+        if op["error"] is not None:
+            raise op["error"]
+        return op["result"]
+
+    def migration_lease(self, tokens: List[int], *,
+                        timeout_s: float = 30.0) -> Optional[dict]:
+        """Pin the longest cached full-page prefix of ``tokens`` under an
+        eviction-proof migration lease.  Returns ``{"lease_id", "pages",
+        "tokens"}`` (tokens cut to the leased depth), or None when not
+        even one full page is cached.  The caller owns the lease and MUST
+        ``migration_release`` it on every path."""
+        return self._migration_op("lease", timeout_s,
+                                  tokens=[int(t) for t in tokens])
+
+    def migration_export(self, lease_id: str, *, mode: str = "int8",
+                         timeout_s: float = 30.0) -> dict:
+        """Serialise a leased page run into one transfer dict (the
+        kv_transfer.encode_pages wire format: payload, per-page int8
+        scales, chained path hashes and analytic wire bytes)."""
+        return self._migration_op("export", timeout_s,
+                                  lease_id=lease_id, mode=mode)
+
+    def migration_release(self, lease_id: str, *,
+                          timeout_s: float = 30.0) -> bool:
+        """Drop a migration lease.  Idempotent: an unknown id returns
+        False, so clean-up never raises over a lease already gone."""
+        return self._migration_op("release", timeout_s, lease_id=lease_id)
+
+    def migration_ingest(self, transfer: dict, *,
+                         timeout_s: float = 30.0) -> int:
+        """Ingest one transfer into the local pool and prefix trie:
+        verify its content identity (chained CRC32 over the tokens), skip
+        depths already cached, scatter the payload into freshly allocated
+        pages and insert them into the trie.  Cut to the free-page budget
+        so the ingested prefix stays contiguous from the root.  Returns
+        the number of pages ingested."""
+        return self._migration_op("ingest", timeout_s, transfer=transfer)
+
+    def export_hot_prefixes(self, *, max_pages: int = 256,
+                            mode: str = "int8",
+                            timeout_s: float = 60.0) -> List[dict]:
+        """Prefix migration, source side: lease, export and release each
+        hot cached path (recency order, deduplicated); a cold or new
+        engine ingests the transfers instead of recomputing its cache.
+        Each path ships once (``hot_paths(distinct=True)``), where the
+        JAX engine ships one transfer per depth of a path."""
+        return self._migration_op("hot_prefixes", timeout_s,
+                                  max_pages=max_pages, mode=mode)
+
+    def _fail_migration_ops(self, error: Callable[[dict], Exception]) -> None:
+        with self._mig_lock:
+            ops, self._mig_ops = self._mig_ops, []
+        for op in ops:
+            op["error"] = error(op)
+            op["done"].set()
+
+    def _process_migrations(self) -> None:
+        if self._prefix is None:
+            return
+        if self._mig_staging:
+            # Ingest buffers whose host→device copy has completed.
+            self._mig_staging = [(buf, ev) for buf, ev in self._mig_staging
+                                 if not ev.query()]
+        with self._mig_lock:
+            if not self._mig_ops:
+                return
+            ops, self._mig_ops = self._mig_ops, []
+        handlers = {"lease": self._mig_do_lease,
+                    "export": self._mig_do_export,
+                    "release": self._mig_do_release,
+                    "ingest": self._mig_do_ingest,
+                    "hot_prefixes": self._mig_do_hot_prefixes}
+        for op in ops:
+            try:
+                op["result"] = handlers[op["kind"]](op)
+            except Exception as e:  # re-raised at the waiter; loop lives
+                op["error"] = e
+            with self._mig_lock:
+                # A waiter that timed out while the op ran marked it
+                # abandoned: nobody reads the result, so a lease taken
+                # here would leak; drop it now.  The lock orders this
+                # against the waiter's flag.
+                if (op["abandoned"] and op["kind"] == "lease"
+                        and op.get("result") is not None):
+                    self._mig_do_release(
+                        {"lease_id": op["result"]["lease_id"]})
+                    op["result"] = None
+                op["done"].set()
+
+    def _mig_do_lease(self, op: dict) -> Optional[dict]:
+        page = self.config.page_size
+        pages = self._prefix.lease_acquire(op["tokens"])
+        if not pages:
+            return None
+        lease_id = f"mig-{self._engine_id}-{next(self._mig_lease_ids)}"
+        self._mig_leases[lease_id] = {
+            "pages": list(pages),
+            "tokens": op["tokens"][:len(pages) * page]}
+        return {"lease_id": lease_id, "pages": list(pages),
+                "tokens": list(self._mig_leases[lease_id]["tokens"])}
+
+    def _mig_gather(self, pages: List[int]) -> Dict[str, np.ndarray]:
+        """Every layer's copy of ``pages`` as host arrays (a bf16 pool's
+        widened exactly to f32 on the device): index_select over the page
+        axis (axis 1 for int8 scales) on the engine's stream, then ONE
+        device→host copy of the parts as one byte buffer.  The copy waits
+        for the stream, so every step already queued has written its
+        pages; the verb's caller waits for it anyway."""
+        ids = self._h2d(np.asarray(pages, np.int64))
+        parts: Dict[str, torch.Tensor] = {}
+        for key in ("k", "v", "k_scale", "v_scale"):
+            if key not in self._cache:
+                continue
+            t = torch.index_select(self._cache[key], 2 if key in ("k", "v")
+                                   else 1, ids)
+            if t.is_floating_point() and t.dtype != torch.float32:
+                t = t.float()
+            parts[key] = t
+        host = torch.cat([t.reshape(-1).view(torch.uint8)
+                          for t in parts.values()]).cpu().numpy()
+        out, at = {}, 0
+        for key, t in parts.items():
+            n = t.numel() * t.element_size()
+            dt = np.int8 if t.dtype == torch.int8 else np.float32
+            out[key] = host[at:at + n].view(dt).reshape(tuple(t.shape))
+            at += n
+        return out
+
+    def _mig_do_export(self, op: dict) -> dict:
+        from ray_tpu_torch.serve import kv_transfer as _kvt
+
+        lease = self._mig_leases.get(op["lease_id"])
+        if lease is None:
+            raise KeyError(f"unknown migration lease {op['lease_id']!r}")
+        t0 = time.monotonic()
+        pages = lease["pages"]
+        transfer = _kvt.encode_pages(
+            self._mig_gather(pages), tokens=lease["tokens"],
+            page_size=self.config.page_size, mode=op["mode"],
+            src_dtype=str(self._cache["k"].dtype).replace("torch.", ""))
+        n = len(pages)
+        self._mig_counts["pages_out"] += n
+        self._mig_counts["bytes_out"] += transfer["wire_bytes"]
+        self._tm["mig_pages"].inc(n, tags={"direction": "out"})
+        self._tm["mig_bytes"].inc(transfer["wire_bytes"],
+                                  tags={"direction": "out"})
+        self._tm["mig_seconds"].observe(time.monotonic() - t0,
+                                        tags={"op": "export"})
+        return transfer
+
+    def _mig_do_release(self, op: dict) -> bool:
+        lease = self._mig_leases.pop(op["lease_id"], None)
+        if lease is None:
+            return False
+        self._prefix.lease_release(lease["pages"])
+        return True
+
+    def _mig_scatter(self, dst: List[int],
+                     payload: Dict[str, torch.Tensor]) -> None:
+        """Write ``payload`` (host tensors in the pool's layout and dtype)
+        into pages ``dst`` with index_copy_ on the engine's stream.  On
+        the card the payload goes through ONE pinned buffer (segments on
+        16-byte boundaries) and a non-blocking copy, so the scatter lands
+        after every step already queued, as the JAX engine's data
+        dependency on the donated cache orders it; the buffer is kept
+        until an event recorded after the copy has completed."""
+        ids = self._h2d(np.asarray(dst, np.int64))
+        axes = {"k": 2, "v": 2, "k_scale": 1, "v_scale": 1}
+        if self.device.type != "cuda":
+            for key, t in payload.items():
+                self._cache[key].index_copy_(axes[key], ids, t)
+            return
+        sizes = {k: t.numel() * t.element_size() for k, t in payload.items()}
+        offs, at = {}, 0
+        for key, n in sizes.items():
+            offs[key] = at
+            at += -(-n // 16) * 16
+        buf = torch.empty((at,), dtype=torch.uint8, pin_memory=True)
+        for key, t in payload.items():
+            buf[offs[key]:offs[key] + sizes[key]].copy_(
+                t.contiguous().reshape(-1).view(torch.uint8))
+        dev = buf.to(self.device, non_blocking=True)
+        for key, t in payload.items():
+            src = dev[offs[key]:offs[key] + sizes[key]].view(t.dtype)
+            self._cache[key].index_copy_(axes[key], ids, src.view(t.shape))
+        event = torch.cuda.Event()
+        event.record()
+        self._mig_staging.append((buf, event))
+
+    def _mig_do_ingest(self, op: dict) -> int:
+        from ray_tpu_torch.serve import kv_transfer as _kvt
+
+        transfer = op["transfer"]
+        page = self.config.page_size
+        if int(transfer["page_size"]) != page:
+            raise ValueError(
+                f"transfer page_size {transfer['page_size']} != local "
+                f"pool page_size {page}")
+        _kvt.verify_transfer(transfer)
+        t0 = time.monotonic()
+        tokens = [int(t) for t in transfer["tokens"]]
+        n_full = len(tokens) // page
+        # Depths the trie already holds keep their local pages.  The
+        # borrow is held across the eviction AND the insert: evict()
+        # reclaims any refcount-0 page, so releasing the hit first could
+        # free pages the insert is about to adopt again.
+        hit = self._prefix.acquire(tokens)
+        try:
+            have = len(hit)
+            need = n_full - have
+            if need <= 0:
+                return 0
+            if len(self._free_pages) < need:
+                freed = self._prefix.evict(need - len(self._free_pages))
+                self._free_pages.extend(freed)
+                if freed:
+                    self._tm["prefix_evicted"].inc(len(freed))
+            # Cut, never reorder: the ingested prefix must stay contiguous
+            # from the root or the hashes stop naming a path.
+            need = min(need, len(self._free_pages))
+            if need <= 0:
+                return 0
+            dst = [self._free_pages.pop() for _ in range(need)]
+            payload = _kvt.decode_payload(
+                transfer, "k_scale" in self._cache, self._cache["k"].dtype,
+                start_page=have, end_page=have + need)
+            self._mig_scatter(dst, payload)
+            adopted = self._prefix.insert(tokens[:(have + need) * page],
+                                          hit + dst)
+            for p in dst:
+                if p not in adopted:  # lost a race with a local insert
+                    self._free_pages.append(p)
+            n_in = sum(1 for p in dst if p in adopted)
+        finally:
+            if hit:
+                self._prefix.release(hit)
+        wire = int(transfer.get("wire_bytes", 0))
+        self._mig_counts["pages_in"] += n_in
+        self._mig_counts["bytes_in"] += wire
+        self._tm["mig_pages"].inc(n_in, tags={"direction": "in"})
+        self._tm["mig_bytes"].inc(wire, tags={"direction": "in"})
+        self._tm["mig_seconds"].observe(time.monotonic() - t0,
+                                        tags={"op": "ingest"})
+        self._update_page_gauges()
+        return n_in
+
+    def _mig_do_hot_prefixes(self, op: dict) -> List[dict]:
+        out: List[dict] = []
+        for path in self._prefix.hot_paths(op["max_pages"], distinct=True):
+            lease = self._mig_do_lease({"tokens": path["tokens"]})
+            if lease is None:
+                continue
+            try:
+                out.append(self._mig_do_export(
+                    {"lease_id": lease["lease_id"], "mode": op["mode"]}))
+            finally:
+                self._mig_do_release({"lease_id": lease["lease_id"]})
+        return out
+
+    def _release_open_leases(self) -> None:
+        """Drop every open migration lease (stop and drain-evict): a lease
+        still open here belongs to a client whose export can no longer
+        complete, and it would pin its pages against eviction for good."""
+        if self._prefix is None or not self._mig_leases:
+            return
+        for lease_id in list(self._mig_leases):
+            lease = self._mig_leases.pop(lease_id)
+            try:
+                self._prefix.lease_release(lease["pages"])
+            except Exception:
+                log.exception("migration lease %s did not release "
+                              "cleanly during stop or drain", lease_id)
+
     # -- loop --------------------------------------------------------------
 
     def _loop(self) -> None:
@@ -2644,6 +3141,10 @@ class LLMEngine:
             # is no leak for an audit to report.
             self._crashed = True
             log.exception("torch LLM engine loop crashed")
+            self._fail_migration_ops(
+                lambda op: RuntimeError(
+                    f"engine crashed before migration op {op['kind']!r} "
+                    f"ran: {e!r}"))
             with self._audit_lock:  # release doctor() waiters too
                 audit_ops, self._audit_ops = self._audit_ops, []
             for op in audit_ops:
@@ -2653,10 +3154,19 @@ class LLMEngine:
             self._fail_all(RuntimeError(f"LLM engine loop crashed: {e!r}"),
                            cause=repr(e))
             raise
-        # A clean stop fails what still runs and releases every slot
-        # (pages, adapter borrows, draft pages, borrowed prefix pages)
-        # before the final deep audit, so anything the audit finds is an
-        # accounting fault, not an artefact of stopping mid-flight.
+        # A clean stop ends queued migration ops at once (no waiter hangs
+        # until its timeout), releases every open lease, fails what still
+        # runs and releases every slot (pages, adapter borrows, draft
+        # pages, borrowed prefix pages) before the final deep audit, so
+        # anything the audit finds is an accounting fault, not an
+        # artefact of stopping mid-flight.
+        self._fail_migration_ops(
+            lambda op: RuntimeError(
+                f"engine stopped before migration op {op['kind']!r} ran"))
+        self._release_open_leases()
+        for _buf, event in self._mig_staging:
+            event.synchronize()  # no pinned buffer dies under its copy
+        self._mig_staging.clear()
         self._fail_all(RuntimeError("engine shut down"),
                        cause="engine shut down")
         self._process_audits()  # queued doctor() ops still get served
@@ -2699,6 +3209,7 @@ class LLMEngine:
         while not self._stopped.is_set():
             self._process_cancels()
             self._process_drain()
+            self._process_migrations()
             self._process_audits()
             if (not self._slot_req and not self._prefilling
                     and self._waiting.empty() and not self._backlog

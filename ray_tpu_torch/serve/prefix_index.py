@@ -300,15 +300,30 @@ class PrefixIndex:
             return {"page": self.page_size,
                     "hashes": [n.hash for n in nodes]}
 
-    def hot_paths(self, max_pages: int = 256) -> List[dict]:
+    def hot_paths(self, max_pages: int = 256,
+                  distinct: bool = False) -> List[dict]:
         """Recency-ordered root-to-node paths for prefix migration: each
         entry is ``{"tokens", "pages", "hashes"}`` for one full cached
         path (deepest hot node first), deduplicated so a path that is a
         prefix of an earlier (hotter) one is skipped.  Bounded by the
-        total page count across returned paths."""
+        total page count across returned paths.
+
+        One insert or acquire stamps a whole path at once.  As in the
+        JAX package, nodes of one stamp are visited root first, so a path
+        of depth d comes back d times, once a depth (d(d+1)/2 pages, and
+        the budget can cut its deeper entries).  ``distinct=True`` visits
+        them deepest first instead: each such path comes back once."""
+
+        def depth(node: Optional[_Node]) -> int:
+            d = 0
+            while node is not None:
+                d, node = d + 1, node.parent
+            return d
+
         with self._lock:
             nodes = sorted(self._by_page.values(),
-                           key=lambda n: -n.last_used)
+                           key=(lambda n: (-n.last_used, -depth(n)))
+                           if distinct else (lambda n: -n.last_used))
         out: List[dict] = []
         covered: Set[int] = set()
         budget = max_pages

@@ -13,11 +13,12 @@ terminal cause.  Rings register into a process-local weak registry (one
 entry per live engine); ``snapshot_rows`` lists every known request.  A
 caller may install a request id in a context variable
 (``set_request_id``) for ``LLMEngine.submit`` to pick up, so spans, log
-lines and this ring agree on a request's name.
+lines and this ring agree on a request's name.  ``stitch_request``
+joins a request's rows across attempts into one view (the latency
+waterfall's input).
 
-The JAX package's cross-process rows, cross-attempt stitching and
-chrome-trace rows serve its runtime, state API and timeline, which the
-port does not host.
+The JAX package's cross-process rows and chrome-trace rows serve its
+runtime, state API and timeline, which the port does not host.
 """
 
 from __future__ import annotations
@@ -276,6 +277,71 @@ def _flightrec_event(**fields) -> None:
         flight_recorder.record("ring", **fields)
     except Exception:
         pass
+
+
+# -- cross-attempt stitching ------------------------------------------------
+
+def stitch_request(request_id: str,
+                   rows: Optional[List[Dict[str, Any]]] = None,
+                   ) -> Optional[Dict[str, Any]]:
+    """Join every ring row carrying ``request_id`` (router and engine
+    rows, across attempts) into one request-level view.
+
+    A resumed stream (a failover retry, a migrated handoff) re-enters
+    DECODING on a survivor whose ring lacks the original QUEUED stamp, so
+    any single row's ``ttft_s``/``e2e_s`` measures the attempt, not the
+    request.  Here TTFT and e2e are measured from FIRST admission:
+    earliest QUEUED → earliest DECODING / latest genuine terminal
+    (PREEMPTED ends an attempt, not the request, so it never ends the
+    stitched timeline)."""
+    if rows is None:
+        rows = [r for r in snapshot_rows()
+                if r.get("request_id") == request_id]
+    if not rows:
+        return None
+
+    def min_ts(state: str) -> Optional[float]:
+        ts = [r["state_ts"][state] for r in rows
+              if state in r.get("state_ts", {})]
+        return min(ts) if ts else None
+
+    t_admitted = min_ts(QUEUED)
+    t_first_token = min_ts(DECODING)
+    genuine = (FINISHED, FAILED, CANCELLED, SHED)
+    terminals = [(r["state_ts"][s], s) for r in rows for s in genuine
+                 if s in r.get("state_ts", {})]
+    t_terminal, state = (max(terminals) if terminals else (None, None))
+    if state is None:
+        # In flight (or only attempt-terminal PREEMPTED rows so far):
+        # the most recently entered state across rows.
+        entered = [(ts, s) for r in rows
+                   for s, ts in r.get("state_ts", {}).items()]
+        state = max(entered)[1] if entered else "NIL"
+    router_rows = [r for r in rows
+                   if str(r.get("engine", "")).startswith("router:")]
+    # A router row counts the tokens DELIVERED across attempts; engine
+    # rows count per-attempt generation (a replay regenerates).
+    gen_pool = router_rows or rows
+    return {
+        "request_id": request_id,
+        "state": state,
+        "t_admitted": t_admitted,
+        "t_first_token": t_first_token,
+        "t_terminal": t_terminal,
+        "ttft_s": (t_first_token - t_admitted
+                   if t_admitted is not None and t_first_token is not None
+                   else None),
+        "e2e_s": (t_terminal - t_admitted
+                  if t_admitted is not None and t_terminal is not None
+                  else None),
+        "attempts": max((int(r.get("attempt") or 0) for r in rows),
+                        default=0),
+        "prompt_tokens": max((int(r.get("prompt_tokens") or 0)
+                              for r in rows), default=0),
+        "generated_tokens": max((int(r.get("generated_tokens") or 0)
+                                 for r in gen_pool), default=0),
+        "rows": len(rows),
+    }
 
 
 # -- process-local registry -------------------------------------------------

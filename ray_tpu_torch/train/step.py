@@ -2,17 +2,24 @@
 
 One step is forward, backward (autograd), and the optimizer update, on
 one device.  PyTorch runs eagerly, so there is nothing to jit:
-``compile_train_step`` returns the step itself.  The step updates the
-state in place and returns it, as the JAX step donates its buffers.
+``compile_train_step`` returns the step itself, whose first call
+registers ``train.step`` in the device plane (``util/xprof``) with its
+analytic flops and that call's wall, as the JAX step registers its
+compiled program.  The step updates the state in place and returns it,
+as the JAX step donates its buffers.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import logging
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ray_tpu_torch.train.state import AdamW, TrainState, tree_leaves
+
+log = logging.getLogger(__name__)
 
 LossFn = Callable[[Any, Dict[str, torch.Tensor]],
                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -84,13 +91,70 @@ def make_train_step(loss_fn: LossFn, tx: AdamW, *, grad_accum: int = 1
     return step
 
 
+def _step_flops(params: Any, batch: Dict[str, torch.Tensor]
+               ) -> Optional[float]:
+    """A step's analytic flops (``xprof.train_step_flops``): 6 x params x
+    tokens, plus causal attention when the tree is a Llama's (its
+    ``layers.attn.wq`` is [L, dim, heads, head_dim]); other trees count
+    the weights only.  None for a batch without ``tokens``."""
+    from ray_tpu_torch.util import xprof
+
+    tokens = batch.get("tokens")
+    if not isinstance(tokens, torch.Tensor):
+        return None
+    n_params = sum(int(t.numel()) for t in tree_leaves(params))
+    wq = params.get("layers", {}).get("attn", {}).get("wq") \
+        if isinstance(params, dict) else None
+    if isinstance(wq, torch.Tensor) and wq.dim() == 4:
+        L, _d, H, hd = wq.shape
+        return xprof.train_step_flops(n_params, tokens.numel(), L, H, hd,
+                                      tokens.shape[-1])
+    return 6.0 * n_params * tokens.numel()
+
+
+def _instrument_first_call(step: Step) -> Step:
+    """Time the step's first call (on the card: the kernels' first-use
+    builds and lazy CUDA init beside the enqueue) and register
+    ``train.step`` with its analytic flops against the ``train.compute``
+    span; later calls pass straight through."""
+    called = []
+
+    def wrapped(state, batch):
+        if called:
+            return step(state, batch)
+        called.append(True)
+        flops = None
+        try:
+            flops = _step_flops(state.params, batch)
+        except Exception:
+            log.exception("train.step: no analytic flop count")
+        t0 = time.time()
+        out = step(state, batch)
+        elapsed = time.time() - t0
+        try:
+            from ray_tpu_torch.util import xprof
+
+            xprof.record_program("train.step", flops=flops,
+                                 compile_time_s=elapsed,
+                                 span_name="train.compute",
+                                 compiled_at=t0 + elapsed)
+        except Exception:
+            log.exception("device plane: recording train.step failed")
+        return out
+
+    wrapped.__wrapped__ = step
+    return wrapped
+
+
 def compile_train_step(loss_fn: LossFn, tx: AdamW, *,
                        zero_sharding: bool = False,
                        grad_accum: int = 1) -> Step:
-    """The step for one device.  ZeRO sharding of the optimizer state
-    needs several devices: not ported yet."""
+    """The step for one device, its first call registered in the device
+    plane.  ZeRO sharding of the optimizer state needs several devices:
+    not ported yet."""
     if zero_sharding:
         raise NotImplementedError(
             "zero_sharding shards the optimizer state over several devices: "
             "not ported to ray_tpu_torch yet (see ROADMAP.md)")
-    return make_train_step(loss_fn, tx, grad_accum=grad_accum)
+    return _instrument_first_call(
+        make_train_step(loss_fn, tx, grad_accum=grad_accum))

@@ -12,8 +12,8 @@ cross unchanged and are unused on one device.  ``init_params`` receives
 a ``torch.Generator`` on the trainer's device, seeded with ``seed``.
 Telemetry as in the JAX trainer: the six ``raytpu_train_*`` families
 and the ``train.step`` / ``train.data_wait`` / ``train.compute`` /
-``train.checkpoint`` spans; the device plane's memory sampling is not
-ported yet.
+``train.checkpoint`` spans, and on report steps the device plane's
+memory gauges (``util/xprof.sample_device_memory``, absent on the CPU).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from ray_tpu_torch.train.state import (
     default_optimizer,
 )
 from ray_tpu_torch.train.step import compile_train_step
-from ray_tpu_torch.util import tracing
+from ray_tpu_torch.util import tracing, xprof
 
 _TELEMETRY = None
 
@@ -299,6 +299,9 @@ class TorchTrainer:
                                                      - t0)
                         history.append(m)
                         last_metrics = m
+                        # The shared device-memory gauges (absent on the
+                        # CPU), then the trainer's own.
+                        xprof.sample_device_memory()
                         self._emit_memory_gauges()
                         if report:
                             report(m)

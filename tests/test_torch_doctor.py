@@ -1,7 +1,6 @@
 """The port's invariant audit plane against the JAX package's
 (tests/test_doctor.py): the report's shape and the engine checks equal
-the JAX auditor's (the migration-lease check aside: the port has no
-migration verbs yet), a clean engine deep-audits to zero violations, and
+the JAX auditor's, a clean engine deep-audits to zero violations, and
 each RAYTPU_FAILPOINTS corruption injector is found under the check names
 the JAX tests expect.  LLAMA_TINY in f32; no JAX engine runs here."""
 
@@ -72,8 +71,8 @@ def _manifest_details(dump_dir):
 
 def test_report_shape_and_checks_match_jax():
     """run_audit's report and row keys are the JAX doctor's; the engine
-    checks are the JAX auditor's minus the lease check, with the same
-    versions, tiers and severities."""
+    checks are the JAX auditor's, with the same versions, tiers and
+    severities."""
     cd = doctor.register_check("test.torch_shape", 1, doctor.DEEP, "error",
                                "test-only check")
     jcd = jdoctor.register_check("test.torch_shape", 1, jdoctor.DEEP,
@@ -94,8 +93,7 @@ def test_report_shape_and_checks_match_jax():
     def fields(cd):
         return (cd.version, cd.tier, cd.severity)
 
-    jchecks = {n: fields(c) for n, c in jaudit.CHECKS.items()
-               if n != "kv.lease_accounting"}
+    jchecks = {n: fields(c) for n, c in jaudit.CHECKS.items()}
     assert {n: fields(c) for n, c in audit.CHECKS.items()} == jchecks
 
 

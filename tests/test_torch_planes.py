@@ -164,16 +164,12 @@ def test_ring_terminals_slo_and_goodput_match_jax(engines):
 
 
 def test_exposition_families_match_jax(engines):
-    """The port declares the JAX engine's families but the ones of planes
-    it does not have yet (TP collectives, KV migration, the latency
-    waterfall), with the same types and label keys, and its exposition
+    """The port declares the JAX engine's families (KV migration and the
+    latency waterfall included) but the TP collectives', a plane it does
+    not have yet, with the same types and label keys, and its exposition
     passes the repo's metric checks."""
-    from ray_tpu.serve import kv_transfer, latency_attribution
-
     skipped = {"raytpu_serve_collective_bytes_total",
                "raytpu_serve_collective_seconds"}
-    for mod in (kv_transfer, latency_attribution):
-        skipped |= {m.name for m in mod._telemetry().values()}
     want = {(m.name, m._type, m.tag_keys)
             for m in jeng._telemetry().values() if m.name not in skipped}
     got = {(m.name, m._type, m.tag_keys) for m in teng._telemetry().values()}
