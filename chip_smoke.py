@@ -222,7 +222,38 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    share printed); ``xprof.roofline()``'s ``serve.ragged`` row at or
    below 1.0 of the card's bandwidth; the analytic decode bound beside
    PERF.md's 4.79 ms; the ``raytpu_device_hbm_*`` gauges equal to
-   ``torch.cuda.memory_stats()``.
+   ``torch.cuda.memory_stats()``;
+16. the HF Llama import (run after phase 15, on phase 5's weights): the
+   bf16 8B tree rewritten into HF names and [out, in] layouts on the
+   card and imported by ``params_from_hf_state_dict`` (every leaf equal
+   to its source bit for bit; import time and GB/s), ``quantize=True``
+   equal to ``quant.quantize_params`` of the same tree, phase 5's four
+   prompts served for 8 tokens on the bucketed engine from the imported
+   tree (streams equal to phase 5's first 8 tokens; K1, K2, K9f counted
+   from 0); then a tiny f32 Llama laid out by hand as two
+   ``.safetensors`` shards plus ``config.json`` (the card's machine has
+   no ``safetensors`` package) and read back by
+   ``load_llama_from_hf(dir)``, every leaf equal;
+17. the other model families (after phase 10): K9f, K10 and K11 at
+   MIXTRAL_8X7B's attention (B 2, S 2048, 32 query heads over 8 kv heads
+   of 128: a GQA group of 4, bf16) against their plain versions, timed
+   beside them, SDPA and the bound; a small f32 Mixtral (S 256, head_dim
+   64, 4 experts, "dots" remat) trained 3 steps on the card and on the
+   CPU (losses, grad norms and aux losses agree; K9f 12, K10 and K11 6);
+   MIXTRAL_8X7B at full width cut to 2 layers (3.165 B params, 1.051 B
+   active, f32 params, bf16 compute) trained with AdamW through
+   ``TorchTrainer`` on a fixed 2 x 2048 batch with dense dispatch: 2
+   warm-up and 4 timed steps with counters read per step (K9f 4, K10 and
+   K11 2), one step's kernels under the profiler, step ms, tokens/s, MFU
+   over active params, peak memory, the dropped-assignment share per
+   layer at capacity factor 1.25, a finite falling loss; then one step of
+   scatter dispatch from the same state, its loss within one bf16 ulp of
+   dense's; VIT_TINY and CLIP_TINY in f32 trained 3 steps on the card and
+   on the CPU (losses and grad norms agree); ViT-L/16 (224, 1,000
+   classes) and CLIP_L14_LIKE at full width and depth on fixed batches of
+   64 images: 2 warm-up and 3 timed AdamW steps, step ms, images/s, peak
+   memory, a falling loss, and no kernel launched (both take the einsum
+   attention).
 
 The last three lines of standard output are the kernel table (K1, K2,
 K9f, K10, K11, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8
@@ -232,8 +263,10 @@ and ``{"ok": true, "device": {...}}``.  Details go to ``--out`` (with
 ``launch_floor_ms``, K2's and K3's 48-slot runs under ``slots48``, the
 page-walk phases under ``kernels.walk``, the verify-row phases under
 ``kernels.verify_rows`` and the group-5 rows of K9f, K10 and K11 under
-each one's ``group5``, phase 14 under ``planes`` and phase 15 under
-``migration``).
+each one's ``group5``, phase 14 under ``planes``, phase 15 under
+``migration``, phase 16 under ``hf_import``, phase 17 under
+``mixtral_parity``, ``mixtral_8x7b``, ``vit_clip_parity``, ``vit_clip``
+and each flash kernel's ``group4``).
 """
 
 from __future__ import annotations
@@ -4536,17 +4569,18 @@ def bench_2b_cfg(llama, torch):
         remat_policy="full", loss_chunk=512)
 
 
-def kernel_phase_group5(torch, F, tfa, report):
-    """K9f, K10 and K11 at BENCH_2B_CFG's attention (B 4, S 2048, H 20,
-    KVH 4, D 128, causal, bf16: a GQA group of 5) against their plain
-    versions, timed beside the plain versions, SDPA and the bound; kept
-    under each kernel's ``group5`` entry."""
-    g = torch.Generator(device="cuda").manual_seed(31)
-    B, S, H, KVH, D = B2_B, TRAIN_S, 20, 4, 128
+def kernel_phase_gqa(torch, F, tfa, report, tag, B, H, KVH, seed):
+    """K9f, K10 and K11 at a training attention shape (S 2048, D 128,
+    causal, bf16, a GQA group of H / KVH) against their plain versions,
+    timed beside the plain versions, SDPA and the bound; kept under each
+    kernel's ``tag`` entry: ``group5`` is BENCH_2B_CFG's (B 4, 20/4
+    heads), ``group4`` Mixtral 8x7B's (B 2, 32/8 heads)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S, D = TRAIN_S, 128
     q, k, v, do, o, lse, delta = _bwd_case(torch, tfa, g, B, S, H, KVH, D,
                                            torch.bfloat16)
-    report["K9f"]["group5"] = _k9f_training_row(
-        torch, F, tfa, q, k, v, o, lse, "group5", timed=True)
+    report["K9f"][tag] = _k9f_training_row(
+        torch, F, tfa, q, k, v, o, lse, tag, timed=True)
     del o
     got = (tfa.flash_backward_dq(q, k, v, do, lse, delta, True),
            *tfa.flash_backward_dkv(q, k, v, do, lse, delta, True))
@@ -4559,7 +4593,7 @@ def kernel_phase_group5(torch, F, tfa, report):
         rel = err / b.float().abs().max().item()
         errs[name] = {"max_abs_err": err, "rel_to_max": rel}
         if not rel <= BWD_TOL["bfloat16"]:
-            raise AssertionError(f"K10/K11 {name} at group 5 disagrees with "
+            raise AssertionError(f"K10/K11 {name} at {tag} disagrees with "
                                  f"its plain version: {rel} of the max")
     del got, want
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -4590,8 +4624,8 @@ def kernel_phase_group5(torch, F, tfa, report):
                "bound_ms": bnd[0], "bound_by": bnd[1],
                "tflops": flops / (ms * 1e-3) / 1e12,
                "vs_library": ms / library_ms}
-        report[key]["group5"] = row
-        log(f"{key} at group 5: kernel {ms:.4f} ms ({row['tflops']:.1f} "
+        report[key][tag] = row
+        log(f"{key} at {tag}: kernel {ms:.4f} ms ({row['tflops']:.1f} "
             f"TFLOP/s)  plain {plain_ms:.4f} ms  SDPA backward "
             f"{library_ms:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]}); errs "
             + ", ".join(f"{n} {e['rel_to_max']:.2e} of max"
@@ -5613,6 +5647,611 @@ def migration_phase(torch, llama, eng_mod, kernels, card, params) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# Phase 16: the other model families (Mixtral, ViT, CLIP) and the HF import
+# --------------------------------------------------------------------------
+
+MIX_B = 2                         # Mixtral 8x7B: 2 x 2048 = 4,096 tokens a
+MIX_LAYERS = 2                    # step (C = 1,280); the one cut is depth
+MIX_WARM, MIX_TIMED = 2, 4
+# Dense and scatter dispatch share the routing and differ only in the
+# order of the combine's sums (dense: f32 over the one-hot products;
+# scatter: each gate x output rounded to bf16, then summed): one bf16 ulp
+# of the loss.
+MIX_SCATTER_RTOL = 2 ** -8
+FAMILY_B = 64                     # ViT-L/16 and CLIP-L images a step
+FAMILY_WARM, FAMILY_TIMED = 2, 3
+HF_NEW = 8                        # tokens compared with phase 5's streams
+
+
+def mixtral_parity_phase(torch, tm, train, kernels):
+    """A small f32 Mixtral whose attention takes the flash path on the
+    card (S 256, head_dim 64, "dots" remat) trained 3 steps from the same
+    weights and batches on the card (K9f, K10, K11) and on the CPU (the
+    einsum path): losses and grad norms agree; the routing is f32 on both
+    devices."""
+    cfg = dataclasses.replace(
+        tm.MIXTRAL_TINY, vocab_size=512, dim=256, n_heads=4, n_kv_heads=2,
+        mlp_dim=256, max_seq_len=256, dtype=torch.float32, remat=True)
+    base = tm.init_params(torch.Generator().manual_seed(11), cfg,
+                          device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (3, 2, 256),
+                           generator=torch.Generator().manual_seed(12),
+                           dtype=torch.int32)
+    hist, counts = {}, None
+    for dev in ("cuda", "cpu"):
+        params = _clone_to(torch, base, dev)
+        trainer = train.TorchTrainer(
+            init_params=lambda g, p=params: p,
+            loss_fn=lambda p, b: tm.loss_fn(p, b, cfg),
+            optimizer=train.default_optimizer(1e-3, warmup_steps=1),
+            scaling_config=train.ScalingConfig(devices=[dev]),
+            run_config=train.RunConfig(report_every=1))
+        trainer.state
+        if dev == "cuda":
+            reset_counts(kernels)
+        res = trainer.fit(({"tokens": t} for t in tokens), num_steps=3)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts(kernels)
+        if res.error is not None:
+            raise res.error
+        hist[dev] = res.metrics_history
+    # "dots" remat: K9f twice a layer (forward, recompute), K10/K11 once.
+    want = {K9F: 2 * 2 * 3, K10: 2 * 3, K11: 2 * 3}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"Mixtral parity: launches {got}, want {want}")
+    worst = {}
+    for key in ("loss", "grad_norm", "aux_loss"):
+        a = [m[key] for m in hist["cuda"]]
+        b = [m[key] for m in hist["cpu"]]
+        worst[key] = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        # f32 both sides (TF32 off); kernel vs einsum and cuBLAS vs the
+        # CPU's matmuls sum in other orders.
+        if worst[key] > 1e-4:
+            raise AssertionError(f"Mixtral parity: {key} cuda {a} vs cpu {b}")
+    log(f"Mixtral parity (f32, S=256, D 64, 4 experts, 3 steps): losses "
+        f"cuda {[round(m['loss'], 6) for m in hist['cuda']]} cpu "
+        f"{[round(m['loss'], 6) for m in hist['cpu']]}, worst relative "
+        f"{worst}; launches {got}")
+    return {"launches": got, "history": hist, "worst_rel": worst}
+
+
+def _mixtral_drop_share(torch, tm, params, batch, cfg) -> list:
+    """The share of top-k assignments past their expert's capacity in
+    each layer, read from ``_route`` over one no-grad forward."""
+    shares = []
+    route = tm._route
+
+    def counted(xf, moe, c, C):
+        out = route(xf, moe, c, C)
+        shares.append(1.0 - float(out[3].mean()))
+        return out
+
+    tm._route = counted
+    try:
+        with torch.no_grad():
+            tm.forward(params, batch["tokens"], cfg)
+    finally:
+        tm._route = route
+    return shares
+
+
+def mixtral_8x7b_phase(torch, tm, train, kernels, card):
+    """MIXTRAL_8X7B at full width (dim 4096, 32/8 heads of 128, 8 experts
+    of 14,336, top-2, capacity factor 1.25, vocab 32,000, f32 params, bf16
+    compute, "dots" remat) cut to 2 layers, trained with AdamW through
+    ``TorchTrainer`` on a fixed 2 x 2048 batch: dense dispatch for 2
+    warm-up and 4 timed steps (counters read per step: K9f 4, K10 and K11
+    2), one step under the profiler, the dropped-assignment share, then
+    one step of scatter dispatch from the same state, whose loss must be
+    dense's within one bf16 ulp."""
+    cfg = dataclasses.replace(tm.MIXTRAL_8X7B, n_layers=MIX_LAYERS)
+    L = cfg.n_layers
+    want = {K9F: 2 * L, K10: L, K11: L}
+    trainer = train.TorchTrainer(
+        init_params=lambda g: tm.init_params(g, cfg),
+        loss_fn=lambda p, b: tm.loss_fn(p, b, cfg),
+        optimizer=train.default_optimizer(1e-4, warmup_steps=1),
+        run_config=train.RunConfig(report_every=1_000_000))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.state
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = trainer._step_fn
+    batch = trainer.shard_batch({"tokens": torch.randint(
+        0, cfg.vocab_size, (MIX_B, TRAIN_S),
+        generator=torch.Generator().manual_seed(13), dtype=torch.int32)})
+    torch.cuda.synchronize()
+    per_step, metrics_seen = [], []
+
+    def counted():
+        nonlocal state
+        reset_counts(kernels)
+        state, metrics = step(state, batch)
+        counts = read_counts(kernels)
+        per_step.append({k: counts[k] for k in want})
+        metrics_seen.append(metrics)
+        return metrics
+
+    for _ in range(MIX_WARM):
+        counted()
+    float(metrics_seen[-1]["loss"])
+    t0 = time.perf_counter()
+    for _ in range(MIX_TIMED):
+        metrics = counted()
+    float(metrics["loss"])
+    wall = time.perf_counter() - t0
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], batch)
+
+    reset_counts(kernels)
+    breakdown = _step_breakdown(torch, one_step)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    per_step.append({k: counts[k] // 2 for k in want})
+    state = holder[0]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = [{k: float(v) for k, v in m.items()
+             if k in ("loss", "ce_loss", "aux_loss", "grad_norm")}
+            for m in metrics_seen]
+    losses = [h["loss"] for h in hist]
+    if any(c != want for c in per_step):
+        raise AssertionError(f"Mixtral 8x7B: launches per step {per_step}, "
+                             f"want {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"Mixtral 8x7B: losses {losses}: not finite "
+                             "and falling")
+    drop = _mixtral_drop_share(torch, tm, state.params, batch, cfg)
+    # Scatter dispatch from the same state: dense's loss there (no grad),
+    # then one scatter training step, whose loss is taken before its
+    # update.
+    scfg = dataclasses.replace(cfg, dispatch_mode="scatter")
+    with torch.no_grad():
+        dense_loss = float(tm.loss_fn(state.params, batch, cfg)[0])
+    sstep = train.compile_train_step(lambda p, b: tm.loss_fn(p, b, scfg),
+                                     trainer.tx)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    state, smetrics = sstep(state, batch)
+    scatter_loss = float(smetrics["loss"])
+    scatter_s = time.perf_counter() - t0
+    scounts = read_counts(kernels)
+    scounts = {k: scounts[k] for k in want}
+    if scounts != want or not math.isfinite(scatter_loss) or \
+            abs(scatter_loss - dense_loss) > MIX_SCATTER_RTOL * abs(
+                dense_loss):
+        raise AssertionError(f"Mixtral 8x7B scatter: loss {scatter_loss} vs "
+                             f"dense {dense_loss}, launches {scounts}")
+    with torch.no_grad():
+        end_loss = float(tm.loss_fn(state.params, batch, cfg)[0])
+    n, active = cfg.num_params(), cfg.active_params()
+    tokens = MIX_B * TRAIN_S
+    tokens_per_s = tokens * MIX_TIMED / wall
+    out = {"config": "MIXTRAL_8X7B at 2 layers (ray_tpu/models/mixtral.py"
+                     ":65, MixtralConfig defaults)",
+           "params": n, "active_params": active,
+           "capacity": tm.capacity(cfg, tokens),
+           "optimizer": "default_optimizer(1e-4, warmup_steps=1) (AdamW)",
+           "batch": [MIX_B, TRAIN_S], "init_s": init_s,
+           "step_ms": wall / MIX_TIMED * 1e3, "tokens_per_s": tokens_per_s,
+           "mfu_active": 6 * active * tokens_per_s / BF16_FLOPS,
+           "peak_gb": peak_gb, "history": hist,
+           "end_loss_dense": end_loss, "launches_per_step": per_step,
+           "want_per_step": want, "dropped_share_by_layer": drop,
+           "scatter": {"loss": scatter_loss, "dense_loss": dense_loss,
+                       "rel": abs(scatter_loss - dense_loss) / dense_loss,
+                       "step_s": scatter_s, "launches": scounts},
+           "breakdown": breakdown, "card": card}
+    log(f"Mixtral 8x7B train ({card}; {n / 1e9:.3f} B params, "
+        f"{active / 1e9:.3f} B active, 2 layers, {MIX_B} x {TRAIN_S}, C "
+        f"{out['capacity']}): step {out['step_ms']:.1f} ms, {tokens_per_s:.0f}"
+        f" tokens/s, MFU over active params (attention flops not counted) "
+        f"{out['mfu_active']:.4f}, peak {peak_gb:.2f} GB; losses "
+        f"{[round(x, 4) for x in losses]}; dropped share by layer "
+        f"{[round(x, 4) for x in drop]}; launches per step {per_step[0]}; "
+        f"scatter loss {scatter_loss:.6f} vs dense {dense_loss:.6f} (rel "
+        f"{out['scatter']['rel']:.2e})")
+    if "error" in breakdown:
+        log(f"  breakdown: not measured ({breakdown['error']})")
+    else:
+        out["device_idle_share"] = 1 - breakdown["kernel_ms_total"] / (
+            out["step_ms"])
+        top = dict(list(breakdown["by_kernel"].items())[:6])
+        log(f"  one step's kernels {breakdown['kernel_ms_total']:.1f} ms "
+            f"(idle {out['device_idle_share']:.3f} of the step): flash "
+            f"{breakdown['flash_share']:.3f} "
+            f"({_fmt_breakdown(breakdown['flash_ms'])}), matrix products "
+            f"{breakdown['gemm_ms']:.1f}, other {breakdown['other_ms']:.1f};"
+            f" top: {_fmt_breakdown(top)}")
+    del trainer, state, holder, batch, step, sstep
+    torch.cuda.empty_cache()
+    return out
+
+
+def _f32_family(torch, tvit, tclip):
+    vcfg = dataclasses.replace(tvit.VIT_TINY, dtype=torch.float32)
+    ccfg = dataclasses.replace(
+        tclip.CLIP_TINY,
+        vision=dataclasses.replace(tclip.CLIP_TINY.vision,
+                                   dtype=torch.float32),
+        text=dataclasses.replace(tclip.CLIP_TINY.text, dtype=torch.float32))
+    return vcfg, ccfg
+
+
+def _vit_loss(tvit, cfg):
+    return lambda p, b: (tvit.loss_fn(p, b["images"], b["labels"], cfg), {})
+
+
+def _clip_loss(tclip, cfg):
+    return lambda p, b: (tclip.contrastive_loss(p, b["images"], b["tokens"],
+                                                cfg), {})
+
+
+def _images_batch(torch, gen, B, vcfg):
+    return torch.randn((B, vcfg.image_size, vcfg.image_size, vcfg.channels),
+                       generator=gen)
+
+
+def vit_clip_parity_phase(torch, tvit, tclip, train, kernels):
+    """VIT_TINY and CLIP_TINY in f32 trained 3 steps from the same weights
+    and batches on the card and on the CPU: losses and grad norms agree.
+    No kernel runs (non-causal S 17, causal S 16: the einsum path)."""
+    vcfg, ccfg = _f32_family(torch, tvit, tclip)
+    gen = torch.Generator().manual_seed(14)
+    cases = {
+        "vit_tiny": (tvit.init_params(gen, vcfg, device="cpu"),
+                     _vit_loss(tvit, vcfg),
+                     {"images": _images_batch(torch, gen, 8, vcfg),
+                      "labels": torch.randint(0, 10, (8,), generator=gen)}),
+        "clip_tiny": (tclip.init_params(gen, ccfg, device="cpu"),
+                      _clip_loss(tclip, ccfg),
+                      {"images": _images_batch(torch, gen, 8, ccfg.vision),
+                       "tokens": torch.randint(1, 256, (8, 16),
+                                               generator=gen)}),
+    }
+    out = {}
+    for name, (base, loss, batch) in cases.items():
+        hist = {}
+        for dev in ("cuda", "cpu"):
+            params = _clone_to(torch, base, dev)
+            trainer = train.TorchTrainer(
+                init_params=lambda g, p=params: p, loss_fn=loss,
+                optimizer=train.default_optimizer(1e-3, warmup_steps=1),
+                scaling_config=train.ScalingConfig(devices=[dev]),
+                run_config=train.RunConfig(report_every=1))
+            trainer.state
+            reset_counts(kernels)
+            res = trainer.fit(iter([batch] * 3), num_steps=3)
+            if res.error is not None:
+                raise res.error
+            if any(read_counts(kernels).values()):
+                raise AssertionError(f"{name}: a kernel ran: "
+                                     f"{read_counts(kernels)}")
+            hist[dev] = res.metrics_history
+        worst = {}
+        for key in ("loss", "grad_norm"):
+            a = [m[key] for m in hist["cuda"]]
+            b = [m[key] for m in hist["cpu"]]
+            worst[key] = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+            if worst[key] > 1e-4:
+                raise AssertionError(f"{name} parity: {key} cuda {a} vs "
+                                     f"cpu {b}")
+        out[name] = {"history": hist, "worst_rel": worst}
+        log(f"{name} parity (f32, 3 steps): losses cuda "
+            f"{[round(m['loss'], 6) for m in hist['cuda']]} cpu "
+            f"{[round(m['loss'], 6) for m in hist['cpu']]}, worst relative "
+            f"{worst}")
+    return out
+
+
+def _family_train(torch, train, kernels, card, what, init, loss, batch,
+                  images):
+    """``what`` at full width through ``TorchTrainer`` with AdamW on one
+    fixed batch: 2 warm-up and 3 timed steps, peak memory, the loss on
+    the batch before and after; no kernel may run (both towers take the
+    einsum path)."""
+    trainer = train.TorchTrainer(
+        init_params=init, loss_fn=loss,
+        optimizer=train.default_optimizer(1e-4, warmup_steps=1),
+        run_config=train.RunConfig(report_every=1_000_000))
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.state
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    step = trainer._step_fn
+    staged = trainer.shard_batch(batch)
+    reset_counts(kernels)
+    losses = []
+    for _ in range(FAMILY_WARM):
+        state, m = step(state, staged)
+        losses.append(m["loss"])
+    float(losses[-1])
+    t0 = time.perf_counter()
+    for _ in range(FAMILY_TIMED):
+        state, m = step(state, staged)
+        losses.append(m["loss"])
+    float(losses[-1])
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in read_counts(kernels).items() if v}
+    with torch.no_grad():
+        end_loss = float(loss(state.params, staged)[0])
+    losses = [float(x) for x in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launched or not all(math.isfinite(x) for x in losses) or \
+            not end_loss < losses[0]:
+        raise AssertionError(f"{what}: losses {losses} -> {end_loss}, "
+                             f"kernels launched {launched}")
+    out = {"params": n_params, "batch": images,
+           "optimizer": "default_optimizer(1e-4, warmup_steps=1) (AdamW)",
+           "step_ms": wall / FAMILY_TIMED * 1e3,
+           "images_per_s": images * FAMILY_TIMED / wall,
+           "peak_gb": peak_gb, "losses": losses,
+           "end_loss_first_batch": end_loss, "card": card}
+    log(f"{what} train ({card}; {n_params / 1e6:.1f} M params, batch "
+        f"{images}): step {out['step_ms']:.1f} ms, "
+        f"{out['images_per_s']:.1f} images/s, peak {peak_gb:.2f} GB; loss "
+        f"{[round(x, 4) for x in losses]} -> {end_loss:.4f}")
+    del trainer, state, staged, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def vit_clip_phase(torch, tvit, tclip, train, kernels, card):
+    """ViT-L/16 at 224 with 1,000 classes and CLIP_L14_LIKE (a ViT-L/16
+    image tower and a 12-layer text tower at S 77) at full width and
+    depth, each on a fixed batch of 64."""
+    gen = torch.Generator().manual_seed(15)
+    vcfg = tvit.VIT_L16
+    vit = _family_train(
+        torch, train, kernels, card, "ViT-L/16",
+        lambda g: tvit.init_params(g, vcfg), _vit_loss(tvit, vcfg),
+        {"images": _images_batch(torch, gen, FAMILY_B, vcfg),
+         "labels": torch.randint(0, vcfg.num_classes, (FAMILY_B,),
+                                 generator=gen)},
+        FAMILY_B)
+    if vit["params"] != vcfg.num_params():
+        raise AssertionError(f"ViT-L/16: {vit['params']} params, the config "
+                             f"counts {vcfg.num_params()}")
+    ccfg = tclip.CLIP_L14_LIKE
+    clip = _family_train(
+        torch, train, kernels, card, "CLIP-L",
+        lambda g: tclip.init_params(g, ccfg), _clip_loss(tclip, ccfg),
+        {"images": _images_batch(torch, gen, FAMILY_B, ccfg.vision),
+         "tokens": torch.randint(1, ccfg.text.vocab_size,
+                                 (FAMILY_B, ccfg.text.max_len),
+                                 generator=gen)},
+        FAMILY_B)
+    return {"vit_l16": vit, "clip_l": clip}
+
+
+_ST_DTYPE_NAMES = {"torch.float32": "F32", "torch.bfloat16": "BF16",
+                   "torch.float16": "F16", "torch.int8": "I8",
+                   "torch.int32": "I32", "torch.int64": "I64"}
+
+
+def write_safetensors(torch, path, tensors) -> int:
+    """``tensors`` laid out by hand in the public safetensors format (the
+    card's machine has no ``safetensors`` package): an 8-byte
+    little-endian header length, a JSON header (dtype, shape, data
+    offsets), padded with spaces to 8 bytes, then the raw bytes."""
+    import struct
+
+    header, blobs, off = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _ST_DTYPE_NAMES[str(t.dtype)],
+                        "shape": list(t.shape),
+                        "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    text = json.dumps(header, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)))
+        f.write(text)
+        for raw in blobs:
+            f.write(raw)
+    return 8 + len(text) + off
+
+
+def hf_state_dict(params, cfg) -> dict:
+    """A Llama param tree rewritten into HF names and [out, in] layouts
+    (on the tree's device and in its dtype): the inverse of the import's
+    mapping (models/hf_import.py's docstring)."""
+    d, h, kvh, hd = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    a, m = params["layers"]["attn"], params["layers"]["mlp"]
+    sd = {"model.embed_tokens.weight": params["tok_embed"],
+          "model.norm.weight": params["final_norm"]}
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}."
+        sd[pre + "self_attn.q_proj.weight"] = \
+            a["wq"][i].reshape(d, h * hd).T.contiguous()
+        sd[pre + "self_attn.k_proj.weight"] = \
+            a["wk"][i].reshape(d, kvh * hd).T.contiguous()
+        sd[pre + "self_attn.v_proj.weight"] = \
+            a["wv"][i].reshape(d, kvh * hd).T.contiguous()
+        sd[pre + "self_attn.o_proj.weight"] = \
+            a["wo"][i].reshape(h * hd, d).T.contiguous()
+        for ours, theirs in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                             ("w_down", "down_proj")):
+            sd[pre + f"mlp.{theirs}.weight"] = m[ours][i].T.contiguous()
+        sd[pre + "input_layernorm.weight"] = params["layers"]["ln_attn"][i]
+        sd[pre + "post_attention_layernorm.weight"] = \
+            params["layers"]["ln_mlp"][i]
+    if not cfg.tie_embeddings:
+        sd["lm_head.weight"] = params["lm_head"].T.contiguous()
+    return sd
+
+
+def hf_config(cfg) -> dict:
+    """The HF config.json of a LlamaConfig (no rope scaling, no biases)."""
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+            "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads,
+            "num_key_value_heads": cfg.n_kv_heads,
+            "intermediate_size": cfg.mlp_dim,
+            "max_position_embeddings": cfg.max_seq_len,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
+            "tie_word_embeddings": cfg.tie_embeddings,
+            "attention_bias": False, "mlp_bias": False}
+
+
+def _equal_trees(torch, got, want, what) -> int:
+    g, w = dict(_named_leaves(got)), dict(_named_leaves(want))
+    if set(g) != set(w):
+        raise AssertionError(f"{what}: leaves {sorted(set(g) ^ set(w))}")
+    for k in w:
+        if g[k].dtype != w[k].dtype or g[k].device != w[k].device \
+                or not torch.equal(g[k], w[k]):
+            raise AssertionError(f"{what}: leaf {k} differs ({g[k].dtype} "
+                                 f"{g[k].device} vs {w[k].dtype} "
+                                 f"{w[k].device})")
+    return len(w)
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def hf_import_phase(torch, llama, quant, thf, eng_mod, kernels, card,
+                    params, serving, repo):
+    """The HF import at LLAMA3_8B on phase 5's weights: the bf16 tree
+    rewritten into HF names and [out, in] layouts on the card, imported
+    with ``params_from_hf_state_dict`` (every leaf equal to its source bit
+    for bit), phase 5's prompts served for HF_NEW tokens on the bucketed
+    engine from the imported tree (streams equal to phase 5's over those
+    tokens; K1, K2 and K9f counted from 0), ``quantize=True`` against
+    ``quant.quantize_params`` of the same tree (one layer at a time); then
+    a tiny f32 model laid out by hand as two ``.safetensors`` shards and
+    ``config.json`` and read back through ``load_llama_from_hf(dir)``."""
+    import numpy as np
+
+    cfg = dataclasses.replace(llama.LLAMA3_8B, param_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd = hf_state_dict(params, cfg)
+    torch.cuda.synchronize()
+    rewrite_s = time.perf_counter() - t0
+    hcfg = thf.llama_config_from_hf(hf_config(cfg),
+                                    param_dtype=torch.bfloat16)
+    arch = ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",
+            "mlp_dim", "max_seq_len", "rope_theta", "norm_eps",
+            "tie_embeddings", "rope_scaling", "param_dtype")
+    if any(getattr(hcfg, f) != getattr(cfg, f) for f in arch):
+        raise AssertionError(f"HF config translation: {hcfg} != {cfg}")
+    t0 = time.perf_counter()
+    imported = thf.params_from_hf_state_dict(sd, hcfg)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    n_leaves = _equal_trees(torch, imported, params, "8B HF import")
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    t0 = time.perf_counter()
+    qimp = thf.params_from_hf_state_dict(sd, hcfg, quantize=True)
+    torch.cuda.synchronize()
+    qimport_s = time.perf_counter() - t0
+    del sd
+    # quant.quantize_params on one layer's slice of each stacked leaf
+    # equals that slice of the whole tree's (the scale keeps the layer
+    # axis), with one layer's f32 temporaries instead of the tree's.
+    n_q = 0
+    for i in range(cfg.n_layers):
+        one = {"layers": {grp: {k: v[i:i + 1] for k, v in leaves.items()}
+                          for grp, leaves in params["layers"].items()
+                          if isinstance(leaves, dict)}}
+        want = quant.quantize_params(one)["layers"]
+        got = {grp: {k: {"q": v["q"][i:i + 1], "scale": v["scale"][i:i + 1]}
+                     for k, v in leaves.items()}
+               for grp, leaves in qimp["layers"].items()
+               if isinstance(leaves, dict)}
+        n_q += _equal_trees(torch, got, want, f"8B quantised import layer {i}")
+    rest = {k: v for k, v in params.items() if k != "layers"}
+    want = quant.quantize_params(rest)
+    n_q += _equal_trees(torch, {k: qimp[k] for k in rest}, want,
+                        "8B quantised import (embedding, head, norm)")
+    for k in ("ln_attn", "ln_mlp"):
+        if not torch.equal(qimp["layers"][k], params["layers"][k]):
+            raise AssertionError(f"8B quantised import: {k}")
+    del qimp, want, rest
+    torch.cuda.empty_cache()
+    # Phase 5's traffic (serving_phase: rng 6, four prompts at once) on
+    # the imported tree.
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (17, 100, 300, 700)]
+    ecfg = eng_mod.EngineConfig(max_slots=8, max_seq_len=1024, page_size=64,
+                                decode_chunk=8)
+    eng = eng_mod.LLMEngine(imported, eng_mod.llama_paged_adapter(
+        llama.LLAMA3_8B), ecfg, device="cuda")
+    try:
+        eng.submit(prompts[0][:5], max_new_tokens=2).result(timeout_s=600)
+        reset_counts(kernels)
+        streams = [eng.submit(p, max_new_tokens=HF_NEW) for p in prompts]
+        outs = [s.result(timeout_s=600) for s in streams]
+        launches = read_counts(kernels)
+    finally:
+        eng.shutdown()
+    want = [o[:HF_NEW] for o in serving["outputs"]]
+    if outs != want:
+        raise AssertionError(f"8B HF import: streams {outs} != phase 5's "
+                             f"{want}")
+    missing = [n for n in ("paged_decode_attention_partial",
+                           "paged_append", "flash_forward")
+               if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"8B HF import serving never launched "
+                             f"{missing}")
+    del imported
+    torch.cuda.empty_cache()
+    # A tiny f32 model as two hand-written shards and config.json.
+    tcfg = dataclasses.replace(llama.LLAMA_TINY, dtype=torch.float32)
+    tiny = llama.init_params(torch.Generator(device="cuda").manual_seed(16),
+                             tcfg, device="cuda")
+    tsd = hf_state_dict(tiny, tcfg)
+    root = os.path.join(repo, "smoke_out", "hf_tiny")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    names = sorted(tsd)
+    half = len(names) // 2
+    shard_bytes = [write_safetensors(
+        torch, os.path.join(root, f"model-0000{i + 1}-of-00002.safetensors"),
+        {k: tsd[k] for k in part})
+        for i, part in enumerate((names[:half], names[half:]))]
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(hf_config(tcfg), f)
+    loaded, lcfg = thf.load_llama_from_hf(
+        root, config_overrides={"dtype": torch.float32,
+                                "param_dtype": torch.float32})
+    n_tiny = _equal_trees(torch, loaded, tiny, "tiny safetensors import")
+    shutil.rmtree(root, ignore_errors=True)
+    res = {"config": "LLAMA3_8B bf16 (phase 5's weights)",
+           "leaves_equal": n_leaves, "bytes": nbytes,
+           "rewrite_s": rewrite_s, "import_s": import_s,
+           "import_gb_per_s": nbytes / import_s / 1e9,
+           "quantized_import_s": qimport_s, "quantized_leaves_equal": n_q,
+           "streams": outs, "launches": launches,
+           "tiny_safetensors": {"shards": shard_bytes, "leaves_equal": n_tiny},
+           "card": card}
+    log(f"8B HF import ({card}): {n_leaves} leaves bit-equal, "
+        f"{nbytes / 1e9:.2f} GB in {import_s:.3f} s "
+        f"({res['import_gb_per_s']:.1f} GB/s; the HF rewrite {rewrite_s:.3f}"
+        f" s), quantize=True {qimport_s:.3f} s = quantize_params ({n_q} "
+        f"leaves); phase 5's prompts on the imported tree: first {HF_NEW} "
+        f"tokens equal, launches {launches}; tiny model via two hand-written"
+        f" .safetensors shards ({shard_bytes} bytes): {n_tiny} leaves equal")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(
@@ -5627,12 +6266,17 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, repo)
     try:
         from ray_tpu_torch import train
+        from ray_tpu_torch.models import clip as tclip
+        from ray_tpu_torch.models import hf_import as thf
         from ray_tpu_torch.models import llama
         from ray_tpu_torch.models import mamba2 as tm
+        from ray_tpu_torch.models import mixtral as tmix
         from ray_tpu_torch.models import quant
+        from ray_tpu_torch.models import vit as tvit
         from ray_tpu_torch.ops import _build
         from ray_tpu_torch.ops import flash_attention as tfa
         from ray_tpu_torch.ops import fused_decode as tfd
@@ -5738,6 +6382,10 @@ def main() -> int:
     # and K6 on int8 ones, each counted from 0 over a probe), the
     # waterfall and the device plane.
     migration = migration_phase(torch, llama, eng_mod, kernels, card, params)
+    # The HF import on the same weights: bit-exact leaves, phase 5's
+    # streams from the imported tree (K1, K2, K9f counted from 0).
+    hf = hf_import_phase(torch, llama, quant, thf, eng_mod, kernels, card,
+                         params, serving, repo)
     del params
     torch.cuda.empty_cache()
     fused_bucketed, fused_ragged, fused_short = fused_serving_phase(
@@ -5751,7 +6399,7 @@ def main() -> int:
     train_1b = train_1b_phase(torch, llama, train, kernels)
     # int8 Adam states: the flash kernels at a GQA group of 5, cuda-vs-cpu
     # parity, then BENCH_2B_CFG (K9f, K10, K11 counted per step).
-    kernel_phase_group5(torch, F, tfa, report)
+    kernel_phase_gqa(torch, F, tfa, report, "group5", B2_B, 20, 4, 31)
     adam8_parity = adam8_parity_phase(torch, llama, train, kernels)
     train_2b = train_2b_phase(torch, llama, train, kernels,
                               os.path.dirname(os.path.abspath(__file__)))
@@ -5761,6 +6409,19 @@ def main() -> int:
     jamba = jamba_phase(torch, tm, train, kernels)
     mamba_27b = mamba_27b_phase(torch, tm, train, kernels)
     k13_path = k13_path_phase(torch, tpa, kernels)
+    # The other model families: the flash kernels at Mixtral 8x7B's
+    # attention, cuda-vs-cpu parity, then Mixtral 8x7B at full width and 2
+    # layers (K9f, K10, K11 counted per step), ViT-L/16 and CLIP-L.
+    kernel_phase_gqa(torch, F, tfa, report, "group4", MIX_B, 32, 8, 41)
+    mixtral_parity = mixtral_parity_phase(torch, tmix, train, kernels)
+    mixtral = mixtral_8x7b_phase(torch, tmix, train, kernels, card)
+    for key in ("K9f", "K10", "K11"):
+        report[key]["group4"]["launches"] = sum(
+            c[{"K9f": K9F, "K10": K10, "K11": K11}[key]]
+            for c in mixtral["launches_per_step"][:-1])
+    vit_clip_parity = vit_clip_parity_phase(torch, tvit, tclip, train,
+                                            kernels)
+    vit_clip = vit_clip_phase(torch, tvit, tclip, train, kernels, card)
     order = ("K1", "K2", "K9f", "K10", "K11", "K4", "K5", "K1i8", "K3",
              "K4i8", "K6", "K7", "K7i8", "K8", "K8i8", "K12", "K13")
     for key, name, run in (
@@ -5813,7 +6474,11 @@ def main() -> int:
                    "adam8_parity": adam8_parity, "train_2b": train_2b,
                    "jamba_tiny": jamba, "mamba2_2_7b": mamba_27b,
                    "k13_path": k13_path, "planes": planes,
-                   "migration": migration}, f, indent=1, default=str)
+                   "migration": migration, "hf_import": hf,
+                   "mixtral_parity": mixtral_parity,
+                   "mixtral_8x7b": mixtral,
+                   "vit_clip_parity": vit_clip_parity,
+                   "vit_clip": vit_clip}, f, indent=1, default=str)
     log(f"total {total_s:.1f} s; details in {args.out}")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -42,10 +42,13 @@ from ray_tpu_torch._device import DeviceLike, resolve_device
 
 def _leaf_to_torch(a: Any, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
+    # ascontiguousarray makes a 0-d leaf (CLIP's logit_scale) 1-d: the
+    # reshape puts its shape back.
     if a.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(a).view(np.int16)
+        bits = np.ascontiguousarray(a).view(np.int16).reshape(a.shape)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(
+        np.ascontiguousarray(a).reshape(a.shape).copy()).to(device)
 
 
 def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:

@@ -131,9 +131,9 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 _UPDATE_SLICE = 1 << 24
 
 
-def _slices(p: torch.Tensor) -> List[slice]:
+def _slices(p: torch.Tensor) -> List[Any]:
     if p.dim() == 0 or p.numel() <= _UPDATE_SLICE:
-        return [slice(None)]
+        return [...]  # the whole leaf, a 0-d one (CLIP's logit_scale) too
     rows = max(1, _UPDATE_SLICE // (p.numel() // p.shape[0]))
     return [slice(a, a + rows) for a in range(0, p.shape[0], rows)]
 

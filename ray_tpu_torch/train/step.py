@@ -50,11 +50,18 @@ def make_train_step(loss_fn: LossFn, tx: AdamW, *, grad_accum: int = 1
     grads, in their dtype, as ``optax.global_norm`` takes it) and ``step`` (the step before this one), as tensors on the
     device and a host int: nothing here waits for the device."""
 
+    def _grad(loss, leaves):
+        # A leaf the loss never reads (CLIP's vision head at 0 classes)
+        # gets zeros, as jax.grad gives it.
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(leaves, gs)]
+
     def _grads(params, batch):
         leaves = tree_leaves(params)
         if grad_accum <= 1:
             loss, aux = loss_fn(params, batch)
-            return loss.detach(), aux, torch.autograd.grad(loss, leaves)
+            return loss.detach(), aux, _grad(loss, leaves)
 
         def split(x):
             if x.shape[0] % grad_accum:
@@ -68,7 +75,7 @@ def make_train_step(loss_fn: LossFn, tx: AdamW, *, grad_accum: int = 1
         loss_sum, gsum, aux = None, None, None
         for i in range(grad_accum):
             loss, aux = loss_fn(params, {k: v[i] for k, v in micro.items()})
-            g = torch.autograd.grad(loss, leaves)
+            g = _grad(loss, leaves)
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             gsum = g if gsum is None else [a + b for a, b in zip(gsum, g)]

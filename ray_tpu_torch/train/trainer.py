@@ -140,8 +140,10 @@ class ScalingConfig:
         if big or (self.devices is not None and len(self.devices) != 1):
             raise NotImplementedError(
                 f"ScalingConfig asks for more than one device (mesh axes "
-                f"{big}, devices {self.devices}): multi-device training is "
-                "not ported to ray_tpu_torch yet (see ROADMAP.md)")
+                f"{big}, devices {self.devices}): multi-device training "
+                "(expert parallelism over ep included) is not ported to "
+                "ray_tpu_torch yet (ROADMAP.md queue 1 item 6, "
+                "multi-device)")
         return resolve_device(self.devices[0] if self.devices else None)
 
 

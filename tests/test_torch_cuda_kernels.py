@@ -1,7 +1,9 @@
 """The port's CUDA kernels (K1, K2, K3, K9f, K10, K11, K4, K5, K6, K7,
 K8, K12, K13; K1, K4, K7 and K8 on bf16/f32 and on int8 pools; K1 and K13
 on both their routes) against their plain PyTorch versions on the card, in
-f32 and bf16, across head dims, page sizes and GQA groups.  CUDA kernels have no CPU mode: without a card every
+f32 and bf16, across head dims, page sizes and GQA groups (Mixtral
+8x7B's group of 4 among them), and a Mixtral layer on the card against the
+CPU.  CUDA kernels have no CPU mode: without a card every
 test here skips.  On a machine with one (no jax needed):
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
@@ -1929,14 +1931,11 @@ def test_k8_verify_rows_match_plain_8b_layer(dev, pool):
 # and CUDA-graph capture of K4 and K5
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype,B,S", [(torch.bfloat16, 4, 2048),
-                                       (torch.float32, 1, 256)])
-def test_flash_group_of_5_matches_plain(dev, dtype, B, S):
-    """K9f, K10 and K11 at BENCH_2B_CFG's attention (H 20, KVH 4, D 128,
-    causal), in bf16 at its batch and length and in f32 at a small one,
-    against their plain versions (K9F / K10 tolerances above)."""
-    g = _gen(55 + S)
-    H, KVH, D = 20, 4, 128
+def _flash_group_matches_plain(dev, dtype, B, S, H, KVH, seed):
+    """K9f, K10 and K11 (one launch each) against their plain versions
+    at a causal GQA shape with D 128 (K9F / K10 tolerances above)."""
+    g = _gen(seed)
+    D = 128
     q = torch.randn((B, S, H, D), generator=g, device=dev, dtype=dtype)
     k = torch.randn((B, S, KVH, D), generator=g, device=dev, dtype=dtype)
     v = torch.randn_like(k)
@@ -1963,6 +1962,82 @@ def test_flash_group_of_5_matches_plain(dev, dtype, B, S):
         scale = b.float().abs().max().item()
         torch.testing.assert_close(a.float() / scale, b.float() / scale,
                                    atol=tol, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("dtype,B,S", [(torch.bfloat16, 4, 2048),
+                                       (torch.float32, 1, 256)])
+def test_flash_group_of_5_matches_plain(dev, dtype, B, S):
+    """K9f, K10 and K11 at BENCH_2B_CFG's attention (H 20, KVH 4, D 128,
+    causal), in bf16 at its batch and length and in f32 at a small one,
+    against their plain versions (K9F / K10 tolerances above)."""
+    _flash_group_matches_plain(dev, dtype, B, S, 20, 4, 55 + S)
+
+
+# ---------------------------------------------------------------------------
+# Mixtral 8x7B's attention (32 query heads over 8 kv heads: a GQA group of
+# 4, D 128) and a Mixtral layer on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,B,S", [(torch.bfloat16, 2, 2048),
+                                       (torch.float32, 1, 256)])
+def test_flash_mixtral_attention_matches_plain(dev, dtype, B, S):
+    """K9f, K10 and K11 at MIXTRAL_8X7B's attention (H 32, KVH 8, D 128,
+    causal), in bf16 at the smoke's batch and length (2 x 2048) and in
+    f32 at a small one, against their plain versions."""
+    _flash_group_matches_plain(dev, dtype, B, S, 32, 8, 77 + S)
+
+
+@pytest.mark.parametrize("mode", ["dense", "scatter"])
+def test_mixtral_layer_forward_backward_card_vs_cpu(dev, mode):
+    """One f32 Mixtral layer (S 256, 4 heads of 64 over 2 kv heads, 4
+    experts, capacity factor 0.5 so assignments drop) forward and
+    backward on the card (K9f, K10, K11 once each) against the same
+    layer on the CPU (einsum attention): output, aux and every gradient
+    within 1e-4 of the largest entry (f32; other summation orders)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models import mixtral as tm
+
+    cfg = dataclasses.replace(
+        tm.MIXTRAL_TINY, dim=256, n_heads=4, n_kv_heads=2, mlp_dim=256,
+        max_seq_len=256, dtype=torch.float32, capacity_factor=0.5,
+        dispatch_mode=mode)
+    params = tm.init_params(torch.Generator().manual_seed(3), cfg,
+                            device="cpu")
+    layer0 = {g: ({k: v[0] for k, v in leaves.items()}
+                  if isinstance(leaves, dict) else leaves[0])
+              for g, leaves in params["layers"].items()}
+    x0 = torch.randn((2, 256, 256), generator=torch.Generator().manual_seed(4))
+    pos = torch.arange(256).expand(2, 256)
+
+    def run(device):
+        acfg = tm._attn_cfg(cfg)
+        sin, cos = llama.rope_table(acfg, pos.to(device))
+        layer = {g: ({k: v.to(device).requires_grad_(True)
+                      for k, v in leaves.items()} if isinstance(leaves, dict)
+                     else leaves.to(device).requires_grad_(True))
+                 for g, leaves in layer0.items()}
+        x = x0.to(device).requires_grad_(True)
+        y, aux = tm._layer_fn(cfg, acfg, x, layer, sin, cos, None)
+        flat = [x] + [t for leaves in layer.values()
+                      for t in (leaves.values() if isinstance(leaves, dict)
+                                else [leaves])]
+        grads = torch.autograd.grad((y * y).mean() + aux, flat)
+        return [y.detach(), aux.detach(), *grads]
+
+    counts = [f.launches for f in (tfa.flash_forward, tfa.flash_backward_dq,
+                                   tfa.flash_backward_dkv)]
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (tfa.flash_forward, tfa.flash_backward_dq,
+                                 tfa.flash_backward_dkv)] == \
+        [c + 1 for c in counts]
+    want = run("cpu")
+    for i, (a, b) in enumerate(zip(got, want)):
+        scale = max(b.abs().max().item(), 1e-30)
+        torch.testing.assert_close(a.cpu() / scale, b / scale, atol=1e-4,
+                                   rtol=0, msg=f"output {i}")
 
 
 def _capture(call):
