@@ -254,11 +254,25 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    64 images: 2 warm-up and 3 timed AdamW steps, step ms, images/s, peak
    memory, a falling loss, and no kernel launched (both take the einsum
    attention).
+18. RLlib (after phase 17): K9f, K10 and K11 at GRPO's attention on
+   LLAMA3_1B (B 32, S 256, 32/8 heads of 64, bf16) against their plain
+   versions, timed beside them, SDPA and the bound; cuda-vs-cpu parity
+   of a small f32 GRPO policy at S 256 (the same sampled tokens, one
+   iteration's params within RL_PARAM_TOL; K9f, K10, K11 counted) and of
+   one PPO iteration on CartPole; GRPO at LLAMA3_1B's full width and
+   depth (f32 master weights, bf16 compute, "dots" remat, 4 prompts x 8,
+   192 + 64 tokens, 2 epochs) for 2 iterations, each with K9f 1,104, K10
+   and K11 32 counted from 0, its s, sampling s, generated and trained
+   tokens/s, reward, first epoch's ratio (within 1e-2 of 1) and max
+   |sampled - recomputed logp|, and the peak memory; then learning on the
+   card with the JAX tests' settings and gates (PPO and DQN on CartPole,
+   GRPO on a tiny Llama) and PPO at 1,024 envs (env steps/s).
 
 The last three lines of standard output are the kernel table (K1, K2,
 K9f, K10, K11, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8
 int8, K12, K13; K1, K2, K9f, K4 and K5 launched by phase 14's
-``LLMServer`` runs) as one JSON object, the card's name and power limit,
+``LLMServer`` runs; then K9f, K10 and K11 at GRPO's shape, launched by
+phase 18's GRPO 1B run) as one JSON object, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Details go to ``--out`` (with
 ``launch_floor_ms``, K2's and K3's 48-slot runs under ``slots48``, the
 page-walk phases under ``kernels.walk``, the verify-row phases under
@@ -266,7 +280,8 @@ page-walk phases under ``kernels.walk``, the verify-row phases under
 each one's ``group5``, phase 14 under ``planes``, phase 15 under
 ``migration``, phase 16 under ``hf_import``, phase 17 under
 ``mixtral_parity``, ``mixtral_8x7b``, ``vit_clip_parity``, ``vit_clip``
-and each flash kernel's ``group4``).
+and each flash kernel's ``group4``, phase 18 under ``rl_parity``,
+``grpo_1b``, ``rl_learning`` and each flash kernel's ``grpo``).
 """
 
 from __future__ import annotations
@@ -290,8 +305,12 @@ TF32_FLOPS = 495e12              # H100 SXM dense TF32 tensor-core peak
 F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` after the seconds since the smoke started."""
+    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -4569,14 +4588,15 @@ def bench_2b_cfg(llama, torch):
         remat_policy="full", loss_chunk=512)
 
 
-def kernel_phase_gqa(torch, F, tfa, report, tag, B, H, KVH, seed):
-    """K9f, K10 and K11 at a training attention shape (S 2048, D 128,
-    causal, bf16, a GQA group of H / KVH) against their plain versions,
-    timed beside the plain versions, SDPA and the bound; kept under each
-    kernel's ``tag`` entry: ``group5`` is BENCH_2B_CFG's (B 4, 20/4
-    heads), ``group4`` Mixtral 8x7B's (B 2, 32/8 heads)."""
+def kernel_phase_gqa(torch, F, tfa, report, tag, B, H, KVH, seed,
+                     S=TRAIN_S, D=128):
+    """K9f, K10 and K11 at a training attention shape (causal, bf16, a
+    GQA group of H / KVH; S 2048 and D 128 unless given) against their
+    plain versions, timed beside the plain versions, SDPA and the bound;
+    kept under each kernel's ``tag`` entry: ``group5`` is BENCH_2B_CFG's
+    (B 4, 20/4 heads), ``group4`` Mixtral 8x7B's (B 2, 32/8 heads),
+    ``grpo`` GRPO's at LLAMA3_1B (B 32, S 256, 32/8 heads of 64)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    S, D = TRAIN_S, 128
     q, k, v, do, o, lse, delta = _bwd_case(torch, tfa, g, B, S, H, KVH, D,
                                            torch.bfloat16)
     report["K9f"][tag] = _k9f_training_row(
@@ -6252,6 +6272,311 @@ def hf_import_phase(torch, llama, quant, thf, eng_mod, kernels, card,
     return res
 
 
+# --------------------------------------------------------------------------
+# RLlib (phase 18): GRPO at LLAMA3_1B through K9f, K10 and K11 at head_dim
+# 64; PPO, PG, A2C and DQN on envs that live on the card
+# --------------------------------------------------------------------------
+
+GRPO_PROMPTS, GRPO_GROUP, GRPO_P, GRPO_N = 4, 8, 192, 64   # B 32, S 256
+GRPO_B = GRPO_PROMPTS * GRPO_GROUP
+# f32 on both devices (TF32 off): the flash kernels' FMA tiles and the
+# CPU's einsum attention, cuBLAS and the CPU's matmuls sum in other
+# orders; Adam's normalised steps carry those differences into the params
+# at up to a few ulps of the step size.
+RL_PARAM_TOL = 1e-4
+
+
+def _grpo_flash_launches(L, N, E, remat):
+    """K9f, K10, K11 launches of one GRPO iteration: a no-grad forward a
+    sampled token and one for the reference logps, then a forward a
+    layer an epoch (twice under "dots" remat: the backward recomputes
+    it) with one K10 and one K11."""
+    return {K9F: L * (N + 1 + E * (2 if remat else 1)), K10: L * E,
+            K11: L * E}
+
+
+def _max_diff(torch, a, b) -> float:
+    if isinstance(a, dict):
+        return max(_max_diff(torch, a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return max(_max_diff(torch, x, y) for x, y in zip(a, b))
+    return (a.detach().float().cpu() - b.detach().float().cpu()
+            ).abs().max().item()
+
+
+def rl_parity_phase(torch, llama, rl, kernels):
+    """Cuda-vs-cpu: a small f32 GRPO policy at S 256 (head_dim 64, "dots"
+    remat: K9f, K10 and K11 on the card, the einsum path on the CPU) from
+    the same weights — the same sampled tokens, then one iteration, params
+    within RL_PARAM_TOL; and one PPO iteration on CartPole (32 envs, 128
+    steps) from the same seed: the same episode ends, params within
+    RL_PARAM_TOL.  Then DQN's CUDA-graph steps against the same steps run
+    eagerly on the card: equal params and returns."""
+    mcfg = llama.LlamaConfig(vocab_size=512, dim=128, n_layers=2, n_heads=2,
+                             n_kv_heads=1, mlp_dim=256, max_seq_len=256,
+                             dtype=torch.float32, param_dtype=torch.float32)
+    P, N, E = 248, 8, 2
+
+    def grpo(device):
+        cfg = rl.GRPOConfig()
+        cfg.model, cfg.prompt_len, cfg.max_new_tokens = mcfg, P, N
+        cfg.num_prompts, cfg.group_size, cfg.num_epochs = 2, 4, E
+        cfg.reward_fn = lambda p, c: (c < 256).float().mean(-1)
+        cfg.lr, cfg.seed, cfg.device = 1e-3, 3, device
+        return rl.GRPO(config=cfg)
+
+    algos = {"cpu": grpo("cpu")}
+    algos["cuda"] = grpo("cuda")
+    algos["cuda"].set_state(algos["cpu"].get_state())
+    prompts = torch.randint(0, 512, (3, P), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(4))
+    toks, metrics = {}, {}
+    for dev, algo in algos.items():
+        toks[dev] = algo.sample(prompts, seed=9).cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+        metrics[dev] = algo.train()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts(kernels)
+    if not torch.equal(toks["cuda"], toks["cpu"]):
+        raise AssertionError(f"GRPO parity: sampled tokens differ: "
+                             f"{toks['cuda']} vs {toks['cpu']}")
+    want = _grpo_flash_launches(mcfg.n_layers, N, E, True)
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"GRPO parity: launches {got}, want {want}")
+    p_diff = _max_diff(torch, algos["cuda"].params, algos["cpu"].params)
+    m_diff = {k: abs(metrics["cuda"][k] - metrics["cpu"][k])
+              for k in ("reward_mean", "loss", "kl", "ratio_mean")}
+    if p_diff > RL_PARAM_TOL or m_diff["reward_mean"] != 0:
+        raise AssertionError(f"GRPO parity: params {p_diff}, metrics "
+                             f"{m_diff}")
+    log(f"GRPO parity (f32, S {P + N}, 2 layers, head_dim 64, 8 rows): "
+        f"sampled tokens equal, after one iteration params within "
+        f"{p_diff:.3e}, metrics {m_diff}; launches {got}")
+    out = {"grpo": {"launches": got, "param_max_diff": p_diff,
+                    "metric_diffs": m_diff, "metrics": metrics}}
+    ppo, rolls = {}, {}
+    for dev in ("cpu", "cuda"):
+        ppo[dev] = (rl.PPOConfig().training(num_envs=32, rollout_length=128)
+                    .debugging(seed=0).resources(device=dev).build())
+    ppo["cuda"].set_state(ppo["cpu"].get_state())
+    for dev, algo in ppo.items():
+        rolls[dev] = algo._iteration(algo._draws())
+    p_diff = _max_diff(torch, ppo["cuda"].params, ppo["cpu"].params)
+    obs_diff = _max_diff(torch, rolls["cuda"][2], rolls["cpu"][2])
+    ep = {dev: (r[4].cpu(), r[3].cpu()) for dev, r in rolls.items()}
+    if p_diff > RL_PARAM_TOL or not torch.equal(ep["cuda"][0], ep["cpu"][0]):
+        raise AssertionError(f"PPO parity: params {p_diff}, episode "
+                             f"lengths {ep}")
+    log(f"PPO parity (CartPole, 32 envs x 128 steps, 4 x 4 minibatch "
+        f"steps): episode lengths equal, params within {p_diff:.3e}, final "
+        f"obs within {obs_diff:.3e}")
+    out["ppo"] = {"param_max_diff": p_diff, "obs_max_diff": obs_diff}
+    # DQN's steps as CUDA graphs against the same steps run eagerly on the
+    # card: the same kernels on the same draws, so the same bits.
+    dqn = {}
+    for mode in ("graphs", "eager"):
+        algo = (rl.DQNConfig().training(num_envs=8, steps_per_iteration=256,
+                                        learning_starts=512)
+                .debugging(seed=0).build())
+        if mode == "eager":
+            algo._graphs = None
+        dqn[mode] = (algo, [algo.train() for _ in range(3)])
+    updates = dqn["graphs"][0].opt_state["count"]
+    p_diff = _max_diff(torch, dqn["graphs"][0].params,
+                       dqn["eager"][0].params)
+    rets = {m: [r["episode_return_mean"] for r in v[1]]
+            for m, v in dqn.items()}
+    if p_diff != 0 or rets["graphs"] != rets["eager"]:
+        raise AssertionError(f"DQN graphs vs eager: params {p_diff}, "
+                             f"returns {rets}")
+    log(f"DQN on the card, steps as CUDA graphs vs eager (3 x 256 steps of "
+        f"8 envs, {updates} updates): params equal, returns "
+        f"{rets['graphs']}")
+    out["dqn_graphs"] = {"param_max_diff": p_diff, "returns": rets,
+                         "updates": updates}
+    return out
+
+
+def grpo_1b_phase(torch, llama, rl, kernels, card):
+    """GRPO at LLAMA3_1B's full width and depth (f32 master weights, bf16
+    compute, "dots" remat; weights from a seeded generator): 4 prompts x
+    a group of 8, prompts of 192 and 64 new tokens (S 256: K9f, K10 and
+    K11 at head_dim 64, a GQA group of 4), 2 epochs, the reward the share
+    of completion tokens below vocab / 2; 2 iterations, each with its
+    launches counted from 0 (exactly ``_grpo_flash_launches``: no SDPA or
+    plain fallback)."""
+    mcfg = llama.LLAMA3_1B
+    cfg = rl.GRPOConfig()
+    cfg.model = mcfg
+    cfg.num_prompts, cfg.group_size = GRPO_PROMPTS, GRPO_GROUP
+    cfg.prompt_len, cfg.max_new_tokens, cfg.num_epochs = GRPO_P, GRPO_N, 2
+    half = mcfg.vocab_size // 2
+    cfg.reward_fn = lambda p, c: (c < half).float().mean(-1)
+    cfg.seed = 18
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    algo = rl.GRPO(config=cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(algo.params))
+    if n_params != mcfg.num_params():
+        raise AssertionError(f"GRPO 1B: {n_params} params, config says "
+                             f"{mcfg.num_params()}")
+    want = _grpo_flash_launches(mcfg.n_layers, GRPO_N, cfg.num_epochs,
+                                mcfg.remat)
+    S = GRPO_P + GRPO_N
+    iters = []
+    for i in range(2):
+        reset_counts(kernels)
+        m = algo.train()
+        torch.cuda.synchronize()
+        counts = read_counts(kernels)
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"GRPO 1B iteration {i}: launches {got}, "
+                                 f"want {want}")
+        train_s = m["time_this_iter_s"] - m["sample_s"]
+        row = {"s": m["time_this_iter_s"], "sample_s": m["sample_s"],
+               "generated_tokens_per_s": GRPO_B * GRPO_N / m["sample_s"],
+               "trained_tokens_per_s": GRPO_B * S * cfg.num_epochs / train_s,
+               "reward_mean": m["reward_mean"], "loss": m["loss"],
+               "kl": m["kl"], "ratio_mean": m["ratio_mean"],
+               "logp_gap": m["logp_gap"], "launches": got}
+        iters.append(row)
+        log(f"GRPO 1B iteration {i}: {row['s']:.3f} s (sampling "
+            f"{row['sample_s']:.3f} s, {row['generated_tokens_per_s']:.1f} "
+            f"generated tokens/s; {row['trained_tokens_per_s']:.0f} trained "
+            f"tokens/s), reward {row['reward_mean']:.4f}, loss "
+            f"{row['loss']:.5f}, kl {row['kl']:.3e}, first epoch's ratio "
+            f"{row['ratio_mean']:.6f}, max |sampled - recomputed logp| "
+            f"{row['logp_gap']:.4f}; launches {got}")
+        vals = (row["reward_mean"], row["loss"], row["kl"], row["logp_gap"])
+        if not all(math.isfinite(v) for v in vals) or row["kl"] < 0:
+            raise AssertionError(f"GRPO 1B iteration {i}: {row}")
+        if abs(row["ratio_mean"] - 1) > 1e-2:
+            raise AssertionError(f"GRPO 1B iteration {i}: first epoch's "
+                                 f"ratio_mean {row['ratio_mean']}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"GRPO LLAMA3_1B ({n_params:,} params, {GRPO_B} rows x S {S}): init "
+        f"{init_s:.2f} s, peak {peak:.2f} GB on {card}")
+    # One sampling step's kernels (a full-buffer forward, the head on one
+    # position) beside its share of the sampling wall time.
+    buf = torch.randint(0, mcfg.vocab_size, (GRPO_B, S), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(5))
+    with torch.no_grad():
+        step = _step_breakdown(torch, lambda: rl.algorithms.grpo._logits_at(
+            algo.params, buf, mcfg, GRPO_P - 1, GRPO_P))
+    d, m, hd = mcfg.dim, mcfg.mlp_dim, mcfg.head_dim
+    layer = (2 * d * mcfg.n_heads * hd + 2 * d * mcfg.n_kv_heads * hd
+             + 3 * d * m)
+    step_flops = 2 * GRPO_B * S * layer * mcfg.n_layers
+    wall_ms = 1e3 * statistics.mean(r["sample_s"] for r in iters) / GRPO_N
+    if "error" not in step:
+        step.update(wall_ms=wall_ms,
+                    idle_share=1 - step["kernel_ms_total"] / wall_ms,
+                    gemm_tflops=step_flops / (step["gemm_ms"] * 1e-3) / 1e12)
+        log(f"  one sampling step: {wall_ms:.2f} ms of wall, kernels "
+            f"{step['kernel_ms_total']:.2f} ms (products {step['gemm_ms']:.2f}"
+            f" ms at {step['gemm_tflops']:.0f} TFLOP/s, flash "
+            f"{sum(step['flash_ms'].values()):.3f}, other "
+            f"{step['other_ms']:.2f}), idle {step['idle_share']:.3f}")
+    out = {"params": n_params, "rows": GRPO_B, "seq": S, "init_s": init_s,
+           "peak_gb": peak, "iterations": iters, "sampling_step": step,
+           "launches": {k: sum(r["launches"][k] for r in iters)
+                        for k in want}}
+    del algo
+    torch.cuda.empty_cache()
+    return out
+
+
+def rl_learning_phase(torch, llama, rl):
+    """Learning on the card with the JAX tests' settings and gates
+    (tests/test_rllib.py:143-161, :188-205; tests/test_grpo.py:15-52):
+    PPO on CartPole (32 envs, 128 steps, 15 iterations: return > 100),
+    DQN on CartPole (10 iterations: return > 60), GRPO on a tiny Llama
+    (31 iterations: the reward past max(4/32, 2 x the first)); then PPO at
+    1,024 envs, its env steps/s."""
+    out = {}
+    t0 = time.perf_counter()
+    algo = (rl.PPOConfig().environment("CartPole-v1")
+            .training(num_envs=32, rollout_length=128, lr=3e-4,
+                      entropy_coeff=0.01).debugging(seed=0).build())
+    for _ in range(15):
+        r = algo.train()
+    out["ppo"] = {"return": r["episode_return_mean"],
+                  "timesteps": r["timesteps_total"],
+                  "s": time.perf_counter() - t0}
+    if not (r["timesteps_total"] == 15 * 32 * 128
+            and r["episode_return_mean"] > 100):
+        raise AssertionError(f"PPO on the card did not learn: {r}")
+    t0 = time.perf_counter()
+    algo = (rl.DQNConfig().environment("CartPole-v1")
+            .training(num_envs=8, steps_per_iteration=2048,
+                      learning_starts=500, epsilon_decay_steps=20_000,
+                      lr=1e-3).debugging(seed=0).build())
+    for _ in range(10):
+        r = algo.train()
+    out["dqn"] = {"return": r["episode_return_mean"],
+                  "buffer_size": r["buffer_size"],
+                  "s": time.perf_counter() - t0}
+    if not (r["buffer_size"] > 0 and r["episode_return_mean"] > 60):
+        raise AssertionError(f"DQN on the card did not learn: {r}")
+    t0 = time.perf_counter()
+    cfg = rl.GRPOConfig()
+    cfg.model = dataclasses.replace(
+        llama.LLAMA_TINY, vocab_size=32, dim=32, n_layers=1, n_heads=2,
+        n_kv_heads=2, mlp_dim=64, max_seq_len=32)
+    cfg.reward_fn = lambda p, c: (c == 7).float().mean(-1)
+    cfg.prompt_len, cfg.max_new_tokens = 4, 8
+    cfg.lr, cfg.kl_coef, cfg.seed = 5e-3, 0.001, 0
+    algo = rl.GRPO(config=cfg)
+    first = algo.train()
+    for _ in range(30):
+        last = algo.train()
+    gate = max(4 / 32, 2 * first["reward_mean"] + 1e-9)
+    out["grpo_tiny"] = {"first": first["reward_mean"],
+                        "last": last["reward_mean"], "gate": gate,
+                        "kl": last["kl"], "s": time.perf_counter() - t0}
+    if not (last["reward_mean"] > gate and last["kl"] >= 0):
+        raise AssertionError(f"GRPO on the card did not learn: {first}, "
+                             f"{last}")
+    algo = (rl.PPOConfig().training(num_envs=1024, rollout_length=128)
+            .debugging(seed=0).build())
+    times = [algo.train()["time_this_iter_s"] for _ in range(3)]
+    steps_per_s = [1024 * 128 / t for t in times]
+    out["ppo_1024"] = {"iteration_s": times, "env_steps_per_s": steps_per_s}
+    log(f"RL learning on the card: PPO CartPole return "
+        f"{out['ppo']['return']:.1f} (gate 100) in {out['ppo']['s']:.1f} s; "
+        f"DQN return {out['dqn']['return']:.1f} (gate 60) in "
+        f"{out['dqn']['s']:.1f} s; GRPO tiny reward {out['grpo_tiny']['first']:.4f} "
+        f"-> {out['grpo_tiny']['last']:.4f} (gate {gate:.4f}) in "
+        f"{out['grpo_tiny']['s']:.1f} s; PPO at 1,024 envs: iterations "
+        f"{[round(t, 3) for t in times]} s, "
+        f"{[round(x) for x in steps_per_s]} env steps/s")
+    return out
+
+
+def grpo_kernel_rows(report, runs):
+    """The kernels line's rows of K9f, K10 and K11 at GRPO's shape (their
+    ``grpo`` entries), launches from the GRPO 1B run."""
+    rows = {}
+    for key, name in (("K9f", K9F), ("K10", K10), ("K11", K11)):
+        sub = report[key]["grpo"]
+        rows[key + " grpo"] = {
+            "name": f"{name} (GRPO at LLAMA3_1B: B {GRPO_B} S "
+                    f"{GRPO_P + GRPO_N} H 32 KVH 8 D 64)",
+            **{k: report[key][k] for k in ("route", "source", "replaces")},
+            **{k: sub[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "kernel_ms": sub["ms"], "launches": runs["launches"][name]}
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(
@@ -6269,6 +6594,7 @@ def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     try:
+        from ray_tpu_torch import rllib as rl
         from ray_tpu_torch import train
         from ray_tpu_torch.models import clip as tclip
         from ray_tpu_torch.models import hf_import as thf
@@ -6422,6 +6748,14 @@ def main() -> int:
     vit_clip_parity = vit_clip_parity_phase(torch, tvit, tclip, train,
                                             kernels)
     vit_clip = vit_clip_phase(torch, tvit, tclip, train, kernels, card)
+    # RLlib: the flash kernels at GRPO's attention (head_dim 64), cuda-vs-
+    # cpu parity (GRPO, PPO), GRPO at LLAMA3_1B (K9f, K10, K11 counted from
+    # 0 each iteration), then learning on the card.
+    kernel_phase_gqa(torch, F, tfa, report, "grpo", GRPO_B, 32, 8, 51,
+                     S=GRPO_P + GRPO_N, D=64)
+    rl_parity = rl_parity_phase(torch, llama, rl, kernels)
+    grpo_1b = grpo_1b_phase(torch, llama, rl, kernels, card)
+    rl_learning = rl_learning_phase(torch, llama, rl)
     order = ("K1", "K2", "K9f", "K10", "K11", "K4", "K5", "K1i8", "K3",
              "K4i8", "K6", "K7", "K7i8", "K8", "K8i8", "K12", "K13")
     for key, name, run in (
@@ -6448,6 +6782,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    report.update(grpo_kernel_rows(report, grpo_1b))
+    order += ("K9f grpo", "K10 grpo", "K11 grpo")
     line = {"kernels": [{k: report[key][k] for k in keys} for key in order]}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
@@ -6478,7 +6814,9 @@ def main() -> int:
                    "mixtral_parity": mixtral_parity,
                    "mixtral_8x7b": mixtral,
                    "vit_clip_parity": vit_clip_parity,
-                   "vit_clip": vit_clip}, f, indent=1, default=str)
+                   "vit_clip": vit_clip, "rl_parity": rl_parity,
+                   "grpo_1b": grpo_1b, "rl_learning": rl_learning}, f,
+                  indent=1, default=str)
     log(f"total {total_s:.1f} s; details in {args.out}")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -2,7 +2,8 @@
 through numpy.
 
 The port keeps the JAX package's parameter tree as it is — the same
-nesting, key names and layouts (``wq [L,d,H,hd]``, ``lm_head [d,V]``,
+nesting (dicts, and lists for RLlib's MLP layers), key names and layouts
+(``wq [L,d,H,hd]``, ``lm_head [d,V]``,
 ...) — so crossing is a pure copy with no transposes.  The caller turns
 JAX arrays into numpy (``jax.tree.map(np.asarray, params)``) outside
 this package: the bridge never imports jax.
@@ -57,6 +58,8 @@ def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):  # RLlib's MLP layer lists
+        return [params_from_jax(v, dev) for v in tree]
     return _leaf_to_torch(tree, dev)
 
 
@@ -65,10 +68,15 @@ def params_to_numpy(tree: Any, bf16_dtype: Optional[Any] = None) -> Any:
 
     A bf16 tensor comes back bit-exactly as ``bf16_dtype`` (pass
     ``jnp.bfloat16`` or ``ml_dtypes.bfloat16``) through a 16-bit view;
-    without it, as float32, which holds every bf16 value exactly."""
+    without it, as float32, which holds every bf16 value exactly.  The
+    arrays never share memory with the tensors (the port updates params
+    in place)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v, bf16_dtype) for k, v in tree.items()}
-    t = tree.detach().cpu()
+    if isinstance(tree, list):
+        return [params_to_numpy(v, bf16_dtype) for v in tree]
+    t = tree.detach()
+    t = t.clone() if t.device.type == "cpu" else t.cpu()
     if t.dtype == torch.bfloat16:
         if bf16_dtype is None:
             return t.float().numpy()
@@ -114,7 +122,7 @@ def paged_cache_to_numpy(cache: Any, bf16_dtype: Optional[Any] = None) -> Any:
 
 def _state_to_numpy(tree: Any, bf16_dtype: Optional[Any]) -> Any:
     if isinstance(tree, (tuple, list)):
-        return tuple(_state_to_numpy(v, bf16_dtype) for v in tree)
+        return type(tree)(_state_to_numpy(v, bf16_dtype) for v in tree)
     if isinstance(tree, dict):
         return {k: _state_to_numpy(v, bf16_dtype) for k, v in tree.items()}
     return params_to_numpy(tree, bf16_dtype)
@@ -135,7 +143,7 @@ def _moment_from_jax(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _moment_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return tuple(_moment_from_jax(v, device) for v in tree)
+        return type(tree)(_moment_from_jax(v, device) for v in tree)
     return _leaf_to_torch(tree, device)
 
 

@@ -49,10 +49,13 @@ class TrainState(NamedTuple):
 # --- param trees (nested dicts of tensors) ----------------------------------
 
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
-    """Leaves in the JAX package's order (dict keys sorted), so sums over
-    leaves run in the order optax's run."""
+    """Leaves in the JAX package's order (dict keys sorted, lists in
+    order), so sums over leaves run in the order optax's run.  A tuple is
+    a leaf (optim8's ``(q, scale)`` pairs)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
@@ -60,7 +63,26 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
+    """Inverse of ``tree_leaves``: ``leaves`` put back in ``like``'s
+    nesting."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            out = {k: walk(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return next(it)
+
+    return walk(like)
 
 
 def create_train_state(params: Any, tx: "AdamW") -> TrainState:
@@ -78,6 +100,11 @@ def _as(x: float, dtype: torch.dtype) -> float:
     """``x`` rounded to ``dtype``: a Python scalar meets a JAX array in the
     array's dtype (0.9 · a bf16 moment multiplies by bf16(0.9))."""
     return float(torch.tensor(x, dtype=dtype))
+
+
+def _cast(x, dtype: torch.dtype):
+    """A Python scalar rounded to ``dtype`` (``_as``), or a tensor cast."""
+    return x.to(dtype) if isinstance(x, torch.Tensor) else _as(x, dtype)
 
 
 def _f32(x: float) -> float:
@@ -161,7 +188,7 @@ class AdamW:
     b2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 1e-4
-    grad_clip: float = 1.0
+    grad_clip: Optional[float] = 1.0  # None or 0: no clip
     mu_dtype: Optional[torch.dtype] = None
 
     def init(self, params: Any) -> Dict[str, Any]:
@@ -174,21 +201,31 @@ class AdamW:
                 p, requires_grad=False), params),
         }
 
+    def bias_corrections(self, count: int) -> Tuple[float, float]:
+        """Adam's ``1 - b ** count`` for both moments, in float32 as optax
+        computes them."""
+        return (_f32(1 - _f32(self.b1) ** count),
+                _f32(1 - _f32(self.b2) ** count))
+
     @torch.no_grad()
-    def update_(self, params: Any, grads: Any, opt_state: Dict[str, Any]
+    def update_(self, params: Any, grads: Any, opt_state: Dict[str, Any],
+                bias: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[Dict[str, Any], torch.Tensor]:
+        """``bias``: the two bias corrections as 0-d tensors on the
+        params' device, read there instead of made from the count (an
+        update captured once in a CUDA graph replays with each count's)."""
         ps, gs = tree_leaves(params), tree_leaves(grads)
         mus, nus = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
         count = opt_state["count"]
         count_inc = count + 1
-        b1, b2 = self.b1, self.b2
         # Scalars as optax computes them (float32), each rounded to the
         # dtype of the array it meets.
-        bc1 = _f32(1 - _f32(b1) ** count_inc)
-        bc2 = _f32(1 - _f32(b2) ** count_inc)
+        bc1, bc2 = bias if bias is not None else self.bias_corrections(
+            count_inc)
         step_size = -self.schedule(count)
         gnorm = global_norm(gs)
-        keep = gnorm < _as(self.grad_clip, gnorm.dtype)
+        keep = (gnorm < _as(self.grad_clip, gnorm.dtype) if self.grad_clip
+                else None)
         for p, g, mu, nu in zip(ps, gs, mus, nus):
             for sl in _slices(p):
                 self._update_leaf(p[sl], g[sl], mu[sl], nu[sl], keep, gnorm,
@@ -199,13 +236,16 @@ class AdamW:
         """optax's clip and adamw on one leaf (or slice of one), in place."""
         b1, b2 = self.b1, self.b2
         dt = g.dtype
-        g = torch.where(keep, g, (g / gnorm.to(dt)) * _as(self.grad_clip, dt))
+        if keep is not None:
+            g = torch.where(keep, g,
+                            (g / gnorm.to(dt)) * _as(self.grad_clip, dt))
         mu_new = _as(1 - b1, dt) * g + _as(b1, mu.dtype) * mu
         nu_new = _as(1 - b2, dt) * (g * g) + _as(b2, nu.dtype) * nu
-        u = ((mu_new / _as(bc1, mu_new.dtype))
-             / (torch.sqrt(nu_new / _as(bc2, nu_new.dtype))
+        u = ((mu_new / _cast(bc1, mu_new.dtype))
+             / (torch.sqrt(nu_new / _cast(bc2, nu_new.dtype))
                 + _as(self.eps, nu_new.dtype)))
-        u = u + _as(self.weight_decay, p.dtype) * p
+        if self.weight_decay:  # optax.adam has no decay term at all
+            u = u + _as(self.weight_decay, p.dtype) * p
         p.copy_(p + _as(step_size, u.dtype) * u)
         mu.copy_(mu_new)
         nu.copy_(nu_new)
