@@ -266,13 +266,38 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    tokens/s, reward, first epoch's ratio (within 1e-2 of 1) and max
    |sampled - recomputed logp|, and the peak memory; then learning on the
    card with the JAX tests' settings and gates (PPO and DQN on CartPole,
-   GRPO on a tiny Llama) and PPO at 1,024 envs (env steps/s).
+   GRPO on a tiny Llama) and PPO at 1,024 envs (env steps/s);
+19. data-parallel training over ``torch.distributed`` (after phase 18,
+   once every earlier phase has freed its memory), on an NCCL process
+   group of world size 1 formed by ``train/backend.init_process_group``:
+   every function of ``parallel/collectives.py`` on CUDA tensors (each
+   result equal to its one member's; the quantized all-reduce equal to
+   its formula); a small f32 Llama (S 256) trained 3 steps through
+   ``TorchTrainer`` with ``zero_sharding`` off and on, for fp32 AdamW and
+   ``adamw8bit`` (both through the data-parallel step, its all-reduces
+   on NCCL: ZeRO equal to the replicated run and to the single-device
+   step without a layout bit for bit, the single-device step on the CPU
+   within ZERO_PARITY_TOL; K9f 12, K10 and K11 6); K9f,
+   K10 and K11 at the 8B rung's attention (B 1, S 2048, 32/8 heads of
+   128, bf16) against their plain versions, timed beside them, SDPA and
+   the bound; then bench.py's full-8B AdamW rung (``_measure_8b_train``):
+   LLAMA3_8B at full width and depth, bf16 params, "full" remat, loss
+   chunks of 512, ``adamw8bit(1e-4, warmup_steps=10, shard_update=True)``,
+   ``TrainerConfig(zero_sharding=True, grad_accum=4)``, ``MeshSpec(dp=1,
+   fsdp=1)``, batches of 4 x 2048: its memory plan against
+   ``torch.cuda.mem_get_info`` (it fails with the math when the card is
+   short; the model is never cut), 2 warm-up and 3 timed steps (K9f 256,
+   K10 and K11 128 a step), tokens/s, MFU, optimizer bytes a param and a
+   device, peak memory, one step's kernels by family under the profiler,
+   4 alternating pairs of the data-parallel and the single-device step
+   (each timed alone), and the loss on the first batch falling.
 
 The last three lines of standard output are the kernel table (K1, K2,
 K9f, K10, K11, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8
 int8, K12, K13; K1, K2, K9f, K4 and K5 launched by phase 14's
 ``LLMServer`` runs; then K9f, K10 and K11 at GRPO's shape, launched by
-phase 18's GRPO 1B run) as one JSON object, the card's name and power limit,
+phase 18's GRPO 1B run, and at the 8B rung's, launched by phase 19's
+five 8B steps) as one JSON object, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Details go to ``--out`` (with
 ``launch_floor_ms``, K2's and K3's 48-slot runs under ``slots48``, the
 page-walk phases under ``kernels.walk``, the verify-row phases under
@@ -281,7 +306,9 @@ each one's ``group5``, phase 14 under ``planes``, phase 15 under
 ``migration``, phase 16 under ``hf_import``, phase 17 under
 ``mixtral_parity``, ``mixtral_8x7b``, ``vit_clip_parity``, ``vit_clip``
 and each flash kernel's ``group4``, phase 18 under ``rl_parity``,
-``grpo_1b``, ``rl_learning`` and each flash kernel's ``grpo``).
+``grpo_1b``, ``rl_learning`` and each flash kernel's ``grpo``, phase 19
+under ``collectives``, ``zero_parity``, ``train_8b`` and each flash
+kernel's ``8b``).
 """
 
 from __future__ import annotations
@@ -289,6 +316,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -6577,6 +6605,406 @@ def grpo_kernel_rows(report, runs):
     return rows
 
 
+# --------------------------------------------------------------------------
+# Phase 19: data-parallel training over torch.distributed
+# --------------------------------------------------------------------------
+
+EIGHT_B_ACCUM = 4                 # bench.py:1287: grad_accum on one card
+EIGHT_B_B = EIGHT_B_ACCUM * 1     # bench.py:1288: batch = grad_accum x chips
+ZERO_PARITY_TOL = 1e-4            # train parity's: flash kernels vs einsum
+
+
+def collectives_phase(torch, tcoll, tmesh):
+    """Every function of ``parallel/collectives.py`` on CUDA tensors over
+    the NCCL process group of world size 1 (a dp=1 mesh, every axis the
+    default group: each call goes through NCCL), each against what one
+    member gets, and the quantized all-reduce against its formula on the
+    same inputs."""
+    import torch.distributed as dist
+
+    mesh = tmesh.create_mesh(tmesh.MeshSpec(dp=1))
+    if not (mesh.distributed and dist.get_backend() == "nccl"
+            and mesh.group("dp") is dist.group.WORLD):
+        raise AssertionError(f"collectives: mesh {mesh} on "
+                             f"{dist.get_backend()}")
+    g = torch.Generator(device="cuda").manual_seed(71)
+    x = torch.randn((64, 48), generator=g, device="cuda")
+    axis = ("dp", "fsdp")
+    same = {
+        "allreduce": tcoll.allreduce(x, axis, mesh=mesh),
+        "allreduce_max": tcoll.allreduce(x, "dp", "max", mesh=mesh),
+        "allreduce_min": tcoll.allreduce(x, "fsdp", "min", mesh=mesh),
+        "allreduce_mean": tcoll.allreduce(x, axis, "mean", mesh=mesh),
+        "allgather": tcoll.allgather(x, axis, mesh=mesh, tiled_axis=1),
+        "reducescatter": tcoll.reducescatter(x, "dp", mesh=mesh),
+        "broadcast": tcoll.broadcast(x, axis, 0, mesh=mesh),
+        "all_to_all": tcoll.all_to_all(x, "dp", mesh=mesh, split_axis=0,
+                                       concat_axis=1),
+        "permute": tcoll.permute(x, axis, [(0, 0)], mesh=mesh),
+        "shift": tcoll.shift(x, "dp", mesh=mesh),
+        "send_recv": tcoll.send_recv(x, "dp", 0, 0, mesh=mesh),
+        "dcn_allreduce_exact": tcoll.dcn_allreduce(x, "dp", mesh=mesh,
+                                                   quantized=False),
+        "group_allreduce": tcoll.init_collective_group(
+            mesh, "dp", "smoke").allreduce(x),
+    }
+    tcoll.destroy_collective_group("smoke")
+    bad = [k for k, v in same.items() if not torch.equal(v, x)]
+    if bad or tcoll.axis_index(axis, mesh=mesh) != 0 \
+            or tcoll.axis_size(axis, mesh=mesh) != 1:
+        raise AssertionError(f"collectives at world size 1: {bad} differ")
+    # The quantized all-reduce against its formula: one member's payload
+    # quantised per chunk of 256 (scale = max(absmax / 127, 1e-8)) and
+    # dequantised.
+    q = tcoll.quantized_allreduce(x, axis, mesh=mesh)
+    dq = tcoll.dcn_allreduce(x, "dp", mesh=mesh)
+    flat = x.reshape(-1, 256)
+    scale = (flat.abs().amax(1, keepdim=True)
+             / torch.full((1,), 127.0, device="cuda")).clamp_min(1e-8)
+    want = (torch.round(flat / scale).clamp(-127, 127) * scale
+            ).reshape(x.shape)
+    err = (q - want).abs().max().item()
+    if not (torch.equal(q, want) and torch.equal(dq, want)):
+        raise AssertionError(f"quantized all-reduce: {err} from its formula")
+    quant_err = (q - x).abs().max().item()
+    bytes_q = tcoll.allreduce_wire_bytes(x.numel(), axis_size=4,
+                                         quantized=True)
+    log(f"collectives (NCCL, world size 1, {len(same) + 4} calls): every "
+        f"result equals its member's; quantized all-reduce equals its "
+        f"formula (max |q - x| {quant_err:.3e}, {bytes_q} wire bytes a "
+        f"member at 4 members)")
+    return {"backend": dist.get_backend(), "checked": sorted(same)
+            + ["axis_index", "axis_size", "quantized_allreduce",
+               "dcn_allreduce"], "quant_max_abs_vs_input": quant_err}
+
+
+def _equal_tree(torch, a, b) -> bool:
+    if isinstance(a, dict):
+        return all(_equal_tree(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return all(_equal_tree(torch, x, y) for x, y in zip(a, b))
+    return torch.equal(a, b) if torch.is_tensor(a) else a == b
+
+
+def zero_parity_phase(torch, llama, train, kernels):
+    """ZeRO at world size 1 on the card: a small f32 Llama (S 256, "dots"
+    remat: K9f, K10, K11) trained 3 steps through ``TorchTrainer`` over
+    the NCCL group with ``zero_sharding`` off and on, for fp32 AdamW and
+    ``adamw8bit`` (``shard_update`` with ZeRO).  Both run the
+    data-parallel step, whose all-reduces (the grads', the token
+    count's, the loss's and the norm's) go through NCCL: the ZeRO runs
+    equal the replicated runs and the single-device step
+    (``compile_train_step`` without a layout) bit for bit (losses, grad
+    norms, params, states), and the single-device step on the CPU (which
+    the CPU tests hold equal to ZeRO over gloo bit for bit) agrees within
+    ZERO_PARITY_TOL."""
+    cfg = llama.LlamaConfig(vocab_size=512, dim=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, mlp_dim=256, max_seq_len=256,
+                            dtype=torch.float32, param_dtype=torch.float32)
+    base = llama.init_params(torch.Generator().manual_seed(15), cfg,
+                             device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (3, 2, 256),
+                           generator=torch.Generator().manual_seed(16),
+                           dtype=torch.int32)
+    out = {}
+    loss_fn = lambda p, b: llama.loss_fn(p, b, cfg)  # noqa: E731
+
+    def make_tx(opt, zero):
+        return (train.adamw8bit(1e-3, warmup_steps=1, shard_update=zero)
+                if opt == "adamw8bit" else
+                train.default_optimizer(1e-3, warmup_steps=1))
+
+    def single_device(opt, dev):
+        """The single-device step: no layout, no collective."""
+        tx = make_tx(opt, False)
+        state = train.create_train_state(_clone_to(torch, base, dev), tx)
+        step = train.compile_train_step(loss_fn, tx)
+        hist = []
+        for t in tokens:
+            state, m = step(state, {"tokens": t.to(dev)})
+            hist.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        return hist, state
+
+    for opt in ("adamw", "adamw8bit"):
+        hp, sp = single_device(opt, "cuda")
+        hc, _ = single_device(opt, "cpu")
+        torch.cuda.synchronize()
+        runs = {}
+        for zero in (False, True):
+            params = _clone_to(torch, base, "cuda")
+            trainer = train.TorchTrainer(
+                init_params=lambda g, p=params: p, loss_fn=loss_fn,
+                params_axes=llama.logical_axes(cfg),
+                batch_axes={"tokens": ("batch", None)},
+                optimizer=make_tx(opt, zero),
+                scaling_config=train.ScalingConfig(
+                    mesh_spec=train.MeshSpec(dp=1), devices=["cuda"]),
+                run_config=train.RunConfig(report_every=1),
+                trainer_config=train.TrainerConfig(zero_sharding=zero))
+            trainer.state
+            if trainer._layout is None:
+                raise AssertionError("ZeRO parity: the trainer over the "
+                                     "process group built no layout")
+            reset_counts(kernels)
+            res = trainer.fit(({"tokens": t} for t in tokens), num_steps=3)
+            if res.error is not None:
+                raise res.error
+            torch.cuda.synchronize()
+            runs[zero] = (res.metrics_history, trainer, read_counts(kernels))
+        (hb, tb, cb), (hz, tz, cz) = runs[False], runs[True]
+        want = {K9F: 2 * 2 * 3, K10: 2 * 3, K11: 2 * 3}
+        launches = {k: cz[k] for k in want}
+        curve = [[(m["loss"], m["grad_norm"]) for m in h] for h in (hz, hb)]
+        exact = (curve[0] == curve[1] and _equal_tree(torch, tz.state.params,
+                                          tb.state.params)
+                 and _equal_tree(torch, tz.state.opt_state,
+                                 tb.state.opt_state))
+        plain_exact = (
+            [(m["loss"], m["grad_norm"]) for m in hp] == curve[0]
+            and _equal_tree(torch, sp.params, tz.state.params)
+            and _equal_tree(torch, sp.opt_state, tz.state.opt_state))
+        worst = {key: max(abs(a[key] - b[key]) / abs(b[key])
+                          for a, b in zip(hz, hc))
+                 for key in ("loss", "grad_norm")}
+        if not (exact and plain_exact) or launches != want \
+                or {k: cb[k] for k in want} != want:
+            raise AssertionError(f"ZeRO parity ({opt}): bit-equal {exact}, "
+                                 f"to the single-device step {plain_exact},"
+                                 f" launches {launches} (want {want})")
+        if max(worst.values()) > ZERO_PARITY_TOL:
+            raise AssertionError(f"ZeRO parity ({opt}): card vs cpu {worst}")
+        out[opt] = {"bit_equal": exact,
+                    "bit_equal_single_device_step": plain_exact,
+                    "launches": launches,
+                    "cuda_vs_cpu_worst_rel": worst,
+                    "losses": [m["loss"] for m in hz],
+                    "opt_state_bytes": tz.opt_state_bytes()}
+        log(f"ZeRO parity ({opt}, NCCL world size 1, f32, S=256, 3 steps):"
+            f" ZeRO = replicated = the single-device step bit for bit "
+            f"(losses "
+            f"{[round(m['loss'], 6) for m in hz]}, params and states); "
+            f"card vs cpu worst relative loss {worst['loss']:.2e}, "
+            f"grad_norm {worst['grad_norm']:.2e}; launches {launches}")
+        del runs, tb, tz, sp
+    torch.cuda.empty_cache()
+    return out
+
+
+def eight_b_cfg(llama, torch):
+    """bench.py's full-8B AdamW rung (bench.py:1252-1256)."""
+    return llama.LlamaConfig(
+        vocab_size=128_256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        mlp_dim=14336, max_seq_len=TRAIN_S, param_dtype=torch.bfloat16,
+        remat_policy="full", loss_chunk=512)
+
+
+def eight_b_memory_plan(cfg, params_by_leaf) -> dict:
+    """Bytes the rung needs on one card: bf16 params and the bf16 grad
+    accumulator (2 B/param each), the int8 states (2 B/param and an f32
+    scale a 256-block for each of m and sqrt(v)), a microbatch's grads of
+    the stacked layers before they are added in (2 B/param of the layers,
+    plus the largest leaf's, which autograd stacks from them), and 2 GiB
+    of activations and transients; beside it bench.py's JAX plan (6.1
+    B/param + 2 GiB, bench.py:1264-1279)."""
+    n = cfg.num_params()
+    layer = n - 2 * cfg.vocab_size * cfg.dim - cfg.dim
+    biggest = max(params_by_leaf)
+    parts = {"params": 2 * n, "grad_accumulator": 2 * n,
+             "int8_states": 2 * n + 2 * 4 * -(-n // 256),
+             "microbatch_layer_grads": 2 * layer + 2 * biggest,
+             "activations_transients": 2 * 2 ** 30}
+    return {"params": n, "parts": parts, "need": sum(parts.values()),
+            "bench_plan": int(6.1 * n) + 2 * 2 ** 30}
+
+
+def train_8b_phase(torch, llama, train, kernels, card):
+    """bench.py's full-8B AdamW rung (``_measure_8b_train``,
+    bench.py:1240-1320) through the port on one card: LLAMA3_8B at full
+    width and depth (128k vocabulary, bf16 params, "full" remat, loss
+    chunks of 512), ``adamw8bit(1e-4, warmup_steps=10,
+    shard_update=True)``, ``TrainerConfig(zero_sharding=True,
+    grad_accum=4)`` and ``MeshSpec(dp=1, fsdp=1)`` over the NCCL group of
+    world size 1, batches of 4 x 2048 from a seeded generator: the memory
+    plan against ``mem_get_info`` (fails with the math when short; the
+    model is never cut), 2 warm-up and 3 timed steps with K9f 256 and
+    K10/K11 128 launches a step (4 microbatches x 32 layers; K9f twice:
+    forward and recompute), one step's kernels by family under the
+    profiler, tokens/s, MFU, optimizer bytes a param, peak memory, 4
+    alternating pairs of the data-parallel and the single-device step
+    (each timed alone), and the loss on the first batch falling."""
+    cfg = eight_b_cfg(llama, torch)
+    n = cfg.num_params()
+    L, d, m = cfg.n_layers, cfg.dim, cfg.mlp_dim
+    plan = eight_b_memory_plan(cfg, [L * d * m, cfg.vocab_size * d])
+    free, total = torch.cuda.mem_get_info()
+    plan.update(free=free, total=total)
+    math_line = (", ".join(f"{k} {v / 2 ** 30:.2f}" for k, v in
+                           plan["parts"].items())
+                 + f" = {plan['need'] / 2 ** 30:.2f} GiB for {n:,} params "
+                 f"(bench.py's plan {plan['bench_plan'] / 2 ** 30:.2f} GiB);"
+                 f" free {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB")
+    log(f"8B train memory plan: {math_line}")
+    if free < plan["need"]:
+        raise AssertionError(f"8B train: the card has too little memory "
+                             f"free: {math_line}")
+    want = {K9F: 2 * L * EIGHT_B_ACCUM, K10: L * EIGHT_B_ACCUM,
+            K11: L * EIGHT_B_ACCUM}
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train.TorchTrainer(
+        init_params=lambda g: llama.init_params(g, cfg),
+        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+        params_axes=llama.logical_axes(cfg),
+        batch_axes={"tokens": ("batch", None)},
+        optimizer=train.adamw8bit(1e-4, warmup_steps=10, shard_update=True),
+        scaling_config=train.ScalingConfig(
+            mesh_spec=train.MeshSpec(dp=1, fsdp=1)),
+        run_config=train.RunConfig(report_every=1_000_000),
+        trainer_config=train.TrainerConfig(zero_sharding=True,
+                                           grad_accum=EIGHT_B_ACCUM))
+    t0 = time.perf_counter()
+    state = trainer.state
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if trainer._layout is None or not trainer._layout.zero:
+        raise AssertionError("8B train: the step is not the data-parallel "
+                             "ZeRO step")
+    step = trainer._step_fn
+    gen = torch.Generator().manual_seed(19)
+    staged = [trainer.shard_batch({"tokens": torch.randint(
+        0, cfg.vocab_size, (EIGHT_B_B, TRAIN_S), generator=gen,
+        dtype=torch.int32)}) for _ in range(3)]
+    torch.cuda.synchronize()
+    per_step, losses = [], []
+
+    def counted(batch):
+        nonlocal state
+        reset_counts(kernels)
+        state, metrics = step(state, batch)
+        counts = read_counts(kernels)
+        per_step.append({k: counts[k] for k in want})
+        losses.append(metrics["loss"])
+        return metrics
+
+    for i in range(2):
+        counted(staged[i % len(staged)])
+    float(losses[-1])
+    t0 = time.perf_counter()
+    timed = 3
+    for i in range(timed):
+        metrics = counted(staged[i % len(staged)])
+    float(metrics["loss"])
+    wall = time.perf_counter() - t0
+    gnorm = float(metrics["grad_norm"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    # The data-parallel step against the single-device step (no layout,
+    # no collective) on the same state and batches, in alternating
+    # order, each step timed alone: what the step's all-reduces over a
+    # group of one cost.
+    single = train.compile_train_step(
+        lambda p, b: llama.loss_fn(p, b, cfg), trainer.tx,
+        grad_accum=EIGHT_B_ACCUM)
+    state, _ = single(state, staged[2])
+    paired = {"data_parallel": [], "single_device": []}
+    for i in range(4):
+        order = [("data_parallel", step), ("single_device", single)]
+        for name, fn in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = fn(state, staged[i % len(staged)])
+            float(m["loss"])
+            paired[name].append((time.perf_counter() - t1) * 1e3)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], staged[1])
+
+    breakdown = _step_breakdown(torch, one_step)
+    torch.cuda.synchronize()
+    state = holder[0]
+    if any(c != want for c in per_step):
+        raise AssertionError(f"8B training: launches per step {per_step}, "
+                             f"want {want}")
+    if not all(math.isfinite(x) for x in losses) or not math.isfinite(gnorm):
+        raise AssertionError(f"8B training: losses {losses}, grad norm "
+                             f"{gnorm}")
+    with torch.no_grad():
+        end_loss = float(llama.loss_fn(state.params, staged[0], cfg)[0])
+    if not end_loss < losses[0]:
+        raise AssertionError(f"8B training: loss on the first batch "
+                             f"{losses[0]} -> {end_loss}: not falling")
+    opt = trainer.opt_state_bytes()
+    tokens_per_s = EIGHT_B_B * TRAIN_S * timed / wall
+    out = {"config": "bench.py _measure_8b_train (bench.py:1240-1320)",
+           "card": card, "params_b": n / 1e9, "params": n,
+           "optimizer": "adamw8bit(1e-4, warmup_steps=10, "
+                        "shard_update=True)",
+           "trainer": f"TrainerConfig(zero_sharding=True, grad_accum="
+                      f"{EIGHT_B_ACCUM}), MeshSpec(dp=1, fsdp=1), NCCL "
+                      f"world size 1",
+           "batch": [EIGHT_B_B, TRAIN_S], "init_s": init_s,
+           "tokens_per_s": tokens_per_s, "step_ms": wall / timed * 1e3,
+           "mfu": 6 * n * tokens_per_s / BF16_FLOPS,
+           "opt_state_bytes_per_device": opt["per_device"],
+           "opt_state_bytes_global": opt["global"],
+           "opt_state_bytes_per_param": opt["per_device"] / n,
+           "dp_shards": train.zero.dp_shards(trainer.mesh),
+           "peak_bytes": peak, "peak_gib": peak / 2 ** 30,
+           "memory_plan": plan, "losses": losses,
+           "end_loss_first_batch": end_loss, "grad_norm": gnorm,
+           "launches_per_step": per_step, "want_per_step": want,
+           "launches": {k: sum(c[k] for c in per_step) for k in want},
+           "paired_step_ms": paired,
+           "paired_median_ms": {k: statistics.median(v)
+                                for k, v in paired.items()},
+           "breakdown": breakdown}
+    log(f"8B train ({card}; {n / 1e9:.3f} B params, {EIGHT_B_B} x {TRAIN_S}"
+        f", adamw8bit ZeRO, grad_accum {EIGHT_B_ACCUM}): "
+        f"{tokens_per_s:.1f} tokens/s, step {out['step_ms']:.1f} ms, MFU "
+        f"{out['mfu']:.4f}; optimizer state {opt['per_device']:,} B a "
+        f"device ({out['opt_state_bytes_per_param']:.4f} B/param, "
+        f"dp_shards {out['dp_shards']}); peak {peak / 2 ** 30:.2f} GiB; "
+        f"loss {losses[0]:.4f} -> first batch again {end_loss:.4f}; "
+        f"launches per step {per_step[0]} (want {want}); init {init_s:.1f} s")
+    med = out["paired_median_ms"]
+    log(f"  paired, each step alone (4 pairs, alternating): data-parallel "
+        f"step {med['data_parallel']:.1f} ms, single-device step "
+        f"{med['single_device']:.1f} ms (median; "
+        f"{[round(x, 1) for x in paired['data_parallel']]} and "
+        f"{[round(x, 1) for x in paired['single_device']]})")
+    if "error" in breakdown:
+        log(f"  breakdown: not measured ({breakdown['error']})")
+    else:
+        out["device_idle_share"] = 1 - breakdown["kernel_ms_total"] / (
+            wall / timed * 1e3)
+        top = dict(list(breakdown["by_kernel"].items())[:6])
+        log(f"  one step's kernels {breakdown['kernel_ms_total']:.1f} ms "
+            f"(idle {out['device_idle_share']:.3f} of the step): flash "
+            f"{breakdown['flash_share']:.3f} "
+            f"({_fmt_breakdown(breakdown['flash_ms'])}), matrix products "
+            f"{breakdown['gemm_ms']:.1f}, other {breakdown['other_ms']:.1f};"
+            f" top: {_fmt_breakdown(top)}")
+    del trainer, state, holder, staged
+    torch.cuda.empty_cache()
+    return out
+
+
+def eight_b_kernel_rows(report, run):
+    """The kernels line's rows of K9f, K10 and K11 at the 8B rung's shape
+    (their ``8b`` entries), launches from the rung's 5 steps."""
+    rows = {}
+    for key, name in (("K9f", K9F), ("K10", K10), ("K11", K11)):
+        sub = report[key]["8b"]
+        rows[key + " 8b"] = {
+            "name": f"{name} (the 8B train rung: B 1 S {TRAIN_S} H 32 "
+                    f"KVH 8 D 128)",
+            **{k: report[key][k] for k in ("route", "source", "replaces")},
+            **{k: sub[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "kernel_ms": sub["ms"], "launches": run["launches"][name]}
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(
@@ -6609,7 +7037,10 @@ def main() -> int:
         from ray_tpu_torch.ops import mamba_ssd as tssd
         from ray_tpu_torch.ops import paged_attention as tpa
         from ray_tpu_torch.ops import ragged_paged_attention as trpa
+        from ray_tpu_torch.parallel import collectives as tcoll
+        from ray_tpu_torch.parallel import mesh as tmesh
         from ray_tpu_torch.serve import llm_engine as eng_mod
+        from ray_tpu_torch.train import backend as tbackend
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -6756,6 +7187,23 @@ def main() -> int:
     rl_parity = rl_parity_phase(torch, llama, rl, kernels)
     grpo_1b = grpo_1b_phase(torch, llama, rl, kernels, card)
     rl_learning = rl_learning_phase(torch, llama, rl)
+    # Data-parallel training over torch.distributed: an NCCL group of world
+    # size 1 (one card), the collectives on it, ZeRO against the replicated
+    # layout, the flash kernels at the 8B rung's shape, then bench.py's
+    # full-8B AdamW rung (K9f, K10, K11 counted per step), after every
+    # earlier phase has freed its memory.
+    gc.collect()
+    torch.cuda.empty_cache()
+    tbackend.init_process_group(0, 1)
+    try:
+        collectives = collectives_phase(torch, tcoll, tmesh)
+        zero_parity = zero_parity_phase(torch, llama, train, kernels)
+        kernel_phase_gqa(torch, F, tfa, report, "8b", 1, 32, 8, 61)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_8b = train_8b_phase(torch, llama, train, kernels, card)
+    finally:
+        tbackend.shutdown()
     order = ("K1", "K2", "K9f", "K10", "K11", "K4", "K5", "K1i8", "K3",
              "K4i8", "K6", "K7", "K7i8", "K8", "K8i8", "K12", "K13")
     for key, name, run in (
@@ -6783,7 +7231,9 @@ def main() -> int:
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     report.update(grpo_kernel_rows(report, grpo_1b))
-    order += ("K9f grpo", "K10 grpo", "K11 grpo")
+    report.update(eight_b_kernel_rows(report, train_8b))
+    order += ("K9f grpo", "K10 grpo", "K11 grpo", "K9f 8b", "K10 8b",
+              "K11 8b")
     line = {"kernels": [{k: report[key][k] for k in keys} for key in order]}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
@@ -6815,7 +7265,9 @@ def main() -> int:
                    "mixtral_8x7b": mixtral,
                    "vit_clip_parity": vit_clip_parity,
                    "vit_clip": vit_clip, "rl_parity": rl_parity,
-                   "grpo_1b": grpo_1b, "rl_learning": rl_learning}, f,
+                   "grpo_1b": grpo_1b, "rl_learning": rl_learning,
+                   "collectives": collectives, "zero_parity": zero_parity,
+                   "train_8b": train_8b}, f,
                   indent=1, default=str)
     log(f"total {total_s:.1f} s; details in {args.out}")
     print(json.dumps(line), flush=True)

@@ -163,6 +163,34 @@ def _unported(cfg: LlamaConfig) -> None:
 
 # --- params ---------------------------------------------------------------
 
+def logical_axes(cfg: LlamaConfig) -> Params:
+    """Tree of per-dimension logical axis names, mirroring
+    ``init_params`` (the JAX package's, for ``parallel/sharding.py``)."""
+    layer = {
+        "attn": {
+            "wq": ("layers", "embed", "heads", "head_dim"),
+            "wk": ("layers", "embed", "kv_heads", "head_dim"),
+            "wv": ("layers", "embed", "kv_heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed"),
+        },
+        "mlp": {
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "ln_attn": ("layers", "embed"),
+        "ln_mlp": ("layers", "embed"),
+    }
+    out: Params = {
+        "tok_embed": ("vocab", "embed"),
+        "layers": layer,
+        "final_norm": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ("embed", "vocab")
+    return out
+
+
 def init_params(generator: torch.Generator, cfg: LlamaConfig,
                 device: DeviceLike = None,
                 dtype: Optional[torch.dtype] = None) -> Params:

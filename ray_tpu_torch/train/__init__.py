@@ -1,3 +1,4 @@
+from ray_tpu_torch.train import backend, zero
 from ray_tpu_torch.train.checkpoint import CheckpointManager
 from ray_tpu_torch.train.optim8 import adamw8bit, scale_by_adam8bit
 from ray_tpu_torch.train.state import (
@@ -18,6 +19,8 @@ from ray_tpu_torch.train.trainer import (
 
 __all__ = [
     "AdamW",
+    "backend",
+    "zero",
     "CheckpointManager",
     "MeshSpec",
     "Result",

@@ -20,6 +20,13 @@ dtype of the array it meets (``state._as``).  ``init(params)`` gives
 float32 [nb, 1])`` pair at each param leaf; ``update_`` updates params
 and states in place.
 
+Under ZeRO (``TrainerConfig(zero_sharding=True)``, ``train/zero.py``)
+each rank holds its blocks of every leaf, ``[a, b)`` of the leaf's
+``nb``, and ``update_`` takes that rank's flat slices ``[256 a, min(256
+b, numel))`` of the params and grads with the global norm: the update
+is per block, so the blocks a rank updates come out with the bits the
+whole leaf would give them.
+
 Divisions are true quotients on every device: the divisors are device
 tensors (on a CUDA tensor ``x / 127.0`` is a product with the
 reciprocal).  The JAX quantiser runs under ``jit``, where XLA turns
@@ -159,12 +166,23 @@ class ScaleByAdam8bit:
 
 def scale_by_adam8bit(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                       *, shard_update: bool = False) -> ScaleByAdam8bit:
-    """``shard_update`` (ZeRO sharding of the block dim) needs several
-    devices: not ported."""
+    """``shard_update=True``: the states' block dim is sharded over the
+    ZeRO axes of a mesh laid over a ``torch.distributed`` process group,
+    and each rank updates its blocks (use with
+    ``TrainerConfig(zero_sharding=True)``).  It raises when no process
+    group is initialised (``train/backend.init_process_group``; a group
+    of one rank will do), where there is nothing to shard over.  Which
+    blocks a rank updates is the step's ZeRO layout
+    (``TrainerConfig(zero_sharding=True)``); the bits do not depend on
+    it."""
     if shard_update:
-        raise NotImplementedError(
-            "shard_update shards the int8 Adam states over several devices "
-            "(ZeRO): not ported to ray_tpu_torch yet (see ROADMAP.md)")
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            raise NotImplementedError(
+                "shard_update shards the int8 Adam states over the ZeRO "
+                "axes of a process group: initialise one first "
+                "(ray_tpu_torch.train.backend.init_process_group)")
     return ScaleByAdam8bit(b1=b1, b2=b2, eps=eps)
 
 
@@ -186,13 +204,18 @@ class AdamW8bit:
         return self.adam.init(params)
 
     @torch.no_grad()
-    def update_(self, params: Any, grads: Any, opt_state: Dict[str, Any]
+    def update_(self, params: Any, grads: Any, opt_state: Dict[str, Any],
+                gnorm: Optional[torch.Tensor] = None
                 ) -> Tuple[Dict[str, Any], torch.Tensor]:
+        """``gnorm``: the global norm when ``grads`` holds only this
+        rank's blocks (params and grads then flat slices of their
+        leaves); default ``global_norm(grads)``."""
         ps, gs = tree_leaves(params), tree_leaves(grads)
         mus, nus = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
         count = opt_state["count"]
         step_size = -self.schedule(count)
-        gnorm = global_norm(gs)
+        if gnorm is None:
+            gnorm = global_norm(gs)
         clip = None
         if self.grad_clip:
             keep = gnorm < _as(self.grad_clip, gnorm.dtype)

@@ -23,9 +23,12 @@ the whole leaf's bits while the temporaries stay one slice in size.
 The global norm is ``optax.global_norm``'s: each leaf's ``sum(g*g)`` in
 the leaf's dtype (a bf16 square summed in f32, rounded back to bf16, as
 ``jnp.sum`` does), summed over the leaves left to right in the promoted
-dtype (all-bf16 stays bf16), its square root in that dtype.  Sharding of
-the state (``state_logical_axes``, ``state_shardings``, ZeRO) is not
-ported: the port trains on one device.
+dtype (all-bf16 stays bf16), its square root in that dtype.  The
+layouts of a state over a mesh (``state_shardings``, ZeRO) are in
+``train/zero.py``; under them the data-parallel step (``train/step.py``)
+hands ``update_`` each rank's regions of the params and grads with the
+global norm it took over the shards (``gnorm``), and the update is the
+same elementwise work on a part of each leaf.
 """
 
 from __future__ import annotations
@@ -209,11 +212,14 @@ class AdamW:
 
     @torch.no_grad()
     def update_(self, params: Any, grads: Any, opt_state: Dict[str, Any],
-                bias: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                bias: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                gnorm: Optional[torch.Tensor] = None
                 ) -> Tuple[Dict[str, Any], torch.Tensor]:
         """``bias``: the two bias corrections as 0-d tensors on the
         params' device, read there instead of made from the count (an
-        update captured once in a CUDA graph replays with each count's)."""
+        update captured once in a CUDA graph replays with each count's).
+        ``gnorm``: the global norm of the grads when ``grads`` holds only
+        a part of them (a ZeRO shard); default ``global_norm(grads)``."""
         ps, gs = tree_leaves(params), tree_leaves(grads)
         mus, nus = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
         count = opt_state["count"]
@@ -223,7 +229,8 @@ class AdamW:
         bc1, bc2 = bias if bias is not None else self.bias_corrections(
             count_inc)
         step_size = -self.schedule(count)
-        gnorm = global_norm(gs)
+        if gnorm is None:
+            gnorm = global_norm(gs)
         keep = (gnorm < _as(self.grad_clip, gnorm.dtype) if self.grad_clip
                 else None)
         for p, g, mu, nu in zip(ps, gs, mus, nus):

@@ -1,25 +1,66 @@
 """The training step (port of ``ray_tpu/train/step.py``).
 
-One step is forward, backward (autograd), and the optimizer update, on
-one device.  PyTorch runs eagerly, so there is nothing to jit:
-``compile_train_step`` returns the step itself, whose first call
-registers ``train.step`` in the device plane (``util/xprof``) with its
-analytic flops and that call's wall, as the JAX step registers its
-compiled program.  The step updates the state in place and returns it,
-as the JAX step donates its buffers.
+One step is forward, backward (autograd), and the optimizer update.
+PyTorch runs eagerly, so there is nothing to jit: ``compile_train_step``
+returns the step itself, whose first call registers ``train.step`` in
+the device plane (``util/xprof``) with its analytic flops and that
+call's wall, as the JAX step registers its compiled program.  The step
+updates the state in place and returns it, as the JAX step donates its
+buffers.
+
+Over several data members (a ``zero.StepLayout`` over a mesh of ranks)
+the step writes out the collectives GSPMD puts into the JAX program,
+the pattern of arXiv 2004.13336:
+
+* params split at rest (the ``fsdp`` axis) are all-gathered whole
+  before the forward;
+* each rank runs its rows of the batch; its loss and grads are weighted
+  by its share of the global token count (``aux["ntokens"]``), so the
+  sum over ranks is the global batch's masked mean, as JAX takes it;
+* without ZeRO the grads are all-reduced and every rank updates its
+  at-rest part; with ZeRO they are reduce-scattered to the moments'
+  layout, each rank updates its region with the global norm (an
+  all-reduce of the shards' squares, each region counted once), and the
+  updated regions are all-gathered back;
+* metrics are reduced, so every rank reports the global loss, grad norm
+  and token count.
+
+The token weighting is exact only for a loss that is a masked mean over
+tokens and reports nothing else: its aux holds ``ntokens`` and no key
+but ``loss`` (``TOKEN_SPLIT``; the Llama and Mamba-2 losses).  Over
+several data members the step refuses any other loss: Mixtral's router
+aux loss and CLIP's contrastive negatives depend on the whole batch, so
+a per-rank loss would train another objective (ROADMAP.md queue 1
+item 6).
+
+A step built with a layout runs this path at any world size; one data
+member splits nothing, and the collectives are over a group of one.
+Only a step without a layout (no process group) is the single-device
+step.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
-from ray_tpu_torch.train.state import AdamW, TrainState, tree_leaves
+from ray_tpu_torch.parallel.collectives import gather_single, scatter_single
+from ray_tpu_torch.train.state import (
+    AdamW,
+    TrainState,
+    global_norm,
+    tree_leaves,
+    tree_unflatten,
+)
 
 log = logging.getLogger(__name__)
+
+# The aux keys of a loss that the data-parallel step may split by tokens.
+TOKEN_SPLIT = frozenset({"loss", "ntokens"})
 
 LossFn = Callable[[Any, Dict[str, torch.Tensor]],
                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -38,29 +79,139 @@ def _unflatten_like(tree: Any, leaves) -> Any:
     return walk(tree)
 
 
-def make_train_step(loss_fn: LossFn, tx: AdamW, *, grad_accum: int = 1
-                    ) -> Step:
+def _grad(loss, leaves):
+    # A leaf the loss never reads (CLIP's vision head at 0 classes) gets
+    # zeros, as jax.grad gives it.
+    gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, gs)]
+
+
+def _gather_params(state: TrainState, layout) -> List[torch.Tensor]:
+    """Every param leaf whole: a leaf split at rest is all-gathered over
+    the data members into a fresh leaf that takes grads."""
+    out = []
+    for leaf, p in zip(layout.leaves, tree_leaves(state.params)):
+        if not leaf.rest_split:
+            out.append(p)
+            continue
+        with torch.no_grad():
+            buf = p.new_empty((leaf.n, p.numel()))
+            gather_single(buf, p.detach(), layout.group)
+            if leaf.rest_ordered():
+                full = buf.view(leaf.shape)
+            else:
+                full = p.new_empty(leaf.shape)
+                leaf.gather_into(full, buf, "rest")
+        out.append(full.requires_grad_(p.requires_grad))
+    return out
+
+
+def _sharded_update(tx, state: TrainState, full: List[torch.Tensor],
+                    grads: List[torch.Tensor], layout):
+    """Reduce the local grads over the data members, update each rank's
+    regions, and put the updated params back where they live."""
+    group = layout.group
+    ps, gs, parts = [], [], []
+    for leaf, p, g in zip(layout.leaves, full, grads):
+        if layout.zero and leaf.update_split:
+            buf = leaf.pack_update(g)
+            out = g.new_empty(leaf.update_numel())
+            scatter_single(out, buf, group)
+            del buf
+            pv = leaf.update_view(p)
+            gv = out[:pv.numel()].view(pv.shape)
+        else:
+            if group is not None:
+                dist.all_reduce(g, group=group)
+            pv = leaf.update_view(p) if leaf.update_split else p
+            gv = leaf.update_view(g) if leaf.update_split else g
+        ps.append(pv)
+        gs.append(gv)
+        if layout.zero:
+            sq = (gv * gv).sum(dtype=torch.float32)
+            parts.append(sq if leaf.owner else torch.zeros_like(sq))
+    if layout.zero:
+        # optax.global_norm over the shards: each leaf's f32 sum of
+        # squares summed over the members (each region once), rounded
+        # to the leaf's dtype, the leaves summed left to right.
+        sums = torch.stack(parts)
+        if group is not None:
+            dist.all_reduce(sums, group=group)
+        gnorm = torch.sqrt(sum(s.to(g.dtype) for s, g in zip(sums, gs)))
+    else:
+        gnorm = global_norm(grads)  # every rank holds them whole
+    opt_state, gnorm = tx.update_(tree_unflatten(state.params, ps),
+                                  tree_unflatten(state.params, gs),
+                                  state.opt_state, gnorm=gnorm)
+    with torch.no_grad():
+        for leaf, p, pv, st in zip(layout.leaves, full, ps,
+                                   tree_leaves(state.params)):
+            if leaf.update_split and not leaf.same_regions:
+                m = leaf.update_numel()
+                mine = pv.reshape(-1)
+                if mine.numel() < m:  # the last block pair's padding
+                    mine = torch.nn.functional.pad(mine,
+                                                   (0, m - mine.numel()))
+                chunks = p.new_empty((leaf.n, m))
+                gather_single(chunks, mine.clone(), group)
+                leaf.gather_into(p, chunks, "update")
+            if leaf.rest_split:
+                st.copy_(p[leaf.rest_slices()])
+    return opt_state, gnorm
+
+
+def make_train_step(loss_fn: LossFn, tx: AdamW, *, grad_accum: int = 1,
+                    layout=None) -> Step:
     """Returns step(state, batch) -> (state, metrics).
 
     ``grad_accum > 1`` splits the batch's leading dim into that many
-    microbatches, sums their grads and divides once before the single
-    optimizer update (the JAX scan's mean of means).  Metrics are the
-    loss function's aux (from the last microbatch), then ``loss`` (the
-    mean over microbatches), ``grad_norm`` (global norm of the unclipped
-    grads, in their dtype, as ``optax.global_norm`` takes it) and ``step`` (the step before this one), as tensors on the
-    device and a host int: nothing here waits for the device."""
+    microbatches and accumulates their grads in place, in the param
+    dtype, from zeros, in order (the JAX scan's sum), then divides once
+    in place before the single optimizer update.  Metrics are the loss
+    function's aux (from the last microbatch), then ``loss`` (the mean
+    over microbatches), ``grad_norm`` (global norm of the unclipped
+    grads, in their dtype, as ``optax.global_norm`` takes it) and
+    ``step`` (the step before this one), as tensors on the device and a
+    host int: nothing here waits for the device.
 
-    def _grad(loss, leaves):
-        # A leaf the loss never reads (CLIP's vision head at 0 classes)
-        # gets zeros, as jax.grad gives it.
-        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g
-                for p, g in zip(leaves, gs)]
+    ``layout``: a ``zero.StepLayout`` for a step over several data
+    members (the trainer builds it); the batch is then this rank's rows
+    (``TorchTrainer.shard_batch``)."""
+    sharded = layout is not None
 
-    def _grads(params, batch):
-        leaves = tree_leaves(params)
+    def _weight(aux):
+        """This rank's share of the global (micro)batch: its token count
+        over the global one, and the aux with the global count."""
+        cnt = aux.get("ntokens")
+        if layout.n > 1 and not (torch.is_tensor(cnt)
+                                 and set(aux) <= TOKEN_SPLIT):
+            raise NotImplementedError(
+                f"the data-parallel step splits a loss over "
+                f"{layout.n} ranks by token count, which is exact only for "
+                f"a masked mean over tokens whose aux holds 'ntokens' and "
+                f"nothing but 'loss' (the Llama and Mamba-2 losses); this "
+                f"loss reports {sorted(aux)}.  A loss that depends on the "
+                f"whole batch (Mixtral's router aux loss, CLIP's "
+                f"contrastive negatives) is not ported to data-parallel "
+                f"training yet (ROADMAP.md queue 1 item 6)")
+        if not torch.is_tensor(cnt):
+            return 1.0, aux
+        c = cnt.detach().float().reshape(())
+        total = c.clone()
+        if layout.group is not None:
+            dist.all_reduce(total, group=layout.group)
+        return c / total.clamp_min(1.0), dict(aux, ntokens=total)
+
+    def _scaled(loss, aux):
+        if not sharded:
+            return loss, aux
+        w, aux = _weight(aux)
+        return loss * w, aux
+
+    def _grads(params, leaves, batch):
         if grad_accum <= 1:
-            loss, aux = loss_fn(params, batch)
+            loss, aux = _scaled(*loss_fn(params, batch))
             return loss.detach(), aux, _grad(loss, leaves)
 
         def split(x):
@@ -72,21 +223,40 @@ def make_train_step(loss_fn: LossFn, tx: AdamW, *, grad_accum: int = 1
                              *x.shape[1:])
 
         micro = {k: split(v) for k, v in batch.items()}
-        loss_sum, gsum, aux = None, None, None
-        for i in range(grad_accum):
-            loss, aux = loss_fn(params, {k: v[i] for k, v in micro.items()})
-            g = _grad(loss, leaves)
-            loss = loss.detach().float()
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-            gsum = g if gsum is None else [a + b for a, b in zip(gsum, g)]
-        return (loss_sum / grad_accum, aux,
-                [g / grad_accum for g in gsum])
+        for p in leaves:
+            p.grad = torch.zeros_like(p)
+        try:
+            loss_sum, aux = None, None
+            for i in range(grad_accum):
+                loss, aux = _scaled(*loss_fn(
+                    params, {k: v[i] for k, v in micro.items()}))
+                loss.backward(inputs=leaves)
+                loss = loss.detach().float()
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+            grads = [p.grad for p in leaves]
+        finally:
+            for p in leaves:
+                p.grad = None
+        for g in grads:
+            g.div_(grad_accum)
+        return loss_sum / grad_accum, aux, grads
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        loss, aux, grads = _grads(state.params, batch)
-        opt_state, gnorm = tx.update_(
-            state.params, _unflatten_like(state.params, grads),
-            state.opt_state)
+        if not sharded:
+            loss, aux, grads = _grads(state.params,
+                                      tree_leaves(state.params), batch)
+            opt_state, gnorm = tx.update_(
+                state.params, _unflatten_like(state.params, grads),
+                state.opt_state)
+        else:
+            full = _gather_params(state, layout)
+            loss, aux, grads = _grads(tree_unflatten(state.params, full),
+                                      full, batch)
+            if layout.group is not None:
+                loss = loss.float()
+                dist.all_reduce(loss, group=layout.group)
+            opt_state, gnorm = _sharded_update(tx, state, full, grads,
+                                               layout)
         # Canonical keys win over aux duplicates: under grad_accum the aux
         # rides from the last microbatch only, while ``loss`` is the mean
         # over all of them.
@@ -98,28 +268,30 @@ def make_train_step(loss_fn: LossFn, tx: AdamW, *, grad_accum: int = 1
     return step
 
 
-def _step_flops(params: Any, batch: Dict[str, torch.Tensor]
-               ) -> Optional[float]:
+def _step_flops(params: Any, batch: Dict[str, torch.Tensor],
+                num_params: Optional[int] = None) -> Optional[float]:
     """A step's analytic flops (``xprof.train_step_flops``): 6 x params x
     tokens, plus causal attention when the tree is a Llama's (its
     ``layers.attn.wq`` is [L, dim, heads, head_dim]); other trees count
-    the weights only.  None for a batch without ``tokens``."""
+    the weights only.  None for a batch without ``tokens``.
+    ``num_params``: the whole model's count when ``params`` are shards."""
     from ray_tpu_torch.util import xprof
 
     tokens = batch.get("tokens")
     if not isinstance(tokens, torch.Tensor):
         return None
-    n_params = sum(int(t.numel()) for t in tree_leaves(params))
+    n_params = num_params or sum(int(t.numel()) for t in tree_leaves(params))
     wq = params.get("layers", {}).get("attn", {}).get("wq") \
         if isinstance(params, dict) else None
-    if isinstance(wq, torch.Tensor) and wq.dim() == 4:
+    if isinstance(wq, torch.Tensor) and wq.dim() == 4 and not num_params:
         L, _d, H, hd = wq.shape
         return xprof.train_step_flops(n_params, tokens.numel(), L, H, hd,
                                       tokens.shape[-1])
     return 6.0 * n_params * tokens.numel()
 
 
-def _instrument_first_call(step: Step) -> Step:
+def _instrument_first_call(step: Step, num_params: Optional[int] = None
+                           ) -> Step:
     """Time the step's first call (on the card: the kernels' first-use
     builds and lazy CUDA init beside the enqueue) and register
     ``train.step`` with its analytic flops against the ``train.compute``
@@ -132,7 +304,7 @@ def _instrument_first_call(step: Step) -> Step:
         called.append(True)
         flops = None
         try:
-            flops = _step_flops(state.params, batch)
+            flops = _step_flops(state.params, batch, num_params)
         except Exception:
             log.exception("train.step: no analytic flop count")
         t0 = time.time()
@@ -155,13 +327,21 @@ def _instrument_first_call(step: Step) -> Step:
 
 def compile_train_step(loss_fn: LossFn, tx: AdamW, *,
                        zero_sharding: bool = False,
-                       grad_accum: int = 1) -> Step:
-    """The step for one device, its first call registered in the device
-    plane.  ZeRO sharding of the optimizer state needs several devices:
-    not ported yet."""
-    if zero_sharding:
+                       grad_accum: int = 1, layout=None) -> Step:
+    """The step, its first call registered in the device plane.
+    ``layout`` (a ``zero.StepLayout``) runs it over the data members of
+    a mesh; ``zero_sharding=True`` needs one, built with the ZeRO layout
+    over an initialised process group (``TorchTrainer`` builds it; a
+    group of one rank will do)."""
+    if zero_sharding and (layout is None or not layout.zero):
         raise NotImplementedError(
-            "zero_sharding shards the optimizer state over several devices: "
-            "not ported to ray_tpu_torch yet (see ROADMAP.md)")
+            "zero_sharding shards the optimizer state over the data axes "
+            "of a mesh laid over a torch.distributed process group: "
+            "initialise one (ray_tpu_torch.train.backend."
+            "init_process_group) and build the step from its ZeRO layout "
+            "(TorchTrainer does)")
+    n = layout.num_params if layout is not None and any(
+        leaf.rest_split for leaf in layout.leaves) else None
     return _instrument_first_call(
-        make_train_step(loss_fn, tx, grad_accum=grad_accum))
+        make_train_step(loss_fn, tx, grad_accum=grad_accum, layout=layout),
+        n)

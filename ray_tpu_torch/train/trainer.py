@@ -2,18 +2,34 @@
 ``ray_tpu/train/trainer.py``'s ``JaxTrainer``).
 
 The same constructor and API: ``state``, ``restore``, ``shard_batch``
-(here a copy of the host batch to the device) and ``fit(data,
-num_steps, report)``, with ``ScalingConfig``, ``TrainerConfig``,
-``RunConfig`` and ``Result``.  The port trains on one device: the
-card unless ``ScalingConfig(devices=["cpu"])`` asks for the CPU, and a
-mesh or device list that asks for more raises NotImplementedError.
-``params_axes``, ``batch_axes`` and ``rules`` are accepted so calls
-cross unchanged and are unused on one device.  ``init_params`` receives
-a ``torch.Generator`` on the trainer's device, seeded with ``seed``.
+and ``fit(data, num_steps, report)``, with ``ScalingConfig``,
+``TrainerConfig``, ``RunConfig`` and ``Result``.
+
+The JAX trainer is one controller over a mesh of devices; the port runs
+one process a device, each building its own ``TorchTrainer`` over the
+default ``torch.distributed`` process group (``train/backend.py``:
+``launch`` or ``torchrun``, then ``init_process_group``).
+``ScalingConfig.mesh_spec`` lays the mesh over the group's ranks
+(``parallel/mesh.py``); the data axes (dp, fsdp and their DCN pairs)
+may exceed 1, and the other axes raise, naming the ROADMAP item that
+ports them.  Each rank initialises the same full params from
+``init_params`` (a ``torch.Generator`` on its device, seeded with
+``seed``), keeps its shards of them and of the optimizer state
+(``params_axes`` and ``rules`` give the params' layout; ``zero_sharding``
+the ZeRO layout of the state, ``train/zero.py``), and ``shard_batch``
+gives it its rows of each global batch.  Over a process group the
+step is the data-parallel one (``train/step.py``) at any world size,
+and over several data members it takes only a loss that splits by
+tokens (``step.TOKEN_SPLIT``: the Llama and Mamba-2 losses).  Without a
+process group the trainer runs the single-device step on one device:
+the card unless ``ScalingConfig(devices=["cpu"])`` asks for the CPU.
+``zero_sharding`` needs a process group (one of a single rank will do).
+
 Telemetry as in the JAX trainer: the six ``raytpu_train_*`` families
 and the ``train.step`` / ``train.data_wait`` / ``train.compute`` /
 ``train.checkpoint`` spans, and on report steps the device plane's
-memory gauges (``util/xprof.sample_device_memory``, absent on the CPU).
+memory gauges (``util/xprof.sample_device_memory``, absent on the CPU);
+``opt_state_bytes`` reads ``zero.opt_state_bytes`` of the rank's shards.
 """
 
 from __future__ import annotations
@@ -26,6 +42,10 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.parallel.mesh import Mesh, MeshSpec, create_mesh
+from ray_tpu_torch.parallel.sharding import axis_tuple, spec_for
+from ray_tpu_torch.train import zero
+from ray_tpu_torch.train.backend import backend_for
 from ray_tpu_torch.train.checkpoint import CheckpointManager
 from ray_tpu_torch.train.state import (
     TrainState,
@@ -90,68 +110,96 @@ def _telemetry():
     return _TELEMETRY
 
 
-def opt_state_bytes(opt_state: Any) -> Dict[str, int]:
-    """Optimizer-state bytes: ``global`` and ``per_device``, equal on one
-    device (the JAX package's ``zero.opt_state_bytes``).  Tensor leaves
-    only: the step count is a host int here."""
-    def walk(node) -> int:
-        if isinstance(node, dict):
-            return sum(walk(v) for v in node.values())
-        if isinstance(node, (tuple, list)):
-            return sum(walk(v) for v in node)
-        if torch.is_tensor(node):
-            return node.numel() * node.element_size()
-        return 0
-
-    n = walk(opt_state)
-    return {"global": n, "per_device": n}
+# Mesh axes the data-parallel trainer refuses, with the ROADMAP item
+# (queue 1) that ports each.
+_MODEL_AXES = {
+    "tp": "tensor parallelism (item 6)",
+    "dcn_tp": "tensor parallelism across hosts (item 6)",
+    "ep": "expert parallelism, ops/moe_a2a.py (item 6)",
+    "sp": "sequence parallelism, ops/ring_attention.py and ops/ulysses.py "
+          "(item 7)",
+    "pp": "pipeline parallelism, parallel/pipeline.py (item 7)",
+    "dcn_pp": "pipeline parallelism across hosts (item 7)",
+}
 
 
-@dataclasses.dataclass(frozen=True)
-class MeshSpec:
-    """The JAX package's mesh layout (``ray_tpu/parallel/mesh.py``), kept
-    for its fields: on one device every axis must resolve to 1 (-1
-    absorbs the remaining devices, so it is 1 here)."""
+def _world() -> Tuple[int, int]:
+    """(world size, rank) of the default process group; (1, 0) without
+    one."""
+    import torch.distributed as dist
 
-    pp: int = 1
-    dp: int = -1
-    fsdp: int = 1
-    ep: int = 1
-    sp: int = 1
-    tp: int = 1
-    dcn_pp: int = 1
-    dcn_dp: int = 1
-    dcn_fsdp: int = 1
-    dcn_tp: int = 1
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
 
 
 @dataclasses.dataclass
 class ScalingConfig:
-    """Parity: air.ScalingConfig → one device.  ``devices``: None (the
-    card) or one device, e.g. ``["cpu"]``."""
+    """Parity: air.ScalingConfig → the mesh over the process group's
+    ranks and this rank's device.  ``devices``: None (this rank's card,
+    ``cuda:LOCAL_RANK`` as ``backend.init_process_group`` set it), one
+    device for every rank (e.g. ``["cpu"]``), or one a rank."""
 
     mesh_spec: MeshSpec = dataclasses.field(default_factory=MeshSpec)
     devices: Optional[list] = None
 
+    def _check(self) -> Tuple[int, int]:
+        spec = self.mesh_spec
+        for axis, what in _MODEL_AXES.items():
+            if getattr(spec, axis) > 1:
+                raise NotImplementedError(
+                    f"MeshSpec.{axis}={getattr(spec, axis)}: {what} is not "
+                    "ported to ray_tpu_torch yet (ROADMAP.md queue 1, "
+                    "multi-device); the trainer shards over the data axes "
+                    "(dp, fsdp, dcn_dp, dcn_fsdp) only")
+        world, rank = _world()
+        if world == 1:
+            try:
+                spec.sizes(1)
+            except ValueError as e:
+                raise NotImplementedError(
+                    f"ScalingConfig asks for more than one device ({spec}: "
+                    f"{e}) but this process is not in a process group of "
+                    "that size: start one process a device "
+                    "(ray_tpu_torch.train.backend.launch, or torchrun) and "
+                    "call backend.init_process_group in each") from None
+            if self.devices is not None and len(self.devices) != 1:
+                raise NotImplementedError(
+                    f"ScalingConfig asks for more than one device "
+                    f"({self.devices}) but this process is not in a process "
+                    "group of that size: start one process a device "
+                    "(ray_tpu_torch.train.backend.launch, or torchrun)")
+        else:
+            spec.sizes(world)
+        return world, rank
+
     def device(self) -> torch.device:
-        big = {f.name: getattr(self.mesh_spec, f.name)
-               for f in dataclasses.fields(self.mesh_spec)
-               if getattr(self.mesh_spec, f.name) > 1}
-        if big or (self.devices is not None and len(self.devices) != 1):
-            raise NotImplementedError(
-                f"ScalingConfig asks for more than one device (mesh axes "
-                f"{big}, devices {self.devices}): multi-device training "
-                "(expert parallelism over ep included) is not ported to "
-                "ray_tpu_torch yet (ROADMAP.md queue 1 item 6, "
-                "multi-device)")
-        return resolve_device(self.devices[0] if self.devices else None)
+        """This rank's device."""
+        world, rank = self._check()
+        if self.devices is None:
+            return resolve_device(None)
+        if len(self.devices) == 1:
+            return resolve_device(self.devices[0])
+        if len(self.devices) == world:
+            return resolve_device(self.devices[rank])
+        raise ValueError(f"ScalingConfig lists {len(self.devices)} devices "
+                         f"for {world} ranks: give one, or one a rank")
+
+    def mesh(self) -> Mesh:
+        """The mesh of ``mesh_spec`` over the process group's ranks."""
+        self._check()
+        return create_mesh(self.mesh_spec)
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """Step-program options.  ``grad_accum`` splits each batch into that
-    many microbatches before the single update; ``zero_sharding`` needs
-    several devices and raises NotImplementedError."""
+    """Step-program options.
+
+    ``zero_sharding`` shards the optimizer state (and the weight update)
+    across the data axes, ZeRO-style — grads reduce-scatter, each rank
+    updates its part, params all-gather back (train/zero.py); it needs a
+    process group.  ``grad_accum`` splits each batch into that many
+    microbatches before the single update (train/step.py)."""
 
     zero_sharding: bool = False
     grad_accum: int = 1
@@ -206,25 +254,58 @@ class TorchTrainer:
         self.rules = rules
         self.seed = seed
         self.device = self.scaling.device()
+        self.mesh = self.scaling.mesh()
         self._state: Optional[TrainState] = None
+        self._state_sh: Optional[TrainState] = None
+        self._layout: Optional[zero.StepLayout] = None
         self._step_fn = None
 
     # -- setup -------------------------------------------------------------
 
     def _build(self):
-        self._step_fn = compile_train_step(
-            self.loss_fn, self.tx,
-            zero_sharding=self.trainer_config.zero_sharding,
-            grad_accum=self.trainer_config.grad_accum)
+        tc = self.trainer_config
+        if tc.zero_sharding and not self.mesh.distributed:
+            raise NotImplementedError(
+                "zero_sharding shards the optimizer state over a "
+                "torch.distributed process group, and none is initialised: "
+                "call ray_tpu_torch.train.backend.init_process_group first "
+                "(a group of one rank will do)")
+        if self.mesh.distributed:
+            import torch.distributed as dist
+
+            want = backend_for(self.device)
+            if dist.get_backend() != want:
+                raise ValueError(
+                    f"this rank trains on {self.device}, whose collectives "
+                    f"need a {want} process group, but the default group "
+                    f"is {dist.get_backend()}: form the group for this "
+                    f"device (backend.init_process_group(device=...))")
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        self._state = create_train_state(self.init_params_fn(gen), self.tx)
+        state = create_train_state(self.init_params_fn(gen), self.tx)
+        if self.mesh.distributed:
+            self._state_sh = zero.state_shardings(
+                self.mesh, state, self.params_axes, self.rules,
+                zero=tc.zero_sharding)
+            state = zero.shard_state(state, self._state_sh)
+            self._layout = zero.StepLayout.build(
+                self.mesh, state, self._state_sh, tc.zero_sharding)
+        self._state = state
+        self._step_fn = compile_train_step(
+            self.loss_fn, self.tx, zero_sharding=tc.zero_sharding,
+            grad_accum=tc.grad_accum, layout=self._layout)
         self._emit_memory_gauges()
+
+    def opt_state_bytes(self) -> Dict[str, int]:
+        """``zero.opt_state_bytes`` of this rank's optimizer state."""
+        return zero.opt_state_bytes(
+            self.state.opt_state,
+            self._state_sh.opt_state if self._state_sh else None)
 
     def _emit_memory_gauges(self):
         """The optimizer state's footprint, and on the card the memory
         left above the peak watermark (absent, not zero, on the CPU)."""
         tm = _telemetry()
-        b = opt_state_bytes(self._state.opt_state)
+        b = self.opt_state_bytes()
         tm["opt_bytes"].set(b["global"], tags={"scope": "global"})
         tm["opt_bytes"].set(b["per_device"], tags={"scope": "per_device"})
         if self.device.type == "cuda":
@@ -239,23 +320,67 @@ class TorchTrainer:
             self._build()
         return self._state
 
+    def _checkpoints(self, path: str, **kw) -> CheckpointManager:
+        return CheckpointManager(
+            path, mesh=self.mesh,
+            shardings=self._state_sh if self._state_sh else None, **kw)
+
     def restore(self, path: str) -> int:
-        """Resume from the latest checkpoint under ``path``; returns its
-        step."""
+        """Resume from the latest checkpoint under ``path`` (each rank
+        reads its shards); returns its step."""
         if self._state is None:
             self._build()
-        mngr = CheckpointManager(path)
+        mngr = self._checkpoints(path)
         self._state = mngr.restore(self._state)
         mngr.close()
         return int(self._state.step)
 
     # -- training ----------------------------------------------------------
 
+    def _rows(self, key: str, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch array: the chunk of the
+        leading dim that JAX's ``("batch", ...)`` sharding gives its
+        device, taken from each of the ``grad_accum`` microbatches (the
+        step splits its rows into microbatches of consecutive rows, as
+        the JAX step splits the global batch)."""
+        mesh = self.mesh
+        logical = (self.batch_axes or {}).get(
+            key, ("batch",) + (None,) * (x.dim() - 1))
+        spec = spec_for(logical, self.rules,
+                        mesh_axes=frozenset(mesh.axis_names))
+        entries = list(spec) + [None] * (x.dim() - len(spec))
+        for e in entries[1:]:
+            if any(mesh.shape[a] > 1 for a in axis_tuple(e)):
+                raise NotImplementedError(
+                    f"batch {key!r}: only its leading dim may be split "
+                    f"({spec})")
+        axes = axis_tuple(entries[0])
+        n = 1
+        idx = 0
+        for a in axes:
+            n *= mesh.shape[a]
+            idx = idx * mesh.shape[a] + mesh.coords[a]
+        if n == 1:
+            return x
+        k = self.trainer_config.grad_accum
+        if x.shape[0] % (n * k):
+            raise ValueError(
+                f"batch {key!r}: {x.shape[0]} rows do not split into "
+                f"{k} microbatches over {n} ranks")
+        parts = x.reshape(k, n, x.shape[0] // (n * k), *x.shape[1:])
+        return parts[:, idx].reshape(-1, *x.shape[1:])
+
     def shard_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """The host batch as tensors on the trainer's device."""
-        return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                                   else v).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+        """This rank's rows of a global host batch, as tensors on its
+        device (the whole batch on one rank)."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                                else v)
+            if self.mesh.size > 1:
+                t = self._rows(k, t)
+            out[k] = t.to(self.device, non_blocking=True)
+        return out
 
     def fit(
         self,
@@ -269,7 +394,7 @@ class TorchTrainer:
         rc = self.run_config
         ckpt = None
         if rc.storage_path:
-            ckpt = CheckpointManager(f"{rc.storage_path}/{rc.name}",
+            ckpt = self._checkpoints(f"{rc.storage_path}/{rc.name}",
                                      max_to_keep=rc.checkpoints_to_keep)
         history: List[Dict[str, float]] = []
         last_metrics: Dict[str, float] = {}
