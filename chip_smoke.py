@@ -290,7 +290,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    K10 and K11 128 a step), tokens/s, MFU, optimizer bytes a param and a
    device, peak memory, one step's kernels by family under the profiler,
    4 alternating pairs of the data-parallel and the single-device step
-   (each timed alone), and the loss on the first batch falling.
+   (each timed alone), and the loss on the first batch falling;
+20. RLlib's SAC, TD3, DDPG, BC, CQL, MARWIL and MultiAgentPPO (after
+   phase 18, before phase 19's process group; no kernel): each at the
+   CPU tests' sizes on the CPU and on the card from one seed (params,
+   targets and metrics within RL_PARAM_TOL), and SAC's, TD3's, DDPG's
+   and CQL's steps as CUDA graphs against the same steps run eagerly on
+   the card (equal); then the JAX tests' learning gates at seed 0 on the
+   card: SAC, TD3 and DDPG on Pendulum, the seed-0 SAC's logged datasets
+   (checked as the JAX test checks them), BC, CQL and MARWIL on the JAX
+   tests' own datasets (``scripts/data``), MultiAgentPPO on
+   TwoAgentReach; each algorithm's seconds, env steps/s or updates/s,
+   gate and value.
 
 The last three lines of standard output are the kernel table (K1, K2,
 K9f, K10, K11, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8
@@ -308,7 +319,7 @@ each one's ``group5``, phase 14 under ``planes``, phase 15 under
 and each flash kernel's ``group4``, phase 18 under ``rl_parity``,
 ``grpo_1b``, ``rl_learning`` and each flash kernel's ``grpo``, phase 19
 under ``collectives``, ``zero_parity``, ``train_8b`` and each flash
-kernel's ``8b``).
+kernel's ``8b``, phase 20 under ``rl20_parity`` and ``rl20_learning``).
 """
 
 from __future__ import annotations
@@ -6589,6 +6600,336 @@ def rl_learning_phase(torch, llama, rl):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 20: RLlib's continuous-control, offline and multi-agent algorithms
+# --------------------------------------------------------------------------
+
+# The CPU tests' sizes (tests/test_torch_sac_td3.py, test_torch_offline.py,
+# test_torch_multi_agent.py).
+RL20_OFF_POLICY = dict(num_envs=4, steps_per_iteration=6, learning_starts=12,
+                       train_batch_size=8, buffer_capacity=16, hidden=(16,))
+RL20_OFFLINE = dict(updates_per_iteration=4, train_batch_size=8,
+                    hidden=(16,))
+RL20_ITERS = 3     # the steps' graphs are captured in the first iteration
+SMOKE_DIR = os.path.dirname(os.path.abspath(__file__))
+# The JAX tests' Pendulum start states, as the [0, 1) draws the port's
+# ``Pendulum.reset`` takes: their ``jax.random.key(seed)`` split chain, one
+# (theta, theta_dot) pair a reset, for ``OfflineDataset.collect(seed=3)``
+# (the datasets) and ``_rollout_return(seed=11)`` (the gates' rollouts).
+# The port draws from a torch generator; these make its runs start where
+# the JAX tests' do.  tests/test_torch_offline.py holds them to JAX.
+RL20_JAX_RESETS = {
+    3: (
+        (0.10229838, 0.29604137), (0.04610789, 0.3541882),
+        (0.43714142, 0.14291632), (0.8752407, 0.09012854),
+        (0.5046551, 0.4205383), (0.27924812, 0.43506002),
+        (0.3751278, 0.9308262), (0.109255075, 0.58848),
+        (0.5227624, 0.27690923), (0.44899607, 0.69741833),
+        (0.6520891, 0.8387649), (0.27342165, 0.38740945),
+        (0.46809077, 0.10998571), (0.79461133, 0.66969466),
+        (0.80854523, 0.84088576), (0.6223216, 0.6816188),
+        (0.9004042, 0.45049393), (0.3686471, 0.51707923),
+        (0.44829237, 0.16355026), (0.4701984, 0.40414798),
+        (0.5434346, 0.6125823), (0.933691, 0.101795554),
+    ),
+    11: (
+        (0.93330884, 0.2339338), (0.9200758, 0.4386847),
+        (0.7804358, 0.52803004),
+    ),
+}
+
+
+def _rl20_dataset(np, rl, rows=40):
+    """The offline tests' small dataset: episodes of 8 rows, every other
+    one cut by the time limit, the log's tail cut mid-episode."""
+    rng = np.random.default_rng(0)
+    done = np.zeros(rows, np.float32)
+    done[7::8] = 1.0
+    trunc = np.zeros(rows, np.float32)
+    trunc[15::16] = 1.0
+    return rl.OfflineDataset(
+        obs=rng.normal(size=(rows, 3)).astype(np.float32),
+        action=rng.uniform(-2, 2, (rows, 1)).astype(np.float32),
+        reward=rng.uniform(-9, 0, rows).astype(np.float32),
+        next_obs=rng.normal(size=(rows, 3)).astype(np.float32),
+        done=done, truncated=trunc)
+
+
+def _rl20_build(rl, name, device, dataset):
+    if name in ("SAC", "TD3", "DDPG"):
+        cfg = getattr(rl, name + "Config")().training(**RL20_OFF_POLICY)
+    elif name == "MultiAgentPPO":
+        cfg = rl.MultiAgentPPOConfig().training(
+            num_epochs=2, num_minibatches=2, hidden=(16,)).env_runners(
+            num_envs=4, rollout_length=4)
+    else:
+        cfg = getattr(rl, name + "Config")().training(**RL20_OFFLINE)
+        cfg.dataset = dataset
+    return cfg.debugging(seed=0).resources(device=device).build()
+
+
+def _rl20_metric_diff(a, b) -> float:
+    """The largest metric gap, relative above 1 (NaN equal to NaN)."""
+    gaps = [0.0]
+    for k, v in b.items():
+        if k == "time_this_iter_s" or not isinstance(v, float):
+            continue
+        if math.isnan(v) and math.isnan(a[k]):
+            continue
+        gaps.append(abs(a[k] - v) / max(1.0, abs(v)))
+    return max(gaps)
+
+
+def rl20_parity_phase(torch, np, rl):
+    """Each new algorithm at the CPU tests' sizes from seed 0 (the same
+    CPU-drawn randomness): on the CPU, on the card with its steps as CUDA
+    graphs (SAC, TD3, DDPG, CQL) and on the card eagerly, RL20_ITERS
+    iterations each.  Card vs CPU: params, targets and metrics within
+    RL_PARAM_TOL; graphs vs eager on the card: equal."""
+    data = _rl20_dataset(np, rl)
+    out = {}
+    for name in ("SAC", "TD3", "DDPG", "BC", "CQL", "MARWIL",
+                 "MultiAgentPPO"):
+        algos, metrics = {}, {}
+        for mode, dev in (("cpu", "cpu"), ("cuda", "cuda"),
+                          ("eager", "cuda")):
+            algo = _rl20_build(rl, name, dev, data)
+            if mode == "eager":
+                if getattr(algo, "_graphs", None) is None:
+                    continue  # no graphs to hold against
+                algo._graphs = None
+            metrics[mode] = [algo.train() for _ in range(RL20_ITERS)]
+            algos[mode] = algo
+        torch.cuda.synchronize()
+        trees = [k for k in ("params", "target_q", "target")
+                 if hasattr(algos["cpu"], k)]
+        p_diff = max(_max_diff(torch, getattr(algos["cuda"], k),
+                               getattr(algos["cpu"], k)) for k in trees)
+        m_diff = max(_rl20_metric_diff(a, b) for a, b in
+                     zip(metrics["cuda"], metrics["cpu"]))
+        row = {"param_max_diff": p_diff, "metric_max_diff": m_diff,
+               "graphs": "eager" in algos}
+        if "eager" in algos:
+            row["graph_vs_eager_max_diff"] = max(
+                _max_diff(torch, getattr(algos["cuda"], k),
+                          getattr(algos["eager"], k)) for k in trees)
+            row["graph_vs_eager_metric_diff"] = max(
+                _rl20_metric_diff(a, b) for a, b in
+                zip(metrics["cuda"], metrics["eager"]))
+            row["graphs_captured"] = sorted(
+                k for k, v in algos["cuda"]._graphs.items()
+                if isinstance(v, torch.cuda.CUDAGraph))
+        out[name] = row
+        log(f"RL parity {name}: card vs CPU params within {p_diff:.3e}, "
+            f"metrics within {m_diff:.3e}"
+            + (f"; graphs {row['graphs_captured']} vs eager on the card: "
+               f"params {row['graph_vs_eager_max_diff']:.3e}, metrics "
+               f"{row['graph_vs_eager_metric_diff']:.3e}"
+               if row["graphs"] else ""))
+        if p_diff > RL_PARAM_TOL or m_diff > RL_PARAM_TOL or (
+                row["graphs"] and (row["graph_vs_eager_max_diff"] != 0
+                                   or row["graph_vs_eager_metric_diff"] != 0
+                                   or not row["graphs_captured"])):
+            raise AssertionError(f"RL parity {name}: {row}")
+    return out
+
+
+def _rl20_rollout_return(torch, np, env, act_fn):
+    """The JAX tests' ``_rollout_return(env, act_fn, seed=11,
+    episodes=3)`` on the port's env (on the CPU): the mean return of
+    three episodes from the JAX tests' start states."""
+    starts = RL20_JAX_RESETS[11]
+    total = 0.0
+    for start in starts:
+        state, obs = env.reset(torch.tensor([start]))
+        done = False
+        while not done:
+            a = np.array(act_fn(obs[0].numpy()), np.float32)
+            state, obs, r, d = env.step(state, torch.from_numpy(a)[None])
+            total += float(r[0])
+            done = bool(d[0])
+    return total / len(starts)
+
+
+def _rl20_gate(out, name, t0, torch, value, gate, passed, **extra):
+    torch.cuda.synchronize()
+    row = {"s": time.perf_counter() - t0, "value": value, "gate": gate,
+           "passed": bool(passed), **extra}
+    out[name] = row
+    rate = ", ".join(f"{k} {v:.1f}" for k, v in extra.items()
+                     if k.endswith("_per_s"))
+    log(f"RL learning {name}: {value:.2f} (gate {gate}) in {row['s']:.2f} s"
+        f"{', ' + rate if rate else ''}")
+    if not passed:
+        raise AssertionError(f"{name} on the card did not learn: {row}")
+
+
+def rl20_learning_phase(torch, np, rl, card):
+    """Learning on the card at the JAX tests' settings and gates, seed 0:
+    SAC (20 iterations: return > -900, alpha > 0; tests/test_rllib_sac_ma
+    .py:20-39), TD3 (40 iterations at 4 envs: the last 5's mean > -400;
+    tests/test_rllib_breadth.py:64-77), DDPG (25: > -800;
+    tests/test_rllib_breadth2.py:38-51); the offline datasets, logged by
+    the seed-0 SAC after 18 iterations (4,000 steps, test_rllib_offline.py
+    :21-40) and after 15 (3,000 steps, test_rllib_breadth2.py:103-119),
+    its deterministic action plus σ 0.35 noise, seed 3, from the JAX
+    tests' start states (RL20_JAX_RESETS), checked as
+    test_rllib_offline.py:56-65 checks it; then, on the JAX tests' own
+    datasets (scripts/data), BC (26 iterations:
+    last loss < 0.5 x first, rollout return > -700), CQL (cql_alpha 0.5,
+    30: return > -700), MARWIL (beta 1, 12: return > random + 500);
+    MultiAgentPPO (16 envs x 64 steps, 12: return > first + 15, each agent
+    > first; tests/test_rllib_sac_ma.py:72-93).  The offline gates'
+    rollouts start where the JAX tests' do."""
+    out, t_all = {}, time.perf_counter()
+    pend = rl.Pendulum()
+
+    def off_policy(cfg, iters, snapshots=()):
+        algo = cfg.debugging(seed=0).build()
+        rets, snaps = [], {}
+        for i in range(iters):
+            r = algo.train()
+            rets.append(r["episode_return_mean"])
+            if i + 1 in snapshots:
+                snap = type(cfg)().debugging(seed=0).build()
+                snap.set_state(algo.get_state())
+                snaps[i + 1] = snap
+        return algo, r, rets, snaps
+
+    t0 = time.perf_counter()
+    sac, r, _, snaps = off_policy(
+        rl.SACConfig().environment("Pendulum-v1").training(
+            steps_per_iteration=256, train_batch_size=128,
+            learning_starts=500), 20, snapshots=(15, 18))
+    a = sac.compute_single_action(np.zeros(3, np.float32))
+    steps = 20 * 256 * 8
+    _rl20_gate(out, "SAC", t0, torch, r["episode_return_mean"], -900,
+               r["episode_return_mean"] > -900 and r["alpha"] > 0
+               and a.shape == (1,) and abs(float(a[0])) <= 2.0 + 1e-5,
+               alpha=r["alpha"], updates=sac.opt_state["count"],
+               env_steps_per_s=steps / (time.perf_counter() - t0))
+    for name, iters, gate in (("TD3", 40, -400), ("DDPG", 25, -800)):
+        t0 = time.perf_counter()
+        algo, _, rets, _ = off_policy(
+            getattr(rl, name + "Config")().environment("Pendulum-v1")
+            .training(num_envs=4, steps_per_iteration=256,
+                      learning_starts=500, train_batch_size=128), iters)
+        achieved = float(np.nanmean(rets[-5:]))
+        _rl20_gate(out, name, t0, torch, achieved, gate, achieved > gate,
+                   updates=algo.opt_state[1]["count"],
+                   actor_updates=algo.opt_state[0]["count"],
+                   env_steps_per_s=iters * 256 * 4
+                   / (time.perf_counter() - t0))
+
+    def behavior(policy):
+        def act(obs, rng):
+            a = policy.compute_single_action(obs)
+            return np.clip(a + rng.normal(0, 0.35, a.shape), -2.0, 2.0
+                           ).astype(np.float32)
+        return act
+
+    t0 = time.perf_counter()
+    logged = {n: rl.OfflineDataset.collect(
+        pend, behavior(snaps[it]), num_steps=n, seed=3,
+        reset_draws=np.array(RL20_JAX_RESETS[3], np.float32)[:, None])
+        for it, n in ((18, 4000), (15, 3000))}
+    ds = logged[4000]
+    path = os.path.join(SMOKE_DIR, "smoke_out", "pendulum_4000.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    ds.save(path)
+    back = rl.OfflineDataset.load(path)
+    if not (len(ds) == 4000 and ds.obs.shape == (4000, 3)
+            and ds.action.shape == (4000, 1) and ds.done.sum() >= 19
+            and np.array_equal(back.obs, ds.obs)
+            and np.array_equal(back.truncated, ds.truncated)):
+        raise AssertionError(f"offline dataset: {len(ds)} rows, "
+                             f"{ds.done.sum()} episode ends")
+    # The learners' gates run on the JAX tests' own datasets, logged by
+    # the JAX package (scripts/make_offline_fixtures.py): the port cannot
+    # make JAX's draws, and those gates swing with the data (PERF.md §6,
+    # scripts/offline_gate_sweep.py).
+    data = {n: rl.OfflineDataset.load(os.path.join(
+        SMOKE_DIR, "scripts", "data", f"pendulum_sac{it}_{n}.npz"))
+        for it, n in ((18, 4000), (15, 3000))}
+    out["datasets"] = {"s": time.perf_counter() - t0,
+                       "logged_mean_reward": {
+                           n: float(d.reward.mean())
+                           for n, d in logged.items()},
+                       "jax_mean_reward": {n: float(d.reward.mean())
+                                           for n, d in data.items()}}
+    log(f"RL offline datasets: 4,000 and 3,000 steps logged on the card "
+        f"in {out['datasets']['s']:.2f} s (mean rewards "
+        f"{out['datasets']['logged_mean_reward']}; the JAX tests' "
+        f"{out['datasets']['jax_mean_reward']})")
+    ds = data[4000]
+
+    def offline(name, dataset, iters, **kw):
+        cfg = getattr(rl, name + "Config")().environment(
+            "Pendulum-v1").training(**kw)
+        cfg.dataset = dataset
+        algo = cfg.debugging(seed=0).build()
+        ms = [algo.train() for _ in range(iters)]
+        return algo, ms
+
+    t0 = time.perf_counter()
+    bc, ms = offline("BC", ds, 26)
+    first, last = ms[0]["bc_loss"], ms[-1]["bc_loss"]
+    ret = _rl20_rollout_return(torch, np, pend, bc.compute_single_action)
+    _rl20_gate(out, "BC", t0, torch, ret, -700,
+               last < 0.5 * first and ret > -700, first_loss=first,
+               last_loss=last, updates_per_s=26 * 64
+               / (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    cql, ms = offline("CQL", ds, 30, cql_alpha=0.5)
+    ret = _rl20_rollout_return(torch, np, pend, cql.compute_single_action)
+    _rl20_gate(out, "CQL", t0, torch, ret, -700,
+               ret > -700 and math.isfinite(ms[-1]["bellman"])
+               and math.isfinite(ms[-1]["cql_penalty"]),
+               bellman=ms[-1]["bellman"], cql_penalty=ms[-1]["cql_penalty"],
+               updates_per_s=30 * 64 / (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    marwil, ms = offline("MARWIL", data[3000], 12, updates_per_iteration=64,
+                         train_batch_size=256, beta=1.0)
+    rng = np.random.default_rng(5)
+    rand_ret = _rl20_rollout_return(
+        torch, np, pend,
+        lambda o: rng.uniform(-2.0, 2.0, (1,)).astype(np.float32))
+    ret = _rl20_rollout_return(torch, np, pend, marwil.compute_single_action)
+    a = marwil.compute_single_action(np.zeros(3, np.float32))
+    _, ms0 = offline("MARWIL", data[3000], 1, beta=0.0)
+    _rl20_gate(out, "MARWIL", t0, torch, ret, rand_ret + 500.0,
+               ret > rand_ret + 500.0 and math.isfinite(ms[-1]["total_loss"])
+               and math.isfinite(ms[-1]["vf_loss"]) and a.shape == (1,)
+               and bool(np.all(np.abs(a) <= 2.0))
+               and math.isfinite(ms0[-1]["weighted_clone_loss"]),
+               random_return=rand_ret, updates_per_s=12 * 64
+               / (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    ma = (rl.MultiAgentPPOConfig().env_runners(num_envs=16, rollout_length=64)
+          .debugging(seed=0).build())
+    first = None
+    for _ in range(12):
+        r = ma.train()
+        m = r["episode_return_mean"]
+        if first is None and m == m:
+            first = m
+    from ray_tpu_torch.train.state import tree_leaves
+    leaves = tree_leaves(ma.params)
+    agents = [r[f"episode_return_mean/agent_{i}"] for i in range(2)]
+    _rl20_gate(out, "MultiAgentPPO", t0, torch, r["episode_return_mean"],
+               first + 15,
+               r["episode_return_mean"] > first + 15
+               and all(x > first for x in agents)
+               and all(x.shape[0] == 2 for x in leaves)
+               and not torch.equal(leaves[0][0], leaves[0][1]),
+               first=first, agents=agents,
+               env_steps_per_s=12 * 64 * 16 / (time.perf_counter() - t0))
+    out["total_s"] = time.perf_counter() - t_all
+    log(f"RL learning, phase 20: every gate passed in {out['total_s']:.1f} s "
+        f"on {card}")
+    return out
+
+
 def grpo_kernel_rows(report, runs):
     """The kernels line's rows of K9f, K10 and K11 at GRPO's shape (their
     ``grpo`` entries), launches from the GRPO 1B run."""
@@ -7187,6 +7528,12 @@ def main() -> int:
     rl_parity = rl_parity_phase(torch, llama, rl, kernels)
     grpo_1b = grpo_1b_phase(torch, llama, rl, kernels, card)
     rl_learning = rl_learning_phase(torch, llama, rl)
+    # RLlib's continuous-control, offline and multi-agent algorithms: card
+    # vs CPU and graphs vs eager at the CPU tests' sizes, then learning on
+    # the card at the JAX tests' settings and gates.
+    import numpy as np
+    rl20_parity = rl20_parity_phase(torch, np, rl)
+    rl20_learning = rl20_learning_phase(torch, np, rl, card)
     # Data-parallel training over torch.distributed: an NCCL group of world
     # size 1 (one card), the collectives on it, ZeRO against the replicated
     # layout, the flash kernels at the 8B rung's shape, then bench.py's
@@ -7266,6 +7613,8 @@ def main() -> int:
                    "vit_clip_parity": vit_clip_parity,
                    "vit_clip": vit_clip, "rl_parity": rl_parity,
                    "grpo_1b": grpo_1b, "rl_learning": rl_learning,
+                   "rl20_parity": rl20_parity,
+                   "rl20_learning": rl20_learning,
                    "collectives": collectives, "zero_parity": zero_parity,
                    "train_8b": train_8b}, f,
                   indent=1, default=str)

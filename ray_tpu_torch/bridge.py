@@ -22,6 +22,15 @@ crosses into the port with ``opt_state_from_jax``, and a port state goes
 back into such a chain with ``opt_state_to_jax``: the ``count``, ``mu``
 and ``nu`` fields are found by name, so the bridge needs no optax.
 
+An RLlib algorithm's state crosses with one function an algorithm
+(``sac_state_from_jax``, ``td3_state_from_jax``, ``bc_state_from_jax``,
+``cql_state_from_jax``, ``marwil_state_from_jax``,
+``ma_ppo_state_from_jax``): the JAX algorithm's ``get_state()`` as numpy
+becomes the port's ``set_state`` input — params and targets as tensors,
+each optax Adam state as ``{"count", "mu", "nu"}`` (TD3's actor and
+critic pair a tuple of two; MA-PPO's per-agent counts, which move
+together, one count).
+
 A paged cache crosses the same way (``paged_cache_from_jax`` /
 ``paged_cache_to_numpy``): the port keeps the pools [L, KVH, P+1, page,
 D] and, for int8 pools, the page-major scales [L, P+1, KVH, 1].
@@ -192,3 +201,74 @@ def opt_state_to_jax(opt_state: Any, like: Any,
         return chain
 
     return walk(like)
+
+
+# --- RLlib algorithm states ---------------------------------------------------
+
+def _adam_from_jax(chain_state: Any, device: torch.device) -> Any:
+    """One optax Adam chain state → ``{"count", "mu", "nu"}``; a stacked
+    per-agent state's counts (all equal) become one count."""
+    found = _adam_states(chain_state)
+    if len(found) != 1:
+        raise ValueError(f"want one Adam state (count, mu, nu) in the "
+                         f"chain, found {len(found)}")
+    st = found[0]
+    counts = np.unique(np.asarray(st.count))
+    if counts.size != 1:
+        raise ValueError(f"per-agent Adam counts differ: {counts}")
+    return {"count": int(counts[0]), "mu": _moment_from_jax(st.mu, device),
+            "nu": _moment_from_jax(st.nu, device)}
+
+
+def _rl_state_from_jax(state: Any, trees, device: DeviceLike,
+                       pair: bool = False) -> dict:
+    """``trees`` as tensors, the Adam state (``pair``: a tuple of two),
+    every other entry (counters) as it is."""
+    dev = resolve_device(device)
+    out = {k: v for k, v in state.items()
+           if k not in trees and k != "opt_state"}
+    out.update({k: params_from_jax(state[k], dev) for k in trees})
+    opt = state["opt_state"]
+    out["opt_state"] = (tuple(_adam_from_jax(o, dev) for o in opt) if pair
+                        else _adam_from_jax(opt, dev))
+    return out
+
+
+def sac_state_from_jax(state: Any, device: DeviceLike = None) -> dict:
+    """JAX SAC's ``get_state()`` (numpy leaves) → the port's: ``params``
+    (actor, twin critics, ``log_alpha``), ``target_q`` and the one Adam
+    over the whole tree, on ``device``."""
+    return _rl_state_from_jax(state, ("params", "target_q"), device)
+
+
+def td3_state_from_jax(state: Any, device: DeviceLike = None) -> dict:
+    """JAX TD3's or DDPG's ``get_state()`` → the port's: ``params``,
+    ``target`` and the ``(actor_opt, critic_opt)`` pair."""
+    return _rl_state_from_jax(state, ("params", "target"), device,
+                              pair=True)
+
+
+def bc_state_from_jax(state: Any, device: DeviceLike = None) -> dict:
+    """JAX BC's ``get_state()`` → the port's (``params``, its Adam)."""
+    return _rl_state_from_jax(state, ("params",), device)
+
+
+def cql_state_from_jax(state: Any, device: DeviceLike = None) -> dict:
+    """JAX CQL's ``get_state()`` → the port's (``params``, ``target_q``,
+    its Adam)."""
+    return _rl_state_from_jax(state, ("params", "target_q"), device)
+
+
+def marwil_state_from_jax(state: Any, device: DeviceLike = None) -> dict:
+    """JAX MARWIL's ``get_state()`` → the port's (``params``, its Adam,
+    ``adv_norm`` as a float)."""
+    out = _rl_state_from_jax(state, ("params",), device)
+    out["adv_norm"] = float(np.asarray(state["adv_norm"]))
+    return out
+
+
+def ma_ppo_state_from_jax(state: Any, device: DeviceLike = None) -> dict:
+    """JAX MultiAgentPPO's ``get_state()`` → the port's: the stacked [A,
+    ...] ``params`` and one Adam over them (the per-agent counts, equal,
+    as one)."""
+    return _rl_state_from_jax(state, ("params",), device)

@@ -122,8 +122,8 @@ def to_host(tree: Any) -> Any:
     """A state tree with its tensors copied to the CPU."""
     if isinstance(tree, dict):
         return {k: to_host(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_host(v) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_host(v) for v in tree)
     return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
 
 
@@ -132,8 +132,8 @@ def to_device(tree: Any, device: torch.device, grad: bool = False) -> Any:
     gradients with ``grad``)."""
     if isinstance(tree, dict):
         return {k: to_device(v, device, grad) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, device, grad) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device, grad) for v in tree)
     if not isinstance(tree, torch.Tensor):
         return tree
     t = tree.detach().to(device).clone()

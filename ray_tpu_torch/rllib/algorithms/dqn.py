@@ -30,7 +30,11 @@ from ray_tpu_torch.rllib.algorithm import (
     to_device,
     to_host,
 )
-from ray_tpu_torch.rllib.env import terminal_mask
+from ray_tpu_torch.rllib.algorithms._off_policy import (
+    Steps,
+    bias_table,
+)
+from ray_tpu_torch.rllib.algorithms._off_policy import run_graph as _run
 from ray_tpu_torch.rllib.learner import adam, trainable, value_and_grad
 from ray_tpu_torch.rllib.models import (
     c51_support,
@@ -267,39 +271,31 @@ def c51_loss(q_fn, dist_fn, gamma, double_q, num_atoms, v_min, v_max, p, tp,
     return torch.mean(w * ce), ce
 
 
-class _Steps:
+class _Steps(Steps):
     """One iteration's env steps over tensors updated in place.  ``act``
-    (an epsilon-greedy action, the env step, the buffer write, the
-    auto-reset) and ``learn`` (a sample, the loss, the Adam update) read
-    their step's draws, epsilon and bias corrections through device
-    counters, so each does the same work whenever it runs: on the card
-    each is captured once as a CUDA graph and replayed (``graphs``), on
-    the CPU (and for the prioritized buffer, whose sampling sorts on the
-    host's fill count) it runs eagerly.  The host keeps the step and fill
-    counts that decide when to learn and to sync the target."""
+    (an epsilon-greedy action, then the env step) and ``learn`` (a
+    sample, the loss, the Adam update) read their step's draws, epsilon
+    and bias corrections through device counters, so each does the same
+    work whenever it runs: on the card each is captured once as a CUDA
+    graph and replayed (``graphs``), on the CPU (and for the prioritized
+    buffer, whose sampling sorts on the host's fill count) it runs
+    eagerly.  The host keeps the step and fill counts that decide when to
+    learn and to sync the target."""
 
     def __init__(self, env, buffer, tx, loss_fn, q_fn, cfg, params,
                  target_params, opt_state, buf_state, env_state, obs,
                  ep_ret, draws):
+        super().__init__(env, buffer, buf_state, env_state, obs, ep_ret,
+                         draws)
         dev = obs.device
-        self.env, self.buffer, self.tx = env, buffer, tx
-        self.loss_fn, self.q_fn, self.cfg = loss_fn, q_fn, cfg
+        self.tx, self.loss_fn, self.q_fn, self.cfg = tx, loss_fn, q_fn, cfg
         self.params, self.target_params = params, target_params
-        self.opt_state, self.buf_state = opt_state, buf_state
-        self.env_state, self.obs, self.ep_ret = env_state, obs, ep_ret
+        self.opt_state = opt_state
         self.prioritized = isinstance(buffer, PrioritizedDeviceReplayBuffer)
-        n, T = obs.shape[0], cfg.steps_per_iteration
-        i64 = dict(dtype=torch.int64, device=dev)
-        self.t = torch.zeros((), **i64)          # step, into the draws
-        self.k = torch.zeros((), **i64)          # update, into the bias
-        self.slot = torch.zeros((), **i64)       # the buffer's next slot
-        self.size = torch.zeros((), **i64)       # its fill count
-        self.lanes = torch.arange(n, **i64)
-        self.draws = {k: v.clone() for k, v in draws.items()}
+        T = cfg.steps_per_iteration
+        self.k = torch.zeros((), dtype=torch.int64, device=dev)
         self.eps = torch.zeros((T,), device=dev)
         self.bias = torch.zeros((T, 2), device=dev)
-        self.ret_sum = torch.zeros((), device=dev)
-        self.ret_cnt = torch.zeros((), **i64)
         self.loss_sum = torch.zeros((), device=dev)
         self.w = torch.ones((cfg.train_batch_size,), device=dev)
 
@@ -308,55 +304,29 @@ class _Steps:
         update's bias corrections (from the host's counts), the counters
         and the sums."""
         cfg, n = self.cfg, self.obs.shape[0]
-        for k, v in draws.items():
-            self.draws[k].copy_(v)
+        base = self.buf_state.base if self.prioritized else self.buf_state
+        super().begin(draws, base.ptr, base.size)
         T = cfg.steps_per_iteration
         self.eps.copy_(torch.tensor(
             [epsilon(cfg, total_steps + t * n) for t in range(T)]))
-        count = self.opt_state["count"]
-        self.bias.copy_(torch.tensor(
-            [self.tx.bias_corrections(count + 1 + k) for k in range(T)]))
-        base = self.buf_state.base if self.prioritized else self.buf_state
-        self.slot.fill_(base.ptr)
-        self.size.fill_(base.size)
-        for x in (self.t, self.k, self.ret_sum, self.ret_cnt, self.loss_sum):
-            x.zero_()
+        self.bias.copy_(bias_table(self.tx, self.opt_state["count"], T,
+                                   self.bias.device))
+        self.k.zero_()
+        self.loss_sum.zero_()
 
-    def _row(self, name):
-        return self.draws[name].index_select(0, self.t)[0]
-
-    def act(self) -> None:
-        env, n = self.env, self.obs.shape[0]
-        with torch.no_grad():
-            greedy = torch.argmax(self.q_fn(self.params, self.obs),
-                                  dim=1).to(torch.int32)
-        action = torch.where(self._row("eps") < self.eps.index_select(
-            0, self.t), self._row("random_action"), greedy)
-        next_state, next_obs, reward, done = env.step(self.env_state, action)
-        batch = {"obs": self.obs, "action": action, "reward": reward,
-                 "next_obs": next_obs,
-                 # Bootstrap through time-limit truncations; only true
-                 # terminals zero the target.
-                 "done": terminal_mask(env, next_state, done)}
+    def store(self, batch) -> None:
         if self.prioritized:
             self.buf_state = self.buffer.add_batch(self.buf_state, batch)
         else:
-            cap = self.buffer.capacity
-            slots = (self.slot + self.lanes) % cap
-            for k, buf in self.buf_state.data.items():
-                buf.index_copy_(0, slots, batch[k])
-            self.slot.copy_((self.slot + n) % cap)
-            self.size.copy_(torch.clamp_max(self.size + n, cap))
-        ep = self.ep_ret + reward
-        self.ret_sum.add_(torch.sum(torch.where(done, ep, 0.0)))
-        self.ret_cnt.add_(torch.sum(done))
-        self.ep_ret.copy_(torch.where(done, 0.0, ep))
-        r_state, r_obs = env.reset(self._row("reset"))
-        for k, v in self.env_state.items():
-            v.copy_(torch.where(done.reshape((n,) + (1,) * (v.dim() - 1)),
-                                r_state[k], next_state[k]))
-        self.obs.copy_(torch.where(done[:, None], r_obs, next_obs))
-        self.t.add_(1)
+            super().store(batch)
+
+    def act(self) -> None:
+        with torch.no_grad():
+            greedy = torch.argmax(self.q_fn(self.params, self.obs),
+                                  dim=1).to(torch.int32)
+        self.step_env(torch.where(
+            self.row("eps") < self.eps.index_select(0, self.t),
+            self.row("random_action"), greedy))
 
     def learn(self, noise=None) -> None:
         """One update on the sample of the step just taken (``noise``: the
@@ -366,12 +336,7 @@ class _Steps:
             mb, idx, w = self.buffer.sample(self.buf_state, noise,
                                             cfg.train_batch_size)
         else:
-            u = self.draws["sample"].index_select(0, self.t - 1)[0]
-            idx = torch.minimum((u * self.size.float()).long(),
-                                self.size - 1)
-            mb = {k: v.index_select(0, idx)
-                  for k, v in self.buf_state.data.items()}
-            w = self.w
+            mb, w = self.sample(), self.w
         # Fresh leaves over the params' storage: their autograd nodes
         # belong to the stream this runs on, which a capture needs (the
         # params' own leaves were made on the default stream).
@@ -385,30 +350,6 @@ class _Steps:
                 self.buf_state, idx, err.detach())
         self.k.add_(1)
         self.loss_sum.add_(loss.detach())
-
-
-def _run(graphs, name: str, fn) -> None:
-    """``fn`` eagerly (``graphs`` None), or as ``graphs[name]``: two
-    eager runs on a side stream to warm up, then captured once and
-    replayed from then on."""
-    if graphs is None:
-        fn()
-        return
-    g = graphs.get(name)
-    if g is None:
-        warm = graphs.get(name + ".warm", 0)
-        if warm < 2:
-            side = graphs.setdefault("stream", torch.cuda.Stream())
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                fn()
-            torch.cuda.current_stream().wait_stream(side)
-            graphs[name + ".warm"] = warm + 1
-            return
-        g = graphs[name] = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            fn()
-    g.replay()
 
 
 def _dqn_iteration(env, buffer, tx, q_fn, dist_fn, cfg, params,
