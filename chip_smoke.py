@@ -301,7 +301,26 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    (checked as the JAX test checks them), BC, CQL and MARWIL on the JAX
    tests' own datasets (``scripts/data``), MultiAgentPPO on
    TwoAgentReach; each algorithm's seconds, env steps/s or updates/s,
-   gate and value.
+   gate and value;
+21. Mixtral, ViT and CLIP through the data-parallel step and expert
+   parallelism's all-to-all op (inside phase 19's NCCL group, after the
+   8B rung): (a) phase 17's small f32 Mixtral at capacity factor 0.5
+   (assignments drop) trained 3 steps through ``TorchTrainer`` with
+   ``MeshSpec(dp=1, ep=1)`` (the loss's ``"global"`` split, its aux
+   summed over NCCL): equal to the single-device step on the card bit
+   for bit and to the CPU's within ZERO_PARITY_TOL, K9f 12, K10 and K11
+   6 counted from 0; (b) MIXTRAL_8X7B at full width and 2 layers (1 if
+   its memory plan does not fit ``mem_get_info``, said so) through the
+   same step at bf16 on phase 17's 2 x 2048 batch: 3 steps with K9f 4,
+   K10 and K11 2 counted a step, 4 alternating pairs of the
+   data-parallel and the single-device step (each timed alone), tokens/s,
+   the dropped share, peak memory, a falling loss; (c)
+   ``ops/moe_a2a.moe_block_ep`` at 8x7B widths (bf16, 2 x 2048 tokens,
+   capacity factor 4: nothing drops) over the one-rank ep group: output
+   and aux equal ``moe_block``'s bit for bit, each one's ms; (d) ViT-L/16
+   and CLIP-L, 2 steps on 64 images through the data-parallel step (ViT's
+   ``"rows"`` split; CLIP's ``"global"`` one, its embeddings all-gathered
+   on NCCL): equal to the single-device step bit for bit, images/s.
 
 The last three lines of standard output are the kernel table (K1, K2,
 K9f, K10, K11, K4, K5, K1 int8, K3, K4 int8, K6, K7, K7 int8, K8, K8
@@ -319,7 +338,8 @@ each one's ``group5``, phase 14 under ``planes``, phase 15 under
 and each flash kernel's ``group4``, phase 18 under ``rl_parity``,
 ``grpo_1b``, ``rl_learning`` and each flash kernel's ``grpo``, phase 19
 under ``collectives``, ``zero_parity``, ``train_8b`` and each flash
-kernel's ``8b``, phase 20 under ``rl20_parity`` and ``rl20_learning``).
+kernel's ``8b``, phase 20 under ``rl20_parity`` and ``rl20_learning``,
+phase 21 under ``phase21``).
 """
 
 from __future__ import annotations
@@ -5783,8 +5803,8 @@ def _mixtral_drop_share(torch, tm, params, batch, cfg) -> list:
     shares = []
     route = tm._route
 
-    def counted(xf, moe, c, C):
-        out = route(xf, moe, c, C)
+    def counted(*args):
+        out = route(*args)
         shares.append(1.0 - float(out[3].mean()))
         return out
 
@@ -7346,6 +7366,371 @@ def eight_b_kernel_rows(report, run):
     return rows
 
 
+# --------------------------------------------------------------------------
+# Phase 21: Mixtral, ViT and CLIP through the data-parallel step; expert
+# parallelism's all-to-all op
+# --------------------------------------------------------------------------
+
+MIX21_CF = 0.5                    # (a): a capacity factor at which
+                                  # assignments drop
+MIX21_PAIRS = 4
+A2A_CF = 4.0                      # (c): E / k, at which nothing drops
+A2A_REPS = 3
+# (b): f32 params, grads and AdamW's two f32 moments (16 B/param) and the
+# activations and transients of phase 17's run (its peak was 62.41 GB
+# over 50.64 GB of state: 12 GiB).
+MIX21_TRANSIENTS = 12 * 2 ** 30
+
+
+def _dp_trainer(train, init, loss, axes, batch_axes, lr, dev="cuda",
+                report_every=1):
+    """A ``TorchTrainer`` over ``MeshSpec(dp=1, ep=1)`` on the process
+    group (NCCL at world size 1): it runs the data-parallel step."""
+    return train.TorchTrainer(
+        init_params=init, loss_fn=loss, params_axes=axes,
+        batch_axes=batch_axes,
+        optimizer=train.default_optimizer(lr, warmup_steps=1),
+        scaling_config=train.ScalingConfig(
+            mesh_spec=train.MeshSpec(dp=1, ep=1), devices=[dev]),
+        run_config=train.RunConfig(report_every=report_every))
+
+
+def mixtral_dp_parity_phase(torch, tm, train, kernels):
+    """(a) phase 17's small f32 Mixtral at capacity factor 0.5 (drops)
+    trained 3 steps through ``TorchTrainer`` with ``MeshSpec(dp=1, ep=1)``
+    (the data-parallel step; the loss declares the ``"global"`` split, its
+    aux summed over the NCCL group): equal to the single-device step on
+    the card bit for bit (losses, ce and aux losses, grad norms, params),
+    and to the single-device step on the CPU within ZERO_PARITY_TOL; K9f
+    12, K10 and K11 6 counted from 0."""
+    cfg = dataclasses.replace(
+        tm.MIXTRAL_TINY, vocab_size=512, dim=256, n_heads=4, n_kv_heads=2,
+        mlp_dim=256, max_seq_len=256, dtype=torch.float32, remat=True,
+        capacity_factor=MIX21_CF)
+    base = tm.init_params(torch.Generator().manual_seed(21), cfg,
+                          device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (3, 2, 256),
+                           generator=torch.Generator().manual_seed(22),
+                           dtype=torch.int32)
+    loss_fn = lambda p, b: tm.loss_fn(p, b, cfg)  # noqa: E731
+    keys = ("loss", "ce_loss", "aux_loss", "grad_norm")
+    params = _clone_to(torch, base, "cuda")
+    trainer = _dp_trainer(train, lambda g, p=params: p, loss_fn,
+                          tm.logical_axes(cfg), {"tokens": ("batch", None)},
+                          1e-3)
+    trainer.state
+    if trainer._layout is None:
+        raise AssertionError("Mixtral dp parity: no data-parallel layout")
+    reset_counts(kernels)
+    res = trainer.fit(({"tokens": t} for t in tokens), num_steps=3)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    if res.error is not None:
+        raise res.error
+    dp_hist = [{k: m[k] for k in keys} for m in res.metrics_history]
+
+    def single_device(dev):
+        tx = train.default_optimizer(1e-3, warmup_steps=1)
+        state = train.create_train_state(_clone_to(torch, base, dev), tx)
+        step = train.compile_train_step(loss_fn, tx)
+        hist = []
+        for t in tokens:
+            state, m = step(state, {"tokens": t.to(dev)})
+            hist.append({k: float(m[k]) for k in keys})
+        return hist, state
+
+    hp, sp = single_device("cuda")
+    hc, _ = single_device("cpu")
+    drop = _mixtral_drop_share(torch, tm, params, {"tokens": tokens[0].to(
+        "cuda")}, cfg)
+    want = {K9F: 2 * 2 * 3, K10: 2 * 3, K11: 2 * 3}
+    launches = {k: counts[k] for k in want}
+    exact = dp_hist == hp and _equal_tree(torch, trainer.state.params,
+                                           sp.params)
+    worst = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
+                    zip(dp_hist, hc)) for k in keys}
+    if not exact or launches != want or max(worst.values()) > \
+            ZERO_PARITY_TOL or not max(drop) > 0:
+        raise AssertionError(
+            f"Mixtral dp parity: bit-equal to the single-device step "
+            f"{exact} ({dp_hist} vs {hp}), card vs cpu {worst}, launches "
+            f"{launches} (want {want}), dropped share {drop}")
+    log(f"Mixtral through the data-parallel step (f32, S=256, capacity "
+        f"factor {MIX21_CF}, NCCL world size 1, 3 steps): equal to the "
+        f"single-device step bit for bit (losses "
+        f"{[round(m['loss'], 6) for m in dp_hist]}, params); card vs cpu "
+        f"worst relative {worst}; dropped share by layer "
+        f"{[round(x, 4) for x in drop]}; launches {launches}")
+    out = {"bit_equal_single_device_step": exact, "launches": launches,
+           "cuda_vs_cpu_worst_rel": worst, "history": dp_hist,
+           "dropped_share_by_layer": drop}
+    del trainer, sp, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixtral_8x7b_dp_phase(torch, tm, train, kernels, card):
+    """(b) MIXTRAL_8X7B at full width cut to 2 layers (as phase 17; 1 if
+    the memory plan does not fit, and said so; width never cut), f32
+    params, bf16 compute, dense dispatch, trained through the
+    data-parallel step (``MeshSpec(dp=1, ep=1)`` over NCCL) on phase 17's
+    fixed 2 x 2048 batch: the memory plan against ``mem_get_info``, 3
+    steps with K9f 4, K10 and K11 2 counted per step, then 4 alternating
+    pairs of the data-parallel and the single-device step (each timed
+    alone), tokens/s from the medians, the dropped share per layer, the
+    peak memory, and a finite loss that falls."""
+    layers = MIX_LAYERS
+    cfg = dataclasses.replace(tm.MIXTRAL_8X7B, n_layers=layers)
+    free, total = torch.cuda.mem_get_info()
+    need = 16 * cfg.num_params() + MIX21_TRANSIENTS
+    cut = None
+    if free < need:
+        layers = 1
+        cfg = dataclasses.replace(tm.MIXTRAL_8X7B, n_layers=layers)
+        cut = (f"2 layers need {need / 2 ** 30:.2f} GiB, "
+               f"{free / 2 ** 30:.2f} free: cut to 1 layer")
+        need = 16 * cfg.num_params() + MIX21_TRANSIENTS
+        log(f"Mixtral 8x7B dp: {cut}")
+    plan = {"bytes_per_param": 16, "params": cfg.num_params(),
+            "transients": MIX21_TRANSIENTS, "need": need, "free": free,
+            "total": total, "cut": cut}
+    log(f"Mixtral 8x7B dp memory plan: 16 B/param x {cfg.num_params():,} + "
+        f"{MIX21_TRANSIENTS / 2 ** 30:.0f} GiB = {need / 2 ** 30:.2f} GiB; "
+        f"free {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB")
+    if free < need:
+        raise AssertionError(f"Mixtral 8x7B dp: too little memory: {plan}")
+    L = cfg.n_layers
+    want = {K9F: 2 * L, K10: L, K11: L}
+    loss_fn = lambda p, b: tm.loss_fn(p, b, cfg)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _dp_trainer(train, lambda g: tm.init_params(g, cfg), loss_fn,
+                          tm.logical_axes(cfg), {"tokens": ("batch", None)},
+                          1e-4, report_every=1_000_000)
+    t0 = time.perf_counter()
+    state = trainer.state
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if trainer._layout is None:
+        raise AssertionError("Mixtral 8x7B dp: no data-parallel layout")
+    step = trainer._step_fn
+    batch = trainer.shard_batch({"tokens": torch.randint(
+        0, cfg.vocab_size, (MIX_B, TRAIN_S),
+        generator=torch.Generator().manual_seed(13), dtype=torch.int32)})
+    torch.cuda.synchronize()
+    per_step, losses = [], []
+    for _ in range(3):
+        reset_counts(kernels)
+        state, m = step(state, batch)
+        counts = read_counts(kernels)
+        per_step.append({k: counts[k] for k in want})
+        losses.append(m["loss"])
+    single = train.compile_train_step(loss_fn, trainer.tx)
+    paired = {"data_parallel": [], "single_device": []}
+    for i in range(MIX21_PAIRS):
+        order = [("data_parallel", step), ("single_device", single)]
+        for name, fn in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = fn(state, batch)
+            losses.append(m["loss"])
+            float(m["loss"])
+            paired[name].append((time.perf_counter() - t1) * 1e3)
+    losses = [float(x) for x in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    drop = _mixtral_drop_share(torch, tm, state.params, batch, cfg)
+    if any(c != want for c in per_step):
+        raise AssertionError(f"Mixtral 8x7B dp: launches per step {per_step},"
+                             f" want {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"Mixtral 8x7B dp: losses {losses}: not finite "
+                             "and falling")
+    med = {k: statistics.median(v) for k, v in paired.items()}
+    tokens = MIX_B * TRAIN_S
+    out = {"config": f"MIXTRAL_8X7B at {L} layers (ray_tpu/models/mixtral.py"
+                     ":89), MeshSpec(dp=1, ep=1), NCCL world size 1",
+           "card": card, "params": cfg.num_params(), "memory_plan": plan,
+           "batch": [MIX_B, TRAIN_S], "init_s": init_s,
+           "launches_per_step": per_step, "want_per_step": want,
+           "paired_step_ms": paired, "paired_median_ms": med,
+           "tokens_per_s": {k: tokens / (v / 1e3) for k, v in med.items()},
+           "dropped_share_by_layer": drop, "peak_gb": peak_gb,
+           "losses": losses}
+    log(f"Mixtral 8x7B through the data-parallel step ({card}; {L} layers, "
+        f"{MIX_B} x {TRAIN_S}): paired medians (each step alone, "
+        f"{MIX21_PAIRS} alternating pairs) data-parallel "
+        f"{med['data_parallel']:.1f} ms ({out['tokens_per_s']['data_parallel']:.0f}"
+        f" tokens/s), single-device {med['single_device']:.1f} ms "
+        f"({out['tokens_per_s']['single_device']:.0f} tokens/s); launches "
+        f"per step {per_step[0]}; dropped share by layer "
+        f"{[round(x, 4) for x in drop]}; peak {peak_gb:.2f} GB; losses "
+        f"{[round(x, 4) for x in losses]}; init {init_s:.1f} s")
+    del trainer, state, batch, step, single
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_a2a_phase(torch, tm, tmoe, tmesh, card):
+    """(c) ``moe_block_ep`` at MIXTRAL_8X7B's widths (8 experts of 4096 x
+    14,336, top 2, bf16, scatter dispatch) on phase 17's 2 x 2048 tokens
+    over the ep axis of a dp=1, ep=1 mesh (its two exchanges
+    ``all_to_all_single`` on NCCL at world size 1), at capacity factor
+    4.0 (no assignment drops): its output and aux equal ``moe_block``'s
+    bit for bit (the same routing, buffers and products in the same
+    order); each timed alone, ``A2A_REPS`` times, between CUDA events."""
+    cfg = dataclasses.replace(tm.MIXTRAL_8X7B, n_layers=1,
+                              capacity_factor=A2A_CF,
+                              dispatch_mode="scatter")
+    E, D, M = cfg.n_experts, cfg.dim, cfg.mlp_dim
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def normal(shape, fan_in, dt):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * fan_in ** -0.5).to(dt)
+
+    moe = {"w_router": normal((D, E), D, torch.float32),
+           "w_gate": normal((E, D, M), D, torch.bfloat16),
+           "w_up": normal((E, D, M), D, torch.bfloat16),
+           "w_down": normal((E, M, D), M, torch.bfloat16)}
+    x = torch.randn((MIX_B, TRAIN_S, D), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    mesh = tmesh.create_mesh(tmesh.MeshSpec(dp=1, ep=1))
+    G = MIX_B * TRAIN_S
+    C = tm.capacity(cfg, G)
+    with torch.no_grad():
+        keep = tm._route(x.reshape(G, D), moe, cfg, C)[3]
+        dropped = int((keep == 0).sum())
+        y0, a0 = tm.moe_block(x, moe, cfg)
+        y1, a1 = tmoe.moe_block_ep(x, moe, cfg, mesh=mesh)
+        err = (y1.float() - y0.float()).abs().max().item()
+        exact = torch.equal(y0, y1) and torch.equal(a0, a1)
+        times = {"moe_block": [], "moe_block_ep": []}
+        for _ in range(A2A_REPS):
+            for name, fn in (("moe_block", lambda: tm.moe_block(x, moe, cfg)),
+                             ("moe_block_ep", lambda: tmoe.moe_block_ep(
+                                 x, moe, cfg, mesh=mesh))):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                times[name].append(start.elapsed_time(end))
+    if dropped or not exact:
+        raise AssertionError(f"moe_block_ep vs moe_block: {dropped} dropped, "
+                             f"max |dy| {err}, aux {float(a1)} vs {float(a0)}")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    out = {"config": "MIXTRAL_8X7B's MoE layer (dim 4096, 8 experts of "
+                     "14,336, top 2), bf16 experts, scatter dispatch, "
+                     f"capacity factor {A2A_CF}",
+           "card": card, "tokens": G, "capacity": C, "dropped": dropped,
+           "bit_equal": exact, "max_abs_err": err, "aux": float(a0),
+           "ms": times, "median_ms": med}
+    log(f"moe_block_ep at 8x7B widths ({card}; {G} tokens, C {C}, nothing "
+        f"dropped, ep=1 over NCCL): output and aux equal moe_block's bit "
+        f"for bit; median moe_block {med['moe_block']:.2f} ms, "
+        f"moe_block_ep {med['moe_block_ep']:.2f} ms ({A2A_REPS} each)")
+    del moe, x, y0, y1
+    torch.cuda.empty_cache()
+    return out
+
+
+def vit_clip_dp_phase(torch, tvit, tclip, train, kernels, card):
+    """(d) ViT-L/16 and CLIP_L14_LIKE at full width and depth, 2 AdamW
+    steps on a fixed batch of 64 images through the data-parallel step
+    (``MeshSpec(dp=1, ep=1)`` over NCCL: ViT's loss declares the
+    ``"rows"`` split, CLIP's the ``"global"`` one, its embeddings
+    all-gathered over the group) and through the single-device step
+    (phase 17's) from the same seeded init: losses, grad norms and params
+    equal bit for bit; no kernel launched; images/s of the data-parallel
+    step's second step."""
+    gen = torch.Generator().manual_seed(24)
+    vcfg, ccfg = tvit.VIT_L16, tclip.CLIP_L14_LIKE
+    cases = {
+        "vit_l16": (lambda g: tvit.init_params(g, vcfg),
+                    _vit_loss(tvit, vcfg), tvit.logical_axes(vcfg),
+                    {"images": _images_batch(torch, gen, FAMILY_B, vcfg),
+                     "labels": torch.randint(0, vcfg.num_classes,
+                                             (FAMILY_B,), generator=gen)}),
+        "clip_l": (lambda g: tclip.init_params(g, ccfg),
+                   _clip_loss(tclip, ccfg), tclip.logical_axes(ccfg),
+                   {"images": _images_batch(torch, gen, FAMILY_B,
+                                            ccfg.vision),
+                    "tokens": torch.randint(1, ccfg.text.vocab_size,
+                                            (FAMILY_B, ccfg.text.max_len),
+                                            generator=gen)}),
+    }
+    rules = {"patch": None, "classes": None, "qkv": None, "proj": None}
+    batch_axes = {"images": ("batch", None, None, None),
+                  "labels": ("batch",), "tokens": ("batch", None)}
+    out = {}
+    for name, (init, loss, axes, batch) in cases.items():
+        trainer = train.TorchTrainer(
+            init_params=init, loss_fn=loss, params_axes=axes,
+            batch_axes=batch_axes, rules=rules,
+            optimizer=train.default_optimizer(1e-4, warmup_steps=1),
+            scaling_config=train.ScalingConfig(
+                mesh_spec=train.MeshSpec(dp=1, ep=1)),
+            run_config=train.RunConfig(report_every=1_000_000))
+        state = trainer.state
+        if trainer._layout is None:
+            raise AssertionError(f"{name} dp: no data-parallel layout")
+        staged = trainer.shard_batch(batch)
+        reset_counts(kernels)
+        hist, wall = [], 0.0
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = trainer._step_fn(state, staged)
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+            wall = time.perf_counter() - t0
+        launched = {k: v for k, v in read_counts(kernels).items() if v}
+        tx = train.default_optimizer(1e-4, warmup_steps=1)
+        gen_d = torch.Generator(device="cuda").manual_seed(trainer.seed)
+        sstate = train.create_train_state(init(gen_d), tx)
+        sstep = train.compile_train_step(loss, tx)
+        shist = []
+        for i in range(2):
+            sstate, m = sstep(sstate, staged)
+            shist.append((float(m["loss"]), float(m["grad_norm"])))
+        exact = hist == shist and _equal_tree(torch, state.params,
+                                               sstate.params)
+        if not exact or launched or not all(math.isfinite(a)
+                                            for a, _ in hist):
+            raise AssertionError(f"{name} dp: {hist} vs single-device "
+                                 f"{shist} (params equal {exact}), kernels "
+                                 f"{launched}")
+        out[name] = {"history": hist, "single_device_history": shist,
+                     "bit_equal_single_device_step": exact,
+                     "step_ms": wall * 1e3,
+                     "images_per_s": FAMILY_B / wall, "card": card}
+        log(f"{name} through the data-parallel step ({card}; batch "
+            f"{FAMILY_B}, 2 steps): equal to the single-device step bit for "
+            f"bit (losses {[round(a, 5) for a, _ in hist]}, params); second "
+            f"step {wall * 1e3:.1f} ms, {FAMILY_B / wall:.1f} images/s")
+        del trainer, state, sstate, staged, sstep
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase21(torch, tm, tvit, tclip, tmoe, tmesh, train, kernels, card):
+    """Phase 21 inside phase 19's NCCL group, after the 8B rung."""
+    t0 = time.perf_counter()
+    out = {"mixtral_parity": mixtral_dp_parity_phase(torch, tm, train,
+                                                     kernels)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["mixtral_8x7b"] = mixtral_8x7b_dp_phase(torch, tm, train, kernels,
+                                                card)
+    out["moe_a2a"] = moe_a2a_phase(torch, tm, tmoe, tmesh, card)
+    out["vit_clip"] = vit_clip_dp_phase(torch, tvit, tclip, train, kernels,
+                                        card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 21: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(
@@ -7376,6 +7761,7 @@ def main() -> int:
         from ray_tpu_torch.ops import flash_attention as tfa
         from ray_tpu_torch.ops import fused_decode as tfd
         from ray_tpu_torch.ops import mamba_ssd as tssd
+        from ray_tpu_torch.ops import moe_a2a as tmoe
         from ray_tpu_torch.ops import paged_attention as tpa
         from ray_tpu_torch.ops import ragged_paged_attention as trpa
         from ray_tpu_torch.parallel import collectives as tcoll
@@ -7549,6 +7935,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train_8b = train_8b_phase(torch, llama, train, kernels, card)
+        # Mixtral, ViT and CLIP through the data-parallel step (the loss
+        # splits, K9f, K10, K11 counted from 0), and moe_block_ep, after
+        # the 8B rung has freed its memory.
+        gc.collect()
+        torch.cuda.empty_cache()
+        p21 = phase21(torch, tmix, tvit, tclip, tmoe, tmesh, train, kernels,
+                      card)
     finally:
         tbackend.shutdown()
     order = ("K1", "K2", "K9f", "K10", "K11", "K4", "K5", "K1i8", "K3",
@@ -7616,7 +8009,7 @@ def main() -> int:
                    "rl20_parity": rl20_parity,
                    "rl20_learning": rl20_learning,
                    "collectives": collectives, "zero_parity": zero_parity,
-                   "train_8b": train_8b}, f,
+                   "train_8b": train_8b, "phase21": p21}, f,
                   indent=1, default=str)
     log(f"total {total_s:.1f} s; details in {args.out}")
     print(json.dumps(line), flush=True)

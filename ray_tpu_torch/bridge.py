@@ -8,6 +8,9 @@ nesting (dicts, and lists for RLlib's MLP layers), key names and layouts
 JAX arrays into numpy (``jax.tree.map(np.asarray, params)``) outside
 this package: the bridge never imports jax.
 
+A rank's share of a MoE layer's experts (expert parallelism) crosses
+through ``experts_from_jax``: the router whole, E/ep experts sliced.
+
 A LoRA adapter crosses through ``adapter_from_jax``: the factor tree
 (``{target: {"a", "b"}}``) or the flat vector of ``flatten_adapter``, as
 numpy, becomes the port's tensors, which the port's adapter pool loads
@@ -70,6 +73,24 @@ def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
     if isinstance(tree, list):  # RLlib's MLP layer lists
         return [params_from_jax(v, dev) for v in tree]
     return _leaf_to_torch(tree, dev)
+
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def experts_from_jax(moe: Any, ep_index: int, ep: int,
+                     device: DeviceLike = None) -> Any:
+    """A rank's part of one JAX MoE layer (``{"w_router", "w_gate",
+    "w_up", "w_down"}`` as numpy, experts leading) for expert parallelism
+    over ``ep`` ranks: the router whole and the expert leaves' slice
+    ``ep_index`` of E/ep, as ``params_from_jax`` gives them."""
+    out = {}
+    for k, v in moe.items():
+        if k in EXPERT_LEAVES:
+            n = v.shape[0] // ep
+            v = np.asarray(v)[ep_index * n:(ep_index + 1) * n]
+        out[k] = v
+    return params_from_jax(out, device)
 
 
 def params_to_numpy(tree: Any, bf16_dtype: Optional[Any] = None) -> Any:

@@ -1,5 +1,5 @@
 """CLIP: a dual-encoder contrastive vision-language model for training
-(port of ``ray_tpu/models/clip.py``), on one device.
+(port of ``ray_tpu/models/clip.py``).
 
 Plain functions on tensors, as in the JAX package: ``{"vision": a ViT
 tree (models/vit.py), "text": {tok_embed, pos_embed, layers, ln_f_*},
@@ -12,11 +12,18 @@ same pre-norm blocks, causal, features taken at each sequence's EOT
 (the first position of its largest id), without rematerialisation as
 in the JAX package.  ``forward`` projects and L2-normalises both (f32,
 norm + 1e-8); ``contrastive_loss`` is the symmetric InfoNCE over the
-local batch.  Text attention is causal at S 77, below the flash
-kernel's S >= 256, so CLIP launches no kernel.  Cross-device negatives
-(``axis_name``, an all-gather over the data-parallel axis) are
-multi-device: they raise NotImplementedError rather than quietly
-compute a local loss.
+batch.  Text attention is causal at S 77, below the flash kernel's S >=
+256, so CLIP launches no kernel.
+
+Over ranks the negatives are the global batch's.  ``contrastive_loss
+(axis_name=...)`` is the JAX package's explicit form (local queries
+against the keys all-gathered over the axis, labels offset by the
+member's index, the mean over the axis), on the calling rank of a mesh.
+Inside the data-parallel step the plain form declares the ``"global"``
+split (``parallel/loss_split.py``) and returns this member's share of
+the global-batch InfoNCE, which GSPMD computes for the JAX trainer.
+Either way the keys go through ``allgather_grad``, so the negatives'
+grads flow back to the members that own them.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ import torch
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models import vit as vit_lib
 from ray_tpu_torch.models.llama import _layers
+from ray_tpu_torch.parallel import collectives as C
+from ray_tpu_torch.parallel import loss_split
+from ray_tpu_torch.parallel.mesh import AxisName, Mesh, create_mesh
 
 Params = Dict[str, Any]
 
@@ -74,8 +84,8 @@ CONFIGS = {"clip-l": CLIP_L14_LIKE, "tiny": CLIP_TINY}
 
 
 def logical_axes(cfg: CLIPConfig) -> Params:
-    """The JAX package's logical axis names per leaf, kept as data: the
-    port trains on one device and does not shard by them."""
+    """The JAX package's logical axis names per leaf, which lay the
+    params out over a mesh (``TorchTrainer(params_axes=...)``)."""
     t = {
         "tok_embed": ("vocab", "embed"),
         "pos_embed": ("seq", "embed"),
@@ -163,24 +173,49 @@ def forward(params: Params, images: torch.Tensor, tokens: torch.Tensor,
     return img, txt
 
 
-def contrastive_loss(params: Params, images: torch.Tensor,
-                     tokens: torch.Tensor, cfg: CLIPConfig,
-                     axis_name: Optional[str] = None) -> torch.Tensor:
-    """Symmetric InfoNCE over the batch, both directions, at the scale
-    exp(``logit_scale``)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"contrastive_loss(axis_name={axis_name!r}): cross-device "
-            "negatives (an all-gather over the data-parallel axis) are "
-            "not ported to ray_tpu_torch yet (ROADMAP.md queue 1 item 6, "
-            "multi-device, on torch.distributed); a local loss would be "
-            "a different loss")
-    img, txt = forward(params, images, tokens, cfg)
-    scale = torch.exp(params["logit_scale"].float())
-    labels = torch.arange(img.shape[0], device=img.device)
+def _info_nce(img, txt, all_img, all_txt, offset, scale):
+    """Local queries against the keys of every member, both directions."""
+    labels = offset + torch.arange(img.shape[0], device=img.device)
 
     def nll(logits):
         logp = torch.log_softmax(logits, dim=-1)
         return -logp.gather(-1, labels[:, None]).mean()
 
-    return 0.5 * (nll(scale * (img @ txt.T)) + nll(scale * (txt @ img.T)))
+    return 0.5 * (nll(scale * (img @ all_txt.T))
+                  + nll(scale * (txt @ all_img.T)))
+
+
+def contrastive_loss(params: Params, images: torch.Tensor,
+                     tokens: torch.Tensor, cfg: CLIPConfig,
+                     axis_name: Optional[AxisName] = None, *,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Symmetric InfoNCE at the scale exp(``logit_scale``).
+
+    With ``axis_name``: the JAX explicit form on this rank of ``mesh``
+    (default: the data-parallel step's mesh, else the default process
+    group's ``create_mesh()``; a world of one rank without one): the
+    embeddings are all-gathered over the axis so that the negatives span
+    the global batch, and the loss is the mean over the axis, whose
+    backward hands each member its share.  Without it: the batch's loss,
+    or inside the data-parallel step this member's share of the global
+    batch's (the ``"global"`` split; with one member, the batch's loss
+    through a one-rank all-gather)."""
+    img, txt = forward(params, images, tokens, cfg)
+    scale = torch.exp(params["logit_scale"].float())
+    if axis_name is not None:
+        if mesh is None:
+            group = loss_split.current()
+            mesh = group.mesh if group is not None else create_mesh()
+        all_img = C.allgather_grad(img, axis_name, mesh=mesh)
+        all_txt = C.allgather_grad(txt, axis_name, mesh=mesh)
+        offset = mesh.axis_index(axis_name) * img.shape[0]
+        loss = _info_nce(img, txt, all_img, all_txt, offset, scale)
+        return C.reduce_from(loss, axis_name, mesh=mesh) / \
+            mesh.axis_size(axis_name)
+    group = loss_split.declare("global")
+    if group is None:
+        return _info_nce(img, txt, img, txt, 0, scale)
+    loss = _info_nce(img, txt, group.gather_grad(img),
+                     group.gather_grad(txt), group.index * img.shape[0],
+                     scale)
+    return loss * (img.shape[0] / group.rows)

@@ -153,12 +153,13 @@ LLAMA_TINY = LlamaConfig(vocab_size=256, dim=64, n_layers=2, n_heads=4,
 
 
 def _unported(cfg: LlamaConfig) -> None:
-    for field, slice_name in (("tensor_parallel", "tensor parallelism"),
-                              ("sequence_parallel", "sequence parallelism")):
+    for field, slice_name, item in (
+            ("tensor_parallel", "tensor parallelism", "item 6 part 3"),
+            ("sequence_parallel", "sequence parallelism", "item 7")):
         if getattr(cfg, field):
             raise NotImplementedError(
                 f"LlamaConfig.{field}: {slice_name} is not ported to "
-                "ray_tpu_torch yet (a later slice; see ROADMAP.md)")
+                f"ray_tpu_torch yet (ROADMAP.md queue 1 {item})")
 
 
 # --- params ---------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Mixtral-family sparse-MoE transformer for training (port of
-``ray_tpu/models/mixtral.py``), on one device.
+``ray_tpu/models/mixtral.py``).
 
 Plain functions on tensors, as in the JAX package: parameters are a
 nested dict with the JAX package's key names and stacked layouts
@@ -28,8 +28,18 @@ Under ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``:
 ``"dots"`` keeps the 2-D products (projections, router, dispatch and
 combine) and recomputes the rest, the batched expert products and the
 flash forward included, as ``dots_with_no_batch_dims_saveable`` does;
-``"full"`` keeps nothing.  Expert parallelism (``ops/moe_a2a.py``) and
-``sequence_parallel`` are multi-device and raise NotImplementedError.
+``"full"`` keeps nothing.
+
+Over ranks (``TorchTrainer`` on a ``torch.distributed`` group) the loss
+is computed over the global batch, as GSPMD computes the JAX one:
+``loss_fn`` declares the ``"global"`` split and ``moe_block`` reads the
+step's data group (``parallel/loss_split.py``) for the global capacity,
+buffer positions and aux loss.  On a mesh with ``ep`` > 1 each rank
+holds E/ep experts (``logical_axes``'s "expert" axis) and the block sums
+the experts' outputs over ``ep``.  ``ops/moe_a2a.py`` is the explicit
+per-device-capacity dispatch over ``ep``, a standalone op.
+``sequence_parallel`` is multi-device and raises NotImplementedError
+(ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -44,6 +54,8 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.llama import rms_norm
+from ray_tpu_torch.parallel import collectives as coll
+from ray_tpu_torch.parallel import loss_split
 
 Params = Dict[str, Any]
 
@@ -121,8 +133,10 @@ def _unported(cfg: MixtralConfig) -> None:
 # --- params ---------------------------------------------------------------
 
 def logical_axes(cfg: MixtralConfig) -> Params:
-    """The JAX package's logical axis names per leaf, kept as data: the
-    port trains on one device and does not shard by them."""
+    """The JAX package's logical axis names per leaf, which lay the params
+    out over a mesh (``TorchTrainer(params_axes=...)``): the experts'
+    and the router's E axis over ``ep`` at rest (``moe_block`` gathers
+    the router)."""
     layer = {
         "attn": {
             "wq": ("layers", "embed", "heads", "head_dim"),
@@ -200,10 +214,17 @@ def capacity(cfg: MixtralConfig, num_tokens: int) -> int:
     return max(c, cfg.experts_per_token)
 
 
-def _route(xf: torch.Tensor, moe: Params, cfg: MixtralConfig, C: int):
+def _route(xf: torch.Tensor, moe: Params, cfg: MixtralConfig, C: int,
+           group: Optional[loss_split.DataGroup] = None):
     """Shared routing math: top-k experts + capacity-bounded buffer
     positions.  Returns (topk_idx [G,k], gate [G*k], pos [G*k] int64,
-    keep [G*k], probs [G,E], oh [G,k,E])."""
+    keep [G*k], probs [G,E], oh [G,k,E]).
+
+    With ``group`` (the data members of a step over the global batch)
+    the positions are global: each assignment's token-major rank among
+    this member's rows plus the assignments to its expert in the earlier
+    members' rows, from one all-gather of the [E] counts; the gathered
+    [n, E] counts come back as a seventh value."""
     E, k = cfg.n_experts, cfg.experts_per_token
     G = xf.shape[0]
     logits = xf.float() @ moe["w_router"].float()
@@ -217,10 +238,15 @@ def _route(xf: torch.Tensor, moe: Params, cfg: MixtralConfig, C: int):
     oh = F.one_hot(topk_idx, E).float()                          # [G, k, E]
     flat = oh.reshape(G * k, E)
     pos = torch.cumsum(flat, dim=0) - 1.0                        # [G*k, E]
+    counts = None
+    if group is not None:
+        counts = group.gather(flat.sum(dim=0))                   # [n, E]
+        pos = pos + counts[:group.index].sum(dim=0)
     pos = (pos * flat).sum(dim=-1)                               # [G*k]
     keep = (pos < C).float()
     gate = topk_probs.reshape(G * k) * keep
-    return topk_idx, gate, pos.long(), keep, probs, oh
+    out = (topk_idx, gate, pos.long(), keep, probs, oh)
+    return out if counts is None else out + (counts,)
 
 
 def _expert_ffn(expert_in: torch.Tensor, moe: Params,
@@ -229,6 +255,63 @@ def _expert_ffn(expert_in: torch.Tensor, moe: Params,
     g = torch.matmul(expert_in, moe["w_gate"].to(dt))
     u = torch.matmul(expert_in, moe["w_up"].to(dt))
     return torch.matmul(F.silu(g) * u, moe["w_down"].to(dt))
+
+
+def _scatter(xf, eidx, pos, mine, C: int, E: int, dt) -> torch.Tensor:
+    """The [E, C, D] expert buffers: assignment i (of token i // k of
+    ``xf`` [G, D]) added at row ``pos[i]`` of expert ``eidx[i]`` where
+    ``mine``, the others into a spare row past the buffers that is cut
+    off (the JAX scatter's ``mode="drop"``)."""
+    G, D = xf.shape
+    row = torch.where(mine, eidx * C + pos, torch.full_like(pos, E * C))
+    xk = xf.repeat_interleave(eidx.numel() // G, dim=0).to(dt)  # [G*k, D]
+    buf = torch.zeros((E * C + 1, D), dtype=dt, device=xf.device)
+    return buf.index_add(0, row, xk)[:E * C].reshape(E, C, D)
+
+
+def _combine(out, eidx, pos, mine, gate, k: int) -> torch.Tensor:
+    """[G, D]: each assignment's row of ``out`` [E, C, D] times its gate,
+    summed over its token's k slots.  The JAX gather clamps a dropped
+    assignment's position (>= C) to C - 1 in expert min(E, E - 1); so
+    one not ``mine`` reads a clamped row, and its gate is 0."""
+    E, C, D = out.shape
+    got = out[torch.where(mine, eidx, E - 1), pos.clamp(max=C - 1)]
+    return (got * gate[:, None].to(out.dtype)).reshape(-1, k, D).sum(dim=1)
+
+
+def _experts(xf, moe, cfg, topk_idx, gate, pos, keep, oh, C, e0, El):
+    """The MoE output [G, D] of experts [e0, e0 + El) (``moe``'s expert
+    leaves hold just those): ``"scatter"`` adds the kept assignments
+    into their buffer rows and gathers them back (``_scatter``,
+    ``_combine``); ``"dense"`` builds the [G, El, C] dispatch and
+    combine tensors."""
+    G, D = xf.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    dt = cfg.dtype
+    if cfg.dispatch_mode == "scatter":
+        mine = keep > 0
+        eidx = topk_idx.reshape(G * k) - e0
+        if El < E:
+            mine = mine & (eidx >= 0) & (eidx < El)
+            gate = gate * mine
+        expert_out = _expert_ffn(_scatter(xf, eidx, pos, mine, C, El, dt),
+                                 moe, dt)
+        return _combine(expert_out, eidx, pos, mine, gate, k)
+    flat = oh.reshape(G * k, E)
+    pos_oh = (pos[:, None] == torch.arange(C, device=xf.device)
+              ).float()                                          # [G*k, C]
+    assign = flat[:, :, None] * pos_oh[:, None, :]               # [G*k,E,C]
+    if El < E:
+        assign = assign[:, e0:e0 + El]
+    dispatch = (assign * keep[:, None, None]).reshape(
+        G, k, El, C).sum(dim=1)
+    combine = (assign * gate[:, None, None]).reshape(
+        G, k, El, C).sum(dim=1)
+    # "gec,gd->ecd" and "gec,ecd->gd" as 2-D products (``mm``).
+    expert_in = (dispatch.to(dt).reshape(G, El * C).T
+                 @ xf.to(dt)).reshape(El, C, D)
+    expert_out = _expert_ffn(expert_in, moe, dt)
+    return combine.to(dt).reshape(G, El * C) @ expert_out.reshape(El * C, D)
 
 
 def moe_block(x: torch.Tensor, moe: Params, cfg: MixtralConfig
@@ -240,48 +323,59 @@ def moe_block(x: torch.Tensor, moe: Params, cfg: MixtralConfig
     dispatch and combine tensors; ``"scatter"`` adds the kept assignments
     into their [E, C, D] buffer rows (the dropped ones into a spare row
     past the buffers, then cut off, as ``mode="drop"`` discards them) and
-    gathers each assignment's output back."""
-    B, S, D = x.shape
-    E, k = cfg.n_experts, cfg.experts_per_token
-    G = B * S
-    C = capacity(cfg, G)
-    xf = x.reshape(G, D)
-    topk_idx, gate, pos, keep, probs, oh = _route(xf, moe, cfg, C)
-    dt = cfg.dtype
+    gathers each assignment's output back.
 
-    if cfg.dispatch_mode == "scatter":
-        kept = keep > 0
-        eidx = topk_idx.reshape(G * k)
-        row = torch.where(kept, eidx * C + pos,
-                          torch.full_like(pos, E * C))
-        xk = xf.repeat_interleave(k, dim=0).to(dt)               # [G*k, D]
-        expert_in = torch.zeros((E * C + 1, D), dtype=dt, device=x.device)
-        expert_in = expert_in.index_add(0, row, xk)[:E * C].reshape(E, C, D)
-        expert_out = _expert_ffn(expert_in, moe, dt)
-        # The JAX gather clamps a dropped assignment's position (>= C) to
-        # C - 1 in expert min(E, E - 1); its gate is 0, so the row read
-        # only has to exist.
-        got = expert_out[torch.where(kept, eidx, E - 1),
-                         pos.clamp(max=C - 1)]                   # [G*k, D]
-        y = (got * gate[:, None].to(dt)).reshape(G, k, D).sum(dim=1)
+    Inside the data-parallel step over n > 1 data members
+    (``loss_split.current()``) the block computes its share of the
+    global batch's: C from the global token count, global buffer
+    positions (``_route``), ``frac`` from the members' counts and
+    ``mean_prob`` as this member's sum of ``probs`` over the global
+    token count, so the members' aux values sum to the global one.  The
+    buffers stay [E, C, D] with this member's rows filled; the expert
+    FFN is row by row, so no exchange is needed.  With the experts
+    sharded over ``ep`` (``moe``'s leaves hold this rank's E/ep experts
+    and router columns, as ``logical_axes`` lays them out at rest) the
+    router is gathered whole (``gather_from``: every ``ep`` rank routes
+    the same rows, so each keeps its columns' grads), each rank runs its
+    experts on its rows' buffers and the partial outputs are summed over
+    ``ep`` (``reduce_from``), the rows and gates entering through
+    ``copy_to`` so that the router and the layers below get whole grads:
+    the single-device block's value, capacity global."""
+    B, S, D = x.shape
+    E = cfg.n_experts
+    G = B * S
+    group = loss_split.current()
+    dp = group if group is not None and group.n > 1 else None
+    C = capacity(cfg, G * (dp.n if dp else 1))
+    xf = x.reshape(G, D)
+    ep = group.ep if group is not None else 1
+    El = E // ep
+    if ep > 1:
+        held = (moe["w_gate"].shape[0], moe["w_router"].shape[-1])
+        if held != (El, El):
+            raise ValueError(
+                f"expert parallelism over ep={ep}: this rank's expert "
+                f"leaves and router hold {held} experts, want {El} of {E}")
+        mesh = group.mesh
+        moe = dict(moe, w_router=coll.gather_from(
+            moe["w_router"], "ep", mesh=mesh, tiled_axis=-1))
+    routed = _route(xf, moe, cfg, C, dp)
+    topk_idx, gate, pos, keep, probs, oh = routed[:6]
+    if ep == 1:
+        y = _experts(xf, moe, cfg, topk_idx, gate, pos, keep, oh, C, 0, E)
     else:
-        flat = oh.reshape(G * k, E)
-        pos_oh = (pos[:, None] == torch.arange(C, device=x.device)
-                  ).float()                                      # [G*k, C]
-        assign = flat[:, :, None] * pos_oh[:, None, :]           # [G*k,E,C]
-        dispatch = (assign * keep[:, None, None]).reshape(
-            G, k, E, C).sum(dim=1)
-        combine = (assign * gate[:, None, None]).reshape(
-            G, k, E, C).sum(dim=1)
-        # "gec,gd->ecd" and "gec,ecd->gd" as 2-D products (``mm``).
-        expert_in = (dispatch.to(dt).reshape(G, E * C).T
-                     @ xf.to(dt)).reshape(E, C, D)
-        expert_out = _expert_ffn(expert_in, moe, dt)
-        y = combine.to(dt).reshape(G, E * C) @ expert_out.reshape(E * C, D)
+        y = coll.reduce_from(_experts(
+            coll.copy_to(xf, "ep", mesh=mesh), moe, cfg, topk_idx,
+            coll.copy_to(gate, "ep", mesh=mesh), pos, keep, oh, C,
+            group.ep_index * El, El), "ep", mesh=mesh)
 
     # Switch load-balance loss: E * Σ_e fraction_dispatched_e · mean_prob_e.
-    frac = oh.sum(dim=1).mean(dim=0)                             # [E]
-    mean_prob = probs.mean(dim=0)                                # [E]
+    if dp is None:
+        frac = oh.sum(dim=1).mean(dim=0)                         # [E]
+        mean_prob = probs.mean(dim=0)                            # [E]
+    else:
+        frac = routed[6].sum(dim=0) / (G * dp.n)
+        mean_prob = probs.sum(dim=0) / (G * dp.n)
     aux = E * (frac * mean_prob).sum()
     return y.reshape(B, S, D), aux
 
@@ -354,13 +448,23 @@ def loss_fn(
     *,
     z_loss: float = 0.0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy + ``router_aux_coef`` x router aux loss."""
+    """Next-token cross-entropy + ``router_aux_coef`` x router aux loss.
+
+    It declares the ``"global"`` split (``parallel/loss_split.py``):
+    inside the data-parallel step over n > 1 members it returns this
+    member's share of the global batch's loss (the cross-entropy as its
+    masked sum over the global token count, the aux as ``moe_block``'s
+    share) and of each aux value (``ntokens`` this member's count), so
+    that the members' values sum to JAX's global ones."""
+    group = loss_split.declare("global")
     tokens = batch["tokens"]
     logits, aux = forward(params, tokens, cfg,
                           segment_ids=batch.get("segment_ids"))
     ce, ntokens = llama.next_token_loss(logits, tokens,
                                         batch.get("loss_mask"),
                                         z_loss=z_loss)
+    if group is not None and group.n > 1:
+        ce = ce * (ntokens / group.total(ntokens).clamp_min(1.0))
     total = ce + cfg.router_aux_coef * aux
     return total, {"loss": total, "ce_loss": ce, "aux_loss": aux,
                    "ntokens": ntokens}

@@ -16,7 +16,9 @@ is non-causal at S 197, so it takes ``ops.attention``'s einsum path in
 both packages: ViT launches no kernel.  ``encode`` rematerialises every
 block when ``cfg.remat`` and gradients are on (the JAX
 ``jax.checkpoint`` with no policy).  The head starts at zero, as in the
-JAX package, so on the first step every backbone gradient is 0.
+JAX package, so on the first step every backbone gradient is 0.  Over
+ranks ``loss_fn`` declares the ``"rows"`` split (a mean over rows), so
+the data-parallel step trains the global batch's mean.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models.llama import _layers
 from ray_tpu_torch.ops.attention import dot_product_attention
+from ray_tpu_torch.parallel import loss_split
 
 Params = Dict[str, Any]
 
@@ -99,8 +102,10 @@ def _layer_axes() -> Params:
 
 
 def logical_axes(cfg: ViTConfig) -> Params:
-    """The JAX package's logical axis names per leaf, kept as data: the
-    port trains on one device and does not shard by them."""
+    """The JAX package's logical axis names per leaf, which lay the
+    params out over a mesh (``TorchTrainer(params_axes=...)``; the rule
+    table needs entries for "patch" and "classes", as the JAX one
+    does)."""
     out = {
         "patch_embed": ("patch", "embed"),
         "pos_embed": ("seq", "embed"),
@@ -251,6 +256,10 @@ def forward(params: Params, images: torch.Tensor, cfg: ViTConfig
 
 def loss_fn(params: Params, images: torch.Tensor, labels: torch.Tensor,
             cfg: ViTConfig) -> torch.Tensor:
-    """Mean softmax cross-entropy of the class logits."""
+    """Mean softmax cross-entropy of the class logits.  A mean over the
+    batch's rows: it declares the ``"rows"`` split, and the data-parallel
+    step weights each member's loss by its share of the global rows
+    (``parallel/loss_split.py``)."""
+    loss_split.declare("rows")
     logp = torch.log_softmax(forward(params, images, cfg), dim=-1)
     return -logp.gather(-1, labels.long()[:, None]).mean()

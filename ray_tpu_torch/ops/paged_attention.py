@@ -676,12 +676,13 @@ def paged_decode_attention_tp(
 ) -> torch.Tensor:
     """The JAX package's tensor-parallel entry.  Without a mesh it is K13
     itself (the JAX no-mesh fallback); any mesh raises
-    NotImplementedError: tensor parallelism is not ported yet (see
-    ROADMAP.md)."""
+    NotImplementedError: tensor parallelism is not ported yet (ROADMAP.md
+    queue 1 item 6 part 3)."""
     if mesh is not None:
         raise NotImplementedError(
             "paged_decode_attention_tp over a mesh: tensor parallelism is "
-            "not ported to ray_tpu_torch yet (see ROADMAP.md)")
+            "not ported to ray_tpu_torch yet (ROADMAP.md queue 1 item 6 "
+            "part 3)")
     return paged_decode_attention(q, k_pages, v_pages, block_table, lengths,
                                   soft_cap=soft_cap)
 

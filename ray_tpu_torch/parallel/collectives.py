@@ -12,6 +12,18 @@ rank with no process group computes its result locally.
 Two layers, as in the JAX package: functional ops (``allreduce``,
 ``allgather``, ...) that take the mesh as a keyword, and
 ``CollectiveGroup``, a mesh axis behind the reference's named-group API.
+
+The functional ops carry no gradient.  Four more carry one, each as a
+``torch.autograd.Function`` whose backward is the transpose JAX takes
+through ``shard_map``: ``allgather_grad`` (backward: the reduce-scatter
+of the cotangent), ``all_to_all_grad`` (backward: the reverse
+exchange), and the pair that an expert- or tensor-parallel region needs
+(Megatron's f and g): ``copy_to`` (identity forward, the cotangent
+summed over the axis backward: a replicated value that each member uses
+in part) and ``reduce_from`` (sum forward, identity backward: the
+members' partial results made whole).  ``gather_from`` gathers a value
+that every member then uses whole and alike, and hands each its part
+of the (equal) cotangent.
 """
 
 from __future__ import annotations
@@ -171,6 +183,103 @@ def send_recv(x: torch.Tensor, axis: AxisName, src: int, dst: int, *,
 
 def axis_index(axis: AxisName, *, mesh: Mesh) -> int:
     return mesh.axis_index(axis)
+
+
+# --- collectives that carry gradients ----------------------------------------
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, tiled_axis):
+        ctx.args = (axis, mesh, tiled_axis)
+        return allgather(x, axis, mesh=mesh, tiled_axis=tiled_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, mesh, tiled_axis = ctx.args
+        return (reducescatter(g, axis, mesh=mesh, scatter_axis=tiled_axis),
+                None, None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, split_axis, concat_axis):
+        ctx.args = (axis, mesh, split_axis, concat_axis)
+        return all_to_all(x, axis, mesh=mesh, split_axis=split_axis,
+                          concat_axis=concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, mesh, split_axis, concat_axis = ctx.args
+        return (all_to_all(g, axis, mesh=mesh, split_axis=concat_axis,
+                           concat_axis=split_axis), None, None, None, None)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.args = (axis, mesh)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, mesh = ctx.args
+        return allreduce(g, axis, mesh=mesh), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return allreduce(x, axis, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def allgather_grad(x: torch.Tensor, axis: AxisName, *, mesh: Mesh,
+                   tiled_axis: int = 0) -> torch.Tensor:
+    """``allgather`` whose backward reduce-scatters the cotangent: each
+    member gets the sum of every member's gradient for its part, as
+    ``lax.all_gather``'s transpose (``psum_scatter``) gives it."""
+    return _AllGather.apply(x, axis, mesh, tiled_axis)
+
+
+def all_to_all_grad(x: torch.Tensor, axis: AxisName, *, mesh: Mesh,
+                    split_axis: int, concat_axis: int) -> torch.Tensor:
+    """``all_to_all`` whose backward sends each cotangent chunk back to
+    the member it came from (the exchange with the axes swapped)."""
+    return _AllToAll.apply(x, axis, mesh, split_axis, concat_axis)
+
+
+def copy_to(x: torch.Tensor, axis: AxisName, *, mesh: Mesh) -> torch.Tensor:
+    """Identity forward; backward, the cotangent summed over the axis.
+    For a value every member holds whole and uses in part (its share of
+    the experts): the sum gives each member the value's whole gradient,
+    as the transpose of JAX's implicit broadcast (``pvary``) does."""
+    return _CopyTo.apply(x, axis, mesh)
+
+
+def reduce_from(x: torch.Tensor, axis: AxisName, *,
+                mesh: Mesh) -> torch.Tensor:
+    """The sum over the axis forward; identity backward.  For partial
+    results made whole (``psum`` of a value each member then holds
+    replicated): each member's part takes the whole cotangent."""
+    return _ReduceFrom.apply(x, axis, mesh)
+
+
+def gather_from(x: torch.Tensor, axis: AxisName, *, mesh: Mesh,
+                tiled_axis: int = 0) -> torch.Tensor:
+    """``allgather`` whose backward keeps the caller's part of the
+    cotangent (Megatron's gather-from-region).  For a value each member
+    holds in part and every member then uses whole and alike, so that
+    its cotangent is equal on every member (Mixtral's router over
+    ``ep``): each part gets its gradient once."""
+    i = axis_index(axis, mesh=mesh)
+    parts = list(allgather(x.detach(), axis, mesh=mesh,
+                           tiled_axis=tiled_axis).chunk(
+        mesh.axis_size(axis), dim=tiled_axis))
+    parts[i] = x
+    return torch.cat(parts, dim=tiled_axis)
 
 
 def axis_size(axis: AxisName, *, mesh: Mesh) -> int:

@@ -25,7 +25,10 @@ contiguous chunks, one a host: ranks on one host are contiguous under
 
 A process without an initialised process group is a world of one rank:
 its mesh has every axis of size 1 and no group.  ``shard_map_unchecked``
-has no counterpart: port code already runs per rank.
+has no counterpart: port code already runs per rank.  The training step
+runs over the data axes and ``ep``: ``group(("ep",))`` joins the ranks
+that hold the other experts of the caller's rows, and the group of the
+data axes joins the data members at the caller's ``ep`` coordinate.
 """
 
 from __future__ import annotations

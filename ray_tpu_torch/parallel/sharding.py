@@ -15,7 +15,9 @@ fsdp`` chunks and gives chunk ``dp_index · fsdp + fsdp_index`` to a
 rank).  ``Sharding.local_slices(shape)`` is the calling rank's part of a
 global shape; ``shard_tree`` cuts a rank's shards out of a full tree and
 ``replicated`` is the layout of no split.  No layout pads: a dim must
-divide by its split count.
+divide by its split count.  The "expert" rule puts the E axis of an
+MoE layer's expert leaves ([L, E, ...]) and router ([L, D, E]) on
+``ep``: each ``ep`` rank holds E/ep experts at rest.
 
 ``constrain``, ``constrain_to_spec`` and ``current_mesh`` have no
 counterpart: they ask GSPMD to lay out a traced value inside a jitted

@@ -11,8 +11,8 @@ params and moments in place.
 
 A LearnerGroup of more than one learner (the JAX package's data-parallel
 update, ``shard_map`` over a ``dp`` mesh axis) is not ported: it and
-``dp_mesh`` raise NotImplementedError beyond one learner (ROADMAP.md,
-queue 1: multi-device).
+``dp_mesh`` raise NotImplementedError beyond one learner (ROADMAP.md
+queue 1 item 6 part 5).
 """
 
 from __future__ import annotations
@@ -31,8 +31,8 @@ from ray_tpu_torch.train.state import (
 )
 
 _MULTI = ("more than one learner (a data-parallel LearnerGroup) is not "
-          "ported to ray_tpu_torch yet: ROADMAP.md, queue 1, the "
-          "multi-device item")
+          "ported to ray_tpu_torch yet: ROADMAP.md queue 1 item 6 part 5, "
+          "the multi-device item")
 
 
 def adam(lr: float, grad_clip: Optional[float] = None) -> AdamW:

@@ -16,7 +16,7 @@ every rank's result; ``torchrun`` does the same from the command line
 ``MASTER_PORT`` are read by ``init_process_group`` when no address is
 given).  ``TorchDistributedBackend.on_start`` would form the group
 across the core runtime's worker group, which the port does not have
-yet (ROADMAP.md queue 1 item 6).
+yet (ROADMAP.md queue 1 item 6 part 5).
 """
 
 from __future__ import annotations
@@ -222,10 +222,10 @@ class TorchDistributedBackend:
         raise NotImplementedError(
             "TorchDistributedBackend.on_start needs the core runtime's "
             "worker group, which is not ported to ray_tpu_torch yet "
-            "(ROADMAP.md queue 1 item 6); start ranks with "
+            "(ROADMAP.md queue 1 item 6 part 5); start ranks with "
             "train.backend.launch or torchrun")
 
     def on_shutdown(self, worker_group) -> None:
         raise NotImplementedError(
             "TorchDistributedBackend.on_shutdown: see on_start "
-            "(ROADMAP.md queue 1 item 6)")
+            "(ROADMAP.md queue 1 item 6 part 5)")

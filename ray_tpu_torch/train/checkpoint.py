@@ -8,7 +8,8 @@ size and, given the state's layout, each leaf's spec) and renames the
 directory into place from its temporary name; the newest
 ``max_to_keep`` stay.  A restore needs the same world size and layout,
 and each rank reads its own shards back into its state's tensors.
-Without a mesh (or on a mesh of one rank) there is one shard.  Saving
+Without a mesh (or on a mesh of one rank) there is one shard.  A leaf
+split over ``ep`` (a rank's experts) is a shard like any other.  Saving
 is synchronous: ``wait`` is accepted for the JAX package's signature.
 """
 

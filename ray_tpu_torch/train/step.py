@@ -13,25 +13,27 @@ the step writes out the collectives GSPMD puts into the JAX program,
 the pattern of arXiv 2004.13336:
 
 * params split at rest (the ``fsdp`` axis) are all-gathered whole
-  before the forward;
-* each rank runs its rows of the batch; its loss and grads are weighted
-  by its share of the global token count (``aux["ntokens"]``), so the
-  sum over ranks is the global batch's masked mean, as JAX takes it;
+  before the forward; leaves split over ``ep`` (Mixtral's experts and
+  router columns) stay this rank's part, which the model uses or
+  gathers itself (the data members are those at the rank's ``ep``
+  coordinate);
+* each rank runs its rows of the batch, with the data group published
+  to the loss (``parallel/loss_split.py``), and splits the loss as the
+  loss declares: ``"tokens"`` (its loss and grads weighted by its share
+  of the global token count: Llama, Mamba-2), ``"rows"`` (by its share
+  of the global rows: ViT) or ``"global"`` (the loss returns its share
+  of the global objective itself: Mixtral's global routing, CLIP's
+  all-gathered negatives), so the sum over ranks is the global batch's
+  loss, as JAX takes it; a loss that declares nothing and whose aux is
+  not ``loss`` and ``ntokens`` alone is refused;
 * without ZeRO the grads are all-reduced and every rank updates its
   at-rest part; with ZeRO they are reduce-scattered to the moments'
   layout, each rank updates its region with the global norm (an
-  all-reduce of the shards' squares, each region counted once), and the
-  updated regions are all-gathered back;
-* metrics are reduced, so every rank reports the global loss, grad norm
-  and token count.
-
-The token weighting is exact only for a loss that is a masked mean over
-tokens and reports nothing else: its aux holds ``ntokens`` and no key
-but ``loss`` (``TOKEN_SPLIT``; the Llama and Mamba-2 losses).  Over
-several data members the step refuses any other loss: Mixtral's router
-aux loss and CLIP's contrastive negatives depend on the whole batch, so
-a per-rank loss would train another objective (ROADMAP.md queue 1
-item 6).
+  all-reduce of the shards' squares, each region counted once, each
+  ``ep`` part once), and the updated regions are all-gathered back;
+* metrics are reduced, so every rank reports the global loss, grad
+  norm, token count and, for a ``"global"`` split, every aux value
+  summed (Mixtral's ``ce_loss`` and ``aux_loss``).
 
 A step built with a layout runs this path at any world size; one data
 member splits nothing, and the collectives are over a group of one.
@@ -48,6 +50,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ray_tpu_torch.parallel import loss_split
 from ray_tpu_torch.parallel.collectives import gather_single, scatter_single
 from ray_tpu_torch.train.state import (
     AdamW,
@@ -107,12 +110,40 @@ def _gather_params(state: TrainState, layout) -> List[torch.Tensor]:
     return out
 
 
+def _grad_norm(layout, grads: List[torch.Tensor], gs: List[torch.Tensor]
+               ) -> torch.Tensor:
+    """``optax.global_norm`` of the whole model's grads: each leaf's f32
+    sum of squares, each region once (ZeRO: summed over the members,
+    each counting the regions it owns from ``gs``; replicated: every
+    member holds ``grads`` whole; ``ep``: leaves split over ``ep`` summed
+    over it, the others taken once), rounded to the leaf's dtype, the
+    leaves summed left to right.  Replicated at ``ep`` 1:
+    ``global_norm`` of the grads."""
+    if not layout.zero and layout.ep == 1:
+        return global_norm(grads)  # every rank holds them whole
+    sq = [(g * g).sum(dtype=torch.float32)
+          for g in (gs if layout.zero else grads)]
+    if layout.zero:
+        sq = [s if leaf.owner else torch.zeros_like(s)
+              for s, leaf in zip(sq, layout.leaves)]
+    sums = torch.stack(sq)
+    if layout.zero and layout.group is not None:
+        dist.all_reduce(sums, group=layout.group)
+    if layout.ep > 1:
+        once = torch.tensor([1.0 if split or layout.ep_index == 0 else 0.0
+                             for split in layout.ep_split],
+                            device=sums.device)
+        sums = sums * once
+        dist.all_reduce(sums, group=layout.ep_group)
+    return torch.sqrt(sum(s.to(g.dtype) for s, g in zip(sums, gs)))
+
+
 def _sharded_update(tx, state: TrainState, full: List[torch.Tensor],
                     grads: List[torch.Tensor], layout):
     """Reduce the local grads over the data members, update each rank's
     regions, and put the updated params back where they live."""
     group = layout.group
-    ps, gs, parts = [], [], []
+    ps, gs = [], []
     for leaf, p, g in zip(layout.leaves, full, grads):
         if layout.zero and leaf.update_split:
             buf = leaf.pack_update(g)
@@ -128,19 +159,7 @@ def _sharded_update(tx, state: TrainState, full: List[torch.Tensor],
             gv = leaf.update_view(g) if leaf.update_split else g
         ps.append(pv)
         gs.append(gv)
-        if layout.zero:
-            sq = (gv * gv).sum(dtype=torch.float32)
-            parts.append(sq if leaf.owner else torch.zeros_like(sq))
-    if layout.zero:
-        # optax.global_norm over the shards: each leaf's f32 sum of
-        # squares summed over the members (each region once), rounded
-        # to the leaf's dtype, the leaves summed left to right.
-        sums = torch.stack(parts)
-        if group is not None:
-            dist.all_reduce(sums, group=group)
-        gnorm = torch.sqrt(sum(s.to(g.dtype) for s, g in zip(sums, gs)))
-    else:
-        gnorm = global_norm(grads)  # every rank holds them whole
+    gnorm = _grad_norm(layout, grads, gs)
     opt_state, gnorm = tx.update_(tree_unflatten(state.params, ps),
                                   tree_unflatten(state.params, gs),
                                   state.opt_state, gnorm=gnorm)
@@ -161,6 +180,19 @@ def _sharded_update(tx, state: TrainState, full: List[torch.Tensor],
     return opt_state, gnorm
 
 
+def _refusal(layout, aux, split) -> NotImplementedError:
+    what = f"the split {split!r}" if split else "no split"
+    return NotImplementedError(
+        f"the data-parallel step splits a loss over {layout.n} data "
+        f"members as the loss declares (ray_tpu_torch.parallel.loss_split"
+        f".declare: 'tokens', 'rows' or 'global'); this loss declares "
+        f"{what}, and its aux {sorted(aux)} does not fit it (a token "
+        f"split's is 'loss' and the member's 'ntokens'; a row split's "
+        f"'loss' alone).  A loss that depends on the whole batch reads "
+        f"the step's data group and returns its share of the global "
+        f"objective (the 'global' split: Mixtral's and CLIP's losses)")
+
+
 def make_train_step(loss_fn: LossFn, tx: AdamW, *, grad_accum: int = 1,
                     layout=None) -> Step:
     """Returns step(state, batch) -> (state, metrics).
@@ -177,44 +209,62 @@ def make_train_step(loss_fn: LossFn, tx: AdamW, *, grad_accum: int = 1,
 
     ``layout``: a ``zero.StepLayout`` for a step over several data
     members (the trainer builds it); the batch is then this rank's rows
-    (``TorchTrainer.shard_batch``)."""
+    (``TorchTrainer.shard_batch``), each microbatch's loss runs with the
+    data group published (``parallel/loss_split.py``) and is split as it
+    declares, and the aux reported is the global one."""
     sharded = layout is not None
 
-    def _weight(aux):
-        """This rank's share of the global (micro)batch: its token count
-        over the global one, and the aux with the global count."""
-        cnt = aux.get("ntokens")
-        if layout.n > 1 and not (torch.is_tensor(cnt)
-                                 and set(aux) <= TOKEN_SPLIT):
-            raise NotImplementedError(
-                f"the data-parallel step splits a loss over "
-                f"{layout.n} ranks by token count, which is exact only for "
-                f"a masked mean over tokens whose aux holds 'ntokens' and "
-                f"nothing but 'loss' (the Llama and Mamba-2 losses); this "
-                f"loss reports {sorted(aux)}.  A loss that depends on the "
-                f"whole batch (Mixtral's router aux loss, CLIP's "
-                f"contrastive negatives) is not ported to data-parallel "
-                f"training yet (ROADMAP.md queue 1 item 6)")
-        if not torch.is_tensor(cnt):
-            return 1.0, aux
-        c = cnt.detach().float().reshape(())
-        total = c.clone()
-        if layout.group is not None:
-            dist.all_reduce(total, group=layout.group)
-        return c / total.clamp_min(1.0), dict(aux, ntokens=total)
+    def _group(batch) -> loss_split.DataGroup:
+        rows = next(iter(batch.values())).shape[0] if batch else 0
+        return loss_split.DataGroup(
+            layout.mesh, layout.data_axes, layout.n,
+            layout.index or 0, layout.order or tuple(range(layout.n)),
+            rows * layout.n, layout.ep, layout.ep_index)
 
-    def _scaled(loss, aux):
+    def _share(loss, aux, split, group):
+        """This member's share of the global (micro)batch's loss, and the
+        aux with the global count, by the declared split."""
+        token_aux = "ntokens" in aux and set(aux) <= TOKEN_SPLIT
+        if split is None and token_aux:
+            split = "tokens"
+        if layout.n == 1:
+            return loss, aux, split
+        if split is None or (split == "rows" and set(aux) - {"loss"}) or (
+                split == "tokens" and not token_aux):
+            raise _refusal(layout, aux, split)
+        if split in ("rows", "global") and layout.order is None:
+            raise NotImplementedError(
+                f"a {split!r} split needs the batch rows cut one chunk a "
+                f"data member (the 'batch' rule over the data axes "
+                f"{layout.data_axes})")
+        if split == "global":
+            return loss, aux, split
+        if split == "rows":  # the members hold equal rows (shard_batch)
+            return loss / layout.n, aux, split
+        c = aux["ntokens"].detach().float().reshape(())
+        total = group.total(c)
+        return (loss * (c / total.clamp_min(1.0)),
+                dict(aux, ntokens=total), split)
+
+    def _run(params, batch, backward):
+        """The loss of one (micro)batch, split, and ``backward(loss)``,
+        with the data group published to both."""
         if not sharded:
-            return loss, aux
-        w, aux = _weight(aux)
-        return loss * w, aux
+            loss, aux = loss_fn(params, batch)
+            return loss, aux, None, backward(loss)
+        group = _group(batch)
+        with loss_split.publish(group) as frame:
+            loss, aux = loss_fn(params, batch)
+            loss, aux, split = _share(loss, aux, frame.split, group)
+            return loss, aux, split, backward(loss)
 
     def _grads(params, leaves, batch):
         if grad_accum <= 1:
-            loss, aux = _scaled(*loss_fn(params, batch))
-            return loss.detach(), aux, _grad(loss, leaves)
+            loss, aux, split, grads = _run(
+                params, batch, lambda loss: _grad(loss, leaves))
+            return loss.detach(), aux, split, grads
 
-        def split(x):
+        def split_rows(x):
             if x.shape[0] % grad_accum:
                 raise ValueError(
                     f"batch dim {x.shape[0]} not divisible by "
@@ -222,15 +272,15 @@ def make_train_step(loss_fn: LossFn, tx: AdamW, *, grad_accum: int = 1,
             return x.reshape(grad_accum, x.shape[0] // grad_accum,
                              *x.shape[1:])
 
-        micro = {k: split(v) for k, v in batch.items()}
+        micro = {k: split_rows(v) for k, v in batch.items()}
         for p in leaves:
             p.grad = torch.zeros_like(p)
         try:
-            loss_sum, aux = None, None
+            loss_sum, aux, split = None, None, None
             for i in range(grad_accum):
-                loss, aux = _scaled(*loss_fn(
-                    params, {k: v[i] for k, v in micro.items()}))
-                loss.backward(inputs=leaves)
+                loss, aux, split, _ = _run(
+                    params, {k: v[i] for k, v in micro.items()},
+                    lambda loss: loss.backward(inputs=leaves))
                 loss = loss.detach().float()
                 loss_sum = loss if loss_sum is None else loss_sum + loss
             grads = [p.grad for p in leaves]
@@ -239,22 +289,36 @@ def make_train_step(loss_fn: LossFn, tx: AdamW, *, grad_accum: int = 1,
                 p.grad = None
         for g in grads:
             g.div_(grad_accum)
-        return loss_sum / grad_accum, aux, grads
+        return loss_sum / grad_accum, aux, split, grads
+
+    def _global_aux(aux, split):
+        """A 'global' split's aux summed over the members (one
+        all-reduce of the tensor values)."""
+        if split != "global" or layout.group is None:
+            return aux
+        keys = [k for k, v in aux.items() if torch.is_tensor(v)]
+        if not keys:
+            return aux
+        vals = torch.stack([aux[k].detach().float().reshape(())
+                            for k in keys])
+        dist.all_reduce(vals, group=layout.group)
+        return dict(aux, **dict(zip(keys, vals.unbind(0))))
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if not sharded:
-            loss, aux, grads = _grads(state.params,
-                                      tree_leaves(state.params), batch)
+            loss, aux, _, grads = _grads(state.params,
+                                         tree_leaves(state.params), batch)
             opt_state, gnorm = tx.update_(
                 state.params, _unflatten_like(state.params, grads),
                 state.opt_state)
         else:
             full = _gather_params(state, layout)
-            loss, aux, grads = _grads(tree_unflatten(state.params, full),
-                                      full, batch)
+            loss, aux, split, grads = _grads(
+                tree_unflatten(state.params, full), full, batch)
             if layout.group is not None:
                 loss = loss.float()
                 dist.all_reduce(loss, group=layout.group)
+            aux = _global_aux(aux, split)
             opt_state, gnorm = _sharded_update(tx, state, full, grads,
                                                layout)
         # Canonical keys win over aux duplicates: under grad_accum the aux
@@ -341,7 +405,8 @@ def compile_train_step(loss_fn: LossFn, tx: AdamW, *,
             "init_process_group) and build the step from its ZeRO layout "
             "(TorchTrainer does)")
     n = layout.num_params if layout is not None and any(
-        leaf.rest_split for leaf in layout.leaves) else None
+        leaf.rest_split or split for leaf, split in
+        zip(layout.leaves, layout.ep_split)) else None
     return _instrument_first_call(
         make_train_step(loss_fn, tx, grad_accum=grad_accum, layout=layout),
         n)

@@ -11,18 +11,23 @@ default ``torch.distributed`` process group (``train/backend.py``:
 ``launch`` or ``torchrun``, then ``init_process_group``).
 ``ScalingConfig.mesh_spec`` lays the mesh over the group's ranks
 (``parallel/mesh.py``); the data axes (dp, fsdp and their DCN pairs)
-may exceed 1, and the other axes raise, naming the ROADMAP item that
-ports them.  Each rank initialises the same full params from
+and ``ep`` may exceed 1, and the other axes raise, naming the ROADMAP
+item that ports them.  Each rank initialises the same full params from
 ``init_params`` (a ``torch.Generator`` on its device, seeded with
 ``seed``), keeps its shards of them and of the optimizer state
-(``params_axes`` and ``rules`` give the params' layout; ``zero_sharding``
-the ZeRO layout of the state, ``train/zero.py``), and ``shard_batch``
-gives it its rows of each global batch.  Over a process group the
-step is the data-parallel one (``train/step.py``) at any world size,
-and over several data members it takes only a loss that splits by
-tokens (``step.TOKEN_SPLIT``: the Llama and Mamba-2 losses).  Without a
-process group the trainer runs the single-device step on one device:
-the card unless ``ScalingConfig(devices=["cpu"])`` asks for the CPU.
+(``params_axes`` and ``rules`` give the params' layout: the "expert"
+axis puts E/ep experts, and their router columns, on each ``ep`` rank;
+``zero_sharding`` the ZeRO layout of the state, sharded over the data
+members inside each ``ep`` coordinate, ``train/zero.py``), and ``shard_batch`` gives it its rows of
+each global batch (every ``ep`` rank of a data member the same rows).
+Over a process group the step is the data-parallel one
+(``train/step.py``) at any world size.  Over several data members the
+loss splits as it declares (``parallel/loss_split.py``): by tokens (the
+Llama and Mamba-2 losses), by rows (ViT) or as its share of the global
+objective (Mixtral, CLIP); a loss that declares nothing and whose aux
+is not a token split's is refused.  Without a process group the
+trainer runs the single-device step on one device: the card unless
+``ScalingConfig(devices=["cpu"])`` asks for the CPU.
 ``zero_sharding`` needs a process group (one of a single rank will do).
 
 Telemetry as in the JAX trainer: the six ``raytpu_train_*`` families
@@ -113,9 +118,8 @@ def _telemetry():
 # Mesh axes the data-parallel trainer refuses, with the ROADMAP item
 # (queue 1) that ports each.
 _MODEL_AXES = {
-    "tp": "tensor parallelism (item 6)",
-    "dcn_tp": "tensor parallelism across hosts (item 6)",
-    "ep": "expert parallelism, ops/moe_a2a.py (item 6)",
+    "tp": "tensor parallelism (item 6 part 3)",
+    "dcn_tp": "tensor parallelism across hosts (item 6 part 3)",
     "sp": "sequence parallelism, ops/ring_attention.py and ops/ulysses.py "
           "(item 7)",
     "pp": "pipeline parallelism, parallel/pipeline.py (item 7)",
@@ -151,7 +155,8 @@ class ScalingConfig:
                     f"MeshSpec.{axis}={getattr(spec, axis)}: {what} is not "
                     "ported to ray_tpu_torch yet (ROADMAP.md queue 1, "
                     "multi-device); the trainer shards over the data axes "
-                    "(dp, fsdp, dcn_dp, dcn_fsdp) only")
+                    "(dp, fsdp, dcn_dp, dcn_fsdp) and the experts over ep "
+                    "only")
         world, rank = _world()
         if world == 1:
             try:
@@ -288,7 +293,8 @@ class TorchTrainer:
                 zero=tc.zero_sharding)
             state = zero.shard_state(state, self._state_sh)
             self._layout = zero.StepLayout.build(
-                self.mesh, state, self._state_sh, tc.zero_sharding)
+                self.mesh, state, self._state_sh, tc.zero_sharding,
+                self.rules)
         self._state = state
         self._step_fn = compile_train_step(
             self.loss_fn, self.tx, zero_sharding=tc.zero_sharding,

@@ -25,7 +25,11 @@ data axes whose size product divides it, so tiny leaves stay replicated.
 ``LeafLayout`` and ``StepLayout`` are the port's own: where each param
 leaf lives at rest and which part of it each data member updates, with
 the packing that turns those parts into the chunks of one
-reduce-scatter and one all-gather.
+reduce-scatter and one all-gather.  On a mesh with an ``ep`` axis a
+leaf split over ``ep`` (an expert leaf, the router) is laid out as the
+rank's ``ep`` part of it, over the data members at that ``ep``
+coordinate: ZeRO shards its moments inside each coordinate, and the
+global norm counts each ``ep`` part once.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from ray_tpu_torch.train.state import TrainState, tree_leaves, tree_unflatten
 # Logical axis name the rule table maps to the weight-update shard axes
 # (DEFAULT_RULES: ("dp", "fsdp"), DCN-expanded on hybrid meshes).
 ZERO_AXIS = "zero"
+EP_AXIS = "ep"
 BLOCK = 256  # optim8's block (kept here so the layout needs no optim8)
 
 
@@ -352,11 +357,39 @@ class LeafLayout:
         return self._ordered(self._rest, split)
 
 
+def _without_axis(sh: Sharding, axis: str, ndim: int) -> Sharding:
+    """``sh`` with ``axis`` taken out of its spec: the layout, over the
+    data members at one coordinate of ``axis``, of that coordinate's
+    part of the leaf (``axis`` must be the major axis of its dim)."""
+    entries = []
+    for e in sh.axes(ndim):
+        if axis in e:
+            if e[0] != axis:
+                raise NotImplementedError(
+                    f"{sh.spec}: {axis!r} must be the major axis of its dim")
+            e = e[1:]
+        entries.append(None if not e else e[0] if len(e) == 1 else e)
+    return Sharding(sh.mesh, PartitionSpec(*entries))
+
+
 class StepLayout:
     """The layouts of every param leaf (in ``tree_leaves`` order) over
-    the mesh's data members, and the data group they talk over."""
+    the mesh's data members, and the data group they talk over.
 
-    def __init__(self, mesh: Mesh, leaves: List[LeafLayout], zero: bool):
+    On a mesh with an ``ep`` axis the data members are those at the
+    caller's ``ep`` coordinate: a leaf split over ``ep`` at rest (an
+    expert leaf, the router) is laid out as that coordinate's part of it (``shape``,
+    ``rest`` and ``update`` of its ``LeafLayout`` leave ``ep`` out), and
+    its grads are that part's; a leaf replicated over ``ep`` has equal
+    grads on every ``ep`` rank.  ``ep_split[i]`` says which leaves are
+    split over ``ep``.  ``index`` is the caller's chunk of the batch rows
+    and ``order`` each member's chunk in the data group's order (the
+    "batch" rule's axes, row-major), or None when the rule does not split
+    the rows one chunk a member."""
+
+    def __init__(self, mesh: Mesh, leaves: List[LeafLayout], zero: bool,
+                 ep_split: List[bool], num_params: int,
+                 rules: Optional[Rules]):
         self.mesh = mesh
         self.leaves = leaves
         self.zero = zero
@@ -364,19 +397,45 @@ class StepLayout:
         self.data_axes = axes
         self.n = mesh.axis_size(axes)
         self.group = mesh.group(axes)
-        self.num_params = sum(leaf.numel for leaf in leaves)
+        self.ep_split = ep_split
+        self.num_params = num_params
+        self.ep = mesh.shape.get(EP_AXIS, 1)
+        self.ep_index = mesh.coords.get(EP_AXIS, 0)
+        self.ep_group = mesh.group(EP_AXIS) if self.ep > 1 else None
+        self.order, self.index = self._row_order(rules)
+
+    def _row_order(self, rules: Optional[Rules]):
+        spec = spec_for(("batch",), rules,
+                        mesh_axes=frozenset(self.mesh.axis_names))
+        row_axes = [a for a in axis_tuple(spec[0] if len(spec) else None)
+                    if self.mesh.shape[a] > 1]
+        if not set(row_axes) <= set(self.data_axes) or \
+                math.prod(self.mesh.shape[a] for a in row_axes) != self.n:
+            return None, None
+
+        def chunk(coords):
+            idx = 0
+            for a in row_axes:
+                idx = idx * self.mesh.shape[a] + coords[a]
+            return idx
+
+        members = self.mesh.line_ranks(self.data_axes)
+        order = tuple(chunk(_coords_of(self.mesh, r)) for r in members)
+        return order, chunk(self.mesh.coords)
 
     @classmethod
     def build(cls, mesh: Mesh, state: TrainState, shardings: TrainState,
-              zero: bool) -> "StepLayout":
+              zero: bool, rules: Optional[Rules] = None) -> "StepLayout":
         """From a rank's (sharded) state and its layout."""
         axes = tuple(a for a in DATA_AXES if a in mesh.shape)
         members = mesh.line_ranks(axes)
-        other = [a for a in mesh.axis_names if a not in axes]
+        other = [a for a in mesh.axis_names
+                 if a not in axes and a != EP_AXIS]
         if any(mesh.shape[a] > 1 for a in other):
             raise NotImplementedError(
-                f"the data-parallel step runs over the data axes only; "
-                f"mesh {mesh.shape}")
+                f"the data-parallel step runs over the data axes and ep "
+                f"only; mesh {mesh.shape}")
+        ep = mesh.shape.get(EP_AXIS, 1)
         params = tree_leaves(state.params)
         rests = tree_leaves(shardings.params)
         opt = state.opt_state if isinstance(state.opt_state, dict) else {}
@@ -384,14 +443,29 @@ class StepLayout:
                                                    dict) else {}
         mus = (tree_leaves(opt_sh["mu"]) if "mu" in opt_sh
                and _same_structure(opt["mu"], state.params) else None)
-        out = []
+        out, split, total = [], [], 0
         for i, (p, rest) in enumerate(zip(params, rests)):
             shape = rest.global_shape(tuple(p.shape))
+            total += math.prod(shape)
+            dims = rest.axes(len(shape))
+            on_ep = ep > 1 and any(EP_AXIS in d for d in dims)
             if mus is None:
                 upd, blocks = Sharding(mesh, PartitionSpec()), False
             elif isinstance(mus[i], tuple):
                 upd, blocks = mus[i][0], True
             else:
                 upd, blocks = mus[i], False
+            if on_ep:
+                if blocks:
+                    raise NotImplementedError(
+                        "adamw8bit's block states cover a leaf's flat "
+                        "elements whole, and an expert leaf is split over "
+                        "ep: train ep-sharded experts with AdamW "
+                        "(default_optimizer)")
+                shape = tuple(n // ep if EP_AXIS in d else n
+                              for n, d in zip(shape, dims))
+                rest = _without_axis(rest, EP_AXIS, len(shape))
+                upd = _without_axis(upd, EP_AXIS, len(shape))
             out.append(LeafLayout(shape, rest, upd, blocks, members))
-        return cls(mesh, out, zero)
+            split.append(on_ep)
+        return cls(mesh, out, zero, split, total, rules)

@@ -19,6 +19,9 @@ import torch
 from ray_tpu.models import mixtral as jm
 from ray_tpu_torch import bridge, train
 from ray_tpu_torch.models import mixtral as tm
+from ray_tpu_torch.ops.moe_a2a import moe_block_ep
+from ray_tpu_torch.parallel import loss_split
+from ray_tpu_torch.parallel.mesh import MeshSpec, create_mesh
 
 # f32 on both sides: XLA and ATen sum the products in other orders.
 F32_TOL = 1e-5
@@ -193,6 +196,29 @@ def test_dropped_assignments_read_a_clamped_row_with_gate_zero(np_params):
     assert (outs["scatter"][0].reshape(-1, 64)[gone] == 0).all()
 
 
+def _loss_and_forward(jc, t):
+    """JAX's ``loss_fn`` of the params, with the (logits, aux) of the
+    ``forward`` it runs carried out beside its metrics: one program gives
+    the forward, the loss and the grads (a second ``forward`` would
+    double the compile)."""
+    def f(q):
+        seen = []
+        forward = jm.forward
+
+        def recorded(*args, **kw):
+            seen.append(forward(*args, **kw))
+            return seen[-1]
+
+        jm.forward = recorded
+        try:
+            loss, metrics = jm.loss_fn(q, {"tokens": t}, jc)
+        finally:
+            jm.forward = forward
+        return loss, (metrics, seen[0])
+
+    return f
+
+
 # (dtype, dispatch mode, capacity factor): the last f32 case drops.
 GRAD_CASES = [("float32", "dense", 1.25), ("float32", "scatter", 0.5),
               ("bfloat16", "dense", 1.25), ("bfloat16", "scatter", 1.25)]
@@ -206,9 +232,8 @@ def test_forward_loss_and_grads_match_jax(np_params, dtype, mode, cf):
 
     @jax.jit
     def ref(p, t):
-        logits, aux = jm.forward(p, t, jc)
-        (loss, metrics), grads = jax.value_and_grad(
-            lambda q: jm.loss_fn(q, {"tokens": t}, jc), has_aux=True)(p)
+        (loss, (metrics, (logits, aux))), grads = jax.value_and_grad(
+            _loss_and_forward(jc, t), has_aux=True)(p)
         return logits, aux, loss, metrics, grads
 
     w_logits, w_aux, w_loss, w_metrics, w_grads = ref(jp, jnp.asarray(toks))
@@ -297,9 +322,25 @@ def test_refusals():
         tm.forward(tp, toks, dataclasses.replace(tc, sequence_parallel=True))
     with pytest.raises(ValueError, match="remat_policy"):
         tm.forward(tp, toks, dataclasses.replace(tc, remat_policy="none"))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # Expert parallelism is ported (tests/test_torch_moe_ep.py): ep=2
+    # asks for a process group of that size, and the op and the block
+    # refuse experts that do not split over ep.
+    with pytest.raises(NotImplementedError, match="process group") as e:
         train.ScalingConfig(mesh_spec=train.MeshSpec(ep=2),
                             devices=["cpu"]).device()
+    assert "item" not in str(e.value)
+    x = torch.zeros((2, 16, tc.dim))
+    moe = {k: v[0] for k, v in tp["layers"]["moe"].items()}
+    mesh = create_mesh(MeshSpec(dp=1, ep=3), world_size=3, rank=0)
+    with pytest.raises(ValueError, match="not divisible by ep=3"):
+        moe_block_ep(x, moe, tc, mesh=mesh)
+    mesh = create_mesh(MeshSpec(dp=1, ep=2), world_size=2, rank=0)
+    with pytest.raises(ValueError, match="holds 4 experts"):
+        moe_block_ep(x, moe, tc, mesh=mesh)
+    group = loss_split.DataGroup(mesh, ("dp",), 1, 0, (0,), 2, 2, 0)
+    with loss_split.publish(group), pytest.raises(ValueError,
+                                                  match="2 of 4"):
+        tm.moe_block(x, moe, tc)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tm.init_params(torch.Generator(), tc)

@@ -5,7 +5,8 @@ exactly, ``layer_norm`` (population variance) and the tanh GELU,
 gradients from a non-zero head (the initial zero head makes every
 backbone gradient exactly 0, checked on the port), CLIP's embeddings,
 ``contrastive_loss`` and its gradients (``logit_scale``, a 0-d leaf,
-included), the bridge on both trees, and the refusal of ``axis_name``.
+included), the bridge on both trees, and ``axis_name`` over a world of one
+rank (the multi-rank form: tests/test_torch_dp_losses.py).
 Weights are the port's seeded init carried to JAX through the bridge;
 inputs come from a seeded numpy generator; each JAX program is jitted
 once."""
@@ -322,10 +323,12 @@ def test_vit_and_clip_train_through_the_trainer(vit_params, clip_params):
 def test_refusals(clip_params):
     tp = bridge.params_from_jax(clip_params, device="cpu")
     imgs, toks = _clip_inputs(tclip.CLIP_TINY, n=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tclip.contrastive_loss(tp, torch.from_numpy(imgs),
-                               torch.from_numpy(toks), tclip.CLIP_TINY,
-                               axis_name="dp")
+    # Cross-device negatives are ported: without a process group the
+    # explicit form runs over a world of one rank, the local loss.
+    args = (tp, torch.from_numpy(imgs), torch.from_numpy(toks),
+            tclip.CLIP_TINY)
+    assert torch.equal(tclip.contrastive_loss(*args, axis_name="dp"),
+                       tclip.contrastive_loss(*args))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tvit.init_params(torch.Generator(), tvit.VIT_TINY)

@@ -180,11 +180,13 @@ def test_sharded_checkpoint_round_trips_and_training_continues(runs):
 
 
 def test_data_parallel_step_refuses_a_loss_that_does_not_split(runs):
+    """A loss that declares no split and whose aux is not a token split's
+    is refused over several members; the message names the protocol."""
     ranks, _ = runs
     for r, rank in enumerate(ranks):
         ref = rank["refusal"]
         assert ref["error"] == "NotImplementedError", (r, ref)
-        assert "item 6" in ref["message"], (r, ref)
+        assert "loss_split.declare" in ref["message"], (r, ref)
         assert "aux_loss" in ref["message"], (r, ref)
         assert ref["step"] == 0, (r, ref)
 
@@ -284,11 +286,18 @@ def test_batch_rows_follow_jax_sharding_under_grad_accum():
 
 
 def test_refusals_name_their_roadmap_item():
-    for axis, item in (("tp", "item 6"), ("ep", "item 6"), ("sp", "item 7"),
-                       ("pp", "item 7")):
+    for axis, item in (("tp", "item 6 part 3"), ("dcn_tp", "item 6 part 3"),
+                       ("sp", "item 7"), ("pp", "item 7"),
+                       ("dcn_pp", "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             train.ScalingConfig(mesh_spec=MeshSpec(**{axis: 2}),
                                 devices=["cpu"]).device()
+    # ep is a mesh axis the trainer takes (tests/test_torch_moe_ep.py):
+    # without a process group of that size it asks for one.
+    with pytest.raises(NotImplementedError, match="process group") as e:
+        train.ScalingConfig(mesh_spec=MeshSpec(ep=2),
+                            devices=["cpu"]).device()
+    assert "item" not in str(e.value)
     with pytest.raises(NotImplementedError, match="zero_sharding"):
         train.compile_train_step(lambda p, b: None, train.default_optimizer(),
                                  zero_sharding=True)
